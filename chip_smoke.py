@@ -8,24 +8,30 @@ result):
   1. environment: CUDA present; torch version; card name and power limit;
   2. build: the Hopper kernels from gemmul8_tpu_torch/csrc/, timed;
   3. each kernel against its plain PyTorch version on the card, at
-     2048 x 2048 x 2048 and a ragged 1000 x 777 x 1500 with zeros, -0.0 and
-     subnormals, for 2, 8, 14 and 20 moduli: bit-equal, except that a
-     fast-mode shift may differ by 1 where its floored value lies within
-     1e-4 of an integer; and reconstruct on residues built to hit its
+     2048 x 2048 x 2048, a ragged 1000 x 777 x 1500 and a 300 x 5 x 200
+     with zeros, -0.0 and subnormals, for 2 to 20 moduli: bit-equal,
+     except that a fast-mode shift may differ by 1 where its floored value
+     lies within 1e-4 of an integer; reconstruct on residues built to hit its
      rounding branches (ties, subnormals, a round-up into the smallest
-     normal, overflow to inf), held to the exact values too;
-  4. the main path: gemmul8_tpu_torch.gemm at 8192^3, 14 moduli, f64, on
-     A = phi_matrix(8192, 8192, 0.5, seed=0) and B = A.T; the launch counts
-     must show every kernel; three 256 x 256 tiles must be within 1e-8 of
-     the double-double oracle; and at 2048^3 the kernel path must give the
-     bits of the all-plain path;
+     normal, overflow to inf), held to the exact values too; the
+     accurate-mode kernels (emax, mag7, magmax_matmul), and encode and
+     reconstruct on accurate shifts (an all-zero row and column, a
+     subnormal-only row); and accurate_sft on the card against the CPU
+     (torch's log2 on each), under the same floor-boundary rule;
+  4. the main path in both modes: gemmul8_tpu_torch.gemm at 8192^3, 14
+     moduli, f64, on A = phi_matrix(8192, 8192, 0.5, seed=0) and B = A.T,
+     fast, then accurate (fastmode=False); for each, the launch counts,
+     read right after the call, must show every kernel of its path; three
+     256 x 256 tiles must be within 1e-8 of the double-double oracle; and
+     at 2048^3 the kernel path must give the bits of the all-plain path;
   5. times (CUDA events, after a warm-up) of each kernel and its plain
-     version at the main path's shapes, and of the whole 8192^3 call; the
-     warm-up outputs of each kernel and its plain version are held to the
-     same bit rule as in phase 3.
+     version at the main path's shapes, and of the whole 8192^3 call in
+     each mode; the warm-up outputs of each kernel and its plain version
+     are held to the same bit rule as in phase 3.
 
-The line before the last is a JSON object of per-kernel results; the last
-is {"ok": true, "device": {...}}.
+The line before the last is a JSON object of per-kernel results
+(`launches` sums the two main-path calls of phase 4); the last is
+{"ok": true, "device": {...}}.
 """
 
 import json
@@ -42,6 +48,7 @@ from gemmul8_tpu_torch import tables
 from gemmul8_tpu_torch.bench.matrices import phi_matrix
 from gemmul8_tpu_torch.bench.native import dd_gemm, relerr_vs_dd
 from gemmul8_tpu_torch.core import encode as enc
+from gemmul8_tpu_torch.core import gemm as tg
 from gemmul8_tpu_torch.hopper import build
 from gemmul8_tpu_torch.hopper import kernels as hk
 from gemmul8_tpu_torch.hopper import matmul as hm
@@ -52,7 +59,8 @@ N_PLAIN = 2048           # where the kernel path is held to the plain path
 L_MAIN = 14
 # (m, k, n), moduli counts, special values: phase 3's kernel checks
 CASES = [((2048, 2048, 2048), (L_MAIN,), False),
-         ((1000, 777, 1500), (2, 8, 14, 20), True)]
+         ((1000, 777, 1500), (2, 8, 14, 20), True),
+         ((300, 5, 200), (8, 20), True)]
 SHIFT_RULE_FRAC = 1e-4
 KERNELS = {
     "fast_sft": ("gemmul8_tpu_torch/csrc/fast_sft.cu",
@@ -63,7 +71,18 @@ KERNELS = {
                       "gemmul8_tpu/pallas/matmul.py:95"),
     "reconstruct": ("gemmul8_tpu_torch/csrc/reconstruct.cu",
                     "gemmul8_tpu/pallas/kernels.py:956"),
+    "emax": ("gemmul8_tpu_torch/csrc/mag7.cu",
+             "gemmul8_tpu/pallas/kernels.py:333"),
+    "mag7": ("gemmul8_tpu_torch/csrc/mag7.cu",
+             "gemmul8_tpu/pallas/kernels.py:408"),
+    "magmax_matmul": ("gemmul8_tpu_torch/csrc/magmax.cu",
+                      "gemmul8_tpu/pallas/matmul.py:393"),
 }
+FAST_LAUNCHES = {"fast_sft": 2, "encode_slices": 2, "matmul_mod_u8": 1,
+                 "reconstruct": 1}
+ACCURATE_LAUNCHES = {"emax": 2, "mag7": 2, "magmax_matmul": 1,
+                     "encode_slices": 2, "matmul_mod_u8": 1,
+                     "reconstruct": 1}
 
 
 def log(msg):
@@ -114,6 +133,15 @@ def assert_bits_equal(x, y, what):
     assert ok, f"{what}: kernel and plain version disagree"
 
 
+def hold(errs, name, got, ref, what):
+    """got (kernel) and ref (plain) bit-equal; record the max |diff|."""
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    for x, y in zip(got, ref):
+        assert_bits_equal(x, y, what)
+        errs[name] = max(errs[name], max_abs(x, y))
+
+
 def operands(m, k, n, seed, special):
     a = phi_matrix(m, k, 0.5, seed=seed)
     b = phi_matrix(k, n, 0.5, seed=seed + 1)
@@ -145,24 +173,18 @@ def phase_kernels(errs):
             # downstream kernels get the plain shifts on both sides
             a8 = hk.encode_slices(a, pa, L, axis=1)
             b8 = hk.encode_slices(b, pb, L, axis=0)
-            for x8, ref in ((a8, hk.encode_slices_plain(a, pa, L, 1)),
-                            (b8, hk.encode_slices_plain(b, pb, L, 0))):
-                assert_bits_equal(x8, ref, f"encode_slices {tag}")
-                errs["encode_slices"] = max(errs["encode_slices"],
-                                            max_abs(x8, ref))
+            hold(errs, "encode_slices", (a8, b8),
+                 (hk.encode_slices_plain(a, pa, L, 1),
+                  hk.encode_slices_plain(b, pb, L, 0)),
+                 f"encode_slices {tag}")
             for centered in (True, False):
                 r = hm.matmul_mod_u8(a8, b8, L, centered=centered)
-                ref = hm.matmul_mod_u8_plain(a8, b8, L, centered=centered)
-                assert_bits_equal(r, ref, f"matmul_mod_u8 {tag} "
-                                  f"centered={centered}")
-                errs["matmul_mod_u8"] = max(errs["matmul_mod_u8"],
-                                            max_abs(r, ref))
-                c = hk.reconstruct(r, pa, pb, L)
-                cref = hk.reconstruct_plain(r, pa, pb, L)
-                assert_bits_equal(c, cref, f"reconstruct {tag} "
-                                  f"centered={centered}")
-                errs["reconstruct"] = max(errs["reconstruct"],
-                                          max_abs(c, cref))
+                hold(errs, "matmul_mod_u8", r,
+                     hm.matmul_mod_u8_plain(a8, b8, L, centered=centered),
+                     f"matmul_mod_u8 {tag} centered={centered}")
+                hold(errs, "reconstruct", hk.reconstruct(r, pa, pb, L),
+                     hk.reconstruct_plain(r, pa, pb, L),
+                     f"reconstruct {tag} centered={centered}")
             log(f"  kernels == plain at {tag}")
 
 
@@ -205,14 +227,108 @@ def phase_rounding(errs):
         for r8 in ((r - 128).to(torch.int8), r.to(torch.uint8)):
             r8 = r8.to(DEVICE)
             c = hk.reconstruct(r8, sft_a, sft_b, L)
-            cref = hk.reconstruct_plain(r8, sft_a, sft_b, L)
             tag = f"reconstruct rounding L={L} {r8.dtype}"
-            assert_bits_equal(c, cref, tag)
+            hold(errs, "reconstruct", c,
+                 hk.reconstruct_plain(r8, sft_a, sft_b, L), tag)
             assert torch.equal(bits64(c.cpu()), bits64(want)), \
                 f"{tag}: not the correctly rounded values"
-            errs["reconstruct"] = max(errs["reconstruct"], max_abs(c, cref))
         log(f"  reconstruct rounding branches == plain == exact, L={L}, "
             f"{len(vals)} values, int8 and uint8")
+
+
+def phase_accurate_kernels(errs):
+    """Phase 3c: the accurate-mode kernels vs their plain versions, then
+    encode, matmul and reconstruct on accurate shifts (near 1050 for the
+    special operands' zero row and column)."""
+    for (m, k, n), Ls, special in CASES:
+        a, b = operands(m, k, n, 7, special)
+        tag = f"m={m} k={k} n={n}"
+        pea, peb = hk.emax_plain(a, 1), hk.emax_plain(b, 0)
+        hold(errs, "emax", (hk.emax(a, 1), hk.emax(b, 0)), (pea, peb),
+             f"emax {tag}")
+        pma, pmb = hk.mag7_plain(a, pea, 1), hk.mag7_plain(b, peb, 0)
+        ma, mb = hk.mag7(a, pea, 1), hk.mag7(b, peb, 0)
+        hold(errs, "mag7", (ma, mb), (pma, pmb), f"mag7 {tag}")
+        smax = hm.magmax_plain(pma, pmb)
+        # mag7's K-major views, and contiguous operands the wrapper copies
+        for x, y in ((ma, mb), (pma, pmb)):
+            hold(errs, "magmax_matmul", hm.magmax_matmul(x, y), smax,
+                 f"magmax_matmul {tag}")
+        if special:
+            assert (int(pea[0]), int(pea[1]), int(peb[0, 3])) == (1, 0, 0)
+        for L in Ls:
+            sa = enc.accurate_sft(smax[0], pea, L)
+            sb = enc.accurate_sft(smax[1], peb, L)
+            if special:
+                t_a = tables.threshold_accurate(L)
+                assert int(sa[1]) == int(sb[0, 3]) == t_a - 1 + 1023
+            a8 = hk.encode_slices(a, sa, L, axis=1)
+            b8 = hk.encode_slices(b, sb, L, axis=0)
+            hold(errs, "encode_slices", (a8, b8),
+                 (hk.encode_slices_plain(a, sa, L, 1),
+                  hk.encode_slices_plain(b, sb, L, 0)),
+                 f"encode_slices accurate {tag} L={L}")
+            r8 = hm.matmul_mod_u8(a8, b8, L, centered=True)
+            hold(errs, "matmul_mod_u8", r8,
+                 hm.matmul_mod_u8_plain(a8, b8, L, centered=True),
+                 f"matmul_mod_u8 accurate {tag} L={L}")
+            hold(errs, "reconstruct", hk.reconstruct(r8, sa, sb, L),
+                 hk.reconstruct_plain(r8, sa, sb, L),
+                 f"reconstruct accurate {tag} L={L}")
+        log(f"  accurate kernels == plain at {tag} L={Ls}")
+
+
+def log2_probe_values():
+    """Every integer s in [1, 2^20], and +-4096 around every step of
+    floor(-0.51 * log2(s) + T) up to 2^29 (64 * 64 * k at k = 2^17)."""
+    top = 64 * 64 * tables.MAX_K
+    parts = [np.arange(1, 2 ** 20 + 1)]
+    i = 1
+    while 2.0 ** (i / 0.51) <= top:
+        c = int(round(2.0 ** (i / 0.51)))
+        parts.append(np.arange(c - 4096, c + 4097))
+        i += 1
+    s = np.unique(np.concatenate(parts))
+    return s[(s >= 1) & (s <= top)].astype(np.int32)
+
+
+def phase_log2():
+    """Phase 3d: accurate_sft computed by torch on the card vs on the CPU,
+    for every moduli count; and its f32 log2 at every f32 value max(smax,
+    1) can take (integers to 2^24, then every f32 to 2^29)."""
+    s = torch.from_numpy(log2_probe_values()).reshape(1, -1)
+    e = torch.full_like(s, 1023)
+    sd, ed = s.to(DEVICE), e.to(DEVICE)
+    n_sft = 0
+    moduli_counts = range(2, tables.MAX_MODULI + 1)
+    for L in moduli_counts:
+        got = enc.accurate_sft(sd, ed, L).cpu()
+        ref = enc.accurate_sft(s, e, L)
+        diff = got != ref
+        if bool(diff.any()):
+            frac = enc.accurate_sft_floor_frac(s, L)
+            assert int((got.long() - ref.long()).abs().max()) <= 1
+            assert float(frac[diff].max()) < SHIFT_RULE_FRAC, \
+                f"accurate shift differs away from a floor boundary, L={L}"
+        n_sft += int(diff.sum())
+    x = torch.cat([torch.arange(1, 2 ** 24 + 1, dtype=torch.int32).float(),
+                   torch.arange(0x4B800001, 0x4E000001,
+                                dtype=torch.int32).view(torch.float32)])
+    card = torch.log2(x.to(DEVICE).double()).float().cpu()
+    host = torch.log2(x.double()).float()
+    n_log2 = int((card.view(torch.int32) != host.view(torch.int32)).sum())
+    pairs = s.numel() * len(moduli_counts)
+    log(f"  accurate_sft card vs CPU: {n_sft} of {pairs} (value, L) pairs "
+        f"differ (rule holds); f32 log2 differs at {n_log2} of "
+        f"{x.numel()} f32 values")
+
+
+def accurate_plain_sfts(a, b, L):
+    """Accurate-mode shifts with every step a plain version."""
+    ea, eb = hk.emax_plain(a, 1), hk.emax_plain(b, 0)
+    sa, sb = hm.magmax_plain(hk.mag7_plain(a, ea, 1),
+                             hk.mag7_plain(b, eb, 0))
+    return enc.accurate_sft(sa, ea, L), enc.accurate_sft(sb, eb, L)
 
 
 def plain_gemm(a, b, L, sfts=None):
@@ -226,33 +342,49 @@ def plain_gemm(a, b, L, sfts=None):
     return hk.reconstruct_plain(r8, sa, sb, L), sa, sb
 
 
-def phase_slice(launches):
-    """Phase 4: the main path at N^3 and the kernel-vs-plain slice at
-    N_PLAIN^3."""
-    a_np = phi_matrix(N, N, 0.5, seed=0)
-    a = torch.from_numpy(a_np).to(DEVICE)
-    b = a.t().contiguous()
-    torch.cuda.synchronize()
-    build.LAUNCHES.clear()
-    c = gt.gemm(a, b, num_moduli=L_MAIN, device=DEVICE)
-    torch.cuda.synchronize()
-    launches.update(build.LAUNCHES)
-    log(f"  launches in the {N}^3 call: {dict(launches)}")
-    want = {"fast_sft": 2, "encode_slices": 2, "matmul_mod_u8": 1,
-            "reconstruct": 1}
-    assert dict(launches) == want, f"launch counts {dict(launches)}"
-    assert c.shape == (N, N) and c.dtype == torch.float64
-    assert bool(torch.isfinite(c).all()), "non-finite output"
+def gate(c, oracle):
+    """Max relerr of three 256 x 256 tiles of c against the dd oracle."""
     worst = 0.0
-    for r0, c0 in [(0, 0), (N // 2, N - 256), (N - 256, N - 256)]:
-        hi, lo = dd_gemm(a_np[r0:r0 + 256],
-                         np.ascontiguousarray(a_np.T[:, c0:c0 + 256]))
+    for (r0, c0), (hi, lo) in oracle.items():
         got = c[r0:r0 + 256, c0:c0 + 256].cpu().numpy()
         rel, _ = relerr_vs_dd(got, hi, lo)
         worst = max(worst, rel)
-    log(f"  gate tiles max relerr vs dd oracle: {worst!r}")
-    assert worst < 1e-8, f"relerr {worst} >= 1e-8"
-    del c
+    return worst
+
+
+def main_call(a, b, fastmode, want, oracle):
+    """One main-path call with the launch counts reset just before it and
+    read just after; returns (launches, gate relerr)."""
+    torch.cuda.synchronize()
+    build.LAUNCHES.clear()
+    c = gt.gemm(a, b, num_moduli=L_MAIN, fastmode=fastmode, device=DEVICE)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    mode = "fast" if fastmode else "accurate"
+    log(f"  launches in the {N}^3 {mode} call: {launches}")
+    assert launches == want, f"{mode} launch counts {launches}"
+    assert c.shape == (N, N) and c.dtype == torch.float64
+    assert bool(torch.isfinite(c).all()), "non-finite output"
+    worst = gate(c, oracle)
+    assert worst < 1e-8, f"{mode} relerr {worst} >= 1e-8"
+    return launches, worst
+
+
+def phase_slice(launches):
+    """Phase 4: the main path at N^3 in both modes and the kernel-vs-plain
+    slice at N_PLAIN^3."""
+    a_np = phi_matrix(N, N, 0.5, seed=0)
+    a = torch.from_numpy(a_np).to(DEVICE)
+    b = a.t().contiguous()
+    oracle = {(r0, c0): dd_gemm(a_np[r0:r0 + 256],
+                                np.ascontiguousarray(a_np.T[:, c0:c0 + 256]))
+              for r0, c0 in [(0, 0), (N // 2, N - 256), (N - 256, N - 256)]}
+    fast, rel_fast = main_call(a, b, True, FAST_LAUNCHES, oracle)
+    accu, rel_accu = main_call(a, b, False, ACCURATE_LAUNCHES, oracle)
+    for name in KERNELS:
+        launches[name] = fast.get(name, 0) + accu.get(name, 0)
+    log(f"  gate tiles max relerr vs dd oracle: fast {rel_fast!r}, "
+        f"accurate {rel_accu!r}")
     a2 = a[:N_PLAIN, :N_PLAIN].contiguous()
     b2 = b[:N_PLAIN, :N_PLAIN].contiguous()
     ck = gt.gemm(a2, b2, num_moduli=L_MAIN, device=DEVICE)
@@ -265,7 +397,16 @@ def phase_slice(launches):
         cp, _, _ = plain_gemm(a2, b2, L_MAIN, (sa, sb))
     assert_bits_equal(ck, cp, f"{N_PLAIN}^3 kernel path vs plain path")
     log(f"  {N_PLAIN}^3 kernel path == all-plain path (bits)")
-    return a, b
+    ck = gt.gemm(a2, b2, num_moduli=L_MAIN, fastmode=False, device=DEVICE)
+    sa, sb = tg.accurate_sfts(a2, b2, L_MAIN)
+    pa, pb = accurate_plain_sfts(a2, b2, L_MAIN)
+    assert torch.equal(sa, pa) and torch.equal(sb, pb), \
+        "accurate shifts: kernel path vs plain path"
+    cp, _, _ = plain_gemm(a2, b2, L_MAIN, (pa, pb))
+    assert_bits_equal(ck, cp, f"{N_PLAIN}^3 accurate kernel path vs plain "
+                      "path")
+    log(f"  {N_PLAIN}^3 accurate kernel path == all-plain path (bits)")
+    return a, b, rel_fast, rel_accu
 
 
 def timed(fn, reps):
@@ -293,6 +434,8 @@ def phase_times(a, b, errs):
     a8 = hk.encode_slices(a, sa, L, 1)
     b8 = hk.encode_slices(b, sb, L, 0)
     r8 = hm.matmul_mod_u8(a8, b8, L, centered=True)
+    ea, eb = hk.emax(a, 1), hk.emax(b, 0)
+    ma, mb = hk.mag7(a, ea, 1), hk.mag7(b, eb, 0)
     pairs = {
         "fast_sft": (lambda: (hk.fast_sft(a, L, 1), hk.fast_sft(b, L, 0)),
                      lambda: (hk.fast_sft_plain(a, L, 1),
@@ -307,6 +450,12 @@ def phase_times(a, b, errs):
             lambda: hm.matmul_mod_u8_plain(a8, b8, L, centered=True)),
         "reconstruct": (lambda: hk.reconstruct(r8, sa, sb, L),
                         lambda: hk.reconstruct_plain(r8, sa, sb, L)),
+        "emax": (lambda: (hk.emax(a, 1), hk.emax(b, 0)),
+                 lambda: (hk.emax_plain(a, 1), hk.emax_plain(b, 0))),
+        "mag7": (lambda: (hk.mag7(a, ea, 1), hk.mag7(b, eb, 0)),
+                 lambda: (hk.mag7_plain(a, ea, 1), hk.mag7_plain(b, eb, 0))),
+        "magmax_matmul": (lambda: hm.magmax_matmul(ma, mb),
+                          lambda: hm.magmax_plain(ma, mb)),
     }
     times = {}
     for name, (kern, plain) in pairs.items():
@@ -314,21 +463,17 @@ def phase_times(a, b, errs):
         pms, ref = timed(plain, 2)
         times[name] = (ms, pms)
         if name == "fast_sft":
-            e = max(check_sft(got[0], ref[0], a, 1, L),
-                    check_sft(got[1], ref[1], b, 0, L))
+            errs[name] = max(errs[name], check_sft(got[0], ref[0], a, 1, L),
+                             check_sft(got[1], ref[1], b, 0, L))
         else:
-            got = got if isinstance(got, tuple) else (got,)
-            ref = ref if isinstance(ref, tuple) else (ref,)
-            e = 0.0
-            for x, y in zip(got, ref):
-                assert_bits_equal(x, y, f"{name} at {N}^2, {L} moduli")
-                e = max(e, max_abs(x, y))
-        errs[name] = max(errs[name], e)
+            hold(errs, name, got, ref, f"{name} at {N}^2, {L} moduli")
         log(f"  {name} == plain at the main path's shapes ({N}^2, {L} "
             "moduli)")
         del got, ref
     total, _ = timed(lambda: gt.gemm(a, b, num_moduli=L, device=DEVICE), 3)
-    return times, total
+    total_accu, _ = timed(lambda: gt.gemm(a, b, num_moduli=L, fastmode=False,
+                                          device=DEVICE), 3)
+    return times, total, total_accu
 
 
 def main():
@@ -351,21 +496,26 @@ def main():
     t0 = time.perf_counter()
     phase_kernels(errs)
     phase_rounding(errs)
+    phase_accurate_kernels(errs)
+    phase_log2()
     log(f"[3/5] every kernel == its plain version "
         f"({time.perf_counter() - t0:.1f} s)")
 
     launches = {}
     t0 = time.perf_counter()
-    a, b = phase_slice(launches)
+    a, b, rel_fast, rel_accu = phase_slice(launches)
     log(f"[4/5] main path checked ({time.perf_counter() - t0:.1f} s)")
 
-    times, total = phase_times(a, b, errs)
-    tflops = 2 * N ** 3 / (total * 1e-3) / 1e12
+    times, total, total_accu = phase_times(a, b, errs)
     for name, (ms, pms) in times.items():
         log(f"  {name}: kernel {ms:.3f} ms, plain {pms:.3f} ms "
             f"({N}^2 operands, {L_MAIN} moduli; {card})")
-    log(f"[5/5] gemm {N}^3 {L_MAIN} moduli f64: {total:.3f} ms, "
-        f"{tflops:.2f} TFLOP/s ({card})")
+    for mode, ms, rel in (("fast", total, rel_fast),
+                          ("accurate", total_accu, rel_accu)):
+        tflops = 2 * N ** 3 / (ms * 1e-3) / 1e12
+        log(f"  gemm {N}^3 {L_MAIN} moduli f64 {mode}: {ms:.3f} ms, "
+            f"{tflops:.2f} TFLOP/s, gate relerr {rel!r} ({card})")
+    log("[5/5] times taken")
 
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name],

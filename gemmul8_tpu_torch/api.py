@@ -2,8 +2,8 @@
 
 Counterpart of `gemmul8_tpu/api.py` `gemm`, for the part of its surface
 that is ported: float64 x float64 -> float64, op N/N, alpha = 1, beta = 0,
-fast mode, the one-shot schedule. Every other argument value raises
-NotImplementedError naming the ROADMAP item that adds it.
+fast and accurate mode, the one-shot schedule. Every other argument value
+raises NotImplementedError naming the ROADMAP item that adds it.
 """
 
 from __future__ import annotations
@@ -71,7 +71,9 @@ def gemm(
 ) -> torch.Tensor:
     """Emulated DGEMM: a (m, k) @ b (k, n) as a float64 tensor on the
     operands' device. num_moduli in [2, 20] trades accuracy for int8 GEMM
-    count (DGEMM grade at about 14). numpy operands need device=."""
+    count (DGEMM grade at about 14); fastmode=False picks the shifts from
+    an extra int8 GEMM of 7-bit magnitudes, tighter at the same count.
+    numpy operands need device=."""
     if not 2 <= num_moduli <= tables.MAX_MODULI:
         raise ValueError(f"num_moduli must be in [2, {tables.MAX_MODULI}]")
     if alpha != 1.0 or beta != 0.0 or c is not None:
@@ -81,8 +83,6 @@ def gemm(
     if out_dtype is not None and out_dtype not in (torch.float64, np.float64,
                                                    "float64", "f64"):
         raise NotImplementedError(f"out_dtype {out_dtype}: ROADMAP A4")
-    if not fastmode:
-        raise NotImplementedError("accurate mode: ROADMAP A5")
     if compute_type != ComputeType.REAL_DEFAULT:
         raise NotImplementedError("complex compute types: ROADMAP A7")
     if (moduli_chunk is not None or max_workspace_bytes is not None
@@ -94,4 +94,4 @@ def gemm(
     tb = _as_tensor(b, device, "b")
     if ta.device != tb.device:
         raise ValueError(f"a lies on {ta.device}, b on {tb.device}")
-    return _g.gemm_core(ta, tb, num_moduli, True, "f64")
+    return _g.gemm_core(ta, tb, num_moduli, fastmode, "f64")

@@ -1,14 +1,17 @@
 """Residue-slice encoding (Ozaki Scheme II) on f64 bit fields.
 
-Counterpart of `gemmul8_tpu/core/encode.py` for the fast-mode f64 path.
-For an operand X and per-row (A, axis=1) or per-column (B, axis=0) shifts
-sft, slice j holds the centered residue of trunc(X * 2^sft) mod m_j as int8.
+Counterpart of `gemmul8_tpu/core/encode.py` for f64 operands, fast and
+accurate mode. For an operand X and per-row (A, axis=1) or per-column
+(B, axis=0) shifts sft, slice j holds the centered residue of
+trunc(X * 2^sft) mod m_j as int8.
 
-The shift comes from the fast-mode ("vecnorm") statistics: the maximum
+In fast mode the shift comes from the "vecnorm" statistics: the maximum
 biased exponent, and the squared norm of the magnitudes scaled by that
 maximum, summed in f32. As in the JAX package's Pallas kernel, the norm is
 summed over STATS_CHUNK-wide chunks of the contraction axis and the chunks
-are merged online, rescaled by exact powers of two.
+are merged online, rescaled by exact powers of two. In accurate mode it
+comes from the maximum exponent and the row/col maxima of the int8 product
+of 7-bit magnitudes (`emax`, `mag7`, `accurate_sft`).
 
 These are the plain PyTorch versions the Hopper kernels are held to
 (`gemmul8_tpu_torch.hopper.kernels`). They run on any device; integers are
@@ -201,3 +204,83 @@ def encode_slices(x: torch.Tensor, sft: torch.Tensor, num_moduli: int,
     chunks, exp, sign, _ = _f64_fields(x)
     return _encode_with_sft(chunks, exp, sign, sft.to(torch.int64),
                             num_moduli)
+
+
+# ---------------------------------------------------------------------------
+# Accurate mode: 7-bit round-up magnitudes -> one int8 GEMM |A| x |B| ->
+# per-row/col shifts from the product-magnitude maxima.
+# ---------------------------------------------------------------------------
+
+_MAG_SHIFT = 5   # magnitudes ceil(|x| * 2^(5 - ilogb(amax))) lie in [0, 64]
+
+
+def _extract_mag7(chunks, exp, emax):
+    """ceil(|x| * 2^(5 - (emax - 1023))) as int8 in [0, 64] for f64 fields.
+
+    |x| = mant53 * 2^(exp - 1075), so the scaled value is mant53 >> u with
+    u = emax + 47 - exp, rounded up when any dropped bit is set. The JAX
+    package works on two 32-bit words; a 64-bit word gives the same bits
+    (u is clipped to [0, 63] in both)."""
+    mant = (chunks[0] | (chunks[1] << 16) | (chunks[2] << 32)
+            | (chunks[3] << 48))
+    u = torch.clamp(emax + (52 - _MAG_SHIFT) - exp, 0, 63)
+    v = mant >> u
+    sticky = (v << u) != mant
+    return (v + sticky.to(torch.int64)).to(torch.int8)
+
+
+def emax(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """Max biased exponent over the nonzero elements of each row (axis=1)
+    or column (axis=0) of a float64 tensor, keepdims int32; subnormals
+    count as 1, an all-zero row or column gives 0."""
+    if x.dtype != torch.float64 or x.dim() != 2:
+        raise TypeError("emax expects a 2-D float64 tensor")
+    _, exp, _, nonzero = _f64_fields(x)
+    return torch.where(nonzero, exp, 0).amax(dim=axis, keepdim=True).to(
+        torch.int32)
+
+
+def mag7(x: torch.Tensor, emax: torch.Tensor, axis: int) -> torch.Tensor:
+    """Round-up 7-bit magnitudes of x below its row (axis=1) or column
+    (axis=0) max exponent `emax`: int8 of x's shape, values in [0, 64]."""
+    if x.dtype != torch.float64 or x.dim() != 2:
+        raise TypeError("mag7 expects a 2-D float64 tensor")
+    want = (x.shape[0], 1) if axis == 1 else (1, x.shape[1])
+    if tuple(emax.shape) != want:
+        raise ValueError(f"emax shape {tuple(emax.shape)}, expected {want}")
+    chunks, exp, _, _ = _f64_fields(x)
+    return _extract_mag7(chunks, exp, emax.to(torch.int64))
+
+
+def _accurate_pre_floor(smax: torch.Tensor, num_moduli: int):
+    """-0.51 * log2(max(smax, 1)) + T_accu in f32, step by step.
+
+    The f32 log2 is the correctly rounded one (taken in f64 and rounded
+    once), so every device gives the same bits; XLA's and torch's own f32
+    log2 each miss it for some inputs. Against the JAX package a shift can
+    therefore differ by 1 where this value lies within f32 rounding of an
+    integer (see accurate_sft_floor_frac)."""
+    s = torch.clamp(smax, min=1).to(torch.float32)
+    log2s = torch.log2(s.double()).to(torch.float32)
+    return log2s * -0.51 + float(tables.threshold_accurate(num_moduli))
+
+
+def accurate_sft(smax: torch.Tensor, emax: torch.Tensor,
+                 num_moduli: int) -> torch.Tensor:
+    """Accurate-mode shift from the |A| x |B| row/col max `smax` and the
+    operand's max exponent, in f32 as the JAX package takes it:
+    min(5 - e + floor(-0.51 * log2(max(smax, 1)) + T), T - 1 - e) with
+    e = emax - 1023. All-zero rows and columns get T - 1 + 1023."""
+    t_a = tables.threshold_accurate(num_moduli)
+    e = emax.to(torch.int64) - _BIAS
+    v = torch.floor(_accurate_pre_floor(smax, num_moduli)).to(torch.int64)
+    sft = torch.minimum(_MAG_SHIFT - e + v, t_a - 1 - e)
+    return sft.to(torch.int32)
+
+
+def accurate_sft_floor_frac(smax: torch.Tensor, num_moduli: int):
+    """Distance of accurate_sft's pre-floor value from its nearest integer.
+    Where it is tiny, two implementations of the f32 log2 may legally give
+    shifts that differ by 1 (both are valid encodings)."""
+    v = _accurate_pre_floor(smax, num_moduli)
+    return torch.minimum(v - torch.floor(v), torch.ceil(v) - v)

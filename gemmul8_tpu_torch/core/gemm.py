@@ -1,11 +1,11 @@
 """GEMM-emulation orchestrator: shifts -> residue slices -> int8 matmul
 with the mod in its epilogue -> CRT reconstruct.
 
-Counterpart of the one-shot, fast-mode schedule of
-`gemmul8_tpu/core/gemm.py` `gemm_core` (its Pallas branch with centered
-residues). Each step goes through a wrapper of `gemmul8_tpu_torch.hopper`,
-which launches the Hopper kernel for CUDA tensors and runs the plain
-PyTorch version for CPU tensors.
+Counterpart of the one-shot schedule of `gemmul8_tpu/core/gemm.py`
+`gemm_core` (its Pallas branch with centered residues), in fast and
+accurate mode. Each step goes through a wrapper of
+`gemmul8_tpu_torch.hopper`, which launches the Hopper kernel for CUDA
+tensors and runs the plain PyTorch version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import torch
 from .. import tables
 from ..hopper import kernels as hk
 from ..hopper import matmul as hm
+from . import encode as enc
 
 
 def check_shapes(a: torch.Tensor, b: torch.Tensor):
@@ -30,22 +31,41 @@ def check_shapes(a: torch.Tensor, b: torch.Tensor):
     return m, ka, n
 
 
+def accurate_sfts(a: torch.Tensor, b: torch.Tensor, num_moduli: int):
+    """Accurate-mode shifts (sft_a (m, 1), sft_b (1, n)) int32: 7-bit
+    round-up magnitudes of both operands, one int8 GEMM |A| x |B| with its
+    row/col max, then the shifts from those maxima (the counterpart of the
+    JAX package's `accurate_sfts`, whose Pallas and jnp branches agree bit
+    for bit)."""
+    mag_a, emax_a = hk.mag7_operand(a, axis=1)
+    mag_b, emax_b = hk.mag7_operand(b, axis=0)
+    smax_a, smax_b = hm.magmax_matmul(mag_a, mag_b)
+    return (enc.accurate_sft(smax_a, emax_a, num_moduli),
+            enc.accurate_sft(smax_b, emax_b, num_moduli))
+
+
 def gemm_core(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
               fastmode: bool = True, out_dtype: str = "f64",
               moduli_chunk: int | None = None,
               alpha_e: int = 0) -> torch.Tensor:
     """C = 2^alpha_e * A @ B emulated with num_moduli int8 GEMMs.
-    a: (m, k), b: (k, n) float64 tensors on one device."""
+    a: (m, k), b: (k, n) float64 tensors on one device. fastmode=False
+    takes the shifts from `accurate_sfts`."""
     check_shapes(a, b)
-    if not fastmode:
-        raise NotImplementedError("accurate mode: ROADMAP A5")
+    if not fastmode and (out_dtype != "f64" or a.dtype != torch.float64
+                         or b.dtype != torch.float64):
+        raise NotImplementedError(
+            "accurate mode with f32 operands or output: ROADMAP A4")
     if moduli_chunk is not None and moduli_chunk < num_moduli:
         raise NotImplementedError("moduli-chunked schedule: ROADMAP A6")
     if a.device != b.device:
         raise ValueError(f"operands on {a.device} and {b.device}")
     a, b = a.contiguous(), b.contiguous()
-    sft_a = hk.fast_sft(a, num_moduli, axis=1)
-    sft_b = hk.fast_sft(b, num_moduli, axis=0)
+    if fastmode:
+        sft_a = hk.fast_sft(a, num_moduli, axis=1)
+        sft_b = hk.fast_sft(b, num_moduli, axis=0)
+    else:
+        sft_a, sft_b = accurate_sfts(a, b, num_moduli)
     a8 = hk.encode_slices(a, sft_a, num_moduli, axis=1)
     b8 = hk.encode_slices(b, sft_b, num_moduli, axis=0)
     r8 = hm.matmul_mod_u8(a8, b8, num_moduli, centered=True)

@@ -46,6 +46,29 @@ def matmul_mod(a8: torch.Tensor, b8: torch.Tensor, num_moduli: int,
     return torch.stack(out)
 
 
+def magmax(mag_a: torch.Tensor, mag_b: torch.Tensor):
+    """Row and column maxima of the magnitude product |A| x |B|:
+    (m, k) x (k, n) int8 in [0, 64] -> (smax_row (m, 1), smax_col (1, n))
+    int32. The f64 product is exact: every partial sum is an integer of at
+    most 64 * 64 * 2^17 = 2^29 < 2^53."""
+    check_magmax_args(mag_a, mag_b)
+    s = mag_a.double() @ mag_b.double()
+    return (s.amax(dim=1, keepdim=True).to(torch.int32),
+            s.amax(dim=0, keepdim=True).to(torch.int32))
+
+
+def check_magmax_args(mag_a: torch.Tensor, mag_b: torch.Tensor):
+    if mag_a.dtype != torch.int8 or mag_b.dtype != torch.int8:
+        raise TypeError("magnitudes must be int8")
+    if mag_a.dim() != 2 or mag_b.dim() != 2:
+        raise ValueError("magnitudes must be (m, k) and (k, n)")
+    if mag_a.shape[1] != mag_b.shape[0] or mag_a.shape[1] == 0:
+        raise ValueError(f"inner dims mismatch or empty: "
+                         f"{tuple(mag_a.shape)} x {tuple(mag_b.shape)}")
+    if mag_a.shape[1] > tables.MAX_K:
+        raise ValueError(f"k={mag_a.shape[1]} exceeds the bound 2^17")
+
+
 def _check_matmul_args(a8: torch.Tensor, b8: torch.Tensor, num_moduli: int):
     if a8.dtype != torch.int8 or b8.dtype != torch.int8:
         raise TypeError("slices must be int8")

@@ -1,0 +1,188 @@
+// Accurate-mode operand statistics: the max biased exponent of each row
+// (axis=1) or column (axis=0) of an f64 operand, and the round-up 7-bit
+// magnitudes below it, ceil(|x| * 2^(5 - (emax - 1023))) in [0, 64].
+//
+// Replaces: emax_pallas (gemmul8_tpu/pallas/kernels.py:333) and
+// mag7_pallas (gemmul8_tpu/pallas/kernels.py:408).
+// Bound on the H100: device-memory bytes. emax reads 8 bytes per element;
+// mag7 reads 8 and writes 1. At 8192^2 that is 0.54 GB and 0.60 GB per
+// operand, about 0.16 and 0.18 ms at 3.35 TB/s.
+// Design: the max is order-independent, so any blocking gives the same
+// bits. emax over rows: one 256-thread block per row, neighbouring threads
+// on neighbouring elements. emax over columns (strided): as in
+// fast_sft.cu's column kernel, a block takes 32 neighbouring columns so a
+// warp reads 256 contiguous bytes of a row; the contraction axis is also
+// split into 256-row pieces across blocks (more blocks in flight), which
+// fold with atomicMax into an output the caller zero-fills (0 is the
+// neutral element: exponents are >= 0). mag7 writes both operands K-major,
+// (rows, ld) with ld = k rounded up to 16 and zero padding, which is the
+// layout the magnitude GEMM (magmax.cu) reads without a transpose: for A
+// that is its own layout (a thread turns 4 elements into one 4-byte word);
+// for B (k, n) a block transposes a 64 x 64 tile through shared memory, so
+// both the 8-byte reads (along n) and the 4-byte writes (along k)
+// coalesce. The magnitude is computed on the 53-bit significand in one
+// 64-bit word, so no shift reaches the width of its operand.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kColX = 32;      // emax over columns: columns per block
+constexpr int kColY = 8;       // ... threads per column
+constexpr int kColRows = 256;  // ... rows of the contraction axis per block
+constexpr int kT = 64;         // mag7 over columns: 64 x 64 tile
+
+// biased exponent of a nonzero element (1 for subnormals); 0 for +-0
+__device__ __forceinline__ int exp_nonzero(unsigned long long bits) {
+  const int e = static_cast<int>((bits >> 52) & 0x7FF);
+  return (bits << 1) == 0ull ? 0 : max(e, 1);
+}
+
+// ceil(|x| * 2^(5 - (emax - 1023))) mod 256 (in [0, 64] when emax is the
+// max exponent of x's row or column)
+__device__ __forceinline__ unsigned mag7_byte(unsigned long long bits,
+                                              int emax) {
+  const int e = static_cast<int>((bits >> 52) & 0x7FF);
+  const unsigned long long mant =
+      (bits & ((1ull << 52) - 1)) | (e > 0 ? (1ull << 52) : 0ull);
+  const int u = min(max(emax + 47 - max(e, 1), 0), 63);
+  const unsigned long long v = mant >> u;
+  return static_cast<unsigned>(v + ((v << u) != mant ? 1ull : 0ull)) & 0xFFu;
+}
+
+__global__ void __launch_bounds__(kThreads)
+emax_rows(const unsigned long long* __restrict__ x, int* __restrict__ out,
+          int kdim) {
+  __shared__ int sh[kThreads / 32];
+  const unsigned long long* xr = x + static_cast<size_t>(blockIdx.x) * kdim;
+  int e = 0;
+#pragma unroll 4
+  for (int k = threadIdx.x; k < kdim; k += kThreads)
+    e = max(e, exp_nonzero(xr[k]));
+  for (int o = 16; o > 0; o >>= 1) e = max(e, __shfl_xor_sync(~0u, e, o));
+  if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = e;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int i = 1; i < kThreads / 32; ++i) e = max(e, sh[i]);
+    out[blockIdx.x] = e;
+  }
+}
+
+__global__ void __launch_bounds__(kColX * kColY)
+emax_cols(const unsigned long long* __restrict__ x, int* __restrict__ out,
+          int kdim, int cols) {
+  __shared__ int sh[kColY][kColX];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int col = blockIdx.x * kColX + tx;
+  const int r0 = static_cast<int>(blockIdx.y) * kColRows;
+  const int r1 = min(r0 + kColRows, kdim);
+  int e = 0;
+  if (col < cols) {
+#pragma unroll 4
+    for (int r = r0 + ty; r < r1; r += kColY)
+      e = max(e, exp_nonzero(x[static_cast<size_t>(r) * cols + col]));
+  }
+  sh[ty][tx] = e;
+  __syncthreads();
+  if (ty == 0 && col < cols) {
+    for (int i = 1; i < kColY; ++i) e = max(e, sh[i][tx]);
+    if (e > 0) atomicMax(&out[col], e);
+  }
+}
+
+// A (rows, kdim) -> (rows, ld) magnitudes, one 4-byte word per thread
+__global__ void __launch_bounds__(kThreads)
+mag7_rows(const unsigned long long* __restrict__ x,
+          const int* __restrict__ emax, unsigned* __restrict__ out,
+          int rows, int kdim, int ld_words) {
+  const int w = blockIdx.x * kThreads + threadIdx.x;
+  if (w >= ld_words) return;
+  for (int row = blockIdx.y; row < rows; row += gridDim.y) {
+    const unsigned long long* xr = x + static_cast<size_t>(row) * kdim;
+    const int e = emax[row];
+    unsigned word = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = 4 * w + i;
+      if (k < kdim) word |= mag7_byte(xr[k], e) << (8 * i);
+    }
+    out[static_cast<size_t>(row) * ld_words + w] = word;
+  }
+}
+
+// B (kdim, cols) -> (cols, ld) magnitudes, K-major, through a 64 x 64 tile
+__global__ void __launch_bounds__(kThreads)
+mag7_cols(const unsigned long long* __restrict__ x,
+          const int* __restrict__ emax, unsigned char* __restrict__ out,
+          int kdim, int cols, int ld) {
+  // [column][k]; a row of 68 bytes keeps the byte stores of a warp (32
+  // neighbouring columns, one k) on 32 different banks
+  __shared__ __align__(16) unsigned char sm[kT][kT + 4];
+  const int n0 = blockIdx.x * kT, k0 = blockIdx.y * kT;
+  const int c = threadIdx.x & (kT - 1), r0 = threadIdx.x / kT;
+  const int col = n0 + c;
+  const int e = col < cols ? emax[col] : 0;
+#pragma unroll 4
+  for (int r = r0; r < kT; r += kThreads / kT) {
+    const int k = k0 + r;
+    const unsigned long long bits =
+        col < cols && k < kdim ? x[static_cast<size_t>(k) * cols + col] : 0ull;
+    sm[c][r] = static_cast<unsigned char>(mag7_byte(bits, e));
+  }
+  __syncthreads();
+  // kT columns x kT / 4 words of k; ld % 4 == 0, so a word past kdim is
+  // padding (zeros) and a word at or past ld is skipped whole
+#pragma unroll
+  for (int i = 0; i < kT * kT / 4 / kThreads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    const int nr = idx / (kT / 4), w = idx % (kT / 4);
+    const int nn = n0 + nr, k = k0 + 4 * w;
+    if (nn < cols && k < ld)
+      *reinterpret_cast<unsigned*>(out + static_cast<size_t>(nn) * ld + k) =
+          *reinterpret_cast<const unsigned*>(&sm[nr][4 * w]);
+  }
+}
+
+}  // namespace
+
+// x: (rows, kdim) f64 bits for axis=1, (kdim, rows) for axis=0.
+// out: rows int32, zero-filled by the caller. kdim <= 65535 * 256.
+GM8_EXPORT int gm8_emax(const void* x, void* out, int rows, int kdim,
+                        int axis, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto xp = static_cast<const unsigned long long*>(x);
+  auto op = static_cast<int*>(out);
+  if (axis == 1) {
+    emax_rows<<<rows, kThreads, 0, s>>>(xp, op, kdim);
+  } else {
+    dim3 grid((rows + kColX - 1) / kColX, (kdim + kColRows - 1) / kColRows);
+    if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    emax_cols<<<grid, dim3(kColX, kColY), 0, s>>>(xp, op, kdim, rows);
+  }
+  return gm8::launch_status();
+}
+
+// x as for gm8_emax; emax: rows int32 (the max exponents); out: (rows, ld)
+// int8 magnitudes, K-major for both axes, ld >= kdim, ld % 4 == 0, with
+// zeros in [kdim, ld).
+GM8_EXPORT int gm8_mag7(const void* x, const void* emax, void* out,
+                        int rows, int kdim, int axis, int ld, void* stream) {
+  if (ld % 4 != 0 || ld < kdim)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto xp = static_cast<const unsigned long long*>(x);
+  auto ep = static_cast<const int*>(emax);
+  if (axis == 1) {
+    const int ld_words = ld / 4;
+    dim3 grid((ld_words + kThreads - 1) / kThreads,
+              rows < 65535 ? rows : 65535);
+    mag7_rows<<<grid, kThreads, 0, s>>>(xp, ep, static_cast<unsigned*>(out),
+                                        rows, kdim, ld_words);
+  } else {
+    dim3 grid((rows + kT - 1) / kT, (ld + kT - 1) / kT);
+    if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    mag7_cols<<<grid, kThreads, 0, s>>>(
+        xp, ep, static_cast<unsigned char*>(out), kdim, rows, ld);
+  }
+  return gm8::launch_status();
+}

@@ -11,24 +11,22 @@
 // (L, k, n) is not, so a first kernel copies B into a K-major workspace
 // (L, n, kp), kp = k rounded up to 16 with zeros (one 1-byte-per-element
 // pass, small next to the product). The GEMM kernel then computes a
-// 128 x 128 tile of one modulus with 8 warps (each 64 x 32): 16-byte
-// cp.async copies fill a 3-stage ring of 128-byte-deep k-tiles in shared
-// memory (16-byte chunks XOR-swizzled by row, so ldmatrix reads are free
-// of bank conflicts) while the warps multiply the oldest stage; ldmatrix
-// loads the fragments. The accumulator is the hardware's wrapping int32:
-// the modulus-256 lane can reach 128 * 128 * 2^17 = 2^31, which wraps to a
-// multiple of 256, so its residue stays right; the odd lanes stay below
-// 2^31. The epilogue reduces mod m_l in registers and writes one byte per
-// residue. wgmma and TMA are for later work.
+// 128 x 128 tile of one modulus with the tile of mma_s8.cuh (8 warps of
+// mma.sync, a 3-stage cp.async ring, swizzled ldmatrix loads). The
+// accumulator is the hardware's wrapping int32: the modulus-256 lane can
+// reach 128 * 128 * 2^17 = 2^31, which wraps to a multiple of 256, so its
+// residue stays right; the odd lanes stay below 2^31. The epilogue reduces
+// mod m_l in registers and writes one byte per residue. wgmma and TMA are
+// for later work.
 #include "common.cuh"
+#include "mma_s8.cuh"
 
 namespace {
 
-constexpr int kBM = 128, kBN = 128, kBK = 128;  // kBK in bytes (int8)
-constexpr int kStages = 3;
-constexpr int kThreads = 256;
-constexpr int kTileBytes = kBM * kBK;               // one operand, one stage
-constexpr int kSmemBytes = kStages * 2 * kTileBytes;  // 96 KB
+using gm8::kBM;
+using gm8::kBN;
+constexpr int kThreads = gm8::kMmaThreads;
+constexpr int kSmemBytes = gm8::kMmaSmemBytes;
 
 __constant__ int c_moduli[gm8::kMaxModuli] = {
 #define GM8_MOD_VALUE(J, M) M,
@@ -86,52 +84,6 @@ transpose_b_kernel(const signed char* __restrict__ b,
 }
 
 // ---- the GEMM ------------------------------------------------------------
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned* r, unsigned addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_s8(int* c, const unsigned* a,
-                                       const unsigned* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// byte offset of 16-byte chunk c of row r in a 128-byte-row tile
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * kBK + ((c ^ (r & 7)) << 4);
-}
-
-// one stage: rows [r0, r0+128) x bytes [k0, k0+128) of a (rows, kp)
-// K-major operand, rows beyond `rows` and chunks beyond kp zero-filled
-__device__ __forceinline__ void load_tile(unsigned sdst,
-                                          const signed char* g, int r0,
-                                          int rows, int k0, int kp) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
-    const int r = idx >> 3, c = idx & 7;
-    const bool valid = (r0 + r < rows) && (k0 + c * 16 < kp);
-    const signed char* src =
-        valid ? g + static_cast<size_t>(r0 + r) * kp + k0 + c * 16 : g;
-    cp_async16(sdst + swz(r, c), src, valid);
-  }
-}
-
 __global__ void __launch_bounds__(kThreads, 2)
 matmul_mod_kernel(const signed char* __restrict__ A,
                   const signed char* __restrict__ Bt,
@@ -142,69 +94,11 @@ matmul_mod_kernel(const signed char* __restrict__ A,
   const int bm0 = blockIdx.y * kBM, bn0 = blockIdx.x * kBN;
   const signed char* Al = A + static_cast<size_t>(l) * m * kp;
   const signed char* Bl = Bt + static_cast<size_t>(l) * n * kp;
+  int acc[4][4][4];
+  gm8::mma_tile<false>(Al, kp, Bl, kp, m, n, kp, bm0, bn0, smem, acc);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wm = warp >> 2, wn = warp & 3;
-  const unsigned s0 = smem_addr(smem);
-  auto a_stage = [&](int s) { return s0 + s * 2 * kTileBytes; };
-  auto b_stage = [&](int s) { return s0 + s * 2 * kTileBytes + kTileBytes; };
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
-
-  const int nk = (kp + kBK - 1) / kBK;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) {
-      load_tile(a_stage(s), Al, bm0, m, s * kBK, kp);
-      load_tile(b_stage(s), Bl, bn0, n, s * kBK, kp);
-    }
-    asm volatile("cp.async.commit_group;\n");
-  }
-
-  // ldmatrix row/chunk of this lane within a 16 x 32-byte A fragment and
-  // within a pair of 8 x 32-byte B fragments
-  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_chk = lane >> 4;
-  const int b_row = (lane & 7) + (lane >> 4) * 8, b_chk = (lane >> 3) & 1;
-
-  for (int kt = 0; kt < nk; ++kt) {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(kStages - 2));
-    __syncthreads();  // stage kt landed; stage kt-1 is free to refill
-    const int pf = kt + kStages - 1;
-    if (pf < nk) {
-      load_tile(a_stage(pf % kStages), Al, bm0, m, pf * kBK, kp);
-      load_tile(b_stage(pf % kStages), Bl, bn0, n, pf * kBK, kp);
-    }
-    asm volatile("cp.async.commit_group;\n");
-    const unsigned sa = a_stage(kt % kStages), sb = b_stage(kt % kStages);
-#pragma unroll
-    for (int ks = 0; ks < kBK / 32; ++ks) {
-      unsigned af[4][4], bf[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-        ldmatrix_x4(af[mt], sa + swz(wm * 64 + mt * 16 + a_row,
-                                     ks * 2 + a_chk));
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        unsigned r[4];
-        ldmatrix_x4(r, sb + swz(wn * 32 + np * 16 + b_row, ks * 2 + b_chk));
-        bf[2 * np][0] = r[0];
-        bf[2 * np][1] = r[1];
-        bf[2 * np + 1][0] = r[2];
-        bf[2 * np + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_s8(acc[mt][nt], af[mt], bf[nt]);
-    }
-  }
-  asm volatile("cp.async.wait_group 0;\n");
 
   const int mod = c_moduli[l];
   unsigned char* ol = out + static_cast<size_t>(l) * m * n;

@@ -54,6 +54,12 @@ _SIGNATURES = {
     "gm8_set_crt_tables": [_P, _I],
     # r, centered, sft_a, sft_b, out, L, m, n, e_extra, stream
     "gm8_reconstruct_f64": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, out_emax, rows, kdim, axis, stream
+    "gm8_emax": [_P, _P, _I, _I, _I, _P],
+    # x, emax, out, rows, kdim, axis, ld, stream
+    "gm8_mag7": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # a, lda, bt, ldb, row_max, col_max, m, n, k, stream
+    "gm8_magmax_matmul": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -118,13 +124,19 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def require_cuda(*tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is a contiguous CUDA tensor on one
-    device."""
+def require_device(*tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a CUDA tensor on one device."""
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"expected CUDA tensors on one device, got "
                              f"{t.device} and {dev}")
+
+
+def require_cuda(*tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor on one
+    device."""
+    require_device(*tensors)
+    for t in tensors:
         if not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")

@@ -6,6 +6,8 @@ never falls back. The plain versions (`*_plain`) are the functions of
 `gemmul8_tpu_torch.core` the kernels are held to.
 
     fast_sft       csrc/fast_sft.cu     <- pallas/kernels.py fast_sft_pallas
+    emax           csrc/mag7.cu         <- pallas/kernels.py emax_pallas
+    mag7           csrc/mag7.cu         <- pallas/kernels.py mag7_pallas
     encode_slices  csrc/encode.cu       <- pallas/kernels.py encode_slices_pallas
     reconstruct    csrc/reconstruct.cu  <- pallas/kernels.py reconstruct_pallas
 """
@@ -21,6 +23,8 @@ from ..core import reconstruct as rec
 from . import build
 
 fast_sft_plain = enc.fast_sft
+emax_plain = enc.emax
+mag7_plain = enc.mag7
 encode_slices_plain = enc.encode_slices
 reconstruct_plain = rec.reconstruct
 
@@ -38,18 +42,22 @@ def _check_f64(x: torch.Tensor):
         raise TypeError("expected a 2-D float64 tensor")
 
 
+def _rows_kdim(x: torch.Tensor, axis: int):
+    if axis not in (0, 1):
+        raise ValueError("axis must be 0 or 1")
+    d0, d1 = x.shape
+    return (d0, d1) if axis == 1 else (d1, d0)
+
+
 def fast_sft(x: torch.Tensor, num_moduli: int, axis: int) -> torch.Tensor:
     """Fast-mode shifts: (m, 1) int32 for axis=1, (1, n) for axis=0."""
     _check_f64(x)
-    if axis not in (0, 1):
-        raise ValueError("axis must be 0 or 1")
+    rows, kdim = _rows_kdim(x, axis)
     if _on_cpu(x):
         return fast_sft_plain(x, num_moduli, axis)
     build.require_cuda(x)
-    d0, d1 = x.shape
-    rows, kdim = (d0, d1) if axis == 1 else (d1, d0)
-    out = torch.empty((d0, 1) if axis == 1 else (1, d1), dtype=torch.int32,
-                      device=x.device)
+    out = torch.empty((rows, 1) if axis == 1 else (1, rows),
+                      dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
         code = build.lib().gm8_fast_sft(
             x.data_ptr(), out.data_ptr(), rows, kdim, axis,
@@ -58,6 +66,61 @@ def fast_sft(x: torch.Tensor, num_moduli: int, axis: int) -> torch.Tensor:
     build.check(code, "fast_sft")
     build.LAUNCHES["fast_sft"] += 1
     return out
+
+
+def emax(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """Max biased exponent over the nonzero elements of each row (axis=1,
+    (m, 1)) or column (axis=0, (1, n)), int32."""
+    _check_f64(x)
+    rows, kdim = _rows_kdim(x, axis)
+    if _on_cpu(x):
+        return emax_plain(x, axis)
+    build.require_cuda(x)
+    # zero-filled: the column kernel folds its pieces with atomicMax
+    out = torch.zeros((rows, 1) if axis == 1 else (1, rows),
+                      dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        code = build.lib().gm8_emax(x.data_ptr(), out.data_ptr(), rows, kdim,
+                                    axis, build.stream_ptr(x.device))
+    build.check(code, "emax")
+    build.LAUNCHES["emax"] += 1
+    return out
+
+
+def mag7(x: torch.Tensor, emax: torch.Tensor, axis: int) -> torch.Tensor:
+    """Round-up 7-bit magnitudes (int8 of x's shape, in [0, 64]) below the
+    row (axis=1) or column (axis=0) max exponents `emax`.
+
+    On the card the values sit K-major in a buffer whose rows are padded
+    to a multiple of 16 bytes: for axis=0 the result is the transposed
+    view of an (n, k) buffer. That is the layout `magmax_matmul` reads
+    without a copy; the values are those of the plain version."""
+    _check_f64(x)
+    rows, kdim = _rows_kdim(x, axis)
+    want = (rows, 1) if axis == 1 else (1, rows)
+    if tuple(emax.shape) != want:
+        raise ValueError(f"emax shape {tuple(emax.shape)}, expected {want}")
+    if _on_cpu(x):
+        return mag7_plain(x, emax, axis)
+    if emax.dtype != torch.int32:
+        raise TypeError("emax must be int32")
+    build.require_cuda(x, emax)
+    ld = -(-kdim // 16) * 16
+    out = torch.empty((rows, ld), dtype=torch.int8, device=x.device)
+    with torch.cuda.device(x.device):
+        code = build.lib().gm8_mag7(x.data_ptr(), emax.data_ptr(),
+                                    out.data_ptr(), rows, kdim, axis, ld,
+                                    build.stream_ptr(x.device))
+    build.check(code, "mag7")
+    build.LAUNCHES["mag7"] += 1
+    mag = out[:, :kdim]
+    return mag if axis == 1 else mag.t()
+
+
+def mag7_operand(x: torch.Tensor, axis: int):
+    """(magnitudes, emax) of one operand: the emax kernel, then mag7."""
+    e = emax(x, axis)
+    return mag7(x, e, axis), e
 
 
 def encode_slices(x: torch.Tensor, sft: torch.Tensor, num_moduli: int,

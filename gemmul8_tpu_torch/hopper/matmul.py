@@ -1,10 +1,13 @@
-"""Wrapper of the batched int8 matmul + modular-reduction Hopper kernel.
+"""Wrappers of the int8 tensor-core GEMM kernels.
 
     matmul_mod_u8  csrc/matmul_mod.cu  <- pallas/matmul.py matmul_mod_u8_pallas
+    magmax_matmul  csrc/magmax.cu      <- pallas/matmul.py magmax_matmul_pallas
 
-A CPU tensor takes the plain version (`matmul_mod_u8_plain`, exact f64
-products then the mod); a CUDA tensor launches the kernel, which first
-copies B into a K-major workspace the wrapper allocates.
+A CPU tensor takes the plain version (exact f64 products, then the mod or
+the row/col max); a CUDA tensor launches the kernel. matmul_mod_u8's kernel
+first copies B into a K-major workspace the wrapper allocates;
+magmax_matmul reads both operands K-major in place where their layout
+allows (as `hopper.kernels.mag7` writes them).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from ..core import slicegemm as sg
 from . import build
 
 matmul_mod_u8_plain = sg.matmul_mod
+magmax_plain = sg.magmax
 
 
 def matmul_mod_u8(a8: torch.Tensor, b8: torch.Tensor, num_moduli: int,
@@ -45,3 +49,42 @@ def matmul_mod_u8(a8: torch.Tensor, b8: torch.Tensor, num_moduli: int,
     build.check(code, "matmul_mod_u8")
     build.LAUNCHES["matmul_mod_u8"] += 1
     return out
+
+
+def _k_major(x: torch.Tensor):
+    """(rows, k) int8 -> (t, ld): t holds x's rows at stride ld, with
+    ld % 16 == 0 and a 16-byte aligned start, as the GEMM tile loads them.
+    x itself where its layout is already so, else a copy."""
+    rows, k = x.shape
+    ld = x.stride(0)
+    if (x.stride(1) == 1 and ld % 16 == 0 and ld >= k
+            and x.data_ptr() % 16 == 0):
+        return x, ld
+    ld = -(-k // 16) * 16
+    t = torch.empty((rows, ld), dtype=torch.int8, device=x.device)
+    t[:, :k] = x
+    return t, ld
+
+
+def magmax_matmul(mag_a: torch.Tensor, mag_b: torch.Tensor):
+    """(m, k) x (k, n) int8 magnitudes -> (smax_row (m, 1), smax_col
+    (1, n)) int32, the row and column maxima of their product; the (m, n)
+    product is never stored."""
+    sg.check_magmax_args(mag_a, mag_b)
+    if mag_a.device.type == "cpu" and mag_b.device.type == "cpu":
+        return magmax_plain(mag_a, mag_b)
+    build.require_device(mag_a, mag_b)
+    m, k = mag_a.shape
+    n = mag_b.shape[1]
+    a, lda = _k_major(mag_a)
+    bt, ldb = _k_major(mag_b.t())
+    # zero-filled: blocks fold their maxima in with atomicMax
+    row = torch.zeros((m, 1), dtype=torch.int32, device=a.device)
+    col = torch.zeros((1, n), dtype=torch.int32, device=a.device)
+    with torch.cuda.device(a.device):
+        code = build.lib().gm8_magmax_matmul(
+            a.data_ptr(), lda, bt.data_ptr(), ldb, row.data_ptr(),
+            col.data_ptr(), m, n, k, build.stream_ptr(a.device))
+    build.check(code, "magmax_matmul")
+    build.LAUNCHES["magmax_matmul"] += 1
+    return row, col

@@ -117,7 +117,8 @@ def test_gemm_numpy_needs_device():
 
 @pytest.mark.parametrize("kwargs", [
     dict(alpha=2.0), dict(beta=1.0, c=np.ones((4, 4))), dict(op_a="T"),
-    dict(op_b="C"), dict(fastmode=False), dict(out_dtype=torch.float32),
+    dict(op_b="C"), dict(fastmode=False, moduli_chunk=4),
+    dict(out_dtype=torch.float32),
     dict(compute_type=gt.ComputeType.COMPLEX_KARATSUBA_MULT),
     dict(moduli_chunk=4), dict(max_workspace_bytes=1 << 20),
     dict(n_panel=2), dict(return_times=True)])
@@ -137,14 +138,15 @@ def test_gemm_argument_errors():
         gt.gemm(a, torch.ones((5, 4), dtype=torch.float64))
     with pytest.raises(ValueError):
         gt.gemm(a[:, :0], a[:0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tg.gemm_core(a, a, 14, fastmode=False)
+    c = tg.gemm_core(a, a, 14, fastmode=False)
+    assert torch.equal(c, torch.full((4, 4), 4.0, dtype=torch.float64))
 
 
 @pytest.mark.cuda
 def test_kernels_on_card_match_plain():
     """On a CUDA host: the kernel path gives the bits of the plain path
-    (same shifts). Skips without a card; chip_smoke.py covers more."""
+    (same shifts), in fast and accurate mode. Skips without a card;
+    chip_smoke.py covers more."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc")
     from gemmul8_tpu_torch.hopper import build
@@ -162,3 +164,15 @@ def test_kernels_on_card_match_plain():
     if torch.equal(sa, ref_sa) and torch.equal(sb, ref_sb):
         ref = gt.gemm(a, b, num_moduli=14, device="cpu")
         assert torch.equal(got.view(torch.int64), ref.view(torch.int64))
+
+    build.LAUNCHES.clear()
+    got = gt.gemm(ta, tb, num_moduli=14, fastmode=False).cpu()
+    assert dict(build.LAUNCHES) == {"emax": 2, "mag7": 2, "magmax_matmul": 1,
+                                    "encode_slices": 2, "matmul_mod_u8": 1,
+                                    "reconstruct": 1}
+    sa, sb = tg.accurate_sfts(ta, tb, 14)
+    ref_sa, ref_sb = tg.accurate_sfts(torch.from_numpy(a),
+                                      torch.from_numpy(b), 14)
+    assert torch.equal(sa.cpu(), ref_sa) and torch.equal(sb.cpu(), ref_sb)
+    ref = gt.gemm(a, b, num_moduli=14, fastmode=False, device="cpu")
+    assert torch.equal(got.view(torch.int64), ref.view(torch.int64))

@@ -39,8 +39,27 @@ def test_sources_are_cuda_files():
     from gemmul8_tpu_torch.hopper import build
 
     names = sorted(p.name for p in build.sources())
-    assert names == ["common.cuh", "encode.cu", "fast_sft.cu",
-                     "matmul_mod.cu", "reconstruct.cu"]
+    assert names == ["common.cuh", "encode.cu", "fast_sft.cu", "mag7.cu",
+                     "magmax.cu", "matmul_mod.cu", "mma_s8.cuh",
+                     "reconstruct.cu"]
+
+
+def test_every_entry_point_has_a_signature():
+    """ctypes needs the argument types of every exported C function, with
+    one pointer or int per parameter."""
+    import re
+
+    from gemmul8_tpu_torch.hopper import build
+
+    found = {}
+    for src in build.sources():
+        text = src.read_text()
+        for name, params in re.findall(r"GM8_EXPORT int (gm8_\w+)\(([^)]*)\)",
+                                       text):
+            found[name] = len(params.split(","))
+    assert found.keys() == build._SIGNATURES.keys()
+    for name, n in found.items():
+        assert len(build._SIGNATURES[name]) == n, name
 
 
 def test_crt_table_layout():
