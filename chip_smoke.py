@@ -29,8 +29,38 @@ result):
      each mode; the warm-up outputs of each kernel and its plain version
      are held to the same bit rule as in phase 3.
 
+The complex path (complex128, all three compute types) adds to phases 3-5:
+  3e. the complex residue GEMM (matmul_complex_mod) in its 4-dot and
+      Karatsuba forms, centered and not, against its plain version,
+      bit-equal, at 2048^3 (14 moduli), 1000 x 777 x 1500 (2 to 20
+      moduli), 300 x 5 x 200 (8, 20), 600 x 600 x 328 (m == k != n) and
+      1000 x 4100 x 1500 (2, 14; k over three 2048-wide norm chunks);
+      fast_stats (fast_sft's statistics mode) against its plain version:
+      emax and the any flag bit-equal, the norm under the floor-boundary
+      rule on the shift it gives, per part and jointly over Re and Im;
+      mag7 at the complex magnitude shift 4, and the |Re| + |Im|
+      magnitudes, against their plain versions;
+  4c. gemmul8_tpu_torch.gemm at 8192^3, 14 moduli, on A = ReA + i ImA with
+      ReA = phi_matrix(8192, 8192, 0.5, seed=0), ImA the same with seed=1,
+      and B = A.T (not conjugated): the three compute types in fast mode,
+      Karatsuba and big-matrix in accurate mode; each call's launch counts,
+      read right after it, must show its path; the three fast calls give
+      identical bits; three 256 x 256 tiles within 1e-8 (|c - ref| / |ref|)
+      of a complex double-double oracle built from real dd products over
+      the k-concatenation; and at 2048^3 the kernel path gives the bits of
+      the all-plain path, in both forms and both modes;
+  5c. at 8192^2, 14 moduli: fast_stats on Re and Im of A's rows and B's
+      columns, the joint shifts and the shift-4 |Re| + |Im| magnitudes held
+      to their plain versions as in 3e; how many shifts accurate mode moves
+      from fast mode's; times of these, of matmul_complex_mod (both forms,
+      held bit for bit) beside its plain version and of the Karatsuba sum
+      slices (plain tensor ops on the card); and each complex 8192^3 call,
+      the median of five rounds in rotated order, with two rates: the
+      reference's element-op convention 2mnk/t and real flops 8mnk/t.
+
 The line before the last is a JSON object of per-kernel results
-(`launches` sums the two main-path calls of phase 4); the last is
+(`launches` sums the main-path calls of phase 4, real and complex; the
+statistics mode of fast_sft counts as fast_sft); the last is
 {"ok": true, "device": {...}}.
 """
 
@@ -47,8 +77,10 @@ import gemmul8_tpu_torch as gt
 from gemmul8_tpu_torch import tables
 from gemmul8_tpu_torch.bench.matrices import phi_matrix
 from gemmul8_tpu_torch.bench.native import dd_gemm, relerr_vs_dd
+from gemmul8_tpu_torch.core import complexgemm as cg
 from gemmul8_tpu_torch.core import encode as enc
 from gemmul8_tpu_torch.core import gemm as tg
+from gemmul8_tpu_torch.core import slicegemm as sg
 from gemmul8_tpu_torch.hopper import build
 from gemmul8_tpu_torch.hopper import kernels as hk
 from gemmul8_tpu_torch.hopper import matmul as hm
@@ -77,12 +109,34 @@ KERNELS = {
              "gemmul8_tpu/pallas/kernels.py:408"),
     "magmax_matmul": ("gemmul8_tpu_torch/csrc/magmax.cu",
                       "gemmul8_tpu/pallas/matmul.py:393"),
+    "matmul_complex_mod": ("gemmul8_tpu_torch/csrc/matmul_complex.cu",
+                           "gemmul8_tpu/pallas/matmul.py:492"),
 }
+# wrapper counts that launch another entry's kernel (its second mode)
+KERNEL_OF = {"fast_stats": "fast_sft"}
 FAST_LAUNCHES = {"fast_sft": 2, "encode_slices": 2, "matmul_mod_u8": 1,
                  "reconstruct": 1}
 ACCURATE_LAUNCHES = {"emax": 2, "mag7": 2, "magmax_matmul": 1,
                      "encode_slices": 2, "matmul_mod_u8": 1,
                      "reconstruct": 1}
+CT = gt.ComputeType
+COMPLEX_FAST_LAUNCHES = {"fast_stats": 4, "encode_slices": 4,
+                         "matmul_complex_mod": 1, "reconstruct": 2}
+COMPLEX_ACCURATE_LAUNCHES = {"emax": 4, "mag7": 4, "magmax_matmul": 1,
+                             "encode_slices": 4, "matmul_complex_mod": 1,
+                             "reconstruct": 2}
+# (compute type, fastmode): phase 4c's complex main-path calls
+COMPLEX_CALLS = [(CT.COMPLEX_BIG_MATRIX_ENCODE, True),
+                 (CT.COMPLEX_CLASSIC_MULT, True),
+                 (CT.COMPLEX_KARATSUBA_MULT, True),
+                 (CT.COMPLEX_KARATSUBA_MULT, False),
+                 (CT.COMPLEX_BIG_MATRIX_ENCODE, False)]
+# (m, k, n), moduli counts, special values: phase 3e's complex checks; k =
+# 4100 spans three of fast_sft's 2048-wide norm chunks, the last ragged
+COMPLEX_CASES = CASES + [((600, 600, 328), (14,), False),
+                         ((1000, 4100, 1500), (2, 14), True)]
+# rounds of phase 5c's complex call times, each in a rotated call order
+COMPLEX_ROUNDS = 5
 
 
 def log(msg):
@@ -323,6 +377,112 @@ def phase_log2():
         f"{x.numel()} f32 values")
 
 
+def complex_operands(m, k, n, seed, special):
+    """(a_re, a_im, b_re, b_im) on the card; with special, besides the real
+    operands' special lines in both parts, a row of A whose Im part is all
+    zero and a column of B whose Re part is."""
+    a_re, b_re = operands(m, k, n, seed, special)
+    a_im, b_im = operands(m, k, n, seed + 10, special)
+    if special:
+        a_im[4, :] = 0.0
+        b_re[:, 5] = 0.0
+    return a_re, a_im, b_re, b_im
+
+
+def check_joint_sft(kern, plain, re, im, axis, L):
+    """The shift rule for a shift shared by Re and Im: the pre-floor value
+    of the joint norm (plain statistics, 2k terms). Returns the max
+    |difference|."""
+    diff = kern != plain
+    if not bool(diff.any()):
+        return 0
+    _, nrm2, _ = enc.merge_stats(enc.fast_stats(re, axis),
+                                 enc.fast_stats(im, axis))
+    frac = enc.sft_floor_frac(nrm2, 2 * re.shape[axis], L)
+    worst = int((kern.long() - plain.long()).abs().max())
+    assert worst <= 1, f"joint shift differs by {worst}"
+    assert float(frac[diff].max()) < SHIFT_RULE_FRAC, \
+        "joint shift differs away from a floor boundary"
+    log(f"    joint shift rule used at {int(diff.sum())} rows/cols")
+    return worst
+
+
+def check_stats(errs, x, axis, L):
+    """fast_stats vs its plain version: emax and the any flag bit-equal,
+    the norm under the floor-boundary rule on the shift it gives."""
+    got, ref = hk.fast_stats(x, axis), hk.fast_stats_plain(x, axis)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[2], ref[2]), \
+        "fast_stats: emax or any flag differs from the plain version"
+    kdim = x.shape[axis]
+    e = check_sft(enc.sft_from_stats(*got, kdim, L),
+                  enc.sft_from_stats(*ref, kdim, L), x, axis, L)
+    errs["fast_sft"] = max(errs["fast_sft"], e)
+
+
+def mag7_complex_plain(re, im, axis):
+    """|Re| + |Im| magnitudes at the complex shift, every step plain."""
+    e = torch.maximum(hk.emax_plain(re, axis), hk.emax_plain(im, axis))
+    shift = enc.MAG_SHIFT_COMPLEX
+    return (hk.mag7_plain(re, e, axis, shift)
+            + hk.mag7_plain(im, e, axis, shift)), e
+
+
+def phase_complex_kernels(errs):
+    """Phase 3e: the complex path's kernels vs their plain versions."""
+    for (m, k, n), Ls, special in COMPLEX_CASES:
+        a_re, a_im, b_re, b_im = complex_operands(m, k, n, 17, special)
+        tag = f"m={m} k={k} n={n}"
+        for x, axis in ((a_re, 1), (a_im, 1), (b_re, 0), (b_im, 0)):
+            for L in Ls:
+                check_stats(errs, x, axis, L)
+            e = hk.emax_plain(x, axis)
+            shift = enc.MAG_SHIFT_COMPLEX
+            hold(errs, "mag7", hk.mag7(x, e, axis, shift),
+                 hk.mag7_plain(x, e, axis, shift), f"mag7 shift 4 {tag}")
+        mags = []
+        for re, im, axis in ((a_re, a_im, 1), (b_re, b_im, 0)):
+            got, ref = (hk.mag7_operand_complex(re, im, axis),
+                        mag7_complex_plain(re, im, axis))
+            hold(errs, "mag7", got, ref, f"complex magnitudes {tag}")
+            mags.append(got[0])
+        smax = hm.magmax_plain(mags[0].contiguous(), mags[1].contiguous())
+        hold(errs, "magmax_matmul", hm.magmax_matmul(*mags), smax,
+             f"magmax_matmul complex {tag}")
+        for L in Ls:
+            sa = enc.joint_fast_sft(a_re, a_im, L, 1)
+            sb = enc.joint_fast_sft(b_re, b_im, L, 0)
+            errs["fast_sft"] = max(
+                errs["fast_sft"],
+                check_joint_sft(enc.joint_fast_sft(a_re, a_im, L, 1,
+                                                   stats=hk.fast_stats),
+                                sa, a_re, a_im, 1, L),
+                check_joint_sft(enc.joint_fast_sft(b_re, b_im, L, 0,
+                                                   stats=hk.fast_stats),
+                                sb, b_re, b_im, 0, L))
+            if special:
+                assert int(sa[1]) == 0 and int(sb[0, 3]) == 0
+            a8 = [hk.encode_slices(x, sa, L, 1) for x in (a_re, a_im)]
+            b8 = [hk.encode_slices(x, sb, L, 0) for x in (b_re, b_im)]
+            hold(errs, "encode_slices", tuple(a8 + b8),
+                 tuple([hk.encode_slices_plain(x, sa, L, 1)
+                        for x in (a_re, a_im)]
+                       + [hk.encode_slices_plain(x, sb, L, 0)
+                          for x in (b_re, b_im)]),
+                 f"encode_slices complex {tag} L={L}")
+            kara = (sg.recenter_add_int8(a8[0], a8[1], L),
+                    sg.recenter_add_int8(b8[0], b8[1], L))
+            for ks in (None, kara):
+                for centered in (True, False):
+                    form = "4-dot" if ks is None else "Karatsuba"
+                    hold(errs, "matmul_complex_mod",
+                         hm.matmul_complex_mod(*a8, *b8, L, centered, ks),
+                         hm.matmul_complex_mod_plain(*a8, *b8, L, centered,
+                                                     ks),
+                         f"matmul_complex_mod {form} {tag} L={L} "
+                         f"centered={centered}")
+        log(f"  complex kernels == plain at {tag} L={Ls}")
+
+
 def accurate_plain_sfts(a, b, L):
     """Accurate-mode shifts with every step a plain version."""
     ea, eb = hk.emax_plain(a, 1), hk.emax_plain(b, 0)
@@ -409,6 +569,150 @@ def phase_slice(launches):
     return a, b, rel_fast, rel_accu
 
 
+def accurate_plain_sfts_complex(a_re, a_im, b_re, b_im, L):
+    """Complex accurate-mode shifts with every step a plain version."""
+    ma, ea = mag7_complex_plain(a_re, a_im, 1)
+    mb, eb = mag7_complex_plain(b_re, b_im, 0)
+    sa, sb = hm.magmax_plain(ma, mb)
+    shift = enc.MAG_SHIFT_COMPLEX
+    return (enc.accurate_sft(sa, ea, L, shift),
+            enc.accurate_sft(sb, eb, L, shift))
+
+
+def plain_gemm_complex(parts, L, fastmode, karatsuba, sfts=None):
+    """The complex path with every step a plain version, on the parts'
+    device: (complex128 product, sft_a, sft_b)."""
+    a_re, a_im, b_re, b_im = parts
+    if sfts is None and fastmode:
+        sfts = (enc.joint_fast_sft(a_re, a_im, L, 1),
+                enc.joint_fast_sft(b_re, b_im, L, 0))
+    elif sfts is None:
+        sfts = accurate_plain_sfts_complex(*parts, L)
+    sa, sb = sfts
+    a8 = [hk.encode_slices_plain(x, sa, L, 1) for x in (a_re, a_im)]
+    b8 = [hk.encode_slices_plain(x, sb, L, 0) for x in (b_re, b_im)]
+    kara = None
+    if karatsuba:
+        kara = (sg.recenter_add_int8(*a8, L), sg.recenter_add_int8(*b8, L))
+    r_re, r_im = hm.matmul_complex_mod_plain(*a8, *b8, L, True, kara)
+    return (torch.complex(hk.reconstruct_plain(r_re, sa, sb, L),
+                          hk.reconstruct_plain(r_im, sa, sb, L)), sa, sb)
+
+
+def complex_gate(c, oracle):
+    """Max |c - ref| / |ref| over three 256 x 256 tiles of c against the
+    complex dd oracle, the difference taken against hi, then lo."""
+    worst = 0.0
+    for (r0, c0), ((hr, lr), (hi_, li)) in oracle.items():
+        got = c[r0:r0 + 256, c0:c0 + 256].cpu().numpy()
+        d = np.hypot((got.real - hr) - lr, (got.imag - hi_) - li)
+        worst = max(worst, float((d / np.hypot(hr, hi_)).max()))
+    return worst
+
+
+def complex_oracle(a_re, a_im):
+    """dd products of three 256 x 256 tiles of A @ A.T, A = a_re + i a_im:
+    Re = [ReA, ImA] [ReB; -ImB] and Im = [ReA, ImA] [ImB; ReB] over the
+    k-concatenation, with B = A.T (negation is exact)."""
+    oracle = {}
+    for r0, c0 in [(0, 0), (N // 2, N - 256), (N - 256, N - 256)]:
+        rows = np.hstack([a_re[r0:r0 + 256], a_im[r0:r0 + 256]])
+        b_re = a_re[c0:c0 + 256].T
+        b_im = a_im[c0:c0 + 256].T
+        oracle[(r0, c0)] = (dd_gemm(rows, np.vstack([b_re, -b_im])),
+                            dd_gemm(rows, np.vstack([b_im, b_re])))
+    return oracle
+
+
+def complex_call(A, B, strat, fastmode, oracle):
+    """One complex main-path call with the launch counts reset just before
+    it and read just after: (output, launches, gate relerr)."""
+    want = COMPLEX_FAST_LAUNCHES if fastmode else COMPLEX_ACCURATE_LAUNCHES
+    torch.cuda.synchronize()
+    build.LAUNCHES.clear()
+    c = gt.gemm(A, B, num_moduli=L_MAIN, fastmode=fastmode,
+                compute_type=strat, device=DEVICE)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    mode = f"{strat.name} {'fast' if fastmode else 'accurate'}"
+    log(f"  launches in the complex {N}^3 {mode} call: {launches}")
+    assert launches == want, f"complex {mode} launch counts {launches}"
+    assert c.shape == (N, N) and c.dtype == torch.complex128
+    assert bool(torch.isfinite(torch.view_as_real(c)).all()), \
+        "non-finite output"
+    worst = complex_gate(c, oracle)
+    assert worst < 1e-8, f"complex {mode} relerr {worst} >= 1e-8"
+    return c, launches, worst
+
+
+def phase_complex(launches):
+    """Phase 4c: the complex main path at N^3, all strategies, both modes,
+    and the kernel-vs-plain complex path at N_PLAIN^3."""
+    a_re = phi_matrix(N, N, 0.5, seed=0)
+    a_im = phi_matrix(N, N, 0.5, seed=1)
+    oracle = complex_oracle(a_re, a_im)
+    A = torch.complex(torch.from_numpy(a_re), torch.from_numpy(a_im)).to(
+        DEVICE)
+    B = A.t().contiguous()
+    rels, fast_bits = {}, []
+    for strat, fastmode in COMPLEX_CALLS:
+        c, counts, rel = complex_call(A, B, strat, fastmode, oracle)
+        for name, cnt in counts.items():
+            key = KERNEL_OF.get(name, name)
+            launches[key] = launches.get(key, 0) + cnt
+        rels[(strat, fastmode)] = rel
+        if fastmode:
+            fast_bits.append(c)
+        else:
+            moved = (torch.view_as_real(c).view(torch.int64)
+                     != torch.view_as_real(fast_bits[0]).view(torch.int64))
+            log(f"  {strat.name} accurate vs fast: {int(moved.sum())} of "
+                f"{moved.numel()} output words differ")
+        del c
+    for c in fast_bits[1:]:
+        assert torch.equal(torch.view_as_real(c).view(torch.int64),
+                           torch.view_as_real(fast_bits[0]).view(
+                               torch.int64)), \
+            "the fast complex strategies disagree in bits"
+    del fast_bits
+    log("  the three fast complex strategies give identical bits")
+    for (strat, fastmode), rel in rels.items():
+        log(f"  gate tiles max relerr vs complex dd oracle, {strat.name} "
+            f"{'fast' if fastmode else 'accurate'}: {rel!r}")
+
+    parts = [x[:N_PLAIN, :N_PLAIN].contiguous()
+             for x in cg.canon_complex(A) + cg.canon_complex(B)]
+    A2 = torch.complex(parts[0], parts[1])
+    B2 = torch.complex(parts[2], parts[3])
+    for fastmode in (True, False):
+        for strat in (CT.COMPLEX_CLASSIC_MULT, CT.COMPLEX_KARATSUBA_MULT):
+            kara = strat == CT.COMPLEX_KARATSUBA_MULT
+            ck = gt.gemm(A2, B2, num_moduli=L_MAIN, fastmode=fastmode,
+                         compute_type=strat, device=DEVICE)
+            cp, pa, pb = plain_gemm_complex(parts, L_MAIN, fastmode, kara)
+            if fastmode:
+                sa = enc.joint_fast_sft(parts[0], parts[1], L_MAIN, 1,
+                                        stats=hk.fast_stats)
+                sb = enc.joint_fast_sft(parts[2], parts[3], L_MAIN, 0,
+                                        stats=hk.fast_stats)
+                if not (torch.equal(sa, pa) and torch.equal(sb, pb)):
+                    check_joint_sft(sa, pa, parts[0], parts[1], 1, L_MAIN)
+                    check_joint_sft(sb, pb, parts[2], parts[3], 0, L_MAIN)
+                    cp, _, _ = plain_gemm_complex(parts, L_MAIN, True, kara,
+                                                  (sa, sb))
+            else:
+                sa, sb = cg.accurate_sfts_complex(*parts, L_MAIN)
+                assert torch.equal(sa, pa) and torch.equal(sb, pb), \
+                    "complex accurate shifts: kernel path vs plain path"
+            assert torch.equal(torch.view_as_real(ck).view(torch.int64),
+                               torch.view_as_real(cp).view(torch.int64)), \
+                f"{N_PLAIN}^3 complex {strat.name} kernel path vs plain"
+            log(f"  {N_PLAIN}^3 complex {strat.name} "
+                f"{'fast' if fastmode else 'accurate'} kernel path == "
+                "all-plain path (bits)")
+    return A, B, rels
+
+
 def timed(fn, reps):
     """(ms per call, the warm-up call's output)."""
     first = fn()
@@ -476,6 +780,121 @@ def phase_times(a, b, errs):
     return times, total, total_accu
 
 
+def gate_lines(s, axis):
+    """The entries of a shift vector that the gate tiles' rows (axis 1) or
+    columns (axis 0) use."""
+    s = s.flatten()
+    starts = (0, N // 2, N - 256) if axis == 1 else (0, N - 256)
+    return torch.cat([s[i:i + 256] for i in starts])
+
+
+def shifts_moved(fast, accurate, axis):
+    """How many of the shifts accurate mode moves from fast mode's, in all
+    and on the gate tiles' lines, and the range of the moves."""
+    d = (accurate.long() - fast.long()).flatten()
+    g = gate_lines(accurate, axis).long() - gate_lines(fast, axis).long()
+    return (f"{int((d != 0).sum())} of {d.numel()} moved (by "
+            f"{int(d.min())}..{int(d.max())}), {int((g != 0).sum())} of "
+            f"{g.numel()} on the gate tiles' lines")
+
+
+def timed_rounds(calls, rounds, reps):
+    """ms per call of each entry of calls (name -> fn), over rounds in
+    which the order rotates by one, so each call takes each place; no
+    output is kept between timings. Returns (name -> list of ms, place ->
+    list of ms)."""
+    names = list(calls)
+    for name in names:                     # warm-up
+        calls[name]()
+    torch.cuda.synchronize()
+    by_name = {name: [] for name in names}
+    by_place = {i: [] for i in range(len(names))}
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    for r in range(rounds):
+        shift = r % len(names)
+        for place, name in enumerate(names[shift:] + names[:shift]):
+            start.record()
+            for _ in range(reps):
+                calls[name]()
+            stop.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(stop) / reps
+            by_name[name].append(ms)
+            by_place[place].append(ms)
+    return by_name, by_place
+
+
+def phase_complex_times(A, B, errs):
+    """Phase 5c: at the main path's shapes (N^2, 14 moduli), fast_stats on
+    each part and the joint shifts, and the complex magnitudes, held to
+    their plain versions (stats and shifts under the floor-boundary rule,
+    magnitudes bit for bit) and timed beside them; how many shifts accurate
+    mode moves from fast mode's; ms of the Karatsuba sum slices and of
+    matmul_complex_mod (4-dot and Karatsuba) beside its plain version, held
+    bit for bit on the warm-up outputs; and each complex N^3 call over
+    COMPLEX_ROUNDS rounds in rotated order."""
+    L = L_MAIN
+    a_re, a_im = cg.canon_complex(A)
+    b_re, b_im = cg.canon_complex(B)
+    parts = ((a_re, 1), (a_im, 1), (b_re, 0), (b_im, 0))
+    times = {}
+    for x, axis in parts:
+        check_stats(errs, x, axis, L)
+    times["fast_stats"] = (
+        timed(lambda: [hk.fast_stats(x, ax) for x, ax in parts], 5)[0],
+        timed(lambda: [hk.fast_stats_plain(x, ax) for x, ax in parts], 2)[0])
+    sa = enc.joint_fast_sft(a_re, a_im, L, 1, stats=hk.fast_stats)
+    sb = enc.joint_fast_sft(b_re, b_im, L, 0, stats=hk.fast_stats)
+    errs["fast_sft"] = max(
+        errs["fast_sft"],
+        check_joint_sft(sa, enc.joint_fast_sft(a_re, a_im, L, 1),
+                        a_re, a_im, 1, L),
+        check_joint_sft(sb, enc.joint_fast_sft(b_re, b_im, L, 0),
+                        b_re, b_im, 0, L))
+    log(f"  fast_stats and the joint shifts == plain at the main path's "
+        f"shapes ({N}^2, Re and Im, rows and columns)")
+    ms, got = timed(lambda: (hk.mag7_operand_complex(a_re, a_im, 1),
+                             hk.mag7_operand_complex(b_re, b_im, 0)), 5)
+    pms, ref = timed(lambda: (mag7_complex_plain(a_re, a_im, 1),
+                              mag7_complex_plain(b_re, b_im, 0)), 2)
+    hold(errs, "mag7", got[0] + got[1], ref[0] + ref[1],
+         f"complex magnitudes at {N}^2")
+    times["complex magnitudes"] = (ms, pms)
+    log(f"  mag7_operand_complex == plain at the main path's shapes ({N}^2, "
+        "shift 4, rows and columns)")
+    del got, ref
+    acc_a, acc_b = cg.accurate_sfts_complex(a_re, a_im, b_re, b_im, L)
+    log(f"  accurate vs fast shifts at {N}^3: A rows "
+        f"{shifts_moved(sa, acc_a, 1)}; B columns "
+        f"{shifts_moved(sb, acc_b, 0)}")
+    a8 = [hk.encode_slices(x, sa, L, 1) for x in (a_re, a_im)]
+    b8 = [hk.encode_slices(x, sb, L, 0) for x in (b_re, b_im)]
+    del a_re, a_im, b_re, b_im, parts
+    ms, kara = timed(lambda: (sg.recenter_add_int8(*a8, L),
+                              sg.recenter_add_int8(*b8, L)), 3)
+    times["recenter_add_int8"] = (ms, None)
+    for form, ks in (("4-dot", None), ("Karatsuba", kara)):
+        ms, got = timed(lambda: hm.matmul_complex_mod(*a8, *b8, L, True, ks),
+                        3)
+        pms, ref = timed(
+            lambda: hm.matmul_complex_mod_plain(*a8, *b8, L, True, ks), 1)
+        hold(errs, "matmul_complex_mod", got, ref,
+             f"matmul_complex_mod {form} at {N}^2, {L} moduli")
+        times[form] = (ms, pms)
+        del got, ref
+    log(f"  matmul_complex_mod == plain at the main path's shapes ({N}^2, "
+        f"{L} moduli, both forms)")
+    del a8, b8, kara
+    calls, by_place = timed_rounds(
+        {(strat, fastmode): (
+            lambda s=strat, f=fastmode: gt.gemm(A, B, num_moduli=L,
+                                                fastmode=f, compute_type=s,
+                                                device=DEVICE))
+         for strat, fastmode in COMPLEX_CALLS}, COMPLEX_ROUNDS, 2)
+    return times, calls, by_place
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false")
@@ -498,12 +917,14 @@ def main():
     phase_rounding(errs)
     phase_accurate_kernels(errs)
     phase_log2()
+    phase_complex_kernels(errs)
     log(f"[3/5] every kernel == its plain version "
         f"({time.perf_counter() - t0:.1f} s)")
 
     launches = {}
     t0 = time.perf_counter()
     a, b, rel_fast, rel_accu = phase_slice(launches)
+    A, B, rels = phase_complex(launches)
     log(f"[4/5] main path checked ({time.perf_counter() - t0:.1f} s)")
 
     times, total, total_accu = phase_times(a, b, errs)
@@ -515,6 +936,32 @@ def main():
         tflops = 2 * N ** 3 / (ms * 1e-3) / 1e12
         log(f"  gemm {N}^3 {L_MAIN} moduli f64 {mode}: {ms:.3f} ms, "
             f"{tflops:.2f} TFLOP/s, gate relerr {rel!r} ({card})")
+    ctimes, calls, by_place = phase_complex_times(A, B, errs)
+    ms, _ = ctimes["recenter_add_int8"]
+    log(f"  Karatsuba sum slices (plain tensor ops, A + B): {ms:.3f} ms "
+        f"({N}^2 operands, {L_MAIN} moduli; {card})")
+    for step, what in (("fast_stats", "Re and Im of A rows and B columns"),
+                       ("complex magnitudes", "emax x4, mag7 x4 at shift 4 "
+                        "and the sums, A and B"),
+                       ("4-dot", "matmul_complex_mod"),
+                       ("Karatsuba", "matmul_complex_mod")):
+        ms, pms = ctimes[step]
+        log(f"  {step} ({what}): kernel {ms:.3f} ms, plain {pms:.3f} ms "
+            f"({N}^2 operands, {L_MAIN} moduli; {card})")
+    log(f"  complex {N}^3 calls, {COMPLEX_ROUNDS} rounds in rotated order, "
+        "2 calls per timing:")
+    for (strat, fastmode), mss in calls.items():
+        ms = float(np.median(mss))
+        elem = 2 * N ** 3 / (ms * 1e-3) / 1e12
+        real = 8 * N ** 3 / (ms * 1e-3) / 1e12
+        log(f"  gemm complex128 {N}^3 {L_MAIN} moduli {strat.name} "
+            f"{'fast' if fastmode else 'accurate'}: median {ms:.3f} ms "
+            f"(rounds {', '.join(f'{t:.3f}' for t in mss)}), "
+            f"{elem:.2f} TFLOP/s (2mnk/t), {real:.2f} real TFLOP/s (8mnk/t), "
+            f"gate relerr {rels[(strat, fastmode)]!r} ({card})")
+    log("  median ms by place in the round (1st..5th): "
+        + ", ".join(f"{float(np.median(v)):.3f}" for v in by_place.values()))
+    times["matmul_complex_mod"] = ctimes["4-dot"]
     log("[5/5] times taken")
 
     kernels = [{"name": name, "route": "cuda", "source": src,

@@ -1,17 +1,19 @@
 """gemmul8_tpu_torch — Ozaki Scheme II GEMM emulation on PyTorch and CUDA.
 
-The port of `gemmul8_tpu` to an NVIDIA H100: f64 GEMM emulated as
-`num_moduli` exact int8 residue matmuls recombined by CRT, with the
-statistics, encode, int8 matmul + mod and reconstruct steps as hand-written
-Hopper kernels (`csrc/`). CPU tensors run the plain PyTorch versions of
+The port of `gemmul8_tpu` to an NVIDIA H100: f64 and complex128 GEMM
+emulated as `num_moduli` exact int8 residue matmuls recombined by CRT,
+with the statistics, encode, int8 matmul + mod (real and complex) and
+reconstruct steps as hand-written Hopper kernels (`csrc/`). CPU tensors run the plain PyTorch versions of
 those kernels. Importing the package needs neither JAX, nvcc nor a GPU;
 the kernels build at their first launch.
 """
 
 from . import tables
 from .api import gemm
-from .types import ComputeType, f64_to_words, words_to_f64
+from .types import (ComputeType, c128_to_words, f64_to_words, words_to_c128,
+                    words_to_f64)
 
 __version__ = "0.1.0"
 
-__all__ = ["gemm", "tables", "ComputeType", "f64_to_words", "words_to_f64"]
+__all__ = ["gemm", "tables", "ComputeType", "f64_to_words", "words_to_f64",
+           "c128_to_words", "words_to_c128"]

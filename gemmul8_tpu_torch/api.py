@@ -1,9 +1,11 @@
 """Public front end: C = A @ B emulated in f64 with Ozaki Scheme II.
 
 Counterpart of `gemmul8_tpu/api.py` `gemm`, for the part of its surface
-that is ported: float64 x float64 -> float64, op N/N, alpha = 1, beta = 0,
-fast and accurate mode, the one-shot schedule. Every other argument value
-raises NotImplementedError naming the ROADMAP item that adds it.
+that is ported: float64 x float64 -> float64 and complex128 (or float64
+mixed with complex128) -> complex128 under all three complex compute
+types, op N/N, alpha = 1, beta = 0, fast and accurate mode, the one-shot
+schedule. Every other argument value raises NotImplementedError naming the
+ROADMAP item that adds it.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from . import tables
+from .core import complexgemm as _cg
 from .core import gemm as _g
 from .types import ComputeType
 
@@ -42,11 +45,6 @@ def _as_tensor(x: ArrayLike, device, name: str) -> torch.Tensor:
         raise TypeError(f"{name} must be a torch.Tensor or numpy array")
     elif device is not None and x.device != device:
         raise ValueError(f"{name} lies on {x.device}, not on {device}")
-    if x.is_complex():
-        raise NotImplementedError("complex GEMM: ROADMAP A7")
-    if x.dtype != torch.float64:
-        raise NotImplementedError(
-            f"{x.dtype} operands: ROADMAP A4 (only float64 is ported)")
     return x
 
 
@@ -70,28 +68,51 @@ def gemm(
     device=None,
 ) -> torch.Tensor:
     """Emulated DGEMM: a (m, k) @ b (k, n) as a float64 tensor on the
-    operands' device. num_moduli in [2, 20] trades accuracy for int8 GEMM
-    count (DGEMM grade at about 14); fastmode=False picks the shifts from
-    an extra int8 GEMM of 7-bit magnitudes, tighter at the same count.
-    numpy operands need device=."""
+    operands' device, or as a complex128 tensor when either operand is
+    complex128 (the other may be float64). num_moduli in [2, 20] trades
+    accuracy for int8 GEMM count (DGEMM grade at about 14); fastmode=False
+    picks the shifts from an extra int8 GEMM of 7-bit magnitudes, tighter
+    at the same count. compute_type picks the complex strategy (real
+    operands ignore it; REAL_DEFAULT means COMPLEX_BIG_MATRIX_ENCODE); all
+    three give the same bits. numpy operands need device=."""
     if not 2 <= num_moduli <= tables.MAX_MODULI:
         raise ValueError(f"num_moduli must be in [2, {tables.MAX_MODULI}]")
     if alpha != 1.0 or beta != 0.0 or c is not None:
         raise NotImplementedError("alpha/beta epilogue: ROADMAP A4")
     if op_a != "N" or op_b != "N":
         raise NotImplementedError("op T/C: ROADMAP A4")
-    if out_dtype is not None and out_dtype not in (torch.float64, np.float64,
-                                                   "float64", "f64"):
-        raise NotImplementedError(f"out_dtype {out_dtype}: ROADMAP A4")
-    if compute_type != ComputeType.REAL_DEFAULT:
-        raise NotImplementedError("complex compute types: ROADMAP A7")
-    if (moduli_chunk is not None or max_workspace_bytes is not None
-            or n_panel is not None):
-        raise NotImplementedError("chunked and panel schedules: ROADMAP A6")
-    if return_times:
-        raise NotImplementedError("phase times: ROADMAP A8")
     ta = _as_tensor(a, device, "a")
     tb = _as_tensor(b, device, "b")
     if ta.device != tb.device:
         raise ValueError(f"a lies on {ta.device}, b on {tb.device}")
+    schedule = (moduli_chunk is not None or max_workspace_bytes is not None
+                or n_panel is not None)
+    if ta.is_complex() or tb.is_complex():
+        if out_dtype is not None and out_dtype not in (
+                torch.complex128, np.complex128, "complex128", "c128"):
+            raise NotImplementedError(f"out_dtype {out_dtype}: ROADMAP A4")
+        if schedule:
+            raise NotImplementedError(
+                "moduli_chunk / max_workspace_bytes / n_panel are only "
+                "supported on the real path (the reference's low-memory "
+                "mode is likewise real-only)")
+        if return_times:
+            raise NotImplementedError("phase times: ROADMAP A8")
+        a_re, a_im = _cg.canon_complex(ta)
+        b_re, b_im = _cg.canon_complex(tb)
+        re, im = _cg.gemm_complex_core(a_re, a_im, b_re, b_im, num_moduli,
+                                       fastmode, compute_type)
+        return torch.complex(re, im)
+    for x in (ta, tb):
+        if x.dtype != torch.float64:
+            raise NotImplementedError(
+                f"{x.dtype} operands: ROADMAP A4 (only float64 and "
+                "complex128 are ported)")
+    if out_dtype is not None and out_dtype not in (torch.float64, np.float64,
+                                                   "float64", "f64"):
+        raise NotImplementedError(f"out_dtype {out_dtype}: ROADMAP A4")
+    if schedule:
+        raise NotImplementedError("chunked and panel schedules: ROADMAP A6")
+    if return_times:
+        raise NotImplementedError("phase times: ROADMAP A8")
     return _g.gemm_core(ta, tb, num_moduli, fastmode, "f64")

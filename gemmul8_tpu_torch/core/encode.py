@@ -11,7 +11,10 @@ maximum, summed in f32. As in the JAX package's Pallas kernel, the norm is
 summed over STATS_CHUNK-wide chunks of the contraction axis and the chunks
 are merged online, rescaled by exact powers of two. In accurate mode it
 comes from the maximum exponent and the row/col maxima of the int8 product
-of 7-bit magnitudes (`emax`, `mag7`, `accurate_sft`).
+of 7-bit magnitudes (`emax`, `mag7`, `accurate_sft`). A complex operand's
+Re and Im parts share one shift per row or column: its fast statistics are
+merged over both parts (`joint_fast_sft`), its magnitudes are taken one bit
+lower (`MAG_SHIFT_COMPLEX`) and summed.
 
 These are the plain PyTorch versions the Hopper kernels are held to
 (`gemmul8_tpu_torch.hopper.kernels`). They run on any device; integers are
@@ -130,6 +133,30 @@ def fast_sft(x: torch.Tensor, num_moduli: int, axis: int) -> torch.Tensor:
     return sft_from_stats(emax, nrm2, anyfinite, x.shape[axis], num_moduli)
 
 
+def merge_stats(re_stats, im_stats):
+    """Joint (emax, nrm2, anyfinite) of a complex operand from those of its
+    Re and Im parts: the larger exponent, each norm rescaled to it by an
+    exact power of two (two products, then one add, each rounded in f32)
+    and the flags or-ed; the counterpart of the JAX package's
+    `_joint_sft_pallas` merge."""
+    er, sr, ar = re_stats
+    ei, si, ai = im_stats
+    emax = torch.maximum(er, ei)
+    nrm2 = sr * _pow2_f32(2 * (er - emax)) + si * _pow2_f32(2 * (ei - emax))
+    return emax, nrm2, ar | ai
+
+
+def joint_fast_sft(re: torch.Tensor, im: torch.Tensor, num_moduli: int,
+                   axis: int, stats=fast_stats) -> torch.Tensor:
+    """The fast-mode shift Re and Im of a complex operand share: each row
+    (axis=1) or column (axis=0) gets the shift of its joint norm over both
+    parts, with the norm guard of 2k terms. `stats` takes the per-part
+    statistics (the plain `fast_stats`, or the kernel's wrapper)."""
+    emax, nrm2, anyfinite = merge_stats(stats(re, axis), stats(im, axis))
+    return sft_from_stats(emax, nrm2, anyfinite, 2 * re.shape[axis],
+                          num_moduli)
+
+
 def _shifted_value_words(chunks, q, q_max_static: int):
     """32-bit words (int64, masked) of v = trunc(mant53 * 2^q).
 
@@ -211,19 +238,22 @@ def encode_slices(x: torch.Tensor, sft: torch.Tensor, num_moduli: int,
 # per-row/col shifts from the product-magnitude maxima.
 # ---------------------------------------------------------------------------
 
-_MAG_SHIFT = 5   # magnitudes ceil(|x| * 2^(5 - ilogb(amax))) lie in [0, 64]
+MAG_SHIFT = 5   # magnitudes ceil(|x| * 2^(5 - ilogb(amax))) lie in [0, 64]
+# complex: parts lie in [0, 32], so |Re| + |Im| <= 64 cannot wrap int8
+MAG_SHIFT_COMPLEX = 4
 
 
-def _extract_mag7(chunks, exp, emax):
-    """ceil(|x| * 2^(5 - (emax - 1023))) as int8 in [0, 64] for f64 fields.
+def _extract_mag7(chunks, exp, emax, mag_shift: int = MAG_SHIFT):
+    """ceil(|x| * 2^(mag_shift - (emax - 1023))) as int8 in
+    [0, 2^(mag_shift + 1)] for f64 fields.
 
     |x| = mant53 * 2^(exp - 1075), so the scaled value is mant53 >> u with
-    u = emax + 47 - exp, rounded up when any dropped bit is set. The JAX
-    package works on two 32-bit words; a 64-bit word gives the same bits
-    (u is clipped to [0, 63] in both)."""
+    u = emax + 52 - mag_shift - exp, rounded up when any dropped bit is
+    set. The JAX package works on two 32-bit words; a 64-bit word gives the
+    same bits (u is clipped to [0, 63] in both)."""
     mant = (chunks[0] | (chunks[1] << 16) | (chunks[2] << 32)
             | (chunks[3] << 48))
-    u = torch.clamp(emax + (52 - _MAG_SHIFT) - exp, 0, 63)
+    u = torch.clamp(emax + (52 - mag_shift) - exp, 0, 63)
     v = mant >> u
     sticky = (v << u) != mant
     return (v + sticky.to(torch.int64)).to(torch.int8)
@@ -240,16 +270,18 @@ def emax(x: torch.Tensor, axis: int) -> torch.Tensor:
         torch.int32)
 
 
-def mag7(x: torch.Tensor, emax: torch.Tensor, axis: int) -> torch.Tensor:
+def mag7(x: torch.Tensor, emax: torch.Tensor, axis: int,
+         mag_shift: int = MAG_SHIFT) -> torch.Tensor:
     """Round-up 7-bit magnitudes of x below its row (axis=1) or column
-    (axis=0) max exponent `emax`: int8 of x's shape, values in [0, 64]."""
+    (axis=0) max exponent `emax`: int8 of x's shape, values in
+    [0, 2^(mag_shift + 1)] ([0, 64] at the real path's shift 5)."""
     if x.dtype != torch.float64 or x.dim() != 2:
         raise TypeError("mag7 expects a 2-D float64 tensor")
     want = (x.shape[0], 1) if axis == 1 else (1, x.shape[1])
     if tuple(emax.shape) != want:
         raise ValueError(f"emax shape {tuple(emax.shape)}, expected {want}")
     chunks, exp, _, _ = _f64_fields(x)
-    return _extract_mag7(chunks, exp, emax.to(torch.int64))
+    return _extract_mag7(chunks, exp, emax.to(torch.int64), mag_shift)
 
 
 def _accurate_pre_floor(smax: torch.Tensor, num_moduli: int):
@@ -265,22 +297,25 @@ def _accurate_pre_floor(smax: torch.Tensor, num_moduli: int):
     return log2s * -0.51 + float(tables.threshold_accurate(num_moduli))
 
 
-def accurate_sft(smax: torch.Tensor, emax: torch.Tensor,
-                 num_moduli: int) -> torch.Tensor:
-    """Accurate-mode shift from the |A| x |B| row/col max `smax` and the
-    operand's max exponent, in f32 as the JAX package takes it:
-    min(5 - e + floor(-0.51 * log2(max(smax, 1)) + T), T - 1 - e) with
-    e = emax - 1023. All-zero rows and columns get T - 1 + 1023."""
+def accurate_sft(smax: torch.Tensor, emax: torch.Tensor, num_moduli: int,
+                 mag_shift: int = MAG_SHIFT) -> torch.Tensor:
+    """Accurate-mode shift from the |A| x |B| row/col max `smax` of
+    magnitudes taken at `mag_shift` and the operand's max exponent, in f32
+    as the JAX package takes it:
+    min(s - e + floor(-0.51 * log2(max(smax, 1)) + T), T - 1 - e) with
+    e = emax - 1023 and s = mag_shift. All-zero rows and columns get
+    T - 1 + 1023."""
     t_a = tables.threshold_accurate(num_moduli)
     e = emax.to(torch.int64) - _BIAS
     v = torch.floor(_accurate_pre_floor(smax, num_moduli)).to(torch.int64)
-    sft = torch.minimum(_MAG_SHIFT - e + v, t_a - 1 - e)
+    sft = torch.minimum(mag_shift - e + v, t_a - 1 - e)
     return sft.to(torch.int32)
 
 
 def accurate_sft_floor_frac(smax: torch.Tensor, num_moduli: int):
     """Distance of accurate_sft's pre-floor value from its nearest integer.
     Where it is tiny, two implementations of the f32 log2 may legally give
-    shifts that differ by 1 (both are valid encodings)."""
+    shifts that differ by 1 (both are valid encodings). The magnitude shift
+    only offsets the floored value, so this holds for either."""
     v = _accurate_pre_floor(smax, num_moduli)
     return torch.minimum(v - torch.floor(v), torch.ceil(v) - v)

@@ -1,6 +1,7 @@
 """Per-modulus int8 slice products and their modular reduction.
 
-Counterpart of `gemmul8_tpu/core/slicegemm.py`. The plain product runs as a
+Counterpart of `gemmul8_tpu/core/slicegemm.py`, and of the complex residue
+products of `gemmul8_tpu/core/complexgemm.py`. The plain product runs as a
 float64 matrix product of the int8 slices: every partial sum is an integer
 of magnitude at most 128 * 128 * 2^17 = 2^31 < 2^53, so it is exact on any
 device and at any shape.
@@ -44,6 +45,70 @@ def matmul_mod(a8: torch.Tensor, b8: torch.Tensor, num_moduli: int,
         out.append((r - 128).to(torch.int8) if centered
                    else r.to(torch.uint8))
     return torch.stack(out)
+
+
+def recenter_add_int8(x8: torch.Tensor, y8: torch.Tensor,
+                      num_moduli: int) -> torch.Tensor:
+    """(L, ...) int8 residues x + y mod m_j, centered: for odd m_j in
+    [-(m_j - 1)/2, (m_j - 1)/2], for 256 in [-128, 127] (the sum's low
+    byte). The Karatsuba sum slices; the counterpart of the JAX package's
+    `_recenter_add_int8`, for any int8 inputs. Plain tensor ops on x8's
+    device, in int16: ((x + y + h) mod m) - h with h = (m - 1) / 2, or 128
+    for 256."""
+    if x8.dtype != torch.int8 or y8.dtype != torch.int8:
+        raise TypeError("slices must be int8")
+    if x8.shape != y8.shape or x8.shape[0] != num_moduli:
+        raise ValueError(f"expected two ({num_moduli}, ...) slices of one "
+                         "shape")
+    mods = tables.MODULI[:num_moduli]
+    shape = (num_moduli,) + (1,) * (x8.dim() - 1)
+    m = torch.tensor(mods, dtype=torch.int16, device=x8.device).view(shape)
+    h = torch.tensor([128 if mj == 256 else (mj - 1) // 2 for mj in mods],
+                     dtype=torch.int16, device=x8.device).view(shape)
+    t = x8.to(torch.int16) + y8
+    return (torch.remainder(t + h, m) - h).to(torch.int8)
+
+
+def matmul_complex_mod(a8r, a8i, b8r, b8i, num_moduli: int,
+                       centered: bool = False, kara=None):
+    """Re and Im residues of the complex slice products
+    (a8r + i a8i)(b8r + i b8i), (L, m, k) x (L, k, n) int8 each:
+    (RR - II, IR + RI) mod m_l, or with kara = (s_a, s_b), the Karatsuba
+    sum slices, (E - F, G - E - F) for E = RR, F = II, G = s_a s_b. Both
+    forms give the same residues. Canonical uint8, or r - 128 as int8 when
+    centered; one modulus at a time, to bound the f64 temporaries."""
+    check_complex_args(a8r, a8i, b8r, b8i, num_moduli, kara)
+    outs = ([], [])
+    for l in range(a8r.shape[0]):
+        def prod(x, y):
+            return (x[l].double() @ y[l].double()).to(torch.int64)
+        if kara is None:
+            re = prod(a8r, b8r) - prod(a8i, b8i)
+            im = prod(a8i, b8r) + prod(a8r, b8i)
+        else:
+            e, f = prod(a8r, b8r), prod(a8i, b8i)
+            re, im = e - f, prod(*kara) - e - f
+        for v, out in zip((re, im), outs):
+            r = mod_reduce(v[None], num_moduli, (l,))[0]
+            out.append((r - 128).to(torch.int8) if centered
+                       else r.to(torch.uint8))
+    return torch.stack(outs[0]), torch.stack(outs[1])
+
+
+def check_complex_args(a8r, a8i, b8r, b8i, num_moduli: int, kara=None):
+    """The complex product's slices: A's parts (L, m, k), B's (L, k, n),
+    and with kara the sums s_a (L, m, k) and s_b (L, k, n); k <= 2^16."""
+    _check_matmul_args(a8r, b8r, num_moduli)
+    a_parts = (a8r, a8i) if kara is None else (a8r, a8i, kara[0])
+    b_parts = (b8r, b8i) if kara is None else (b8r, b8i, kara[1])
+    for x in a_parts + b_parts:
+        if x.dtype != torch.int8:
+            raise TypeError("slices must be int8")
+    if any(x.shape != a8r.shape for x in a_parts) or any(
+            x.shape != b8r.shape for x in b_parts):
+        raise ValueError("the parts of each operand must have one shape")
+    if a8r.shape[2] > tables.MAX_K // 2:
+        raise ValueError(f"k={a8r.shape[2]} exceeds the complex bound 2^16")
 
 
 def magmax(mag_a: torch.Tensor, mag_b: torch.Tensor):

@@ -1,6 +1,11 @@
-// Fast-mode ("vecnorm") shift selection per row of A or per column of B.
+// Fast-mode ("vecnorm") shift selection per row of A or per column of B,
+// or (gm8_fast_stats) the raw statistics the shift is taken from: the max
+// biased exponent, the f32 squared norm relative to it and the any-nonzero
+// flag, which the complex path merges over Re and Im before it takes one
+// shared shift.
 //
-// Replaces: fast_sft_pallas, gemmul8_tpu/pallas/kernels.py:54.
+// Replaces: fast_sft_pallas, gemmul8_tpu/pallas/kernels.py:54 (both its
+// modes; return_stats=True is the second).
 // Bound on the H100: device-memory bytes. Each f64 element is read once
 // (8 bytes) for a handful of integer and f32 operations; at 8192^2 that is
 // 0.5 GB per operand, about 0.16 ms at 3.35 TB/s.
@@ -13,7 +18,9 @@
 // of rows over 16 threads per column; each thread reads its rows twice
 // (max, then norm) instead of holding them. The sum order inside a chunk
 // differs from XLA's, so a shift may differ by 1 where the floored value
-// lies within f32 rounding of an integer (sft_floor_frac < 1e-4).
+// lies within f32 rounding of an integer (sft_floor_frac < 1e-4). The two
+// modes share the kernel bodies; a template flag picks the final store, so
+// the shift mode compiles as it did before the stats mode existed.
 #include "common.cuh"
 
 namespace {
@@ -64,6 +71,29 @@ __device__ __forceinline__ int sft_from_stats(int emax, float nrm2, int any,
   return any ? s : 0;
 }
 
+// outputs of the stats mode: per row or column the max biased exponent,
+// the f32 squared norm relative to it and the any-nonzero flag
+struct StatsOut {
+  long long* emax;
+  float* nrm2;
+  bool* any;
+};
+
+// the shift (kStats false) or the raw statistics (kStats true) of row or
+// column i
+template <bool kStats>
+__device__ __forceinline__ void store(int* out, const StatsOut& st, int i,
+                                      int emax, float nrm2, int any, int t_f,
+                                      float guard) {
+  if constexpr (kStats) {
+    st.emax[i] = emax;
+    st.nrm2[i] = nrm2;
+    st.any[i] = any != 0;
+  } else {
+    out[i] = sft_from_stats(emax, nrm2, any, t_f, guard);
+  }
+}
+
 __device__ __forceinline__ int block_max(int v, int* sh) {
   for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(~0u, v, o));
   __syncthreads();
@@ -85,9 +115,10 @@ __device__ __forceinline__ float block_sum(float v, float* sh) {
   return v;
 }
 
+template <bool kStats>
 __global__ void __launch_bounds__(kRowThreads)
 sft_rows(const unsigned long long* __restrict__ x, int* __restrict__ out,
-         int kdim, int t_f, float guard) {
+         StatsOut st, int kdim, int t_f, float guard) {
   constexpr int kPer = kChunk / kRowThreads;
   __shared__ int sh_i[kRowThreads / 32];
   __shared__ float sh_f[kRowThreads / 32];
@@ -127,12 +158,13 @@ sft_rows(const unsigned long long* __restrict__ x, int* __restrict__ out,
     }
   }
   if (threadIdx.x == 0)
-    out[blockIdx.x] = sft_from_stats(e_acc, s_acc, any_acc, t_f, guard);
+    store<kStats>(out, st, blockIdx.x, e_acc, s_acc, any_acc, t_f, guard);
 }
 
+template <bool kStats>
 __global__ void __launch_bounds__(kColX * kColY)
 sft_cols(const unsigned long long* __restrict__ x, int* __restrict__ out,
-         int kdim, int cols, int t_f, float guard) {
+         StatsOut st, int kdim, int cols, int t_f, float guard) {
   constexpr int kRows = kChunk / kColY;
   __shared__ int sh_e[kColY][kColX];
   __shared__ int sh_a[kColY][kColX];
@@ -188,7 +220,22 @@ sft_cols(const unsigned long long* __restrict__ x, int* __restrict__ out,
     }
   }
   if (valid && ty == 0)
-    out[col] = sft_from_stats(e_acc, s_acc, any_acc, t_f, guard);
+    store<kStats>(out, st, col, e_acc, s_acc, any_acc, t_f, guard);
+}
+
+template <bool kStats>
+int launch(const void* x, int* out, const StatsOut& st, int rows, int kdim,
+           int axis, int t_f, float guard, cudaStream_t s) {
+  auto xp = static_cast<const unsigned long long*>(x);
+  if (axis == 1) {
+    sft_rows<kStats><<<rows, kRowThreads, 0, s>>>(xp, out, st, kdim, t_f,
+                                                  guard);
+  } else {
+    dim3 block(kColX, kColY);
+    sft_cols<kStats><<<(rows + kColX - 1) / kColX, block, 0, s>>>(
+        xp, out, st, kdim, rows, t_f, guard);
+  }
+  return gm8::launch_status();
 }
 
 }  // namespace
@@ -197,15 +244,16 @@ sft_cols(const unsigned long long* __restrict__ x, int* __restrict__ out,
 // out: rows int32 shifts. t_f: tables.threshold_fast; guard: f32(1+k*2^-23).
 GM8_EXPORT int gm8_fast_sft(const void* x, void* out, int rows, int kdim,
                             int axis, int t_f, float guard, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  auto xp = static_cast<const unsigned long long*>(x);
-  auto op = static_cast<int*>(out);
-  if (axis == 1) {
-    sft_rows<<<rows, kRowThreads, 0, s>>>(xp, op, kdim, t_f, guard);
-  } else {
-    dim3 block(kColX, kColY);
-    sft_cols<<<(rows + kColX - 1) / kColX, block, 0, s>>>(xp, op, kdim,
-                                                          rows, t_f, guard);
-  }
-  return gm8::launch_status();
+  return launch<false>(x, static_cast<int*>(out), StatsOut{}, rows, kdim,
+                       axis, t_f, guard, static_cast<cudaStream_t>(stream));
+}
+
+// x as for gm8_fast_sft. emax: rows int64; nrm2: rows f32; any: rows bool.
+GM8_EXPORT int gm8_fast_stats(const void* x, void* emax, void* nrm2,
+                              void* any, int rows, int kdim, int axis,
+                              void* stream) {
+  const StatsOut st{static_cast<long long*>(emax), static_cast<float*>(nrm2),
+                    static_cast<bool*>(any)};
+  return launch<true>(x, nullptr, st, rows, kdim, axis, 0, 0.0f,
+                      static_cast<cudaStream_t>(stream));
 }

@@ -1,6 +1,8 @@
 // Accurate-mode operand statistics: the max biased exponent of each row
 // (axis=1) or column (axis=0) of an f64 operand, and the round-up 7-bit
-// magnitudes below it, ceil(|x| * 2^(5 - (emax - 1023))) in [0, 64].
+// magnitudes below it, ceil(|x| * 2^(s - (emax - 1023))) in [0, 2^(s+1)]
+// for the magnitude shift s: 5 on the real path (<= 64), 4 on the complex
+// path, whose |Re| + |Im| sums (<= 32 + 32) must not wrap int8.
 //
 // Replaces: emax_pallas (gemmul8_tpu/pallas/kernels.py:333) and
 // mag7_pallas (gemmul8_tpu/pallas/kernels.py:408).
@@ -38,14 +40,14 @@ __device__ __forceinline__ int exp_nonzero(unsigned long long bits) {
   return (bits << 1) == 0ull ? 0 : max(e, 1);
 }
 
-// ceil(|x| * 2^(5 - (emax - 1023))) mod 256 (in [0, 64] when emax is the
-// max exponent of x's row or column)
+// ceil(|x| * 2^(mag_shift - (emax - 1023))) mod 256 (in [0, 2^(mag_shift
+// + 1)] when emax is the max exponent of x's row or column)
 __device__ __forceinline__ unsigned mag7_byte(unsigned long long bits,
-                                              int emax) {
+                                              int emax, int mag_shift) {
   const int e = static_cast<int>((bits >> 52) & 0x7FF);
   const unsigned long long mant =
       (bits & ((1ull << 52) - 1)) | (e > 0 ? (1ull << 52) : 0ull);
-  const int u = min(max(emax + 47 - max(e, 1), 0), 63);
+  const int u = min(max(emax + 52 - mag_shift - max(e, 1), 0), 63);
   const unsigned long long v = mant >> u;
   return static_cast<unsigned>(v + ((v << u) != mant ? 1ull : 0ull)) & 0xFFu;
 }
@@ -94,7 +96,7 @@ emax_cols(const unsigned long long* __restrict__ x, int* __restrict__ out,
 __global__ void __launch_bounds__(kThreads)
 mag7_rows(const unsigned long long* __restrict__ x,
           const int* __restrict__ emax, unsigned* __restrict__ out,
-          int rows, int kdim, int ld_words) {
+          int rows, int kdim, int ld_words, int mag_shift) {
   const int w = blockIdx.x * kThreads + threadIdx.x;
   if (w >= ld_words) return;
   for (int row = blockIdx.y; row < rows; row += gridDim.y) {
@@ -104,7 +106,7 @@ mag7_rows(const unsigned long long* __restrict__ x,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int k = 4 * w + i;
-      if (k < kdim) word |= mag7_byte(xr[k], e) << (8 * i);
+      if (k < kdim) word |= mag7_byte(xr[k], e, mag_shift) << (8 * i);
     }
     out[static_cast<size_t>(row) * ld_words + w] = word;
   }
@@ -114,7 +116,7 @@ mag7_rows(const unsigned long long* __restrict__ x,
 __global__ void __launch_bounds__(kThreads)
 mag7_cols(const unsigned long long* __restrict__ x,
           const int* __restrict__ emax, unsigned char* __restrict__ out,
-          int kdim, int cols, int ld) {
+          int kdim, int cols, int ld, int mag_shift) {
   // [column][k]; a row of 68 bytes keeps the byte stores of a warp (32
   // neighbouring columns, one k) on 32 different banks
   __shared__ __align__(16) unsigned char sm[kT][kT + 4];
@@ -127,7 +129,7 @@ mag7_cols(const unsigned long long* __restrict__ x,
     const int k = k0 + r;
     const unsigned long long bits =
         col < cols && k < kdim ? x[static_cast<size_t>(k) * cols + col] : 0ull;
-    sm[c][r] = static_cast<unsigned char>(mag7_byte(bits, e));
+    sm[c][r] = static_cast<unsigned char>(mag7_byte(bits, e, mag_shift));
   }
   __syncthreads();
   // kT columns x kT / 4 words of k; ld % 4 == 0, so a word past kdim is
@@ -164,10 +166,11 @@ GM8_EXPORT int gm8_emax(const void* x, void* out, int rows, int kdim,
 
 // x as for gm8_emax; emax: rows int32 (the max exponents); out: (rows, ld)
 // int8 magnitudes, K-major for both axes, ld >= kdim, ld % 4 == 0, with
-// zeros in [kdim, ld).
+// zeros in [kdim, ld); mag_shift in [0, 6] (5 real, 4 complex).
 GM8_EXPORT int gm8_mag7(const void* x, const void* emax, void* out,
-                        int rows, int kdim, int axis, int ld, void* stream) {
-  if (ld % 4 != 0 || ld < kdim)
+                        int rows, int kdim, int axis, int ld, int mag_shift,
+                        void* stream) {
+  if (ld % 4 != 0 || ld < kdim || mag_shift < 0 || mag_shift > 6)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   auto xp = static_cast<const unsigned long long*>(x);
@@ -177,12 +180,12 @@ GM8_EXPORT int gm8_mag7(const void* x, const void* emax, void* out,
     dim3 grid((ld_words + kThreads - 1) / kThreads,
               rows < 65535 ? rows : 65535);
     mag7_rows<<<grid, kThreads, 0, s>>>(xp, ep, static_cast<unsigned*>(out),
-                                        rows, kdim, ld_words);
+                                        rows, kdim, ld_words, mag_shift);
   } else {
     dim3 grid((rows + kT - 1) / kT, (ld + kT - 1) / kT);
     if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
     mag7_cols<<<grid, kThreads, 0, s>>>(
-        xp, ep, static_cast<unsigned char*>(out), kdim, rows, ld);
+        xp, ep, static_cast<unsigned char*>(out), kdim, rows, ld, mag_shift);
   }
   return gm8::launch_status();
 }

@@ -10,9 +10,9 @@
 // (s8 x s8 -> s32) wants both operands K-major. A (L, m, k) is; B
 // (L, k, n) is not, so a first kernel copies B into a K-major workspace
 // (L, n, kp), kp = k rounded up to 16 with zeros (one 1-byte-per-element
-// pass, small next to the product). The GEMM kernel then computes a
-// 128 x 128 tile of one modulus with the tile of mma_s8.cuh (8 warps of
-// mma.sync, a 3-stage cp.async ring, swizzled ldmatrix loads). The
+// pass, small next to the product; transpose_b.cuh). The GEMM kernel then
+// computes a 128 x 128 tile of one modulus with the tile of mma_s8.cuh (8
+// warps of mma.sync, a 3-stage cp.async ring, swizzled ldmatrix loads). The
 // accumulator is the hardware's wrapping int32: the modulus-256 lane can
 // reach 128 * 128 * 2^17 = 2^31, which wraps to a multiple of 256, so its
 // residue stays right; the odd lanes stay below 2^31. The epilogue reduces
@@ -20,6 +20,7 @@
 // for later work.
 #include "common.cuh"
 #include "mma_s8.cuh"
+#include "transpose_b.cuh"
 
 namespace {
 
@@ -33,55 +34,6 @@ __constant__ int c_moduli[gm8::kMaxModuli] = {
     GM8_FOR_MODULI(GM8_MOD_VALUE)
 #undef GM8_MOD_VALUE
 };
-
-// ---- B (L, k, n) -> K-major workspace (L, n, kp), zero-padded ----------
-constexpr int kTT = 64;  // transpose tile: 64 k x 64 n bytes
-
-__global__ void __launch_bounds__(256)
-transpose_b_kernel(const signed char* __restrict__ b,
-                   signed char* __restrict__ bt, int k, int n, int kp) {
-  __shared__ unsigned sm[kTT][kTT / 4 + 1];  // [n][k word]
-  const int l = blockIdx.z;
-  const int n0 = blockIdx.x * kTT, k0 = blockIdx.y * kTT;
-  const signed char* bl = b + static_cast<size_t>(l) * k * n;
-  signed char* btl = bt + static_cast<size_t>(l) * n * kp;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;  // 4x4 blocks
-  unsigned w[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int kk = k0 + ty * 4 + r, nn = n0 + tx * 4;
-    unsigned v = 0;
-    if (kk < k) {
-      const signed char* p = bl + static_cast<size_t>(kk) * n + nn;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (nn + i < n)
-          v |= static_cast<unsigned>(static_cast<unsigned char>(p[i]))
-               << (8 * i);
-    }
-    w[r] = v;
-  }
-  // 4 x 4 byte transpose: word c holds column tx*4+c at k = ty*4..+3
-  unsigned t0 = __byte_perm(w[0], w[1], 0x5140);
-  unsigned t1 = __byte_perm(w[2], w[3], 0x5140);
-  unsigned t2 = __byte_perm(w[0], w[1], 0x7362);
-  unsigned t3 = __byte_perm(w[2], w[3], 0x7362);
-  sm[tx * 4 + 0][ty] = __byte_perm(t0, t1, 0x5410);
-  sm[tx * 4 + 1][ty] = __byte_perm(t0, t1, 0x7632);
-  sm[tx * 4 + 2][ty] = __byte_perm(t2, t3, 0x5410);
-  sm[tx * 4 + 3][ty] = __byte_perm(t2, t3, 0x7632);
-  __syncthreads();
-  // rows of bt are kp bytes, kp % 16 == 0: word stores stay aligned
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int idx = threadIdx.x + i * 256;
-    const int nr = idx >> 4, kw = idx & 15;
-    const int nn = n0 + nr, kk = k0 + kw * 4;
-    if (nn < n && kk < kp)
-      *reinterpret_cast<unsigned*>(btl + static_cast<size_t>(nn) * kp + kk) =
-          sm[nr][kw];
-  }
-}
 
 // ---- the GEMM ------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads, 2)
@@ -137,9 +89,7 @@ GM8_EXPORT int gm8_matmul_mod_u8(const void* a8, const void* b8, void* bt,
   if (kp % 16 != 0 || kp < k) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   auto btp = static_cast<signed char*>(bt);
-  dim3 tgrid((n + kTT - 1) / kTT, (kp + kTT - 1) / kTT, L);
-  transpose_b_kernel<<<tgrid, 256, 0, s>>>(
-      static_cast<const signed char*>(b8), btp, k, n, kp);
+  gm8::transpose_b(static_cast<const signed char*>(b8), btp, L, k, n, kp, s);
   cudaFuncSetAttribute(matmul_mod_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        kSmemBytes);

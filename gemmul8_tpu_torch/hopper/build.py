@@ -1,10 +1,12 @@
 """Lazy build and ctypes binding of the Hopper kernels.
 
-All `csrc/*.cu` files compile with nvcc into one shared library with a
-plain C interface:
+Each `csrc/*.cu` file compiles with its own nvcc process, all started
+together, and the objects link into one shared library with a plain C
+interface:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
-         -shared -Xcompiler -fPIC
+         -Xcompiler -fPIC -c <source>.cu      (one per source, in parallel)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared <objects>
 
 `-fmad=false` keeps every f32 multiply and add a separate rounding, as in
 the plain versions (the Barrett and quotient-estimate budgets assume it).
@@ -34,8 +36,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+              "-fPIC")
 
 # launches of each kernel wrapper; reset by the caller that reads them
 LAUNCHES: collections.Counter = collections.Counter()
@@ -46,6 +49,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # x, out_sft, rows, kdim, axis, t_f, guard, stream
     "gm8_fast_sft": [_P, _P, _I, _I, _I, _I, _F, _P],
+    # x, out_emax, out_nrm2, out_any, rows, kdim, axis, stream
+    "gm8_fast_stats": [_P, _P, _P, _P, _I, _I, _I, _P],
     # x, sft, out, d0, d1, axis, num_moduli, q_max, stream
     "gm8_encode_slices": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # a8, b8, bt (workspace), out, L, m, n, k, kp, centered, stream
@@ -56,10 +61,13 @@ _SIGNATURES = {
     "gm8_reconstruct_f64": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, out_emax, rows, kdim, axis, stream
     "gm8_emax": [_P, _P, _I, _I, _I, _P],
-    # x, emax, out, rows, kdim, axis, ld, stream
-    "gm8_mag7": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # x, emax, out, rows, kdim, axis, ld, mag_shift, stream
+    "gm8_mag7": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # a, lda, bt, ldb, row_max, col_max, m, n, k, stream
     "gm8_magmax_matmul": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _P],
+    # ar, ai, sa, br, bi, sb, bt (workspaces), out_re, out_im, L, m, n, k,
+    # kp, centered, kara, stream
+    "gm8_matmul_complex_mod": [_P] * 9 + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()
@@ -88,17 +96,38 @@ def _build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-           *[str(s) for s in srcs if s.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs, procs = [], []
+        for src in (s for s in srcs if s.suffix == ".cu"):
+            obj = os.path.join(tmpdir, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o",
+                   obj]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        # wait for every compile before raising, so none is left running
+        errors = [e for e in (_wait(cmd, proc) for cmd, proc in procs) if e]
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        lib_tmp = os.path.join(tmpdir, out.name)
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", lib_tmp, *objs]
+        error = _wait(link, subprocess.Popen(
+            link, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        if error:
+            raise RuntimeError(error)
+        os.replace(lib_tmp, out)
     return out
+
+
+def _wait(cmd: list, proc: subprocess.Popen) -> str:
+    """'' once proc has exited with 0, else its command and output."""
+    stdout, stderr = proc.communicate()
+    if proc.returncode == 0:
+        return ""
+    return (f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{stdout}\n{stderr}")
 
 
 def lib() -> ctypes.CDLL:

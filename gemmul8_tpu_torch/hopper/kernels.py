@@ -6,6 +6,7 @@ never falls back. The plain versions (`*_plain`) are the functions of
 `gemmul8_tpu_torch.core` the kernels are held to.
 
     fast_sft       csrc/fast_sft.cu     <- pallas/kernels.py fast_sft_pallas
+    fast_stats     csrc/fast_sft.cu     <- the same, with return_stats=True
     emax           csrc/mag7.cu         <- pallas/kernels.py emax_pallas
     mag7           csrc/mag7.cu         <- pallas/kernels.py mag7_pallas
     encode_slices  csrc/encode.cu       <- pallas/kernels.py encode_slices_pallas
@@ -23,6 +24,7 @@ from ..core import reconstruct as rec
 from . import build
 
 fast_sft_plain = enc.fast_sft
+fast_stats_plain = enc.fast_stats
 emax_plain = enc.emax
 mag7_plain = enc.mag7
 encode_slices_plain = enc.encode_slices
@@ -68,6 +70,28 @@ def fast_sft(x: torch.Tensor, num_moduli: int, axis: int) -> torch.Tensor:
     return out
 
 
+def fast_stats(x: torch.Tensor, axis: int):
+    """Fast-mode statistics (emax int64, nrm2 f32, anyfinite bool), each
+    (m, 1) for axis=1 or (1, n) for axis=0: what fast_sft takes its shift
+    from, for the complex path to merge over Re and Im."""
+    _check_f64(x)
+    rows, kdim = _rows_kdim(x, axis)
+    if _on_cpu(x):
+        return fast_stats_plain(x, axis)
+    build.require_cuda(x)
+    shape = (rows, 1) if axis == 1 else (1, rows)
+    out = (torch.empty(shape, dtype=torch.int64, device=x.device),
+           torch.empty(shape, dtype=torch.float32, device=x.device),
+           torch.empty(shape, dtype=torch.bool, device=x.device))
+    with torch.cuda.device(x.device):
+        code = build.lib().gm8_fast_stats(
+            x.data_ptr(), *(t.data_ptr() for t in out), rows, kdim, axis,
+            build.stream_ptr(x.device))
+    build.check(code, "fast_stats")
+    build.LAUNCHES["fast_stats"] += 1
+    return out
+
+
 def emax(x: torch.Tensor, axis: int) -> torch.Tensor:
     """Max biased exponent over the nonzero elements of each row (axis=1,
     (m, 1)) or column (axis=0, (1, n)), int32."""
@@ -87,40 +111,79 @@ def emax(x: torch.Tensor, axis: int) -> torch.Tensor:
     return out
 
 
-def mag7(x: torch.Tensor, emax: torch.Tensor, axis: int) -> torch.Tensor:
-    """Round-up 7-bit magnitudes (int8 of x's shape, in [0, 64]) below the
-    row (axis=1) or column (axis=0) max exponents `emax`.
+def _check_emax(x: torch.Tensor, emax: torch.Tensor, axis: int):
+    rows, _ = _rows_kdim(x, axis)
+    want = (rows, 1) if axis == 1 else (1, rows)
+    if tuple(emax.shape) != want:
+        raise ValueError(f"emax shape {tuple(emax.shape)}, expected {want}")
+
+
+def _mag7_buffer(x: torch.Tensor, emax: torch.Tensor, axis: int,
+                 mag_shift: int) -> torch.Tensor:
+    """The mag7 kernel's output: (rows, ld) int8, K-major for both axes,
+    ld = k rounded up to 16, zeros in the padding."""
+    if emax.dtype != torch.int32:
+        raise TypeError("emax must be int32")
+    build.require_cuda(x, emax)
+    rows, kdim = _rows_kdim(x, axis)
+    ld = -(-kdim // 16) * 16
+    out = torch.empty((rows, ld), dtype=torch.int8, device=x.device)
+    with torch.cuda.device(x.device):
+        code = build.lib().gm8_mag7(x.data_ptr(), emax.data_ptr(),
+                                    out.data_ptr(), rows, kdim, axis, ld,
+                                    mag_shift, build.stream_ptr(x.device))
+    build.check(code, "mag7")
+    build.LAUNCHES["mag7"] += 1
+    return out
+
+
+def _mag7_view(buf: torch.Tensor, kdim: int, axis: int) -> torch.Tensor:
+    """x's shape over a `_mag7_buffer`: for axis=0 the transposed view."""
+    mag = buf[:, :kdim]
+    return mag if axis == 1 else mag.t()
+
+
+def mag7(x: torch.Tensor, emax: torch.Tensor, axis: int,
+         mag_shift: int = enc.MAG_SHIFT) -> torch.Tensor:
+    """Round-up magnitudes (int8 of x's shape, in [0, 2^(mag_shift + 1)])
+    below the row (axis=1) or column (axis=0) max exponents `emax`.
 
     On the card the values sit K-major in a buffer whose rows are padded
     to a multiple of 16 bytes: for axis=0 the result is the transposed
     view of an (n, k) buffer. That is the layout `magmax_matmul` reads
     without a copy; the values are those of the plain version."""
     _check_f64(x)
-    rows, kdim = _rows_kdim(x, axis)
-    want = (rows, 1) if axis == 1 else (1, rows)
-    if tuple(emax.shape) != want:
-        raise ValueError(f"emax shape {tuple(emax.shape)}, expected {want}")
+    _check_emax(x, emax, axis)
     if _on_cpu(x):
-        return mag7_plain(x, emax, axis)
-    if emax.dtype != torch.int32:
-        raise TypeError("emax must be int32")
-    build.require_cuda(x, emax)
-    ld = -(-kdim // 16) * 16
-    out = torch.empty((rows, ld), dtype=torch.int8, device=x.device)
-    with torch.cuda.device(x.device):
-        code = build.lib().gm8_mag7(x.data_ptr(), emax.data_ptr(),
-                                    out.data_ptr(), rows, kdim, axis, ld,
-                                    build.stream_ptr(x.device))
-    build.check(code, "mag7")
-    build.LAUNCHES["mag7"] += 1
-    mag = out[:, :kdim]
-    return mag if axis == 1 else mag.t()
+        return mag7_plain(x, emax, axis, mag_shift)
+    return _mag7_view(_mag7_buffer(x, emax, axis, mag_shift), x.shape[axis],
+                      axis)
 
 
 def mag7_operand(x: torch.Tensor, axis: int):
     """(magnitudes, emax) of one operand: the emax kernel, then mag7."""
     e = emax(x, axis)
     return mag7(x, e, axis), e
+
+
+def mag7_operand_complex(re: torch.Tensor, im: torch.Tensor, axis: int):
+    """(magnitudes, emax) of a complex operand: emax of each part, their
+    max, then |Re| + |Im| of the parts' magnitudes at MAG_SHIFT_COMPLEX
+    (each <= 32, so the int8 sum <= 64). On the card the sum is taken in
+    place on the padded K-major buffer, so `magmax_matmul` still reads it
+    without a copy. The counterpart of the JAX package's
+    `_mag7_complex_pallas`."""
+    _check_f64(re)
+    _check_f64(im)
+    if re.shape != im.shape:
+        raise ValueError("Re and Im must have one shape")
+    e = torch.maximum(emax(re, axis), emax(im, axis))
+    shift = enc.MAG_SHIFT_COMPLEX
+    if _on_cpu(re):
+        return mag7(re, e, axis, shift) + mag7(im, e, axis, shift), e
+    buf = _mag7_buffer(re, e, axis, shift)
+    buf += _mag7_buffer(im, e, axis, shift)
+    return _mag7_view(buf, re.shape[axis], axis), e
 
 
 def encode_slices(x: torch.Tensor, sft: torch.Tensor, num_moduli: int,

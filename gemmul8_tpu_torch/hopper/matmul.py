@@ -1,13 +1,17 @@
 """Wrappers of the int8 tensor-core GEMM kernels.
 
-    matmul_mod_u8  csrc/matmul_mod.cu  <- pallas/matmul.py matmul_mod_u8_pallas
-    magmax_matmul  csrc/magmax.cu      <- pallas/matmul.py magmax_matmul_pallas
+    matmul_mod_u8       csrc/matmul_mod.cu
+        <- pallas/matmul.py matmul_mod_u8_pallas
+    magmax_matmul       csrc/magmax.cu
+        <- pallas/matmul.py magmax_matmul_pallas
+    matmul_complex_mod  csrc/matmul_complex.cu
+        <- pallas/matmul.py matmul_complex_mod_pallas
 
 A CPU tensor takes the plain version (exact f64 products, then the mod or
-the row/col max); a CUDA tensor launches the kernel. matmul_mod_u8's kernel
-first copies B into a K-major workspace the wrapper allocates;
-magmax_matmul reads both operands K-major in place where their layout
-allows (as `hopper.kernels.mag7` writes them).
+the row/col max); a CUDA tensor launches the kernel. matmul_mod_u8's and
+matmul_complex_mod's kernels first copy each B operand into a K-major
+workspace the wrapper allocates; magmax_matmul reads both operands K-major
+in place where their layout allows (as `hopper.kernels.mag7` writes them).
 """
 
 from __future__ import annotations
@@ -20,6 +24,15 @@ from . import build
 
 matmul_mod_u8_plain = sg.matmul_mod
 magmax_plain = sg.magmax
+matmul_complex_mod_plain = sg.matmul_complex_mod
+
+
+def _pad_k(a8: torch.Tensor, kp: int) -> torch.Tensor:
+    """(L, m, k) int8 as the GEMM tile reads A: k zero-padded to kp (exact:
+    zero terms) and a 16-byte aligned start."""
+    if kp != a8.shape[2]:
+        return F.pad(a8, (0, kp - a8.shape[2]))
+    return a8.clone() if a8.data_ptr() % 16 else a8
 
 
 def matmul_mod_u8(a8: torch.Tensor, b8: torch.Tensor, num_moduli: int,
@@ -35,10 +48,7 @@ def matmul_mod_u8(a8: torch.Tensor, b8: torch.Tensor, num_moduli: int,
     # the kernel reads A in 16-byte chunks along k: pad k to a multiple of
     # 16 with zeros (exact: zero terms) and start on a 16-byte boundary
     kp = -(-k // 16) * 16
-    if kp != k:
-        a8 = F.pad(a8, (0, kp - k))
-    elif a8.data_ptr() % 16:
-        a8 = a8.clone()
+    a8 = _pad_k(a8, kp)
     bt = torch.empty((L, n, kp), dtype=torch.int8, device=a8.device)
     out = torch.empty((L, m, n), dtype=torch.int8 if centered else torch.uint8,
                       device=a8.device)
@@ -49,6 +59,45 @@ def matmul_mod_u8(a8: torch.Tensor, b8: torch.Tensor, num_moduli: int,
     build.check(code, "matmul_mod_u8")
     build.LAUNCHES["matmul_mod_u8"] += 1
     return out
+
+
+def matmul_complex_mod(a8r: torch.Tensor, a8i: torch.Tensor,
+                       b8r: torch.Tensor, b8i: torch.Tensor, num_moduli: int,
+                       centered: bool = False, kara=None):
+    """Re and Im residues of (a8r + i a8i)(b8r + i b8i) mod MODULI[l]:
+    (L, m, k) and (L, k, n) int8 parts -> two (L, m, n), canonical uint8 or
+    r - 128 int8 when centered. kara = (s_a, s_b), the recentered sum
+    slices, selects the 3-product Karatsuba form; both forms give the same
+    bits. k <= 2^16."""
+    sg.check_complex_args(a8r, a8i, b8r, b8i, num_moduli, kara)
+    a_ops = [a8r, a8i] + ([kara[0]] if kara is not None else [])
+    b_ops = [b8r, b8i] + ([kara[1]] if kara is not None else [])
+    if all(x.device.type == "cpu" for x in a_ops + b_ops):
+        return matmul_complex_mod_plain(a8r, a8i, b8r, b8i, num_moduli,
+                                        centered, kara)
+    build.require_cuda(*a_ops, *b_ops)
+    L, m, k = a8r.shape
+    n = b8r.shape[2]
+    kp = -(-k // 16) * 16
+    # each operand padded by its own shape: A's parts along k, B's parts
+    # into their own K-major workspaces (L, n, kp) by the kernel
+    a_ops = [_pad_k(x, kp) for x in a_ops]
+    bt = torch.empty((len(b_ops), L, n, kp), dtype=torch.int8,
+                     device=a8r.device)
+    odt = torch.int8 if centered else torch.uint8
+    out_re = torch.empty((L, m, n), dtype=odt, device=a8r.device)
+    out_im = torch.empty((L, m, n), dtype=odt, device=a8r.device)
+    sa = a_ops[2].data_ptr() if kara is not None else None
+    sb = b_ops[2].data_ptr() if kara is not None else None
+    with torch.cuda.device(a8r.device):
+        code = build.lib().gm8_matmul_complex_mod(
+            a_ops[0].data_ptr(), a_ops[1].data_ptr(), sa, b_ops[0].data_ptr(),
+            b_ops[1].data_ptr(), sb, bt.data_ptr(), out_re.data_ptr(),
+            out_im.data_ptr(), L, m, n, k, kp, int(centered),
+            int(kara is not None), build.stream_ptr(a8r.device))
+    build.check(code, "matmul_complex_mod")
+    build.LAUNCHES["matmul_complex_mod"] += 1
+    return out_re, out_im
 
 
 def _k_major(x: torch.Tensor):

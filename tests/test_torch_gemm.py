@@ -119,7 +119,7 @@ def test_gemm_numpy_needs_device():
     dict(alpha=2.0), dict(beta=1.0, c=np.ones((4, 4))), dict(op_a="T"),
     dict(op_b="C"), dict(fastmode=False, moduli_chunk=4),
     dict(out_dtype=torch.float32),
-    dict(compute_type=gt.ComputeType.COMPLEX_KARATSUBA_MULT),
+    dict(out_dtype=torch.complex128),
     dict(moduli_chunk=4), dict(max_workspace_bytes=1 << 20),
     dict(n_panel=2), dict(return_times=True)])
 def test_gemm_unported_arguments_name_roadmap(kwargs):

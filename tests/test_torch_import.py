@@ -11,6 +11,7 @@ _PROBE = """
 import sys
 import gemmul8_tpu_torch
 import gemmul8_tpu_torch.api, gemmul8_tpu_torch.core.gemm
+import gemmul8_tpu_torch.core.complexgemm
 import gemmul8_tpu_torch.core.encode, gemmul8_tpu_torch.core.reconstruct
 import gemmul8_tpu_torch.core.slicegemm, gemmul8_tpu_torch.core.limbs
 import gemmul8_tpu_torch.hopper.kernels, gemmul8_tpu_torch.hopper.matmul
@@ -40,8 +41,8 @@ def test_sources_are_cuda_files():
 
     names = sorted(p.name for p in build.sources())
     assert names == ["common.cuh", "encode.cu", "fast_sft.cu", "mag7.cu",
-                     "magmax.cu", "matmul_mod.cu", "mma_s8.cuh",
-                     "reconstruct.cu"]
+                     "magmax.cu", "matmul_complex.cu", "matmul_mod.cu",
+                     "mma_s8.cuh", "reconstruct.cu", "transpose_b.cuh"]
 
 
 def test_every_entry_point_has_a_signature():
