@@ -58,13 +58,42 @@ The complex path (complex128, all three compute types) adds to phases 3-5:
       the median of five rounds in rotated order, with two rates: the
       reference's element-op convention 2mnk/t and real flops 8mnk/t.
 
+The opt-in variants (the JAX package's switches, read at call time) add:
+  3v. each variant kernel against its plain version on the card, at
+      phase 3's shapes and 1000 x 4100 x 1500 (2, 14 moduli; k over three
+      2048-wide norm chunks): fast_encode_fused's slices bit-equal and its
+      shifts bit-equal to the fast_sft kernel's (and under the floor rule
+      to the plain version's); mag7_fused, magmax_matmul_scratch and
+      matmul_mod_u8_pipelined bit-equal, the last also to matmul_mod_u8's
+      uncentered output, on the ragged and tiny shapes too;
+  4v. at 8192^3, 14 moduli, on phase 4's operands, one call per variant:
+      fast under GEMMUL8_FUSED_ENCODE=1, fast under GEMMUL8_MM_PIPELINE=1
+      with GEMMUL8_MXU_CRT=0, accurate under GEMMUL8_FUSED_MAG7=1 with
+      GEMMUL8_MAGMAX_SCRATCH=1; each returns exactly the default call's
+      bits, its launch counts show the variant kernel and not the one it
+      replaces, and its gate is < 1e-8; then a 2048^3 complex accurate call
+      under GEMMUL8_MAGMAX_SCRATCH=1, bit-equal to the default. The
+      switches are set inside the process and restored after each call;
+  5v. at 8192^2 operands, 14 moduli: each variant kernel beside the default
+      kernels it replaces (medians of three rounds in rotated order; the
+      fused stats kernels also per operand, A's rows and B's columns) and
+      its plain version, the warm-up outputs held bit for bit; then each
+      variant call at 8192^3 against the default call of its mode, the
+      median of three rounds in rotated order.
+
 The line before the last is a JSON object of per-kernel results
-(`launches` sums the main-path calls of phase 4, real and complex; the
-statistics mode of fast_sft counts as fast_sft); the last is
-{"ok": true, "device": {...}}.
+(`launches` sums the main-path calls of phase 4, real and complex, and for
+the variant kernels those of phase 4v at 8192^3; the statistics mode of
+fast_sft counts as fast_sft); `bound_ms` is the least time the card could
+take for the phase-5 work, from the bytes the function must move at 3.35
+TB/s or its int8 operations at 1,979 TOPS, whichever is larger; no single
+PyTorch call computes any of these functions, so `library_ms` is null. The
+last line is {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -111,6 +140,15 @@ KERNELS = {
                       "gemmul8_tpu/pallas/matmul.py:393"),
     "matmul_complex_mod": ("gemmul8_tpu_torch/csrc/matmul_complex.cu",
                            "gemmul8_tpu/pallas/matmul.py:492"),
+    "fast_encode_fused": ("gemmul8_tpu_torch/csrc/fast_encode_fused.cu",
+                          "gemmul8_tpu/pallas/kernels.py:209"),
+    "mag7_fused": ("gemmul8_tpu_torch/csrc/mag7.cu",
+                   "gemmul8_tpu/pallas/kernels.py:465"),
+    "magmax_matmul_scratch": ("gemmul8_tpu_torch/csrc/magmax.cu",
+                              "gemmul8_tpu/pallas/matmul.py:312"),
+    "matmul_mod_u8_pipelined": (
+        "gemmul8_tpu_torch/csrc/matmul_mod_pipelined.cu",
+        "gemmul8_tpu/pallas/matmul.py:188"),
 }
 # wrapper counts that launch another entry's kernel (its second mode)
 KERNEL_OF = {"fast_stats": "fast_sft"}
@@ -137,6 +175,28 @@ COMPLEX_CASES = CASES + [((600, 600, 328), (14,), False),
                          ((1000, 4100, 1500), (2, 14), True)]
 # rounds of phase 5c's complex call times, each in a rotated call order
 COMPLEX_ROUNDS = 5
+# phase 3v: phase 3's shapes and k over three 2048-wide norm chunks
+VARIANT_CASES = CASES + [((1000, 4100, 1500), (2, 14), True)]
+# phase 4v: (name, fastmode, switches, launch counts of the 8192^3 call)
+VARIANT_CALLS = [
+    ("fast FUSED_ENCODE", True, {"GEMMUL8_FUSED_ENCODE": "1"},
+     {"fast_encode_fused": 2, "matmul_mod_u8": 1, "reconstruct": 1}),
+    ("fast MM_PIPELINE", True,
+     {"GEMMUL8_MM_PIPELINE": "1", "GEMMUL8_MXU_CRT": "0"},
+     {"fast_sft": 2, "encode_slices": 2, "matmul_mod_u8_pipelined": 1,
+      "reconstruct": 1}),
+    ("accurate FUSED_MAG7 + MAGMAX_SCRATCH", False,
+     {"GEMMUL8_FUSED_MAG7": "1", "GEMMUL8_MAGMAX_SCRATCH": "1"},
+     {"mag7_fused": 2, "magmax_matmul_scratch": 1, "encode_slices": 2,
+      "matmul_mod_u8": 1, "reconstruct": 1}),
+]
+VARIANT_ROUNDS = 3
+VARIANT_KERNELS = ("fast_encode_fused", "mag7_fused", "magmax_matmul_scratch",
+                   "matmul_mod_u8_pipelined")
+# the card's published peaks (H100 SXM5 data sheet, dense): device-memory
+# bytes per second and int8 tensor-core operations per second
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
 
 
 def log(msg):
@@ -483,6 +543,68 @@ def phase_complex_kernels(errs):
         log(f"  complex kernels == plain at {tag} L={Ls}")
 
 
+@contextlib.contextmanager
+def switches(env):
+    """The JAX package's switches set in this process, restored after."""
+    saved = {key: os.environ.get(key) for key in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
+def phase_variant_kernels(errs):
+    """Phase 3v: the variant kernels vs their plain versions (and the
+    default kernels whose bits they must give)."""
+    for (m, k, n), Ls, special in VARIANT_CASES:
+        a, b = operands(m, k, n, 7, special)
+        tag = f"m={m} k={k} n={n}"
+        mags = []
+        for x, axis in ((a, 1), (b, 0)):
+            got = hk.mag7_fused(x, axis)
+            hold(errs, "mag7_fused", got, hk.mag7_fused_plain(x, axis),
+                 f"mag7_fused {tag} axis={axis}")
+            e = hk.emax(x, axis)
+            assert torch.equal(got[1], e) and torch.equal(
+                got[0], hk.mag7(x, e, axis)), \
+                f"mag7_fused {tag}: not the emax + mag7 kernels' bits"
+            mags.append(got[0])
+        smax = hm.magmax_scratch_plain(*mags)
+        assert all(torch.equal(x, y)
+                   for x, y in zip(hm.magmax_matmul(*mags), smax))
+        # mag7's K-major views, and contiguous operands the wrapper copies
+        for x, y in (mags, [t.contiguous() for t in mags]):
+            hold(errs, "magmax_matmul_scratch",
+                 hm.magmax_matmul_scratch(x, y), smax,
+                 f"magmax_matmul_scratch {tag}")
+        for L in Ls:
+            slices = []
+            for x, axis in ((a, 1), (b, 0)):
+                sl, sft = hk.fast_encode_fused(x, L, axis)
+                assert torch.equal(sft, hk.fast_sft(x, L, axis)), \
+                    f"fast_encode_fused {tag} L={L}: shifts differ from " \
+                    "the fast_sft kernel's"
+                _, psft = hk.fast_encode_fused_plain(x, L, axis)
+                e = check_sft(sft, psft, x, axis, L)
+                errs["fast_encode_fused"] = max(errs["fast_encode_fused"], e)
+                hold(errs, "fast_encode_fused", sl,
+                     hk.encode_slices_plain(x, sft, L, axis),
+                     f"fast_encode_fused slices {tag} L={L} axis={axis}")
+                slices.append(sl)
+            r = hm.matmul_mod_u8_pipelined(*slices, L)
+            hold(errs, "matmul_mod_u8_pipelined", r,
+                 hm.matmul_mod_u8_pipelined_plain(*slices, L),
+                 f"matmul_mod_u8_pipelined {tag} L={L}")
+            assert torch.equal(r, hm.matmul_mod_u8(*slices, L)), \
+                f"matmul_mod_u8_pipelined {tag} L={L}: not matmul_mod_u8's"
+        log(f"  variant kernels == plain at {tag} L={Ls}")
+
+
 def accurate_plain_sfts(a, b, L):
     """Accurate-mode shifts with every step a plain version."""
     ea, eb = hk.emax_plain(a, 1), hk.emax_plain(b, 0)
@@ -514,7 +636,7 @@ def gate(c, oracle):
 
 def main_call(a, b, fastmode, want, oracle):
     """One main-path call with the launch counts reset just before it and
-    read just after; returns (launches, gate relerr)."""
+    read just after; returns (output, launches, gate relerr)."""
     torch.cuda.synchronize()
     build.LAUNCHES.clear()
     c = gt.gemm(a, b, num_moduli=L_MAIN, fastmode=fastmode, device=DEVICE)
@@ -527,7 +649,7 @@ def main_call(a, b, fastmode, want, oracle):
     assert bool(torch.isfinite(c).all()), "non-finite output"
     worst = gate(c, oracle)
     assert worst < 1e-8, f"{mode} relerr {worst} >= 1e-8"
-    return launches, worst
+    return c, launches, worst
 
 
 def phase_slice(launches):
@@ -539,8 +661,9 @@ def phase_slice(launches):
     oracle = {(r0, c0): dd_gemm(a_np[r0:r0 + 256],
                                 np.ascontiguousarray(a_np.T[:, c0:c0 + 256]))
               for r0, c0 in [(0, 0), (N // 2, N - 256), (N - 256, N - 256)]}
-    fast, rel_fast = main_call(a, b, True, FAST_LAUNCHES, oracle)
-    accu, rel_accu = main_call(a, b, False, ACCURATE_LAUNCHES, oracle)
+    c_fast, fast, rel_fast = main_call(a, b, True, FAST_LAUNCHES, oracle)
+    c_accu, accu, rel_accu = main_call(a, b, False, ACCURATE_LAUNCHES,
+                                       oracle)
     for name in KERNELS:
         launches[name] = fast.get(name, 0) + accu.get(name, 0)
     log(f"  gate tiles max relerr vs dd oracle: fast {rel_fast!r}, "
@@ -566,7 +689,7 @@ def phase_slice(launches):
     assert_bits_equal(ck, cp, f"{N_PLAIN}^3 accurate kernel path vs plain "
                       "path")
     log(f"  {N_PLAIN}^3 accurate kernel path == all-plain path (bits)")
-    return a, b, rel_fast, rel_accu
+    return a, b, rel_fast, rel_accu, {True: c_fast, False: c_accu}, oracle
 
 
 def accurate_plain_sfts_complex(a_re, a_im, b_re, b_im, L):
@@ -711,6 +834,53 @@ def phase_complex(launches):
                 f"{'fast' if fastmode else 'accurate'} kernel path == "
                 "all-plain path (bits)")
     return A, B, rels
+
+
+def phase_variants(a, b, refs, oracle, A, launches):
+    """Phase 4v: one N^3 call per variant, each with the launch counts
+    reset just before it and read just after, held to the default call's
+    bits (refs: fastmode -> output) and to the gate; then the complex
+    accurate call at N_PLAIN^3 under GEMMUL8_MAGMAX_SCRATCH=1. Returns the
+    gate relerr of each N^3 call."""
+    rels = {}
+    for name, fastmode, env, want in VARIANT_CALLS:
+        torch.cuda.synchronize()
+        build.LAUNCHES.clear()
+        with switches(env):
+            c = gt.gemm(a, b, num_moduli=L_MAIN, fastmode=fastmode,
+                        device=DEVICE)
+        torch.cuda.synchronize()
+        counts = dict(build.LAUNCHES)
+        log(f"  launches in the {N}^3 {name} call: {counts}")
+        assert counts == want, f"{name} launch counts {counts}"
+        assert torch.equal(bits64(c), bits64(refs[fastmode])), \
+            f"{name}: not the default call's bits"
+        rels[name] = gate(c, oracle)
+        assert rels[name] < 1e-8, f"{name} relerr {rels[name]} >= 1e-8"
+        log(f"  {N}^3 {name} == default call (bits), gate relerr "
+            f"{rels[name]!r}")
+        for kname, cnt in counts.items():
+            if kname in VARIANT_KERNELS:
+                launches[kname] = launches.get(kname, 0) + cnt
+        del c
+    A2 = A[:N_PLAIN, :N_PLAIN].contiguous()
+    B2 = A2.t().contiguous()
+    ref = gt.gemm(A2, B2, num_moduli=L_MAIN, fastmode=False, device=DEVICE)
+    torch.cuda.synchronize()
+    build.LAUNCHES.clear()
+    with switches({"GEMMUL8_MAGMAX_SCRATCH": "1"}):
+        c = gt.gemm(A2, B2, num_moduli=L_MAIN, fastmode=False, device=DEVICE)
+    torch.cuda.synchronize()
+    counts = dict(build.LAUNCHES)
+    want = dict(COMPLEX_ACCURATE_LAUNCHES)
+    want["magmax_matmul_scratch"] = want.pop("magmax_matmul")
+    assert counts == want, f"complex MAGMAX_SCRATCH launch counts {counts}"
+    assert torch.equal(torch.view_as_real(c).view(torch.int64),
+                       torch.view_as_real(ref).view(torch.int64)), \
+        "complex accurate MAGMAX_SCRATCH: not the default call's bits"
+    log(f"  {N_PLAIN}^3 complex accurate MAGMAX_SCRATCH == default call "
+        f"(bits); launches {counts}")
+    return rels
 
 
 def timed(fn, reps):
@@ -895,6 +1065,136 @@ def phase_complex_times(A, B, errs):
     return times, calls, by_place
 
 
+def under(env, fn):
+    """fn() with the switches env set, restored after (the call only
+    enqueues its kernels, but reads the switches while it does)."""
+    with switches(env):
+        return fn()
+
+
+def phase_variant_times(a, b, errs):
+    """Phase 5v: at the main path's shapes (N^2 operands, 14 moduli), each
+    variant kernel beside the default kernels it replaces, VARIANT_ROUNDS
+    rounds in rotated order, and its plain version, the warm-up outputs held
+    bit for bit (fast_encode_fused's shifts: equal to fast_sft's kernel,
+    under the floor rule against the plain version); then each variant call
+    at N^3 against the default call of its mode, VARIANT_ROUNDS rounds in
+    rotated order. Returns ({kernel: ({label: [ms]}, plain ms)}, {call:
+    [ms]})."""
+    L = L_MAIN
+    sa, sb = hk.fast_sft(a, L, 1), hk.fast_sft(b, L, 0)
+    a8, b8 = hk.encode_slices(a, sa, L, 1), hk.encode_slices(b, sb, L, 0)
+    ma, _ = hk.mag7_fused(a, 1)
+    mb, _ = hk.mag7_fused(b, 0)
+
+    def emax_mag7(x, axis):
+        e = hk.emax(x, axis)
+        return hk.mag7(x, e, axis), e
+
+    def sft_encode(x, axis):
+        return hk.encode_slices(x, hk.fast_sft(x, L, axis), L, axis)
+
+    groups = {
+        "fast_encode_fused": (
+            {"fast_encode_fused": lambda: (hk.fast_encode_fused(a, L, 1),
+                                           hk.fast_encode_fused(b, L, 0)),
+             "fast_sft + encode_slices": lambda: (sft_encode(a, 1),
+                                                  sft_encode(b, 0)),
+             "fast_encode_fused A rows": lambda: hk.fast_encode_fused(a, L, 1),
+             "fast_sft + encode_slices A rows": lambda: sft_encode(a, 1),
+             "fast_encode_fused B columns":
+                 lambda: hk.fast_encode_fused(b, L, 0),
+             "fast_sft + encode_slices B columns": lambda: sft_encode(b, 0)},
+            lambda: (hk.fast_encode_fused_plain(a, L, 1),
+                     hk.fast_encode_fused_plain(b, L, 0))),
+        "mag7_fused": (
+            {"mag7_fused": lambda: (hk.mag7_fused(a, 1), hk.mag7_fused(b, 0)),
+             "emax + mag7": lambda: (emax_mag7(a, 1), emax_mag7(b, 0)),
+             "mag7_fused A rows": lambda: hk.mag7_fused(a, 1),
+             "emax + mag7 A rows": lambda: emax_mag7(a, 1),
+             "mag7_fused B columns": lambda: hk.mag7_fused(b, 0),
+             "emax + mag7 B columns": lambda: emax_mag7(b, 0)},
+            lambda: (hk.mag7_fused_plain(a, 1), hk.mag7_fused_plain(b, 0))),
+        "magmax_matmul_scratch": (
+            {"magmax_matmul_scratch": lambda: hm.magmax_matmul_scratch(ma, mb),
+             "magmax_matmul": lambda: hm.magmax_matmul(ma, mb)},
+            lambda: hm.magmax_scratch_plain(ma, mb)),
+        "matmul_mod_u8_pipelined": (
+            {"matmul_mod_u8_pipelined":
+                 lambda: hm.matmul_mod_u8_pipelined(a8, b8, L),
+             "matmul_mod_u8 (uncentered)":
+                 lambda: hm.matmul_mod_u8(a8, b8, L, centered=False)},
+            lambda: hm.matmul_mod_u8_pipelined_plain(a8, b8, L)),
+    }
+    times = {}
+    for name, (kerns, plain) in groups.items():
+        got = kerns[name]()
+        pms, ref = timed(plain, 1)
+        if name == "fast_encode_fused":
+            for (sl, sft), (psl, psft), x, axis in zip(got, ref, (a, b),
+                                                       (1, 0)):
+                assert torch.equal(sft, sa if axis == 1 else sb)
+                errs[name] = max(errs[name], check_sft(sft, psft, x, axis, L))
+                if torch.equal(sft, psft):
+                    hold(errs, name, sl, psl, f"{name} at {N}^2, {L} moduli")
+        elif name == "mag7_fused":
+            for x, y in zip(got, ref):
+                hold(errs, name, x, y, f"{name} at {N}^2")
+        else:
+            hold(errs, name, got, ref, f"{name} at {N}^2, {L} moduli")
+        del got, ref
+        log(f"  {name} == plain at the main path's shapes ({N}^2, {L} "
+            "moduli)")
+        by_name, _ = timed_rounds(kerns, VARIANT_ROUNDS, 5)
+        times[name] = (by_name, pms)
+    del a8, b8, ma, mb
+    calls = {"fast default": (True, {}), "accurate default": (False, {})}
+    for name, fastmode, env, _ in VARIANT_CALLS:
+        calls[name] = (fastmode, env)
+    by_name, _ = timed_rounds(
+        {name: (lambda f=f, env=env: under(env, lambda: gt.gemm(
+            a, b, num_moduli=L, fastmode=f, device=DEVICE)))
+         for name, (f, env) in calls.items()}, VARIANT_ROUNDS, 2)
+    return times, by_name
+
+
+def bound(nbytes, ops=0):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    the larger of nbytes of device memory at HBM_BYTES_PER_S and ops int8
+    tensor-core operations at INT8_OPS_PER_S."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT8_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_bounds(a, b, L):
+    """bound() of each kernel's phase-5 work on a (m, k) and b (k, n), each
+    input read once and each output written once: both operands where the
+    path runs the kernel twice; the complex GEMM in its 4-dot form on parts
+    of these shapes. Integer and f32 ALU work is not counted (no published
+    peak; it is below the byte bound of these kernels)."""
+    m, k = a.shape
+    n = b.shape[1]
+    x = a.numel() + b.numel()        # f64 elements of both operands
+    s = 4 * (m + n)                  # int32 shifts, exponents or maxima
+    ops = 2 * m * n * k              # int8 operations of one product
+    slices = L * (m * k + k * n)     # int8 residues of both operands
+    return {
+        "fast_sft": bound(8 * x + s),
+        "encode_slices": bound(8 * x + s + L * x),
+        "matmul_mod_u8": bound(slices + L * m * n, L * ops),
+        "reconstruct": bound(L * m * n + s + 8 * m * n),
+        "emax": bound(8 * x + s),
+        "mag7": bound(8 * x + s + x),
+        "magmax_matmul": bound(x + s, ops),
+        "matmul_complex_mod": bound(2 * slices + 2 * L * m * n, 4 * L * ops),
+        "fast_encode_fused": bound(8 * x + L * x + s),
+        "mag7_fused": bound(8 * x + x + s),
+        "magmax_matmul_scratch": bound(x + s, ops),
+        "matmul_mod_u8_pipelined": bound(slices + L * m * n, L * ops),
+    }
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false")
@@ -918,13 +1218,16 @@ def main():
     phase_accurate_kernels(errs)
     phase_log2()
     phase_complex_kernels(errs)
+    phase_variant_kernels(errs)
     log(f"[3/5] every kernel == its plain version "
         f"({time.perf_counter() - t0:.1f} s)")
 
     launches = {}
     t0 = time.perf_counter()
-    a, b, rel_fast, rel_accu = phase_slice(launches)
+    a, b, rel_fast, rel_accu, refs, oracle = phase_slice(launches)
     A, B, rels = phase_complex(launches)
+    variant_rels = phase_variants(a, b, refs, oracle, A, launches)
+    del refs
     log(f"[4/5] main path checked ({time.perf_counter() - t0:.1f} s)")
 
     times, total, total_accu = phase_times(a, b, errs)
@@ -962,12 +1265,34 @@ def main():
     log("  median ms by place in the round (1st..5th): "
         + ", ".join(f"{float(np.median(v)):.3f}" for v in by_place.values()))
     times["matmul_complex_mod"] = ctimes["4-dot"]
+    vtimes, vcalls = phase_variant_times(a, b, errs)
+    for name, (by_label, pms) in vtimes.items():
+        meds = {label: float(np.median(v)) for label, v in by_label.items()}
+        times[name] = (meds[name], pms)
+        log(f"  {name}: " + "; ".join(
+            f"{label} median {ms:.3f} ms (rounds "
+            f"{', '.join(f'{t:.3f}' for t in by_label[label])})"
+            for label, ms in meds.items())
+            + f"; plain {pms:.3f} ms ({N}^2 operands, {L_MAIN} moduli; "
+            f"{card})")
+    log(f"  variant calls at {N}^3, {VARIANT_ROUNDS} rounds in rotated "
+        "order, 2 calls per timing:")
+    for name, mss in vcalls.items():
+        ms = float(np.median(mss))
+        tflops = 2 * N ** 3 / (ms * 1e-3) / 1e12
+        rel = variant_rels.get(name, rel_fast if name.startswith("fast")
+                               else rel_accu)
+        log(f"  gemm {N}^3 {L_MAIN} moduli f64 {name}: median {ms:.3f} ms "
+            f"(rounds {', '.join(f'{t:.3f}' for t in mss)}), "
+            f"{tflops:.2f} TFLOP/s, gate relerr {rel!r} ({card})")
     log("[5/5] times taken")
 
+    bounds = kernel_bounds(a, b, L_MAIN)
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name],
                 "max_abs_err": errs[name], "ms": times[name][0],
-                "plain_ms": times[name][1]}
+                "plain_ms": times[name][1], "bound_ms": bounds[name][0],
+                "bound_by": bounds[name][1], "library_ms": None}
                for name, (src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

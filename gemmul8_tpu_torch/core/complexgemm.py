@@ -13,7 +13,13 @@ float64 (Re, Im) pairs:
   (RR - II, IR + RI) for COMPLEX_BIG_MATRIX_ENCODE and COMPLEX_CLASSIC_MULT,
   whose block products are the same exact sums, and in 3-dot form with the
   recentered sum slices for COMPLEX_KARATSUBA_MULT;
-- Re and Im are reconstructed from their centered int8 residues.
+- Re and Im are reconstructed from their residues: centered int8, or
+  canonical uint8 under GEMMUL8_MXU_CRT=0 (`gemm.centered_residues`).
+
+Accurate mode's magnitude GEMM takes the deferred-fold kernel under
+GEMMUL8_MAGMAX_SCRATCH=1, as the JAX package's does; its magnitudes stay
+the emax + mag7 pair whatever GEMMUL8_FUSED_MAG7 says, as in
+`_mag7_complex_pallas`.
 
 All three strategies compute the same exact residues, so on the same
 shifts they give the same output bits. Each step goes through a wrapper of
@@ -31,7 +37,7 @@ from ..hopper import matmul as hm
 from ..types import ComputeType
 from . import encode as enc
 from . import slicegemm as sg
-from .gemm import check_shapes
+from .gemm import centered_residues, check_shapes
 
 # bounds on k per strategy that keep every int32 accumulation exact: the
 # 4-dot forms sum two products of k terms, Karatsuba combines three
@@ -102,7 +108,8 @@ def gemm_complex_core(a_re, a_im, b_re, b_im, num_moduli: int,
         kara = (sg.recenter_add_int8(a8r, a8i, num_moduli),
                 sg.recenter_add_int8(b8r, b8i, num_moduli))
     r_re, r_im = hm.matmul_complex_mod(a8r, a8i, b8r, b8i, num_moduli,
-                                       centered=True, kara=kara)
+                                       centered=centered_residues(),
+                                       kara=kara)
     del a8r, a8i, b8r, b8i, kara
     return (hk.reconstruct(r_re, sft_a, sft_b, num_moduli, out_dtype,
                            e_extra=e_extra),

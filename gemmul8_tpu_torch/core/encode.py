@@ -233,6 +233,15 @@ def encode_slices(x: torch.Tensor, sft: torch.Tensor, num_moduli: int,
                             num_moduli)
 
 
+def fast_encode_fused(x: torch.Tensor, num_moduli: int, axis: int):
+    """(slices (L, *x.shape) int8, sft int32): the fast-mode shift and the
+    residues encoded with it, the function of the JAX package's
+    `fast_encode_fused_pallas` (the same STATS_CHUNK merge, so the same
+    shifts as `fast_sft`)."""
+    sft = fast_sft(x, num_moduli, axis)
+    return encode_slices(x, sft, num_moduli, axis), sft
+
+
 # ---------------------------------------------------------------------------
 # Accurate mode: 7-bit round-up magnitudes -> one int8 GEMM |A| x |B| ->
 # per-row/col shifts from the product-magnitude maxima.
@@ -282,6 +291,13 @@ def mag7(x: torch.Tensor, emax: torch.Tensor, axis: int,
         raise ValueError(f"emax shape {tuple(emax.shape)}, expected {want}")
     chunks, exp, _, _ = _f64_fields(x)
     return _extract_mag7(chunks, exp, emax.to(torch.int64), mag_shift)
+
+
+def mag7_fused(x: torch.Tensor, axis: int, mag_shift: int = MAG_SHIFT):
+    """(magnitudes, emax): `emax`, then `mag7` below it, the function of
+    the JAX package's `mag7_fused_pallas`."""
+    e = emax(x, axis)
+    return mag7(x, e, axis, mag_shift), e
 
 
 def _accurate_pre_floor(smax: torch.Tensor, num_moduli: int):

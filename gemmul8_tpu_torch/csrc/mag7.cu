@@ -24,6 +24,15 @@
 // both the 8-byte reads (along n) and the 4-byte writes (along k)
 // coalesce. The magnitude is computed on the 53-bit significand in one
 // 64-bit word, so no shift reaches the width of its operand.
+//
+// gm8_mag7_fused computes both in one kernel and writes the same buffer.
+// Replaces: mag7_fused_pallas (gemmul8_tpu/pallas/kernels.py:465).
+// Bound: the same bytes with the operand read once, 0.60 GB per operand at
+// 8192^2, about 0.18 ms. Design: the max must be complete before any
+// magnitude of its row or column, so one block owns a row of A (256
+// threads) or a 32-column strip of B (32 x 16 threads) and reads it twice:
+// a row's second read hits L2, a strip's (2 MB at 8192) mostly does not.
+// The max is exact, so the outputs are the two-kernel pair's bits.
 #include "common.cuh"
 
 namespace {
@@ -145,6 +154,93 @@ mag7_cols(const unsigned long long* __restrict__ x,
   }
 }
 
+// ---- emax and mag7 fused (one kernel, one block per row or column strip) --
+
+// A (rows, kdim): the row's max exponent, then its magnitudes as 4-byte
+// words of the (rows, ld) buffer; the second read of the row (64 KB at k =
+// 8192) comes from L2 right after the first
+__global__ void __launch_bounds__(kThreads)
+mag7_fused_rows(const unsigned long long* __restrict__ x,
+                int* __restrict__ emax, unsigned* __restrict__ out, int kdim,
+                int ld_words, int mag_shift) {
+  __shared__ int sh[kThreads / 32];
+  const unsigned long long* xr = x + static_cast<size_t>(blockIdx.x) * kdim;
+  int e = 0;
+#pragma unroll 4
+  for (int k = threadIdx.x; k < kdim; k += kThreads)
+    e = max(e, exp_nonzero(xr[k]));
+  for (int o = 16; o > 0; o >>= 1) e = max(e, __shfl_xor_sync(~0u, e, o));
+  if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = e;
+  __syncthreads();
+  e = sh[0];
+  for (int i = 1; i < kThreads / 32; ++i) e = max(e, sh[i]);
+  if (threadIdx.x == 0) emax[blockIdx.x] = e;
+  unsigned* orow = out + static_cast<size_t>(blockIdx.x) * ld_words;
+  for (int w = threadIdx.x; w < ld_words; w += kThreads) {
+    unsigned word = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = 4 * w + i;
+      if (k < kdim) word |= mag7_byte(xr[k], e, mag_shift) << (8 * i);
+    }
+    orow[w] = word;
+  }
+}
+
+constexpr int kFusedColY = 16;  // threads per column of a kColX strip
+constexpr int kFusedK = 128;    // k per transpose tile
+
+// B (kdim, cols): a kColX-column strip's max exponents, then its magnitudes
+// K-major into (cols, ld) through a kColX x kFusedK tile in shared memory.
+// The strip (kdim x 256 bytes) is read twice; at 8192^2 the strips of the
+// blocks in flight exceed L2, so the second read mostly misses it
+__global__ void __launch_bounds__(kColX * kFusedColY)
+mag7_fused_cols(const unsigned long long* __restrict__ x,
+                int* __restrict__ emax, unsigned char* __restrict__ out,
+                int kdim, int cols, int ld, int mag_shift) {
+  __shared__ int sh[kFusedColY][kColX];
+  // [column][k]; a row of kFusedK + 4 bytes keeps the byte stores of a warp
+  // (kColX neighbouring columns, one k) on different banks
+  __shared__ __align__(16) unsigned char sm[kColX][kFusedK + 4];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int n0 = blockIdx.x * kColX, col = n0 + tx;
+  const bool valid = col < cols;
+  int e = 0;
+  if (valid) {
+#pragma unroll 4
+    for (int r = ty; r < kdim; r += kFusedColY)
+      e = max(e, exp_nonzero(x[static_cast<size_t>(r) * cols + col]));
+  }
+  sh[ty][tx] = e;
+  __syncthreads();
+  e = 0;
+  for (int i = 0; i < kFusedColY; ++i) e = max(e, sh[i][tx]);
+  if (valid && ty == 0) emax[col] = e;
+  const int tid = ty * kColX + tx;
+  for (int k0 = 0; k0 < ld; k0 += kFusedK) {
+#pragma unroll
+    for (int i = 0; i < kFusedK / kFusedColY; ++i) {
+      const int r = ty + i * kFusedColY, k = k0 + r;
+      const unsigned long long bits =
+          valid && k < kdim ? x[static_cast<size_t>(k) * cols + col] : 0ull;
+      sm[tx][r] = static_cast<unsigned char>(mag7_byte(bits, e, mag_shift));
+    }
+    __syncthreads();
+    // kColX columns x kFusedK / 4 words of k; ld % 4 == 0, so a word past
+    // kdim is padding (zeros) and a word at or past ld is skipped whole
+#pragma unroll
+    for (int i = 0; i < kColX * kFusedK / 4 / (kColX * kFusedColY); ++i) {
+      const int idx = tid + i * kColX * kFusedColY;
+      const int nr = idx / (kFusedK / 4), w = idx % (kFusedK / 4);
+      const int nn = n0 + nr, k = k0 + 4 * w;
+      if (nn < cols && k < ld)
+        *reinterpret_cast<unsigned*>(out + static_cast<size_t>(nn) * ld + k) =
+            *reinterpret_cast<const unsigned*>(&sm[nr][4 * w]);
+    }
+    __syncthreads();  // sm is rewritten by the next tile
+  }
+}
+
 }  // namespace
 
 // x: (rows, kdim) f64 bits for axis=1, (kdim, rows) for axis=0.
@@ -186,6 +282,27 @@ GM8_EXPORT int gm8_mag7(const void* x, const void* emax, void* out,
     if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
     mag7_cols<<<grid, kThreads, 0, s>>>(
         xp, ep, static_cast<unsigned char*>(out), kdim, rows, ld, mag_shift);
+  }
+  return gm8::launch_status();
+}
+
+// emax and mag7 in one kernel. x as for gm8_emax; emax: rows int32 (written
+// whole, no zero fill); out and its conditions as for gm8_mag7.
+GM8_EXPORT int gm8_mag7_fused(const void* x, void* emax, void* out, int rows,
+                              int kdim, int axis, int ld, int mag_shift,
+                              void* stream) {
+  if (ld % 4 != 0 || ld < kdim || mag_shift < 0 || mag_shift > 6)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto xp = static_cast<const unsigned long long*>(x);
+  auto ep = static_cast<int*>(emax);
+  if (axis == 1) {
+    mag7_fused_rows<<<rows, kThreads, 0, s>>>(
+        xp, ep, static_cast<unsigned*>(out), kdim, ld / 4, mag_shift);
+  } else {
+    mag7_fused_cols<<<(rows + kColX - 1) / kColX, dim3(kColX, kFusedColY), 0,
+                      s>>>(xp, ep, static_cast<unsigned char*>(out), kdim,
+                           rows, ld, mag_shift);
   }
   return gm8::launch_status();
 }

@@ -20,6 +20,15 @@
 // (rows past m or n, bytes past k) adds products of 0 and changes no max.
 // The TPU kernel's iota-masked lane fold existed only for Mosaic's block
 // rules and has no counterpart here.
+//
+// gm8_magmax_matmul_scratch is the deferred-fold variant. Replaces:
+// magmax_matmul_scratch, gemmul8_tpu/pallas/matmul.py:312. The same tile
+// and in-block fold; a template flag on the epilogue swaps the global
+// atomicMax for plain stores of each tile's maxima into its own column of
+// an (m, n_tiles) buffer and its own row of an (m_tiles, n) buffer (2 MB +
+// 2 MB at 8192^2), which two torch.amax calls fold, as the JAX package
+// folds in XLA. No zero fill, no atomics; the max is order-independent, so
+// the bits are the default's.
 #include "common.cuh"
 #include "mma_s8.cuh"
 
@@ -28,6 +37,11 @@ namespace {
 constexpr int kThreads = gm8::kMmaThreads;
 static_assert(kThreads == gm8::kBM + gm8::kBN, "one thread per row/col");
 
+// kScratch false: fold the block's maxima into row_max / col_max with
+// atomicMax. kScratch true: store them plainly, the row maxima into column
+// blockIdx.x of row_max (m, gridDim.x) and the column maxima into row
+// blockIdx.y of col_max (gridDim.y, n); the caller finishes the fold.
+template <bool kScratch>
 __global__ void __launch_bounds__(kThreads, 2)
 magmax_kernel(const signed char* __restrict__ A, int lda,
               const signed char* __restrict__ Bt, int ldb,
@@ -81,12 +95,38 @@ magmax_kernel(const signed char* __restrict__ A, int lda,
   if (threadIdx.x < gm8::kBM) {
     const int row = bm0 + threadIdx.x;
     const int v = s_row[threadIdx.x];
-    if (row < m && v > 0) atomicMax(&row_max[row], v);
+    if constexpr (kScratch) {
+      if (row < m)
+        row_max[static_cast<size_t>(row) * gridDim.x + blockIdx.x] = v;
+    } else {
+      if (row < m && v > 0) atomicMax(&row_max[row], v);
+    }
   } else {
     const int col = bn0 + threadIdx.x - gm8::kBM;
     const int v = s_col[threadIdx.x - gm8::kBM];
-    if (col < n && v > 0) atomicMax(&col_max[col], v);
+    if constexpr (kScratch) {
+      if (col < n) col_max[static_cast<size_t>(blockIdx.y) * n + col] = v;
+    } else {
+      if (col < n && v > 0) atomicMax(&col_max[col], v);
+    }
   }
+}
+
+template <bool kScratch>
+int launch(const void* a, int lda, const void* bt, int ldb, void* row_max,
+           void* col_max, int m, int n, int k, void* stream) {
+  if (lda % 16 != 0 || ldb % 16 != 0 || lda < k || ldb < k)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncSetAttribute(magmax_kernel<kScratch>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       gm8::kMmaSmemBytes);
+  dim3 grid((n + gm8::kBN - 1) / gm8::kBN, (m + gm8::kBM - 1) / gm8::kBM);
+  magmax_kernel<kScratch><<<grid, kThreads, gm8::kMmaSmemBytes,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const signed char*>(a), lda,
+      static_cast<const signed char*>(bt), ldb, static_cast<int*>(row_max),
+      static_cast<int*>(col_max), m, n, k);
+  return gm8::launch_status();
 }
 
 }  // namespace
@@ -98,16 +138,16 @@ magmax_kernel(const signed char* __restrict__ A, int lda,
 GM8_EXPORT int gm8_magmax_matmul(const void* a, int lda, const void* bt,
                                  int ldb, void* row_max, void* col_max,
                                  int m, int n, int k, void* stream) {
-  if (lda % 16 != 0 || ldb % 16 != 0 || lda < k || ldb < k)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaFuncSetAttribute(magmax_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       gm8::kMmaSmemBytes);
-  dim3 grid((n + gm8::kBN - 1) / gm8::kBN, (m + gm8::kBM - 1) / gm8::kBM);
-  magmax_kernel<<<grid, kThreads, gm8::kMmaSmemBytes,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const signed char*>(a), lda,
-      static_cast<const signed char*>(bt), ldb, static_cast<int*>(row_max),
-      static_cast<int*>(col_max), m, n, k);
-  return gm8::launch_status();
+  return launch<false>(a, lda, bt, ldb, row_max, col_max, m, n, k, stream);
+}
+
+// a, bt, m, n, k as for gm8_magmax_matmul. row_part: (m, ceil(n / 128))
+// int32, col_part: (ceil(m / 128), n) int32; every entry is written, so no
+// zero fill. The row maxima are row_part's row maxima, the column maxima
+// col_part's column maxima.
+GM8_EXPORT int gm8_magmax_matmul_scratch(const void* a, int lda,
+                                         const void* bt, int ldb,
+                                         void* row_part, void* col_part,
+                                         int m, int n, int k, void* stream) {
+  return launch<true>(a, lda, bt, ldb, row_part, col_part, m, n, k, stream);
 }

@@ -1,5 +1,6 @@
-// The int8 tensor-core tile shared by the two GEMM kernels
-// (matmul_mod.cu, magmax.cu): one 128 x 128 output tile of
+// The int8 tensor-core tile shared by the GEMM kernels (matmul_mod.cu,
+// magmax.cu, matmul_complex.cu; matmul_mod_pipelined.cu takes its copies
+// and fragment loads): one 128 x 128 output tile of
 // A (rows, k) x Bt (cols, k)^T, both operands K-major, accumulated in int32.
 //
 // 8 warps, each 64 x 32, run mma.sync.m16n8k32 (s8 x s8 -> s32). 16-byte
@@ -62,15 +63,16 @@ __device__ __forceinline__ int swz(int r, int c) {
 }
 
 // one stage: rows [r0, r0+128) x bytes [k0, k0+128) of a (rows, k) K-major
-// operand with row stride ld (ld % 16 == 0, 16-byte aligned base); bytes
-// at or past k and rows at or past `rows` are zero-filled
+// operand with row stride ld (ld % 16 == 0, 16-byte aligned base), copied
+// by the kMmaThreads threads tid = 0..kMmaThreads-1; bytes at or past k
+// and rows at or past `rows` are zero-filled
 template <bool kRaggedK>
-__device__ __forceinline__ void load_tile(unsigned sdst,
+__device__ __forceinline__ void load_tile(int tid, unsigned sdst,
                                           const signed char* g, int r0,
                                           int rows, int k0, int k, int ld) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int idx = threadIdx.x + i * kMmaThreads;
+    const int idx = tid + i * kMmaThreads;
     const int r = idx >> 3, c = idx & 7;
     const int kc = k0 + c * 16;
     int bytes;
@@ -110,8 +112,10 @@ __device__ __forceinline__ void mma_tile(const signed char* A, int lda,
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < nk) {
-      load_tile<kRaggedK>(a_stage(s), A, bm0, m, s * kBK, k, lda);
-      load_tile<kRaggedK>(b_stage(s), Bt, bn0, n, s * kBK, k, ldb);
+      load_tile<kRaggedK>(threadIdx.x, a_stage(s), A, bm0, m, s * kBK, k,
+                          lda);
+      load_tile<kRaggedK>(threadIdx.x, b_stage(s), Bt, bn0, n, s * kBK, k,
+                          ldb);
     }
     asm volatile("cp.async.commit_group;\n");
   }
@@ -127,8 +131,10 @@ __device__ __forceinline__ void mma_tile(const signed char* A, int lda,
     const int pf = kt + kStages - 1;
     if (pf < nk) {
       const int s = pf % kStages;
-      load_tile<kRaggedK>(a_stage(s), A, bm0, m, pf * kBK, k, lda);
-      load_tile<kRaggedK>(b_stage(s), Bt, bn0, n, pf * kBK, k, ldb);
+      load_tile<kRaggedK>(threadIdx.x, a_stage(s), A, bm0, m, pf * kBK, k,
+                          lda);
+      load_tile<kRaggedK>(threadIdx.x, b_stage(s), Bt, bn0, n, pf * kBK, k,
+                          ldb);
     }
     asm volatile("cp.async.commit_group;\n");
     const unsigned sa = a_stage(kt % kStages), sb = b_stage(kt % kStages);

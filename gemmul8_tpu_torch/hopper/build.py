@@ -68,6 +68,14 @@ _SIGNATURES = {
     # ar, ai, sa, br, bi, sb, bt (workspaces), out_re, out_im, L, m, n, k,
     # kp, centered, kara, stream
     "gm8_matmul_complex_mod": [_P] * 9 + [_I] * 7 + [_P],
+    # x, out, sft, rows, kdim, axis, num_moduli, t_f, guard, q_max, stream
+    "gm8_fast_encode_fused": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    # x, emax, out, rows, kdim, axis, ld, mag_shift, stream
+    "gm8_mag7_fused": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # a, lda, bt, ldb, row_part, col_part, m, n, k, stream
+    "gm8_magmax_matmul_scratch": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _P],
+    # a8, b8, bt (workspace), out, L, m, n, k, kp, stream
+    "gm8_matmul_mod_u8_pipelined": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

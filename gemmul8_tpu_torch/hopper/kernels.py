@@ -9,11 +9,20 @@ never falls back. The plain versions (`*_plain`) are the functions of
     fast_stats     csrc/fast_sft.cu     <- the same, with return_stats=True
     emax           csrc/mag7.cu         <- pallas/kernels.py emax_pallas
     mag7           csrc/mag7.cu         <- pallas/kernels.py mag7_pallas
+    mag7_fused     csrc/mag7.cu         <- pallas/kernels.py mag7_fused_pallas
     encode_slices  csrc/encode.cu       <- pallas/kernels.py encode_slices_pallas
+    fast_encode_fused  csrc/fast_encode_fused.cu
+                   <- pallas/kernels.py fast_encode_fused_pallas
     reconstruct    csrc/reconstruct.cu  <- pallas/kernels.py reconstruct_pallas
+
+`mag7_operand` reads GEMMUL8_FUSED_MAG7 at call time, as the JAX package's
+`mag7_operand_pallas` does: "1" takes mag7_fused, anything else the emax +
+mag7 pair.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -27,7 +36,9 @@ fast_sft_plain = enc.fast_sft
 fast_stats_plain = enc.fast_stats
 emax_plain = enc.emax
 mag7_plain = enc.mag7
+mag7_fused_plain = enc.mag7_fused
 encode_slices_plain = enc.encode_slices
+fast_encode_fused_plain = enc.fast_encode_fused
 reconstruct_plain = rec.reconstruct
 
 
@@ -160,8 +171,34 @@ def mag7(x: torch.Tensor, emax: torch.Tensor, axis: int,
                       axis)
 
 
+def mag7_fused(x: torch.Tensor, axis: int, mag_shift: int = enc.MAG_SHIFT):
+    """(magnitudes, emax) in one kernel: the values of `emax` and `mag7`,
+    the magnitudes in the same padded K-major buffer `mag7` writes on the
+    card."""
+    _check_f64(x)
+    rows, kdim = _rows_kdim(x, axis)
+    if _on_cpu(x):
+        return mag7_fused_plain(x, axis, mag_shift)
+    build.require_cuda(x)
+    ld = -(-kdim // 16) * 16
+    buf = torch.empty((rows, ld), dtype=torch.int8, device=x.device)
+    e = torch.empty((rows, 1) if axis == 1 else (1, rows), dtype=torch.int32,
+                    device=x.device)
+    with torch.cuda.device(x.device):
+        code = build.lib().gm8_mag7_fused(x.data_ptr(), e.data_ptr(),
+                                          buf.data_ptr(), rows, kdim, axis,
+                                          ld, mag_shift,
+                                          build.stream_ptr(x.device))
+    build.check(code, "mag7_fused")
+    build.LAUNCHES["mag7_fused"] += 1
+    return _mag7_view(buf, kdim, axis), e
+
+
 def mag7_operand(x: torch.Tensor, axis: int):
-    """(magnitudes, emax) of one operand: the emax kernel, then mag7."""
+    """(magnitudes, emax) of one operand: the emax kernel, then mag7; or
+    mag7_fused under GEMMUL8_FUSED_MAG7=1."""
+    if os.environ.get("GEMMUL8_FUSED_MAG7", "0") == "1":
+        return mag7_fused(x, axis)
     e = emax(x, axis)
     return mag7(x, e, axis), e
 
@@ -186,6 +223,11 @@ def mag7_operand_complex(re: torch.Tensor, im: torch.Tensor, axis: int):
     return _mag7_view(buf, re.shape[axis], axis), e
 
 
+def _q_max(num_moduli: int) -> int:
+    """The encode kernels' static left-shift cap."""
+    return max(tables.threshold_accurate(num_moduli) - 1 - 52, 0)
+
+
 def encode_slices(x: torch.Tensor, sft: torch.Tensor, num_moduli: int,
                   axis: int) -> torch.Tensor:
     """(L, *x.shape) int8 centered residues of trunc(x * 2^sft)."""
@@ -201,14 +243,37 @@ def encode_slices(x: torch.Tensor, sft: torch.Tensor, num_moduli: int,
     d0, d1 = x.shape
     out = torch.empty((num_moduli, d0, d1), dtype=torch.int8,
                       device=x.device)
-    q_max = max(tables.threshold_accurate(num_moduli) - 1 - 52, 0)
     with torch.cuda.device(x.device):
         code = build.lib().gm8_encode_slices(
             x.data_ptr(), sft.data_ptr(), out.data_ptr(), d0, d1, axis,
-            num_moduli, q_max, build.stream_ptr(x.device))
+            num_moduli, _q_max(num_moduli), build.stream_ptr(x.device))
     build.check(code, "encode_slices")
     build.LAUNCHES["encode_slices"] += 1
     return out
+
+
+def fast_encode_fused(x: torch.Tensor, num_moduli: int, axis: int):
+    """(slices (L, *x.shape) int8, sft int32) in one kernel: the shifts of
+    `fast_sft` ((m, 1) for axis=1, (1, n) for axis=0) and the residues of
+    `encode_slices` with them."""
+    _check_f64(x)
+    rows, kdim = _rows_kdim(x, axis)
+    if _on_cpu(x):
+        return fast_encode_fused_plain(x, num_moduli, axis)
+    build.require_cuda(x)
+    out = torch.empty((num_moduli, *x.shape), dtype=torch.int8,
+                      device=x.device)
+    sft = torch.empty((rows, 1) if axis == 1 else (1, rows),
+                      dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        code = build.lib().gm8_fast_encode_fused(
+            x.data_ptr(), out.data_ptr(), sft.data_ptr(), rows, kdim, axis,
+            num_moduli, tables.threshold_fast(num_moduli),
+            enc._norm_guard(kdim), _q_max(num_moduli),
+            build.stream_ptr(x.device))
+    build.check(code, "fast_encode_fused")
+    build.LAUNCHES["fast_encode_fused"] += 1
+    return out, sft
 
 
 def crt_table_bytes() -> bytes:

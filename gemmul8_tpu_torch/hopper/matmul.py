@@ -2,19 +2,31 @@
 
     matmul_mod_u8       csrc/matmul_mod.cu
         <- pallas/matmul.py matmul_mod_u8_pallas
+    matmul_mod_u8_pipelined  csrc/matmul_mod_pipelined.cu
+        <- pallas/matmul.py matmul_mod_u8_pipelined
     magmax_matmul       csrc/magmax.cu
         <- pallas/matmul.py magmax_matmul_pallas
+    magmax_matmul_scratch    csrc/magmax.cu (deferred fold)
+        <- pallas/matmul.py magmax_matmul_scratch
     matmul_complex_mod  csrc/matmul_complex.cu
         <- pallas/matmul.py matmul_complex_mod_pallas
 
 A CPU tensor takes the plain version (exact f64 products, then the mod or
-the row/col max); a CUDA tensor launches the kernel. matmul_mod_u8's and
-matmul_complex_mod's kernels first copy each B operand into a K-major
-workspace the wrapper allocates; magmax_matmul reads both operands K-major
-in place where their layout allows (as `hopper.kernels.mag7` writes them).
+the row/col max); a CUDA tensor launches the kernel. The GEMM kernels with
+a mod first copy each B operand into a K-major workspace the wrapper
+allocates; the magnitude GEMMs read both operands K-major in place where
+their layout allows (as `hopper.kernels.mag7` writes them).
+
+Two dispatchers read the JAX package's switches at call time:
+`matmul_mod_u8` sends uncentered calls to `matmul_mod_u8_pipelined` under
+GEMMUL8_MM_PIPELINE=1, and `magmax_matmul` goes to `magmax_matmul_scratch`
+under GEMMUL8_MAGMAX_SCRATCH=1. Each variant gives the default's bits.
 """
 
 from __future__ import annotations
+
+import functools
+import os
 
 import torch
 import torch.nn.functional as F
@@ -23,8 +35,13 @@ from ..core import slicegemm as sg
 from . import build
 
 matmul_mod_u8_plain = sg.matmul_mod
+matmul_mod_u8_pipelined_plain = functools.partial(sg.matmul_mod,
+                                                  centered=False)
 magmax_plain = sg.magmax
+magmax_scratch_plain = sg.magmax
 matmul_complex_mod_plain = sg.matmul_complex_mod
+
+_TILE = 128  # kBM = kBN of csrc/mma_s8.cuh, the magnitude GEMM's tile
 
 
 def _pad_k(a8: torch.Tensor, kp: int) -> torch.Tensor:
@@ -38,10 +55,34 @@ def _pad_k(a8: torch.Tensor, kp: int) -> torch.Tensor:
 def matmul_mod_u8(a8: torch.Tensor, b8: torch.Tensor, num_moduli: int,
                   centered: bool = False) -> torch.Tensor:
     """(L, m, k) int8 x (L, k, n) int8 -> (L, m, n) residues mod MODULI[l]:
-    canonical uint8, or r - 128 as int8 when centered."""
+    canonical uint8, or r - 128 as int8 when centered. Uncentered calls
+    take `matmul_mod_u8_pipelined` under GEMMUL8_MM_PIPELINE=1, as the JAX
+    package's `matmul_mod_u8` dispatches (its k and VMEM limits are the
+    TPU's; the port's kernel takes any k <= 2^17)."""
+    if not centered and os.environ.get("GEMMUL8_MM_PIPELINE") == "1":
+        return matmul_mod_u8_pipelined(a8, b8, num_moduli)
     sg._check_matmul_args(a8, b8, num_moduli)
     if a8.device.type == "cpu" and b8.device.type == "cpu":
         return matmul_mod_u8_plain(a8, b8, num_moduli, centered)
+    return _launch_mod("matmul_mod_u8", a8, b8, centered, int(centered))
+
+
+def matmul_mod_u8_pipelined(a8: torch.Tensor, b8: torch.Tensor,
+                            num_moduli: int) -> torch.Tensor:
+    """(L, m, k) int8 x (L, k, n) int8 -> (L, m, n) canonical uint8
+    residues, the bits of `matmul_mod_u8(..., centered=False)`, with each
+    n-tile's mod run while the next tile's product is formed."""
+    sg._check_matmul_args(a8, b8, num_moduli)
+    if a8.device.type == "cpu" and b8.device.type == "cpu":
+        return matmul_mod_u8_pipelined_plain(a8, b8, num_moduli)
+    return _launch_mod("matmul_mod_u8_pipelined", a8, b8, False)
+
+
+def _launch_mod(name: str, a8: torch.Tensor, b8: torch.Tensor,
+                centered: bool, *flags) -> torch.Tensor:
+    """Launch gm8_<name>, a batched GEMM with the mod in its epilogue, on
+    CUDA slices: B is copied into a K-major workspace by the kernel; flags
+    go between kp and the stream."""
     build.require_cuda(a8, b8)
     L, m, k = a8.shape
     n = b8.shape[2]
@@ -53,11 +94,11 @@ def matmul_mod_u8(a8: torch.Tensor, b8: torch.Tensor, num_moduli: int,
     out = torch.empty((L, m, n), dtype=torch.int8 if centered else torch.uint8,
                       device=a8.device)
     with torch.cuda.device(a8.device):
-        code = build.lib().gm8_matmul_mod_u8(
+        code = getattr(build.lib(), f"gm8_{name}")(
             a8.data_ptr(), b8.data_ptr(), bt.data_ptr(), out.data_ptr(), L,
-            m, n, k, kp, int(centered), build.stream_ptr(a8.device))
-    build.check(code, "matmul_mod_u8")
-    build.LAUNCHES["matmul_mod_u8"] += 1
+            m, n, k, kp, *flags, build.stream_ptr(a8.device))
+    build.check(code, name)
+    build.LAUNCHES[name] += 1
     return out
 
 
@@ -118,7 +159,11 @@ def _k_major(x: torch.Tensor):
 def magmax_matmul(mag_a: torch.Tensor, mag_b: torch.Tensor):
     """(m, k) x (k, n) int8 magnitudes -> (smax_row (m, 1), smax_col
     (1, n)) int32, the row and column maxima of their product; the (m, n)
-    product is never stored."""
+    product is never stored. GEMMUL8_MAGMAX_SCRATCH=1 takes
+    `magmax_matmul_scratch`, as the JAX package's `magmax_matmul_pallas`
+    dispatches."""
+    if os.environ.get("GEMMUL8_MAGMAX_SCRATCH", "0") == "1":
+        return magmax_matmul_scratch(mag_a, mag_b)
     sg.check_magmax_args(mag_a, mag_b)
     if mag_a.device.type == "cpu" and mag_b.device.type == "cpu":
         return magmax_plain(mag_a, mag_b)
@@ -137,3 +182,31 @@ def magmax_matmul(mag_a: torch.Tensor, mag_b: torch.Tensor):
     build.check(code, "magmax_matmul")
     build.LAUNCHES["magmax_matmul"] += 1
     return row, col
+
+
+def magmax_matmul_scratch(mag_a: torch.Tensor, mag_b: torch.Tensor):
+    """`magmax_matmul`'s values with the cross-tile fold deferred: the
+    kernel stores each 128 x 128 tile's row and column maxima plainly
+    into its own column of an (m, n_tiles) and its own row of an
+    (m_tiles, n) int32 buffer, and two torch.amax calls finish the fold."""
+    sg.check_magmax_args(mag_a, mag_b)
+    if mag_a.device.type == "cpu" and mag_b.device.type == "cpu":
+        return magmax_scratch_plain(mag_a, mag_b)
+    build.require_device(mag_a, mag_b)
+    m, k = mag_a.shape
+    n = mag_b.shape[1]
+    a, lda = _k_major(mag_a)
+    bt, ldb = _k_major(mag_b.t())
+    # every entry is stored by one tile: no zero fill
+    row = torch.empty((m, -(-n // _TILE)), dtype=torch.int32,
+                      device=a.device)
+    col = torch.empty((-(-m // _TILE), n), dtype=torch.int32,
+                      device=a.device)
+    with torch.cuda.device(a.device):
+        code = build.lib().gm8_magmax_matmul_scratch(
+            a.data_ptr(), lda, bt.data_ptr(), ldb, row.data_ptr(),
+            col.data_ptr(), m, n, k, build.stream_ptr(a.device))
+    build.check(code, "magmax_matmul_scratch")
+    build.LAUNCHES["magmax_matmul_scratch"] += 1
+    return (torch.amax(row, dim=1, keepdim=True),
+            torch.amax(col, dim=0, keepdim=True))

@@ -40,9 +40,11 @@ def test_sources_are_cuda_files():
     from gemmul8_tpu_torch.hopper import build
 
     names = sorted(p.name for p in build.sources())
-    assert names == ["common.cuh", "encode.cu", "fast_sft.cu", "mag7.cu",
-                     "magmax.cu", "matmul_complex.cu", "matmul_mod.cu",
-                     "mma_s8.cuh", "reconstruct.cu", "transpose_b.cuh"]
+    assert names == ["common.cuh", "encode.cu", "fast_encode_fused.cu",
+                     "fast_sft.cu", "fast_stats.cuh", "mag7.cu", "magmax.cu",
+                     "matmul_complex.cu", "matmul_mod.cu",
+                     "matmul_mod_pipelined.cu", "mma_s8.cuh",
+                     "reconstruct.cu", "residue.cuh", "transpose_b.cuh"]
 
 
 def test_every_entry_point_has_a_signature():
