@@ -81,9 +81,41 @@ The opt-in variants (the JAX package's switches, read at call time) add:
       variant call at 8192^3 against the default call of its mode, the
       median of three rounds in rotated order.
 
+The low-memory schedule, the limb input and the two CRT-fused GEMMs add:
+  3s. on the card against the plain versions, bit-equal, at phase 3's shapes
+      and 2, 8, 14, 20 moduli: encode_slices and matmul_mod_u8 (and its
+      pipelined variant) on subsets of the moduli (the chunks of
+      ModuliSchedule(L, 5), the 256 lane alone, a tuple out of order);
+      reconstruct from 16-bit limbs (canonical, and with a carry pushed
+      back into a lower limb) and from raw int32 slice products, on phase
+      3's rounding-branch values too; matmul_crt (limbs equal, each in
+      [0, 65535]); matmul_reconstruct, equal to matmul_mod_u8 + reconstruct
+      as well; the in-place chunk fold on the card;
+  4s. at 8192^3, 14 moduli, on phase 4's operands: gemm(moduli_chunk=5)
+      fast and accurate and one gemm(max_workspace_bytes=...) whose budget
+      the planner turns into 4 chunks: each returns the one-shot call's
+      bits, its launch counts show one encode_slices pair and one
+      matmul_mod_u8 per chunk and one reconstruct, and its peak of device
+      memory above what was allocated before the call is below the one-shot
+      call's and within planner.workspace_bytes; then
+      GEMMUL8_FUSED_RECONSTRUCT=1 fast and accurate (matmul_reconstruct 1,
+      matmul_mod_u8 0, reconstruct 0) and fast_sft -> encode_slices ->
+      matmul_crt -> reconstruct from limbs: the default call's bits, gate
+      < 1e-8; and each of these at 2048^3 against the all-plain path;
+  5s. times at 8192^2 operands, 14 moduli (medians of three rounds in
+      rotated order): matmul_crt, matmul_reconstruct and limb-input
+      reconstruct beside matmul_mod_u8 and reconstruct and beside their
+      plain versions (warm-up outputs held bit for bit), and
+      matmul_reconstruct against matmul_mod_u8 + reconstruct over ten
+      alternating rounds; encode_slices on
+      13 moduli in its three forms; the chunk fold; then the chunked calls
+      (chunk 5 and chunk 1) and the FUSED_RECONSTRUCT call beside the
+      default call of their mode.
+
 The line before the last is a JSON object of per-kernel results
-(`launches` sums the main-path calls of phase 4, real and complex, and for
-the variant kernels those of phase 4v at 8192^3; the statistics mode of
+(`launches` sums the main-path calls of phase 4, real and complex, for the
+variant kernels those of phase 4v at 8192^3, and for matmul_crt and
+matmul_reconstruct those of phase 4s at 8192^3; the statistics mode of
 fast_sft counts as fast_sft); `bound_ms` is the least time the card could
 take for the phase-5 work, from the bytes the function must move at 3.35
 TB/s or its int8 operations at 1,979 TOPS, whichever is larger; no single
@@ -103,12 +135,13 @@ import numpy as np
 import torch
 
 import gemmul8_tpu_torch as gt
-from gemmul8_tpu_torch import tables
+from gemmul8_tpu_torch import planner, tables
 from gemmul8_tpu_torch.bench.matrices import phi_matrix
 from gemmul8_tpu_torch.bench.native import dd_gemm, relerr_vs_dd
 from gemmul8_tpu_torch.core import complexgemm as cg
 from gemmul8_tpu_torch.core import encode as enc
 from gemmul8_tpu_torch.core import gemm as tg
+from gemmul8_tpu_torch.core import reconstruct as rec
 from gemmul8_tpu_torch.core import slicegemm as sg
 from gemmul8_tpu_torch.hopper import build
 from gemmul8_tpu_torch.hopper import kernels as hk
@@ -149,6 +182,10 @@ KERNELS = {
     "matmul_mod_u8_pipelined": (
         "gemmul8_tpu_torch/csrc/matmul_mod_pipelined.cu",
         "gemmul8_tpu/pallas/matmul.py:188"),
+    "matmul_crt": ("gemmul8_tpu_torch/csrc/matmul_crt.cu",
+                   "gemmul8_tpu/pallas/matmul.py:637"),
+    "matmul_reconstruct": ("gemmul8_tpu_torch/csrc/matmul_reconstruct.cu",
+                           "gemmul8_tpu/pallas/megakernel.py:80"),
 }
 # wrapper counts that launch another entry's kernel (its second mode)
 KERNEL_OF = {"fast_stats": "fast_sft"}
@@ -193,6 +230,14 @@ VARIANT_CALLS = [
 VARIANT_ROUNDS = 3
 VARIANT_KERNELS = ("fast_encode_fused", "mag7_fused", "magmax_matmul_scratch",
                    "matmul_mod_u8_pipelined")
+# phase 3s: phase 3's shapes, every one at 2 to 20 moduli but the largest
+SCHEDULE_CASES = [((2048, 2048, 2048), (L_MAIN,), False),
+                  ((1000, 777, 1500), (2, 8, 14, 20), True),
+                  ((300, 5, 200), (2, 8, 14, 20), True)]
+CHUNK = 5                # phase 4s: moduli_chunk of the chunked calls
+BUDGET_CHUNK = 4         # and the chunk its max_workspace_bytes call plans
+SCHEDULE_KERNELS = ("matmul_crt", "matmul_reconstruct")
+SCHEDULE_ROUNDS = 3
 # the card's published peaks (H100 SXM5 data sheet, dense): device-memory
 # bytes per second and int8 tensor-core operations per second
 HBM_BYTES_PER_S = 3.35e12
@@ -346,8 +391,23 @@ def phase_rounding(errs):
                  hk.reconstruct_plain(r8, sft_a, sft_b, L), tag)
             assert torch.equal(bits64(c.cpu()), bits64(want)), \
                 f"{tag}: not the correctly rounded values"
+        # the same values as raw int32 products (a residue plus a multiple
+        # of its modulus, negative ones too) and as 16-bit limbs
+        mods = torch.tensor(tables.MODULI[:L]).view(L, 1, 1)
+        mult = torch.arange(-3, len(vals) - 3).view(1, 1, -1) * 1000003
+        prod = (r + mods * (mult % 7919 - 4000)).to(torch.int32).to(DEVICE)
+        limbs = torch.stack(rec.accumulate_weighted(r, L)).to(
+            torch.int32).to(DEVICE)
+        for x, kind in ((prod, "residues"), (limbs, "limbs")):
+            c = hk.reconstruct(x, sft_a, sft_b, L, input_kind=kind)
+            tag = f"reconstruct rounding L={L} int32 {kind}"
+            hold(errs, "reconstruct", c,
+                 hk.reconstruct_plain(x, sft_a, sft_b, L, "f64", 0, kind),
+                 tag)
+            assert torch.equal(bits64(c.cpu()), bits64(want)), \
+                f"{tag}: not the correctly rounded values"
         log(f"  reconstruct rounding branches == plain == exact, L={L}, "
-            f"{len(vals)} values, int8 and uint8")
+            f"{len(vals)} values, int8, uint8, int32 products and limbs")
 
 
 def phase_accurate_kernels(errs):
@@ -603,6 +663,87 @@ def phase_variant_kernels(errs):
             assert torch.equal(r, hm.matmul_mod_u8(*slices, L)), \
                 f"matmul_mod_u8_pipelined {tag} L={L}: not matmul_mod_u8's"
         log(f"  variant kernels == plain at {tag} L={Ls}")
+
+
+def moduli_subsets(L):
+    """The chunks of ModuliSchedule(L, 5), the 256 lane alone, and a tuple
+    out of order (the last modulus first)."""
+    subsets = [tuple(range(j0, j0 + w))
+               for j0, w in planner.ModuliSchedule(L, 5).chunks()]
+    return subsets + [(0,), tuple(dict.fromkeys(
+        j for j in (L - 1, 0, 3, 1) if j < L))]
+
+
+def phase_schedule_kernels(errs):
+    """Phase 3s: the kernels' new inputs and the two CRT-fused GEMMs vs
+    their plain versions."""
+    for (m, k, n), Ls, special in SCHEDULE_CASES:
+        a, b = operands(m, k, n, 7, special)
+        for L in Ls:
+            tag = f"m={m} k={k} n={n} L={L}"
+            sa = hk.fast_sft_plain(a, L, axis=1)
+            sb = hk.fast_sft_plain(b, L, axis=0)
+            a8 = hk.encode_slices(a, sa, L, axis=1)
+            b8 = hk.encode_slices(b, sb, L, axis=0)
+            for idx in moduli_subsets(L):
+                ai = hk.encode_slices(a, sa, L, 1, moduli_idx=idx)
+                bi = hk.encode_slices(b, sb, L, 0, moduli_idx=idx)
+                hold(errs, "encode_slices", (ai, bi),
+                     (hk.encode_slices_plain(a, sa, L, 1, idx),
+                      hk.encode_slices_plain(b, sb, L, 0, idx)),
+                     f"encode_slices {tag} moduli {idx}")
+                assert torch.equal(ai, a8[list(idx)]), \
+                    f"encode_slices {tag} moduli {idx}: not the full " \
+                    "call's slices"
+                for centered in (True, False):
+                    hold(errs, "matmul_mod_u8",
+                         hm.matmul_mod_u8(ai, bi, L, centered, idx),
+                         hm.matmul_mod_u8_plain(ai, bi, L, centered, idx),
+                         f"matmul_mod_u8 {tag} moduli {idx}")
+                hold(errs, "matmul_mod_u8_pipelined",
+                     hm.matmul_mod_u8_pipelined(ai, bi, L, idx),
+                     hm.matmul_mod_u8_plain(ai, bi, L, False, idx),
+                     f"matmul_mod_u8_pipelined {tag} moduli {idx}")
+            r8 = hm.matmul_mod_u8(a8, b8, L, centered=True)
+            ref = hk.reconstruct(r8, sa, sb, L)
+            limbs = hm.matmul_crt(a8, b8, L)
+            hold(errs, "matmul_crt", limbs, hm.matmul_crt_plain(a8, b8, L),
+                 f"matmul_crt {tag}")
+            assert 0 <= int(limbs.min()) and int(limbs.max()) <= 0xFFFF, \
+                f"matmul_crt {tag}: limbs not canonical"
+            # a carry pushed back into limb 0: the same integer, not canonical
+            pushed = limbs.clone()
+            take = pushed[1].clamp(max=8000)
+            pushed[1] -= take
+            pushed[0] += take << 16
+            prod = torch.stack([(a8[l].double() @ b8[l].double()).to(
+                torch.int32) for l in range(L)])
+            for x, kind, e in ((limbs, "limbs", 0), (limbs, "limbs", -7),
+                               (pushed, "limbs", 0), (prod, "residues", 0),
+                               (prod, "residues", 5)):
+                c = hk.reconstruct(x, sa, sb, L, e_extra=e, input_kind=kind)
+                hold(errs, "reconstruct", c,
+                     hk.reconstruct_plain(x, sa, sb, L, "f64", e, kind),
+                     f"reconstruct {tag} int32 {kind} e_extra={e}")
+                if e == 0:
+                    assert_bits_equal(c, ref, f"reconstruct {tag} int32 "
+                                      f"{kind} vs residue input")
+            fused = hm.matmul_reconstruct(a8, b8, sa, sb, L)
+            hold(errs, "matmul_reconstruct", fused,
+                 hm.matmul_reconstruct_plain(a8, b8, sa, sb, L),
+                 f"matmul_reconstruct {tag}")
+            assert_bits_equal(fused, ref, f"matmul_reconstruct {tag} vs "
+                              "matmul_mod_u8 + reconstruct")
+            # the chunk fold's torch ops on the card: uint8 residues added
+            # into int32 limbs, left without carries for the reconstruct
+            folded = rec.fold_chunk_(
+                torch.zeros_like(limbs),
+                hm.matmul_mod_u8(a8, b8, L, centered=False), L,
+                tuple(range(L)))
+            assert_bits_equal(
+                hk.reconstruct(folded, sa, sb, L, input_kind="limbs"), ref,
+                f"chunk fold {tag}")
+            log(f"  schedule kernels == plain at {tag}")
 
 
 def accurate_plain_sfts(a, b, L):
@@ -883,6 +1024,119 @@ def phase_variants(a, b, refs, oracle, A, launches):
     return rels
 
 
+def counted(fn):
+    """(fn(), launch counts, peak of device memory above what was allocated
+    before): the counts reset just before the call and read just after."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    build.LAUNCHES.clear()
+    c = fn()
+    torch.cuda.synchronize()
+    return (c, dict(build.LAUNCHES),
+            torch.cuda.max_memory_allocated() - before)
+
+
+def crt_path(a, b, L):
+    """fast_sft -> encode_slices -> matmul_crt -> reconstruct from limbs:
+    the path matmul_crt has in the JAX package (no switch reaches it)."""
+    sa, sb = hk.fast_sft(a, L, 1), hk.fast_sft(b, L, 0)
+    limbs = hm.matmul_crt(hk.encode_slices(a, sa, L, 1),
+                          hk.encode_slices(b, sb, L, 0), L)
+    return hk.reconstruct(limbs, sa, sb, L, input_kind="limbs")
+
+
+def schedule_calls():
+    """Phase 4s's N^3 calls: (name, fastmode, fn(a, b), launch counts,
+    planner chunk or None)."""
+    L = L_MAIN
+    budget = planner.workspace_bytes(N, N, N, L, moduli_chunk=BUDGET_CHUNK)
+    sched = planner.plan_schedule(N, N, N, L, budget)
+    assert sched.chunk == BUDGET_CHUNK and sched.num_chunks > 1, sched
+
+    def chunked(pre, nchunks):
+        return {**pre, "encode_slices": 2 * nchunks,
+                "matmul_mod_u8": nchunks, "reconstruct": 1}
+
+    def gemm(fastmode, env=None, **kwargs):
+        return lambda a, b: under(env or {}, lambda: gt.gemm(
+            a, b, num_moduli=L, fastmode=fastmode, device=DEVICE, **kwargs))
+
+    fast_pre = {"fast_sft": 2}
+    accu_pre = {"emax": 2, "mag7": 2, "magmax_matmul": 1}
+    n5 = planner.ModuliSchedule(L, CHUNK).num_chunks
+    fused = {"GEMMUL8_FUSED_RECONSTRUCT": "1"}
+    return [
+        (f"fast moduli_chunk={CHUNK}", True, gemm(True, moduli_chunk=CHUNK),
+         chunked(fast_pre, n5), CHUNK),
+        (f"accurate moduli_chunk={CHUNK}", False,
+         gemm(False, moduli_chunk=CHUNK), chunked(accu_pre, n5), CHUNK),
+        (f"fast max_workspace_bytes={budget}", True,
+         gemm(True, max_workspace_bytes=budget),
+         chunked(fast_pre, sched.num_chunks), BUDGET_CHUNK),
+        ("fast FUSED_RECONSTRUCT", True, gemm(True, fused),
+         {**fast_pre, "encode_slices": 2, "matmul_reconstruct": 1}, None),
+        ("accurate FUSED_RECONSTRUCT", False, gemm(False, fused),
+         {**accu_pre, "encode_slices": 2, "matmul_reconstruct": 1}, None),
+        ("fast matmul_crt path", True, lambda a, b: crt_path(a, b, L),
+         {**fast_pre, "encode_slices": 2, "matmul_crt": 1, "reconstruct": 1},
+         None),
+    ]
+
+
+def phase_schedules(a, b, refs, oracle, launches):
+    """Phase 4s: the chunked, fused-reconstruct and matmul_crt paths at N^3,
+    each held to the default call's bits (refs: fastmode -> output), its
+    launch counts and the gate; the chunked calls' peak memory against the
+    one-shot call's and the planner's figure; then each path at N_PLAIN^3
+    against the all-plain path. Returns the gate relerr of each N^3 call."""
+    L = L_MAIN
+    one_shot = {}
+    for fastmode in (True, False):
+        c, _, one_shot[fastmode] = counted(lambda: gt.gemm(
+            a, b, num_moduli=L, fastmode=fastmode, device=DEVICE))
+        assert torch.equal(bits64(c), bits64(refs[fastmode]))
+        del c
+    log(f"  one-shot {N}^3 calls: peak device memory above the operands "
+        f"fast {one_shot[True]} bytes, accurate {one_shot[False]}; planner "
+        f"{planner.workspace_bytes(N, N, N, L)}")
+    rels = {}
+    for name, fastmode, fn, want, chunk in schedule_calls():
+        c, counts, peak = counted(lambda: fn(a, b))
+        log(f"  launches in the {N}^3 {name} call: {counts}")
+        assert counts == want, f"{name} launch counts {counts}"
+        assert torch.equal(bits64(c), bits64(refs[fastmode])), \
+            f"{name}: not the default call's bits"
+        rels[name] = gate(c, oracle)
+        assert rels[name] < 1e-8, f"{name} relerr {rels[name]} >= 1e-8"
+        del c
+        line = (f"  {N}^3 {name} == default call (bits), gate relerr "
+                f"{rels[name]!r}, peak {peak} bytes")
+        if chunk is not None:
+            plan = planner.workspace_bytes(N, N, N, L, moduli_chunk=chunk)
+            assert peak < one_shot[fastmode], \
+                f"{name}: peak {peak} not below the one-shot call's"
+            assert peak <= plan, f"{name}: peak {peak} over the planner's"
+            line += (f" (one-shot {one_shot[fastmode]}, planner at chunk "
+                     f"{chunk}: {plan})")
+        log(line)
+        for kname in SCHEDULE_KERNELS:
+            launches[kname] = launches.get(kname, 0) + counts.get(kname, 0)
+    # N_PLAIN^3: every path against the all-plain path on the same shifts
+    a2 = a[:N_PLAIN, :N_PLAIN].contiguous()
+    b2 = b[:N_PLAIN, :N_PLAIN].contiguous()
+    plain = {True: plain_gemm(a2, b2, L, (hk.fast_sft(a2, L, 1),
+                                          hk.fast_sft(b2, L, 0)))[0],
+             False: plain_gemm(a2, b2, L, tg.accurate_sfts(a2, b2, L))[0]}
+    for name, fastmode, fn, _, _ in schedule_calls():
+        if "max_workspace_bytes" in name:   # the budget is N^3's
+            continue
+        assert_bits_equal(fn(a2, b2), plain[fastmode],
+                          f"{N_PLAIN}^3 {name} vs plain path")
+        log(f"  {N_PLAIN}^3 {name} == all-plain path (bits)")
+    return rels
+
+
 def timed(fn, reps):
     """(ms per call, the warm-up call's output)."""
     first = fn()
@@ -1158,6 +1412,86 @@ def phase_variant_times(a, b, errs):
     return times, by_name
 
 
+def phase_schedule_times(a, b, errs):
+    """Phase 5s: at the main path's shapes (N^2 operands, 14 moduli), the
+    two CRT-fused GEMMs and limb-input reconstruct beside matmul_mod_u8 and
+    reconstruct, SCHEDULE_ROUNDS rounds in rotated order, and beside their
+    plain versions, the warm-up outputs held bit for bit; encode_slices on
+    13 moduli in its three forms; the chunk fold; then the chunked and
+    FUSED_RECONSTRUCT calls at N^3 beside the default call of their mode.
+    Returns ({label: [ms]}, {name: plain ms}, {call: [ms]})."""
+    L = L_MAIN
+    sa, sb = hk.fast_sft(a, L, 1), hk.fast_sft(b, L, 0)
+    a8, b8 = hk.encode_slices(a, sa, L, 1), hk.encode_slices(b, sb, L, 0)
+    r8 = hm.matmul_mod_u8(a8, b8, L, centered=True)
+    limbs = hm.matmul_crt(a8, b8, L)
+    plain_ms = {}
+    for name, got, plain in (
+            ("matmul_crt", limbs, lambda: hm.matmul_crt_plain(a8, b8, L)),
+            ("matmul_reconstruct", hm.matmul_reconstruct(a8, b8, sa, sb, L),
+             lambda: hm.matmul_reconstruct_plain(a8, b8, sa, sb, L)),
+            ("reconstruct (limbs)",
+             hk.reconstruct(limbs, sa, sb, L, input_kind="limbs"),
+             lambda: hk.reconstruct_plain(limbs, sa, sb, L, "f64", 0,
+                                          "limbs"))):
+        plain_ms[name], ref = timed(plain, 1)
+        hold(errs, name.split()[0], got, ref, f"{name} at {N}^2, {L} moduli")
+        log(f"  {name} == plain at the main path's shapes ({N}^2, {L} "
+            "moduli)")
+        del got, ref
+    kerns, _ = timed_rounds({
+        "matmul_crt": lambda: hm.matmul_crt(a8, b8, L),
+        "matmul_reconstruct": lambda: hm.matmul_reconstruct(a8, b8, sa, sb,
+                                                            L),
+        "matmul_mod_u8": lambda: hm.matmul_mod_u8(a8, b8, L, centered=True),
+        "reconstruct (limbs)": lambda: hk.reconstruct(limbs, sa, sb, L,
+                                                      input_kind="limbs"),
+        "reconstruct": lambda: hk.reconstruct(r8, sa, sb, L),
+    }, SCHEDULE_ROUNDS, 3)
+    del limbs, r8
+    # the fused kernel against the pair it replaces, resolved finer
+    pair, _ = timed_rounds({
+        "matmul_reconstruct, 10 rounds":
+            lambda: hm.matmul_reconstruct(a8, b8, sa, sb, L),
+        "matmul_mod_u8 + reconstruct, 10 rounds": lambda: hk.reconstruct(
+            hm.matmul_mod_u8(a8, b8, L, centered=True), sa, sb, L),
+    }, 10, 2)
+    kerns.update(pair)
+    ru = hm.matmul_mod_u8(a8, b8, L, centered=False)
+    del a8, b8
+    acc = torch.zeros((tables.num_limbs(L), N, N), dtype=torch.int32,
+                      device=DEVICE)
+    kerns["chunk fold (14 moduli, torch ops)"] = [timed(
+        lambda: rec.fold_chunk_(acc.zero_(), ru, L, tuple(range(L))), 2)[0]]
+    del acc, ru
+
+    def encode(idx):
+        return lambda: (hk.encode_slices(a, sa, L, 1, moduli_idx=idx),
+                        hk.encode_slices(b, sb, L, 0, moduli_idx=idx))
+
+    forms, _ = timed_rounds({
+        "encode_slices moduli 0..12 (first moduli)": encode(tuple(range(13))),
+        "encode_slices moduli 1..13 (a range)": encode(tuple(range(1, 14))),
+        "encode_slices moduli 13, 0..11 (slots)":
+            encode((13,) + tuple(range(12))),
+    }, SCHEDULE_ROUNDS, 5)
+    kerns.update(forms)
+    fused = {"GEMMUL8_FUSED_RECONSTRUCT": "1"}
+    calls = {"fast default": (True, {}, {}),
+             f"fast moduli_chunk={CHUNK}": (True, {}, {"moduli_chunk": CHUNK}),
+             "fast moduli_chunk=1": (True, {}, {"moduli_chunk": 1}),
+             "fast FUSED_RECONSTRUCT": (True, fused, {}),
+             "accurate default": (False, {}, {}),
+             f"accurate moduli_chunk={CHUNK}": (False, {},
+                                                {"moduli_chunk": CHUNK}),
+             "accurate FUSED_RECONSTRUCT": (False, fused, {})}
+    by_name, _ = timed_rounds(
+        {name: (lambda f=f, env=env, kw=kw: under(env, lambda: gt.gemm(
+            a, b, num_moduli=L, fastmode=f, device=DEVICE, **kw)))
+         for name, (f, env, kw) in calls.items()}, SCHEDULE_ROUNDS, 2)
+    return kerns, plain_ms, by_name
+
+
 def bound(nbytes, ops=0):
     """(ms, "bytes" or "operations"): the least time the card could take,
     the larger of nbytes of device memory at HBM_BYTES_PER_S and ops int8
@@ -1192,6 +1526,12 @@ def kernel_bounds(a, b, L):
         "mag7_fused": bound(8 * x + x + s),
         "magmax_matmul_scratch": bound(x + s, ops),
         "matmul_mod_u8_pipelined": bound(slices + L * m * n, L * ops),
+        "matmul_crt": bound(slices + 4 * tables.num_limbs(L) * m * n,
+                            L * ops),
+        "matmul_reconstruct": bound(slices + s + 8 * m * n, L * ops),
+        # not a kernel of its own: reconstruct on its limb input
+        "reconstruct (limbs)": bound(4 * tables.num_limbs(L) * m * n + s
+                                     + 8 * m * n),
     }
 
 
@@ -1219,6 +1559,7 @@ def main():
     phase_log2()
     phase_complex_kernels(errs)
     phase_variant_kernels(errs)
+    phase_schedule_kernels(errs)
     log(f"[3/5] every kernel == its plain version "
         f"({time.perf_counter() - t0:.1f} s)")
 
@@ -1227,6 +1568,7 @@ def main():
     a, b, rel_fast, rel_accu, refs, oracle = phase_slice(launches)
     A, B, rels = phase_complex(launches)
     variant_rels = phase_variants(a, b, refs, oracle, A, launches)
+    schedule_rels = phase_schedules(a, b, refs, oracle, launches)
     del refs
     log(f"[4/5] main path checked ({time.perf_counter() - t0:.1f} s)")
 
@@ -1285,9 +1627,29 @@ def main():
         log(f"  gemm {N}^3 {L_MAIN} moduli f64 {name}: median {ms:.3f} ms "
             f"(rounds {', '.join(f'{t:.3f}' for t in mss)}), "
             f"{tflops:.2f} TFLOP/s, gate relerr {rel!r} ({card})")
+    bounds = kernel_bounds(a, b, L_MAIN)
+    skerns, splain, scalls = phase_schedule_times(a, b, errs)
+    for label, mss in skerns.items():
+        line = (f"  {label}: median {float(np.median(mss)):.3f} ms (rounds "
+                f"{', '.join(f'{t:.3f}' for t in mss)})")
+        if label in splain:
+            ms, by = bounds[label]
+            line += f"; plain {splain[label]:.3f} ms; bound {ms:.3f} ms ({by})"
+        log(line + f" ({N}^2 operands, {L_MAIN} moduli; {card})")
+    for name in SCHEDULE_KERNELS:
+        times[name] = (float(np.median(skerns[name])), splain[name])
+    log(f"  schedule calls at {N}^3, {SCHEDULE_ROUNDS} rounds in rotated "
+        "order, 2 calls per timing:")
+    for name, mss in scalls.items():
+        ms = float(np.median(mss))
+        tflops = 2 * N ** 3 / (ms * 1e-3) / 1e12
+        rel = schedule_rels.get(name, rel_fast if name.startswith("fast")
+                                else rel_accu)
+        log(f"  gemm {N}^3 {L_MAIN} moduli f64 {name}: median {ms:.3f} ms "
+            f"(rounds {', '.join(f'{t:.3f}' for t in mss)}), "
+            f"{tflops:.2f} TFLOP/s, gate relerr {rel!r} ({card})")
     log("[5/5] times taken")
 
-    bounds = kernel_bounds(a, b, L_MAIN)
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name],
                 "max_abs_err": errs[name], "ms": times[name][0],

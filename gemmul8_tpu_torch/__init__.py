@@ -9,11 +9,11 @@ the kernels build at their first launch.
 """
 
 from . import tables
-from .api import gemm
+from .api import gemm, workspace_bytes
 from .types import (ComputeType, c128_to_words, f64_to_words, words_to_c128,
                     words_to_f64)
 
 __version__ = "0.1.0"
 
-__all__ = ["gemm", "tables", "ComputeType", "f64_to_words", "words_to_f64",
+__all__ = ["gemm", "workspace_bytes", "tables", "ComputeType", "f64_to_words", "words_to_f64",
            "c128_to_words", "words_to_c128"]

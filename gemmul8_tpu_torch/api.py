@@ -1,11 +1,13 @@
 """Public front end: C = A @ B emulated in f64 with Ozaki Scheme II.
 
-Counterpart of `gemmul8_tpu/api.py` `gemm`, for the part of its surface
-that is ported: float64 x float64 -> float64 and complex128 (or float64
-mixed with complex128) -> complex128 under all three complex compute
-types, op N/N, alpha = 1, beta = 0, fast and accurate mode, the one-shot
-schedule. Every other argument value raises NotImplementedError naming the
-ROADMAP item that adds it.
+Counterpart of `gemmul8_tpu/api.py` `gemm` and `workspace_bytes`, for the
+part of its surface that is ported: float64 x float64 -> float64 and
+complex128 (or float64 mixed with complex128) -> complex128 under all three
+complex compute types, op N/N, alpha = 1, beta = 0, fast and accurate mode;
+for real operands the one-shot schedule and the moduli-chunked low-memory
+one (`moduli_chunk`, or `max_workspace_bytes` through the planner). Every
+other argument value raises NotImplementedError naming the ROADMAP item
+that adds it.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from . import planner as _planner
 from . import tables
 from .core import complexgemm as _cg
 from .core import gemm as _g
@@ -74,7 +77,10 @@ def gemm(
     picks the shifts from an extra int8 GEMM of 7-bit magnitudes, tighter
     at the same count. compute_type picks the complex strategy (real
     operands ignore it; REAL_DEFAULT means COMPLEX_BIG_MATRIX_ENCODE); all
-    three give the same bits. numpy operands need device=."""
+    three give the same bits. moduli_chunk (real operands) keeps only that
+    many residue slices of each operand alive at a time, with the one-shot
+    call's bits; max_workspace_bytes lets `planner.plan_schedule` pick the
+    chunk for that budget. numpy operands need device=."""
     if not 2 <= num_moduli <= tables.MAX_MODULI:
         raise ValueError(f"num_moduli must be in [2, {tables.MAX_MODULI}]")
     if alpha != 1.0 or beta != 0.0 or c is not None:
@@ -111,8 +117,26 @@ def gemm(
     if out_dtype is not None and out_dtype not in (torch.float64, np.float64,
                                                    "float64", "f64"):
         raise NotImplementedError(f"out_dtype {out_dtype}: ROADMAP A4")
-    if schedule:
-        raise NotImplementedError("chunked and panel schedules: ROADMAP A6")
+    m, k, n = _g.check_shapes(ta, tb)
+    if n_panel is not None:
+        if moduli_chunk is not None or max_workspace_bytes is not None:
+            raise ValueError("n_panel and moduli_chunk/max_workspace_bytes "
+                             "are mutually exclusive schedules")
+        raise NotImplementedError(
+            "the column-panel schedule: ROADMAP A6/B15")
+    if moduli_chunk is None and max_workspace_bytes is not None:
+        moduli_chunk = _planner.plan_schedule(m, n, k, num_moduli,
+                                              max_workspace_bytes).chunk
     if return_times:
         raise NotImplementedError("phase times: ROADMAP A8")
-    return _g.gemm_core(ta, tb, num_moduli, fastmode, "f64")
+    return _g.gemm_core(ta, tb, num_moduli, fastmode, "f64", moduli_chunk)
+
+
+def workspace_bytes(m: int, n: int, k: int, num_moduli: int,
+                    compute_type: ComputeType = ComputeType.REAL_DEFAULT,
+                    moduli_chunk: Optional[int] = None) -> int:
+    """Expected peak auxiliary bytes on the device for one call: the
+    planner's model of what the port holds live (`planner.workspace_bytes`),
+    for capacity planning and for choosing `max_workspace_bytes`."""
+    return _planner.workspace_bytes(m, n, k, num_moduli, compute_type,
+                                    moduli_chunk)

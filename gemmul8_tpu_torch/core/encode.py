@@ -219,9 +219,23 @@ def _encode_with_sft(chunks, exp, sign, sft, num_moduli: int,
     return _residues_from_chunks(chunks, q, sign, moduli_idx, q_max_static)
 
 
+def check_moduli_idx(moduli_idx, num_moduli: int) -> tuple:
+    """moduli_idx as a tuple of distinct indices below num_moduli (None:
+    all of them in order)."""
+    if moduli_idx is None:
+        return tuple(range(num_moduli))
+    idx = tuple(int(j) for j in moduli_idx)
+    if (not idx or len(set(idx)) != len(idx)
+            or not all(0 <= j < num_moduli for j in idx)):
+        raise ValueError(f"moduli_idx {idx}: expected distinct indices "
+                         f"below {num_moduli}")
+    return idx
+
+
 def encode_slices(x: torch.Tensor, sft: torch.Tensor, num_moduli: int,
-                  axis: int) -> torch.Tensor:
-    """(L, *x.shape) int8 centered residues of trunc(x * 2^sft). sft is
+                  axis: int, moduli_idx=None) -> torch.Tensor:
+    """(L', *x.shape) int8 centered residues of trunc(x * 2^sft): slice l
+    for modulus moduli_idx[l] (default: all num_moduli in order). sft is
     (m, 1) for axis=1 (rows of A), (1, n) for axis=0 (columns of B)."""
     if x.dtype != torch.float64 or x.dim() != 2:
         raise TypeError("encode_slices expects a 2-D float64 tensor")
@@ -230,7 +244,8 @@ def encode_slices(x: torch.Tensor, sft: torch.Tensor, num_moduli: int,
         raise ValueError(f"sft shape {tuple(sft.shape)}, expected {want}")
     chunks, exp, sign, _ = _f64_fields(x)
     return _encode_with_sft(chunks, exp, sign, sft.to(torch.int64),
-                            num_moduli)
+                            num_moduli,
+                            check_moduli_idx(moduli_idx, num_moduli))
 
 
 def fast_encode_fused(x: torch.Tensor, num_moduli: int, axis: int):

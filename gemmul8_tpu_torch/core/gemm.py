@@ -1,10 +1,14 @@
 """GEMM-emulation orchestrator: shifts -> residue slices -> int8 matmul
 with the mod in its epilogue -> CRT reconstruct.
 
-Counterpart of the one-shot schedule of `gemmul8_tpu/core/gemm.py`
-`gemm_core` (its Pallas branch), in fast and accurate mode. Each step goes
-through a wrapper of `gemmul8_tpu_torch.hopper`, which launches the Hopper
-kernel for CUDA tensors and runs the plain PyTorch version for CPU tensors.
+Counterpart of `gemmul8_tpu/core/gemm.py` `gemm_core` (its Pallas branch),
+in fast and accurate mode, with its two schedules: one-shot, and
+moduli-chunked (the low-memory mode: only `moduli_chunk` residue slices of
+each operand exist at a time; each chunk's residues are folded into the
+int32 CRT limbs before the next chunk is encoded, and the reconstruct
+kernel finishes from the limbs). Each step goes through a wrapper of
+`gemmul8_tpu_torch.hopper`, which launches the Hopper kernel for CUDA
+tensors and runs the plain PyTorch version for CPU tensors.
 
 The JAX package's switches are read at call time from the environment,
 with its values and defaults; every variant gives the default's bits:
@@ -15,8 +19,10 @@ with its values and defaults; every variant gives the default's bits:
   sends to `matmul_mod_u8_pipelined`;
 - GEMMUL8_FUSED_MAG7=1 and GEMMUL8_MAGMAX_SCRATCH=1 (accurate mode) are
   read by `hopper.kernels.mag7_operand` and `hopper.matmul.magmax_matmul`;
-- GEMMUL8_FUSED_RECONSTRUCT=1 and GEMMUL8_PIPELINE in 1..3 select kernels
-  not ported yet (ROADMAP B14, B15) and raise NotImplementedError.
+- GEMMUL8_FUSED_RECONSTRUCT=1 (one-shot schedule, alpha_e == 0): the
+  matmul and the reconstruct from one kernel, `matmul_reconstruct`;
+- GEMMUL8_PIPELINE in 1..3 selects kernels not ported yet (ROADMAP B15)
+  and raises NotImplementedError.
 GEMMUL8_MXU_ENC is not read: in the JAX package it picks a contraction
 inside `encode_slices_pallas` that works around the TPU's slow integer
 division, with the same bits; the port's encode kernel has one form.
@@ -31,7 +37,9 @@ import torch
 from .. import tables
 from ..hopper import kernels as hk
 from ..hopper import matmul as hm
+from ..planner import ModuliSchedule
 from . import encode as enc
+from . import reconstruct as rec
 
 
 def check_shapes(a: torch.Tensor, b: torch.Tensor):
@@ -66,33 +74,68 @@ def gemm_core(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
               alpha_e: int = 0) -> torch.Tensor:
     """C = 2^alpha_e * A @ B emulated with num_moduli int8 GEMMs.
     a: (m, k), b: (k, n) float64 tensors on one device. fastmode=False
-    takes the shifts from `accurate_sfts`."""
-    check_shapes(a, b)
+    takes the shifts from `accurate_sfts`. moduli_chunk < num_moduli runs
+    the moduli-chunked schedule, with the one-shot call's bits."""
+    m, k, n = check_shapes(a, b)
     if not fastmode and (out_dtype != "f64" or a.dtype != torch.float64
                          or b.dtype != torch.float64):
         raise NotImplementedError(
             "accurate mode with f32 operands or output: ROADMAP A4")
-    if moduli_chunk is not None and moduli_chunk < num_moduli:
-        raise NotImplementedError("moduli-chunked schedule: ROADMAP A6")
+    if moduli_chunk is not None and moduli_chunk < 1:
+        raise ValueError(f"moduli_chunk={moduli_chunk}: expected >= 1")
     if a.device != b.device:
         raise ValueError(f"operands on {a.device} and {b.device}")
     check_unported_switches()
     a, b = a.contiguous(), b.contiguous()
-    if fastmode and os.environ.get("GEMMUL8_FUSED_ENCODE") == "1":
+    one_shot = moduli_chunk is None or moduli_chunk >= num_moduli
+    if (fastmode and one_shot
+            and os.environ.get("GEMMUL8_FUSED_ENCODE") == "1"):
         a8, sft_a = hk.fast_encode_fused(a, num_moduli, axis=1)
         b8, sft_b = hk.fast_encode_fused(b, num_moduli, axis=0)
     else:
+        # the shifts do not depend on the chunk: selected once
         if fastmode:
             sft_a = hk.fast_sft(a, num_moduli, axis=1)
             sft_b = hk.fast_sft(b, num_moduli, axis=0)
         else:
             sft_a, sft_b = accurate_sfts(a, b, num_moduli)
+        if not one_shot:
+            return _gemm_chunked(a, b, sft_a, sft_b, num_moduli,
+                                 moduli_chunk, out_dtype, alpha_e)
         a8 = hk.encode_slices(a, sft_a, num_moduli, axis=1)
         b8 = hk.encode_slices(b, sft_b, num_moduli, axis=0)
+    if (alpha_e == 0 and os.environ.get("GEMMUL8_FUSED_RECONSTRUCT") == "1"
+            and hm.fused_reconstruct_ok(m, n, k, num_moduli)):
+        return hm.matmul_reconstruct(a8, b8, sft_a, sft_b, num_moduli,
+                                     out_dtype)
     r8 = hm.matmul_mod_u8(a8, b8, num_moduli, centered=centered_residues())
     del a8, b8
     return hk.reconstruct(r8, sft_a, sft_b, num_moduli, out_dtype,
                           e_extra=alpha_e)
+
+
+def _gemm_chunked(a, b, sft_a, sft_b, num_moduli: int, moduli_chunk: int,
+                  out_dtype: str, alpha_e: int) -> torch.Tensor:
+    """The moduli-chunked schedule on shifts already selected: per chunk,
+    encode its slices of A and B, multiply them mod their moduli, fold the
+    residues into the (num_limbs, m, n) int32 CRT limbs in place, and free
+    the chunk before the next one is made; then reconstruct from the
+    limbs."""
+    limbs = None
+    for j0, width in ModuliSchedule(num_moduli, moduli_chunk).chunks():
+        idx = tuple(range(j0, j0 + width))
+        a8 = hk.encode_slices(a, sft_a, num_moduli, axis=1, moduli_idx=idx)
+        b8 = hk.encode_slices(b, sft_b, num_moduli, axis=0, moduli_idx=idx)
+        r8 = hm.matmul_mod_u8(a8, b8, num_moduli, moduli_idx=idx)
+        del a8, b8
+        if limbs is None:
+            limbs = torch.zeros(
+                (tables.num_limbs(num_moduli), *r8.shape[1:]),
+                dtype=torch.int32, device=r8.device)
+        rec.fold_chunk_(limbs, r8, num_moduli, idx)
+        del r8
+    return hk.reconstruct(limbs, sft_a, sft_b, num_moduli, out_dtype,
+                          e_extra=alpha_e, input_kind="limbs")
 
 
 def centered_residues() -> bool:
@@ -113,7 +156,3 @@ def check_unported_switches() -> None:
         raise NotImplementedError(
             f"GEMMUL8_PIPELINE={pipe}: the panel/rider pipeline kernels "
             "are not ported (ROADMAP B15)")
-    if os.environ.get("GEMMUL8_FUSED_RECONSTRUCT") == "1":
-        raise NotImplementedError(
-            "GEMMUL8_FUSED_RECONSTRUCT=1: the fused matmul + reconstruct "
-            "kernel is not ported (ROADMAP B14)")

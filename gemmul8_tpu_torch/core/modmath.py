@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tables
+
 
 def mod_u26(x: torch.Tensor, m: int, bound_bits: int = 26) -> torch.Tensor:
     """x mod m for 0 <= x < 2^bound_bits (<= 28), 2 <= m <= 256. Exact.
@@ -42,3 +44,15 @@ def mod_i32(x: torch.Tensor, m: int) -> torch.Tensor:
     for s in (8, 4, 2, 1):
         r = r - torch.where(r >= s * m, s * m, 0)
     return r
+
+
+def mod_reduce(c: torch.Tensor, num_moduli: int,
+               moduli_idx=None) -> torch.Tensor:
+    """Canonical residues (L, m, n) int64 in [0, m_j) of the products."""
+    if moduli_idx is None:
+        moduli_idx = tuple(range(num_moduli))
+    out = []
+    for jj, j in enumerate(moduli_idx):
+        m = tables.MODULI[j]
+        out.append(c[jj] & 255 if m == 256 else mod_i32(c[jj], m))
+    return torch.stack(out)

@@ -6,7 +6,10 @@ f32 quotient estimate and one exact correction, centered to (-M/2, M/2],
 scaled by 2^(e_extra - sft_a - sft_b) and rounded to nearest even into the
 bits of an f64 (or f32), subnormals and overflow to inf included.
 
-This is the plain PyTorch version the reconstruct kernel is held to.
+This is the plain PyTorch version the reconstruct kernel is held to. The
+moduli-chunked schedule adds each chunk's weighted residues into one int32
+limb tensor in place (`fold_chunk_`) and hands it to `reconstruct` as
+input_kind="limbs".
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 
 from .. import tables
 from . import limbs as lb
+from .modmath import mod_reduce
 
 
 def accumulate_weighted(r, num_moduli: int, moduli_idx=None, acc=None):
@@ -34,6 +38,32 @@ def accumulate_weighted(r, num_moduli: int, moduli_idx=None, acc=None):
             if wl:
                 out[l] = out[l] + (rj if wl == 1 else rj * wl)
     return lb.carry_propagate(out)
+
+
+def fold_chunk_(limbs: torch.Tensor, r: torch.Tensor, num_moduli: int,
+                moduli_idx) -> torch.Tensor:
+    """limbs[l] += sum_jj w[j, l] * r[jj], j = moduli_idx[jj], in place:
+    the sums of `accumulate_weighted` on one (num_limbs, ...) int32 tensor
+    instead of a list of int64 tensors (0.54 GB a limb at 8192^2), and
+    without its carry pass. Over all of a call's moduli a limb stays below
+    20 * 255 * 65535 < 2^29, the JAX package's bound for its int32 limbs,
+    so the carries can wait for the reconstruct, whose limb input takes
+    such limbs. r: uint8 canonical residues, or int8 holding r - 128.
+    Plain tensor ops on limbs' device."""
+    nl = tables.num_limbs(num_moduli)
+    if limbs.dtype != torch.int32 or limbs.shape[0] != nl:
+        raise ValueError(f"expected ({nl}, ...) int32 limbs")
+    if r.dtype == torch.int8:
+        r = (r.to(torch.int16) + 128).to(torch.uint8)
+    elif r.dtype != torch.uint8:
+        raise TypeError("residues must be uint8 or int8")
+    w = tables.crt_weight_limbs(num_moduli)
+    for jj, j in enumerate(moduli_idx):
+        for l in range(nl):
+            if int(w[j, l]):
+                # the uint8 residues are promoted to int32 inside the add
+                limbs[l].add_(r[jj], alpha=int(w[j, l]))
+    return limbs
 
 
 def _const_limbs(v: int, n: int):
@@ -142,9 +172,21 @@ def canonical_residues(r: torch.Tensor) -> torch.Tensor:
 
 
 def reconstruct(r: torch.Tensor, sft_a: torch.Tensor, sft_b: torch.Tensor,
-                num_moduli: int, out_dtype: str = "f64",
-                e_extra: int = 0) -> torch.Tensor:
-    """(L, m, n) residues (see canonical_residues) + shifts (m, 1), (1, n)
-    -> (m, n) float64 ('f64') or float32 ('f32') tensor."""
-    x = accumulate_weighted(canonical_residues(r), num_moduli)
+                num_moduli: int, out_dtype: str = "f64", e_extra: int = 0,
+                input_kind: str = "residues") -> torch.Tensor:
+    """(L, m, n) residues (see canonical_residues; int32 holds raw slice
+    products, reduced here) + shifts (m, 1), (1, n) -> (m, n) float64
+    ('f64') or float32 ('f32') tensor. input_kind="limbs": r is the
+    weighted sum itself as (num_limbs, m, n) 16-bit limbs, canonical or
+    with each limb nonnegative and below 2^29."""
+    if input_kind == "limbs":
+        x = [r[i].to(torch.int64) for i in range(r.shape[0])]
+    elif input_kind != "residues":
+        raise ValueError(f"input_kind {input_kind!r}")
+    elif r.dtype == torch.int32:
+        x = accumulate_weighted(mod_reduce(r.to(torch.int64), num_moduli),
+                                num_moduli)
+    else:
+        x = accumulate_weighted(canonical_residues(r), num_moduli)
     return finalize(x, sft_a, sft_b, num_moduli, out_dtype, e_extra)
+

@@ -12,7 +12,9 @@ from __future__ import annotations
 import torch
 
 from .. import tables
-from .modmath import mod_i32
+from . import reconstruct as rec
+from .encode import check_moduli_idx
+from .modmath import mod_reduce
 
 
 def slice_products(a8: torch.Tensor, b8: torch.Tensor) -> torch.Tensor:
@@ -21,30 +23,44 @@ def slice_products(a8: torch.Tensor, b8: torch.Tensor) -> torch.Tensor:
                         for l in range(a8.shape[0])])
 
 
-def mod_reduce(c: torch.Tensor, num_moduli: int,
-               moduli_idx=None) -> torch.Tensor:
-    """Canonical residues (L, m, n) int64 in [0, m_j) of the products."""
-    if moduli_idx is None:
-        moduli_idx = tuple(range(num_moduli))
-    out = []
-    for jj, j in enumerate(moduli_idx):
-        m = tables.MODULI[j]
-        out.append(c[jj] & 255 if m == 256 else mod_i32(c[jj], m))
-    return torch.stack(out)
-
-
 def matmul_mod(a8: torch.Tensor, b8: torch.Tensor, num_moduli: int,
-               centered: bool = False) -> torch.Tensor:
+               centered: bool = False, moduli_idx=None) -> torch.Tensor:
     """Residues of the slice products: canonical uint8, or r - 128 as int8
-    when centered. One modulus at a time, to bound the f64 temporaries."""
-    _check_matmul_args(a8, b8, num_moduli)
+    when centered. Slice l is reduced mod MODULI[moduli_idx[l]] (default:
+    all num_moduli in order). One modulus at a time, to bound the f64
+    temporaries."""
+    idx = _check_matmul_args(a8, b8, num_moduli, moduli_idx)
     out = []
-    for l in range(a8.shape[0]):
+    for l, j in enumerate(idx):
         r = mod_reduce(slice_products(a8[l:l + 1], b8[l:l + 1]),
-                       num_moduli, (l,))[0]
+                       num_moduli, (j,))[0]
         out.append((r - 128).to(torch.int8) if centered
                    else r.to(torch.uint8))
     return torch.stack(out)
+
+
+def matmul_crt(a8: torch.Tensor, b8: torch.Tensor,
+               num_moduli: int) -> torch.Tensor:
+    """(L, m, k) x (L, k, n) int8 -> (num_limbs, m, n) int32 canonical
+    16-bit limbs of X = sum_l w_l * ((a8[l] @ b8[l]) mod m_l): the slice
+    products, their residues and `accumulate_weighted`, one modulus at a
+    time. The function of the JAX package's `matmul_crt_pallas`."""
+    _check_matmul_args(a8, b8, num_moduli)
+    acc = None
+    for l in range(num_moduli):
+        r = mod_reduce(slice_products(a8[l:l + 1], b8[l:l + 1]),
+                       num_moduli, (l,))
+        acc = rec.accumulate_weighted(r, num_moduli, (l,), acc)
+    return torch.stack(acc).to(torch.int32)
+
+
+def matmul_reconstruct(a8: torch.Tensor, b8: torch.Tensor,
+                       sft_a: torch.Tensor, sft_b: torch.Tensor,
+                       num_moduli: int, out_dtype: str = "f64"):
+    """`matmul_mod` then `reconstruct`: the function of the JAX package's
+    `matmul_reconstruct_pallas`."""
+    return rec.reconstruct(matmul_mod(a8, b8, num_moduli), sft_a, sft_b,
+                           num_moduli, out_dtype)
 
 
 def recenter_add_int8(x8: torch.Tensor, y8: torch.Tensor,
@@ -134,16 +150,21 @@ def check_magmax_args(mag_a: torch.Tensor, mag_b: torch.Tensor):
         raise ValueError(f"k={mag_a.shape[1]} exceeds the bound 2^17")
 
 
-def _check_matmul_args(a8: torch.Tensor, b8: torch.Tensor, num_moduli: int):
+def _check_matmul_args(a8: torch.Tensor, b8: torch.Tensor, num_moduli: int,
+                       moduli_idx=None) -> tuple:
+    """Raise on slices the residue GEMMs do not take; returns the moduli
+    index of each slice (`check_moduli_idx`)."""
+    idx = check_moduli_idx(moduli_idx, num_moduli)
     if a8.dtype != torch.int8 or b8.dtype != torch.int8:
         raise TypeError("slices must be int8")
     if a8.dim() != 3 or b8.dim() != 3:
         raise ValueError("slices must be (L, m, k) and (L, k, n)")
-    if a8.shape[0] != num_moduli or b8.shape[0] != num_moduli:
-        raise ValueError(f"expected {num_moduli} slices per operand")
+    if a8.shape[0] != len(idx) or b8.shape[0] != len(idx):
+        raise ValueError(f"expected {len(idx)} slices per operand")
     if a8.shape[2] != b8.shape[1]:
         raise ValueError(f"inner dims mismatch: {tuple(a8.shape)} x "
                          f"{tuple(b8.shape)}")
     if a8.shape[2] > tables.MAX_K:
         raise ValueError(f"k={a8.shape[2]} exceeds the int32-exactness "
                          "bound 2^17")
+    return idx

@@ -1,5 +1,6 @@
-// Residue slices of an f64 operand: out[j] = centered residue of
-// trunc(x * 2^sft) mod m_j as int8, for j < num_moduli.
+// Residue slices of an f64 operand: out[l] = centered residue of
+// trunc(x * 2^sft) mod m_j as int8, j = moduli_idx[l]: every modulus of the
+// call in order, or the chunk of a moduli-chunked call.
 //
 // Replaces: encode_slices_pallas, gemmul8_tpu/pallas/kernels.py:691.
 // Bound on the H100: device-memory bytes. Per element it reads 8 bytes and
@@ -18,31 +19,63 @@ namespace {
 
 constexpr int kThreads = 256;
 
+// which moduli a call encodes: the first j1 in order (the one-shot call;
+// encode_element), j0 .. j1 - 1 in order (a later chunk), or those slots
+// gives a slice (any tuple)
+enum Mode { kPrefix, kRange, kSlots };
+
+template <int kMode>
 __global__ void __launch_bounds__(kThreads)
 encode_kernel(const unsigned long long* __restrict__ x,
               const int* __restrict__ sft, signed char* __restrict__ out,
-              int d0, int d1, int axis, int num_moduli, int q_max) {
+              int d0, int d1, int axis, int q_max, int j0, int j1,
+              const __grid_constant__ gm8::ModSlots slots) {
   const int col = blockIdx.x * kThreads + threadIdx.x;
   if (col >= d1) return;
   const size_t total = static_cast<size_t>(d0) * d1;
   for (int row = blockIdx.y; row < d0; row += gridDim.y) {
     const size_t idx = static_cast<size_t>(row) * d1 + col;
-    gm8::encode_element(x[idx], sft[axis == 1 ? row : col], out, total, idx,
-                        num_moduli, q_max);
+    const int s = sft[axis == 1 ? row : col];
+    if constexpr (kMode == kPrefix)
+      gm8::encode_element(x[idx], s, out, total, idx, j1, q_max);
+    else if constexpr (kMode == kRange)
+      gm8::encode_element_range(x[idx], s, out, total, idx, j0, j1, q_max);
+    else
+      gm8::encode_element_slots(x[idx], s, out, total, idx, slots, q_max);
   }
 }
 
 }  // namespace
 
 // x: (d0, d1) f64 bits; sft: d0 shifts (axis=1) or d1 shifts (axis=0);
-// out: (num_moduli, d0, d1) int8. q_max: the static left-shift cap
-// max(threshold_accurate - 53, 0).
+// moduli_idx: n_idx distinct indices into the moduli table, on the host;
+// out: (n_idx, d0, d1) int8, slice l for modulus moduli_idx[l]. q_max: the
+// static left-shift cap max(threshold_accurate - 53, 0) of the call's
+// moduli count.
 GM8_EXPORT int gm8_encode_slices(const void* x, const void* sft, void* out,
-                                 int d0, int d1, int axis, int num_moduli,
+                                 int d0, int d1, int axis,
+                                 const void* moduli_idx, int n_idx,
                                  int q_max, void* stream) {
+  auto idx = static_cast<const int*>(moduli_idx);
+  gm8::ModSlots slots;
+  if (!gm8::mod_slots(idx, n_idx, &slots))
+    return static_cast<int>(cudaErrorInvalidValue);
+  bool range = true;
+  for (int l = 1; l < n_idx; ++l) range = range && idx[l] == idx[0] + l;
   dim3 grid((d1 + kThreads - 1) / kThreads, d0 < 65535 ? d0 : 65535);
-  encode_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned long long*>(x), static_cast<const int*>(sft),
-      static_cast<signed char*>(out), d0, d1, axis, num_moduli, q_max);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto xp = static_cast<const unsigned long long*>(x);
+  auto sp = static_cast<const int*>(sft);
+  auto op = static_cast<signed char*>(out);
+  const int j0 = idx[0], j1 = idx[0] + n_idx;
+  if (range && j0 == 0)
+    encode_kernel<kPrefix><<<grid, kThreads, 0, s>>>(
+        xp, sp, op, d0, d1, axis, q_max, j0, j1, slots);
+  else if (range)
+    encode_kernel<kRange><<<grid, kThreads, 0, s>>>(
+        xp, sp, op, d0, d1, axis, q_max, j0, j1, slots);
+  else
+    encode_kernel<kSlots><<<grid, kThreads, 0, s>>>(
+        xp, sp, op, d0, d1, axis, q_max, j0, j1, slots);
   return gm8::launch_status();
 }

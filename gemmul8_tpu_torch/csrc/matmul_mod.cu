@@ -16,10 +16,13 @@
 // accumulator is the hardware's wrapping int32: the modulus-256 lane can
 // reach 128 * 128 * 2^17 = 2^31, which wraps to a multiple of 256, so its
 // residue stays right; the odd lanes stay below 2^31. The epilogue reduces
-// mod m_l in registers and writes one byte per residue. wgmma and TMA are
-// for later work.
+// mod m_l in registers and writes one byte per residue. Slot l of a call
+// holds modulus MODULI[moduli_idx[l]] (all the moduli in order, or the
+// chunk of a moduli-chunked call): the moduli come by value (moduli.cuh).
+// wgmma and TMA are for later work.
 #include "common.cuh"
 #include "mma_s8.cuh"
+#include "moduli.cuh"
 #include "transpose_b.cuh"
 
 namespace {
@@ -29,18 +32,13 @@ using gm8::kBN;
 constexpr int kThreads = gm8::kMmaThreads;
 constexpr int kSmemBytes = gm8::kMmaSmemBytes;
 
-__constant__ int c_moduli[gm8::kMaxModuli] = {
-#define GM8_MOD_VALUE(J, M) M,
-    GM8_FOR_MODULI(GM8_MOD_VALUE)
-#undef GM8_MOD_VALUE
-};
-
 // ---- the GEMM ------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads, 2)
 matmul_mod_kernel(const signed char* __restrict__ A,
                   const signed char* __restrict__ Bt,
                   unsigned char* __restrict__ out, int m, int n, int kp,
-                  int centered) {
+                  int centered,
+                  const __grid_constant__ gm8::SlotModuli mods) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int l = blockIdx.z;
   const int bm0 = blockIdx.y * kBM, bn0 = blockIdx.x * kBN;
@@ -52,7 +50,7 @@ matmul_mod_kernel(const signed char* __restrict__ A,
   const int g = lane >> 2, t = lane & 3;
   const int wm = warp >> 2, wn = warp & 3;
 
-  const int mod = c_moduli[l];
+  const int mod = mods.m[l];
   unsigned char* ol = out + static_cast<size_t>(l) * m * n;
 #pragma unroll
   for (int mt = 0; mt < 4; ++mt)
@@ -63,14 +61,7 @@ matmul_mod_kernel(const signed char* __restrict__ A,
         const int row = bm0 + wm * 64 + mt * 16 + g + (r >= 2 ? 8 : 0);
         const int col = bn0 + wn * 32 + nt * 8 + t * 2 + (r & 1);
         if (row < m && col < n) {
-          const int x = acc[mt][nt][r];
-          int res;
-          if (mod == 256) {
-            res = x & 255;
-          } else {
-            res = x % mod;
-            if (res < 0) res += mod;
-          }
+          const int res = gm8::mod_canon(acc[mt][nt][r], mod);
           ol[static_cast<size_t>(row) * n + col] =
               static_cast<unsigned char>(centered ? res - 128 : res);
         }
@@ -81,12 +72,17 @@ matmul_mod_kernel(const signed char* __restrict__ A,
 
 // a8: (L, m, kp) int8 with kp % 16 == 0 (zero-padded past k by the caller
 // when k % 16 != 0); b8: (L, k, n) int8; bt: (L, n, kp) int8 workspace;
-// out: (L, m, n) uint8 or int8. Slice l uses modulus MODULI[l]; k <= 2^17
-// (checked by the caller).
+// out: (L, m, n) uint8 or int8. Slice l uses modulus MODULI[moduli_idx[l]]
+// (moduli_idx: L ints on the host, or null for 0..L-1); k <= 2^17 (checked
+// by the caller).
 GM8_EXPORT int gm8_matmul_mod_u8(const void* a8, const void* b8, void* bt,
-                                 void* out, int L, int m, int n, int k,
-                                 int kp, int centered, void* stream) {
-  if (kp % 16 != 0 || kp < k) return static_cast<int>(cudaErrorInvalidValue);
+                                 void* out, const void* moduli_idx, int L,
+                                 int m, int n, int k, int kp, int centered,
+                                 void* stream) {
+  gm8::SlotModuli mods;
+  if (kp % 16 != 0 || kp < k ||
+      !gm8::slot_moduli(static_cast<const int*>(moduli_idx), L, &mods))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   auto btp = static_cast<signed char*>(bt);
   gm8::transpose_b(static_cast<const signed char*>(b8), btp, L, k, n, kp, s);
@@ -96,6 +92,6 @@ GM8_EXPORT int gm8_matmul_mod_u8(const void* a8, const void* b8, void* bt,
   dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM, L);
   matmul_mod_kernel<<<grid, kThreads, kSmemBytes, s>>>(
       static_cast<const signed char*>(a8), btp,
-      static_cast<unsigned char*>(out), m, n, kp, centered);
+      static_cast<unsigned char*>(out), m, n, kp, centered, mods);
   return gm8::launch_status();
 }

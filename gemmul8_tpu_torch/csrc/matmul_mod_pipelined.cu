@@ -31,6 +31,7 @@
 // reduced as x & 255, which the wrap leaves right.
 #include "common.cuh"
 #include "mma_s8.cuh"
+#include "moduli.cuh"
 #include "transpose_b.cuh"
 
 namespace {
@@ -43,12 +44,6 @@ constexpr int kRun = 16;     // n-tiles a block walks
 constexpr int kPieces = 8;   // epilogue pieces: one (mt, nt) pair each
 constexpr int kStageBytes = (kTM + kTN) * kBK;
 constexpr int kSmemBytes = kStages * kStageBytes;  // 96 KB, dynamic
-
-__constant__ int c_moduli[gm8::kMaxModuli] = {
-#define GM8_MOD_VALUE(J, M) M,
-    GM8_FOR_MODULI(GM8_MOD_VALUE)
-#undef GM8_MOD_VALUE
-};
 
 using Acc = int[2][4][4];  // [mt][nt][r] of a warp's 32 x 32 tile
 
@@ -182,7 +177,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 matmul_mod_pipelined_kernel(const signed char* __restrict__ A,
                             const signed char* __restrict__ Bt,
                             unsigned char* __restrict__ out, int m, int n,
-                            int kp) {
+                            int kp,
+                            const __grid_constant__ gm8::SlotModuli mods) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int l = blockIdx.z;
   Run r;
@@ -195,7 +191,7 @@ matmul_mod_pipelined_kernel(const signed char* __restrict__ A,
   r.nk = (kp + kBK - 1) / kBK;
   r.bm0 = blockIdx.y * kTM;
   r.bn_first = blockIdx.x * kRun * kTN;
-  r.mod = c_moduli[l];
+  r.mod = mods.m[l];
   r.s0 = gm8::smem_addr(smem);
   const int n_tiles = min(kRun, (n - r.bn_first + kTN - 1) / kTN);
   const int total = n_tiles * r.nk;
@@ -227,13 +223,18 @@ matmul_mod_pipelined_kernel(const signed char* __restrict__ A,
 
 // a8: (L, m, kp) int8 with kp % 16 == 0 (zero-padded past k by the caller
 // when k % 16 != 0); b8: (L, k, n) int8; bt: (L, n, kp) int8 workspace;
-// out: (L, m, n) uint8 canonical residues. Slice l uses modulus MODULI[l];
-// k <= 2^17 (checked by the caller).
+// out: (L, m, n) uint8 canonical residues. Slice l uses modulus
+// MODULI[moduli_idx[l]] (moduli_idx: L ints on the host, or null for
+// 0..L-1); k <= 2^17 (checked by the caller).
 GM8_EXPORT int gm8_matmul_mod_u8_pipelined(const void* a8, const void* b8,
-                                           void* bt, void* out, int L, int m,
-                                           int n, int k, int kp,
+                                           void* bt, void* out,
+                                           const void* moduli_idx, int L,
+                                           int m, int n, int k, int kp,
                                            void* stream) {
-  if (kp % 16 != 0 || kp < k) return static_cast<int>(cudaErrorInvalidValue);
+  gm8::SlotModuli mods;
+  if (kp % 16 != 0 || kp < k ||
+      !gm8::slot_moduli(static_cast<const int*>(moduli_idx), L, &mods))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   auto btp = static_cast<signed char*>(bt);
   gm8::transpose_b(static_cast<const signed char*>(b8), btp, L, k, n, kp, s);
@@ -244,6 +245,6 @@ GM8_EXPORT int gm8_matmul_mod_u8_pipelined(const void* a8, const void* b8,
   dim3 grid((n_tiles + kRun - 1) / kRun, (m + kTM - 1) / kTM, L);
   matmul_mod_pipelined_kernel<<<grid, kThreads, kSmemBytes, s>>>(
       static_cast<const signed char*>(a8), btp,
-      static_cast<unsigned char*>(out), m, n, kp);
+      static_cast<unsigned char*>(out), m, n, kp, mods);
   return gm8::launch_status();
 }

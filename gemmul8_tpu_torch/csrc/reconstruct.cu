@@ -2,168 +2,82 @@
 // out = RNE( centered(sum_j w_j r_j mod M) * 2^(e_extra - sft_a - sft_b) ).
 //
 // Replaces: reconstruct_pallas, gemmul8_tpu/pallas/kernels.py:956 (its f64
-// output and int8-centered / uint8 residue inputs).
-// Bound on the H100: integer operations. Per output element it reads
-// num_moduli bytes and writes 8, but does about 6 * num_moduli 64-bit
-// multiply-adds, a mod-M reduction and a multi-word shift.
+// output; residues as int8-centered, uint8 or raw int32 slice products, or
+// the weighted sum itself as 16-bit limbs, input_kind="limbs").
+// Bound on the H100: integer operations for residue input. Per output
+// element it reads num_moduli bytes and writes 8, but does about
+// 6 * num_moduli 64-bit multiply-adds, a mod-M reduction and a multi-word
+// shift. Limb input reads 4 * num_limbs bytes per element (32 at 14 moduli)
+// and skips the multiply-adds: device-memory bytes bound it.
 // Design: one thread per output element with the whole integer in
-// registers as six 32-bit words (the sum stays below 255 * 20 * M < 2^170).
-// The TPU kernel's 16-bit limbs and MXU contraction worked around a 32-bit
-// vector unit; here the CRT sum accumulates in 64-bit integers, the
-// quotient X / M is estimated in f64 (biased one low, then at most two
-// exact subtractions of M), and the rounding extracts the mantissa with
-// funnel shifts over the words and the bit position from __clz. The
-// constants (weight words, M, floor(M/2) + 1, 1/M) sit in __constant__
-// memory, one table per moduli count. The result is exact, so it has the
-// bits of the plain version.
+// registers as six 32-bit words; the sum and the tail are crt.cuh's, shared
+// with the CRT-fused GEMMs. The TPU kernel's 16-bit limbs and MXU
+// contraction worked around a 32-bit vector unit; here the CRT sum
+// accumulates in 64-bit integers. The input kind is a template flag: raw
+// int32 products are first reduced mod m_j (the residue is unique, so the
+// port's % gives the TPU kernel's Barrett result); limbs, canonical or not
+// (each nonnegative and below 2^29), are added into the words with their
+// carries, which gives the integer they stand for. The constants sit in
+// __constant__ memory, one table per moduli count.
+#include <type_traits>
+
 #include "common.cuh"
+#include "crt.cuh"
+#include "moduli.cuh"
 
 namespace {
 
-constexpr int kWords = 6;
+using gm8::CrtTable;
+using gm8::kWords;
 constexpr int kThreads = 256;
-
-struct CrtTable {
-  unsigned w[gm8::kMaxModuli][kWords];  // CRT weights, 32-bit words
-  unsigned big_m[kWords];               // M
-  unsigned half1[kWords];               // floor(M / 2) + 1
-  double rinv;                          // 1 / M, rounded
-  int pad[2];
-};
 
 __constant__ CrtTable c_crt[gm8::kMaxModuli + 1];  // indexed by num_moduli
 
-__device__ __forceinline__ unsigned word_at(const unsigned* x, int i) {
-  return i < kWords ? x[i] : 0u;
-}
+// what r holds: (L, m, n) canonical uint8 residues, int8 residues holding
+// r - 128, raw int32 slice products, or (nl, m, n) int32 16-bit limbs of X
+enum Kind { kU8 = 0, kCentered = 1, kProducts = 2, kLimbs = 3 };
 
-// bits [s, s + 64) of the multi-word integer x
-__device__ __forceinline__ unsigned long long bits_at(const unsigned* x,
-                                                      int s) {
-  int ws = s >> 5, b = s & 31;
-  unsigned long long v =
-      (static_cast<unsigned long long>(word_at(x, ws + 1)) << 32) |
-      word_at(x, ws);
-  v >>= b;
-  if (b) v |= static_cast<unsigned long long>(word_at(x, ws + 2)) << (64 - b);
-  return v;
-}
+// the element type of r for each kind
+template <int kKind>
+using Plane = std::conditional_t<kKind == kProducts || kKind == kLimbs, int,
+                                 unsigned char>;
 
-template <bool kCentered>
+template <int kKind>
 __global__ void __launch_bounds__(kThreads)
-reconstruct_kernel(const unsigned char* __restrict__ r,
+reconstruct_kernel(const Plane<kKind>* __restrict__ r,
                    const int* __restrict__ sft_a,
                    const int* __restrict__ sft_b,
-                   unsigned long long* __restrict__ out, int L, int m, int n,
-                   int e_extra) {
+                   unsigned long long* __restrict__ out, int L, int planes,
+                   int m, int n, int e_extra,
+                   const __grid_constant__ gm8::SlotModuli mods) {
   const int col = blockIdx.x * kThreads + threadIdx.x;
   if (col >= n) return;
   const CrtTable& T = c_crt[L];
   const size_t mn = static_cast<size_t>(m) * n;
   for (int row = blockIdx.y; row < m; row += gridDim.y) {
     const size_t idx = static_cast<size_t>(row) * n + col;
-    // X = sum_j w_j * r_j, each 64-bit column sum < 20 * 255 * 2^32
     unsigned long long acc[kWords] = {0, 0, 0, 0, 0, 0};
-    for (int j = 0; j < L; ++j) {
-      unsigned v = r[j * mn + idx];
-      unsigned rj = kCentered ? (v ^ 0x80u) : v;  // int8 holds r - 128
+    if constexpr (kKind == kLimbs) {
 #pragma unroll
-      for (int w = 0; w < kWords; ++w)
-        acc[w] += static_cast<unsigned long long>(T.w[j][w]) * rj;
+      for (int i = 0; i < 2 * kWords; ++i)
+        if (i < planes)
+          gm8::crt_add_limb(acc, i, static_cast<unsigned>(r[i * mn + idx]));
+    } else if constexpr (kKind == kProducts) {
+      for (int j = 0; j < L; ++j)
+        gm8::crt_add(acc, T, j, gm8::mod_canon(r[j * mn + idx], mods.m[j]));
+    } else {
+      for (int j = 0; j < L; ++j) {
+        unsigned v = r[j * mn + idx];
+        // int8 holds r - 128
+        gm8::crt_add(acc, T, j, kKind == kCentered ? (v ^ 0x80u) : v);
+      }
     }
     unsigned x[kWords];
-    unsigned long long carry = 0;
-#pragma unroll
-    for (int w = 0; w < kWords; ++w) {
-      unsigned long long s = acc[w] + carry;
-      x[w] = static_cast<unsigned>(s);
-      carry = s >> 32;
-    }
-    // X mod M: f64 quotient estimate, biased low so t - 1 <= t_est <= t
-    double xd = 0.0;
-#pragma unroll
-    for (int w = kWords - 1; w >= 0; --w)
-      xd = __dadd_rn(__dmul_rn(xd, 4294967296.0), static_cast<double>(x[w]));
-    long long t_est =
-        static_cast<long long>(floor(__dmul_rn(xd, T.rinv) - 1e-6));
-    if (t_est < 0) t_est = 0;
-    long long borrow = 0;
-#pragma unroll
-    for (int w = 0; w < kWords; ++w) {
-      long long v = static_cast<long long>(x[w]) -
-                    t_est * static_cast<long long>(T.big_m[w]) + borrow;
-      x[w] = static_cast<unsigned>(v);
-      borrow = v >> 32;  // arithmetic: floor division by 2^32
-    }
-#pragma unroll
-    for (int pass = 0; pass < 2; ++pass) {  // x in [0, 3M) -> [0, M)
-      unsigned d[kWords];
-      long long b = 0;
-#pragma unroll
-      for (int w = 0; w < kWords; ++w) {
-        long long v = static_cast<long long>(x[w]) - T.big_m[w] + b;
-        d[w] = static_cast<unsigned>(v);
-        b = v >> 32;
-      }
-      if (b == 0) {
-#pragma unroll
-        for (int w = 0; w < kWords; ++w) x[w] = d[w];
-      }
-    }
-    // center: x > M/2 (x >= half1) stands for x - M
-    long long bh = 0;
-#pragma unroll
-    for (int w = 0; w < kWords; ++w)
-      bh = (static_cast<long long>(x[w]) - T.half1[w] + bh) >> 32;
-    const bool neg = bh == 0;
+    gm8::crt_words(acc, x);
     unsigned mag[kWords];
-    if (neg) {
-      long long b = 0;
-#pragma unroll
-      for (int w = 0; w < kWords; ++w) {
-        long long v = static_cast<long long>(T.big_m[w]) - x[w] + b;
-        mag[w] = static_cast<unsigned>(v);
-        b = v >> 32;
-      }
-    } else {
-#pragma unroll
-      for (int w = 0; w < kWords; ++w) mag[w] = x[w];
-    }
-    int p = -1;
-#pragma unroll
-    for (int w = kWords - 1; w >= 0; --w)
-      if (p < 0 && mag[w]) p = 32 * w + 31 - __clz(mag[w]);
-    unsigned long long bits;
-    const int eb = p + e_extra - (sft_a[row] + sft_b[col]) + 1023;
-    if (p < 0) {
-      bits = 0;
-    } else if (eb >= 0x7FF) {
-      bits = 0x7FF0000000000000ull;
-    } else {
-      // shift the msb to bit 52, plus the subnormal extension
-      int sr = p - 52 + (eb < 1 ? 1 - eb : 0);
-      unsigned long long mant;
-      if (sr <= 0) {
-        mant = bits_at(mag, 0) << (-sr);
-      } else {
-        sr = min(sr, 32 * kWords + 1);  // beyond it every bit is dropped
-        mant = bits_at(mag, sr);
-        const int rb = sr - 1;
-        const unsigned rword = word_at(mag, rb >> 5);
-        const bool rbit = (rword >> (rb & 31)) & 1u;
-        bool sticky = (rword & ((1u << (rb & 31)) - 1u)) != 0;
-#pragma unroll
-        for (int w = 0; w < kWords; ++w)
-          sticky |= (w < (rb >> 5)) && mag[w] != 0;
-        mant += (rbit && (sticky || (mant & 1ull))) ? 1ull : 0ull;
-      }
-      // normal: adding the mantissa with its implicit bit to (eb-1) << 52
-      // carries a rounding overflow into the exponent (and to inf);
-      // subnormal: a round-up into bit 52 yields the smallest normal
-      bits = eb < 1 ? mant
-                    : (static_cast<unsigned long long>(eb - 1) << 52) + mant;
-    }
-    out[idx] = bits | (static_cast<unsigned long long>(neg) << 63);
+    const bool neg = gm8::crt_center(x, T, mag);
+    out[idx] = gm8::crt_round_f64(
+        mag, neg, e_extra - (sft_a[row] + sft_b[col]));
   }
 }
 
@@ -176,23 +90,47 @@ GM8_EXPORT int gm8_set_crt_tables(const void* table, int nbytes) {
   return gm8::launch_status();
 }
 
-// r: (L, m, n) int8 (centered, r - 128) or uint8 canonical residues;
-// sft_a: m int32, sft_b: n int32; out: (m, n) f64.
-GM8_EXPORT int gm8_reconstruct_f64(const void* r, int centered,
+// r: `planes` planes of (m, n): for kind 0 canonical uint8 residues, 1 int8
+// residues holding r - 128, 2 raw int32 slice products (planes = L each),
+// 3 int32 16-bit limbs of the weighted sum (planes = num_limbs <= 12, each
+// limb in [0, 2^29)). sft_a: m int32, sft_b: n int32; out: (m, n) f64.
+GM8_EXPORT int gm8_reconstruct_f64(const void* r, int kind, int planes,
                                    const void* sft_a, const void* sft_b,
                                    void* out, int L, int m, int n,
                                    int e_extra, void* stream) {
+  gm8::SlotModuli mods;
+  const bool planes_ok =
+      kind == kLimbs ? planes >= 1 && planes <= 2 * kWords : planes == L;
+  if (!gm8::slot_moduli(nullptr, L, &mods) || !planes_ok)
+    return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid((n + kThreads - 1) / kThreads, m < 65535 ? m : 65535);
   auto s = static_cast<cudaStream_t>(stream);
-  auto rp = static_cast<const unsigned char*>(r);
   auto a = static_cast<const int*>(sft_a);
   auto b = static_cast<const int*>(sft_b);
   auto o = static_cast<unsigned long long*>(out);
-  if (centered)
-    reconstruct_kernel<true><<<grid, kThreads, 0, s>>>(rp, a, b, o, L, m, n,
-                                                       e_extra);
-  else
-    reconstruct_kernel<false><<<grid, kThreads, 0, s>>>(rp, a, b, o, L, m, n,
-                                                        e_extra);
+  switch (kind) {
+    case kU8:
+      reconstruct_kernel<kU8><<<grid, kThreads, 0, s>>>(
+          static_cast<const unsigned char*>(r), a, b, o, L, planes, m, n,
+          e_extra, mods);
+      break;
+    case kCentered:
+      reconstruct_kernel<kCentered><<<grid, kThreads, 0, s>>>(
+          static_cast<const unsigned char*>(r), a, b, o, L, planes, m, n,
+          e_extra, mods);
+      break;
+    case kProducts:
+      reconstruct_kernel<kProducts><<<grid, kThreads, 0, s>>>(
+          static_cast<const int*>(r), a, b, o, L, planes, m, n,
+          e_extra, mods);
+      break;
+    case kLimbs:
+      reconstruct_kernel<kLimbs><<<grid, kThreads, 0, s>>>(
+          static_cast<const int*>(r), a, b, o, L, planes, m, n,
+          e_extra, mods);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return gm8::launch_status();
 }

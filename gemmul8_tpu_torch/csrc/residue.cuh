@@ -1,12 +1,17 @@
 // Centered residues of one f64 element: out[j * total + idx] = the centered
-// residue of trunc(x * 2^sft) mod m_j as int8, for j < num_moduli. Shared by
-// the encode kernel (encode.cu) and the fused stats + encode kernels
-// (fast_encode_fused.cu).
-//
-// The shifted value (at most 79 bits) is held as a 64-bit low word and a
-// 32-bit high word and reduced with remainders by compile-time moduli, which
-// the compiler turns into multiply-high sequences. The centered residue is
-// unique, so any exact reduction gives the bits of the plain version.
+// residue of trunc(x * 2^sft) mod m_j as int8, for j < num_moduli
+// (encode_element: the fused stats + encode kernels of fast_encode_fused.cu),
+// out[(j - j0) * total + idx] for j0 <= j < j1 (encode_element_range: the
+// encode kernel of encode.cu on all the moduli or on one chunk of a
+// moduli-chunked call), or out[slot * total + idx] for the moduli a ModSlots
+// gives a slot (encode_element_slots: any tuple of distinct moduli in the
+// caller's order). The kernel is bound by its integer work, not by bytes,
+// so the first two keep each slice's offset a compile-time multiple of
+// `total` and stop at the first modulus past the call's; the slots form
+// evaluates all 20 conditions and multiplies a run-time slot by `total`.
+// At 8192^2, A and B, 13 of 14 moduli, NVIDIA H100 80GB HBM3 at 700 W
+// (chip_smoke.py phase 5s): 2.48 ms the first form, 2.79 the range, 3.59
+// the slots.
 #pragma once
 
 #include "common.cuh"
@@ -34,31 +39,90 @@ __device__ __forceinline__ int centered_residue(unsigned long long lo,
   }
 }
 
+// |trunc(x * 2^sft)| = hi * 2^64 + lo and its sign, from x's f64 bits;
 // q_max: the static left-shift cap max(threshold_accurate - 53, 0)
+struct Shifted {
+  unsigned long long lo;
+  unsigned hi;
+  bool neg;
+};
+
+__device__ __forceinline__ Shifted shifted_value(unsigned long long bits,
+                                                 int sft, int q_max) {
+  const int e = static_cast<int>((bits >> 52) & 0x7FF);
+  const unsigned long long mant =
+      (bits & ((1ull << 52) - 1)) | (e > 0 ? (1ull << 52) : 0ull);
+  const int q = max(e, 1) - 1075 + sft;
+  Shifted v{0, 0, (bits >> 63) != 0};
+  if (q < 0) {
+    v.lo = mant >> min(-q, 63);
+  } else {
+    const int ql = min(q, q_max);
+    v.lo = mant << ql;
+    if (ql > 0) v.hi = static_cast<unsigned>(mant >> (64 - ql));
+  }
+  return v;
+}
+
 __device__ __forceinline__ void encode_element(unsigned long long bits,
                                                int sft,
                                                signed char* __restrict__ out,
                                                size_t total, size_t idx,
                                                int num_moduli, int q_max) {
-  const int e = static_cast<int>((bits >> 52) & 0x7FF);
-  const bool neg = (bits >> 63) != 0;
-  const unsigned long long mant =
-      (bits & ((1ull << 52) - 1)) | (e > 0 ? (1ull << 52) : 0ull);
-  const int q = max(e, 1) - 1075 + sft;
-  // v = trunc(mant * 2^q) = hi * 2^64 + lo, left shift capped at q_max
-  unsigned long long lo;
-  unsigned hi = 0;
-  if (q < 0) {
-    lo = mant >> min(-q, 63);
-  } else {
-    const int ql = min(q, q_max);
-    lo = mant << ql;
-    if (ql > 0) hi = static_cast<unsigned>(mant >> (64 - ql));
-  }
+  const Shifted v = shifted_value(bits, sft, q_max);
 #define GM8_ENCODE_ONE(J, M)                                                \
   if (J < num_moduli)                                                       \
     out[J * total + idx] =                                                  \
-        static_cast<signed char>(centered_residue<M>(lo, hi, neg));
+        static_cast<signed char>(centered_residue<M>(v.lo, v.hi, v.neg));
+  GM8_FOR_MODULI(GM8_ENCODE_ONE)
+#undef GM8_ENCODE_ONE
+}
+
+// moduli j0 <= j < j1 into slices 0 .. j1 - j0 - 1
+__device__ __forceinline__ void encode_element_range(
+    unsigned long long bits, int sft, signed char* __restrict__ out,
+    size_t total, size_t idx, int j0, int j1, int q_max) {
+  const Shifted v = shifted_value(bits, sft, q_max);
+  // J * total + off == (J - j0) * total + idx in size_t's modular arithmetic
+  const size_t off = idx - j0 * total;
+  // the return past j1 lets the moduli behind the chunk cost nothing, as
+  // the monotone J < num_moduli of encode_element does
+#define GM8_ENCODE_ONE(J, M)                                                \
+  if (J >= j1) return;                                                      \
+  if (J >= j0)                                                              \
+    out[J * total + off] =                                                  \
+        static_cast<signed char>(centered_residue<M>(v.lo, v.hi, v.neg));
+  GM8_FOR_MODULI(GM8_ENCODE_ONE)
+#undef GM8_ENCODE_ONE
+}
+
+// the output slot of each modulus of the table, -1 for a modulus the call
+// leaves out
+struct ModSlots {
+  int s[kMaxModuli];
+};
+
+// idx: n distinct indices into the moduli table; output slot l holds
+// modulus idx[l]. False when n or an index is out of range or repeated.
+inline bool mod_slots(const int* idx, int n, ModSlots* out) {
+  if (n < 1 || n > kMaxModuli) return false;
+  for (int j = 0; j < kMaxModuli; ++j) out->s[j] = -1;
+  for (int l = 0; l < n; ++l) {
+    const int j = idx[l];
+    if (j < 0 || j >= kMaxModuli || out->s[j] >= 0) return false;
+    out->s[j] = l;
+  }
+  return true;
+}
+
+__device__ __forceinline__ void encode_element_slots(
+    unsigned long long bits, int sft, signed char* __restrict__ out,
+    size_t total, size_t idx, const ModSlots& slots, int q_max) {
+  const Shifted v = shifted_value(bits, sft, q_max);
+#define GM8_ENCODE_ONE(J, M)                                                \
+  if (slots.s[J] >= 0)                                                      \
+    out[slots.s[J] * total + idx] =                                         \
+        static_cast<signed char>(centered_residue<M>(v.lo, v.hi, v.neg));
   GM8_FOR_MODULI(GM8_ENCODE_ONE)
 #undef GM8_ENCODE_ONE
 }

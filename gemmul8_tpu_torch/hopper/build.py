@@ -51,14 +51,15 @@ _SIGNATURES = {
     "gm8_fast_sft": [_P, _P, _I, _I, _I, _I, _F, _P],
     # x, out_emax, out_nrm2, out_any, rows, kdim, axis, stream
     "gm8_fast_stats": [_P, _P, _P, _P, _I, _I, _I, _P],
-    # x, sft, out, d0, d1, axis, num_moduli, q_max, stream
-    "gm8_encode_slices": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # a8, b8, bt (workspace), out, L, m, n, k, kp, centered, stream
-    "gm8_matmul_mod_u8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, sft, out, d0, d1, axis, moduli_idx (host), n_idx, q_max, stream
+    "gm8_encode_slices": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _P],
+    # a8, b8, bt (workspace), out, moduli_idx (host), L, m, n, k, kp,
+    # centered, stream
+    "gm8_matmul_mod_u8": [_P] * 5 + [_I] * 6 + [_P],
     # table (host), nbytes
     "gm8_set_crt_tables": [_P, _I],
-    # r, centered, sft_a, sft_b, out, L, m, n, e_extra, stream
-    "gm8_reconstruct_f64": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+    # r, kind, planes, sft_a, sft_b, out, L, m, n, e_extra, stream
+    "gm8_reconstruct_f64": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, out_emax, rows, kdim, axis, stream
     "gm8_emax": [_P, _P, _I, _I, _I, _P],
     # x, emax, out, rows, kdim, axis, ld, mag_shift, stream
@@ -74,8 +75,14 @@ _SIGNATURES = {
     "gm8_mag7_fused": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # a, lda, bt, ldb, row_part, col_part, m, n, k, stream
     "gm8_magmax_matmul_scratch": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _P],
-    # a8, b8, bt (workspace), out, L, m, n, k, kp, stream
-    "gm8_matmul_mod_u8_pipelined": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # a8, b8, bt (workspace), out, moduli_idx (host), L, m, n, k, kp, stream
+    "gm8_matmul_mod_u8_pipelined": [_P] * 5 + [_I] * 5 + [_P],
+    # a8, b8, bt, scratch (workspaces), out, table (host), L, nl, m, n, k,
+    # kp, nblocks, stream
+    "gm8_matmul_crt": [_P] * 6 + [_I] * 7 + [_P],
+    # a8, b8, bt, scratch (workspaces), sft_a, sft_b, out, table (host), L,
+    # m, n, k, kp, nblocks, stream
+    "gm8_matmul_reconstruct": [_P] * 8 + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()

@@ -15,6 +15,12 @@ never falls back. The plain versions (`*_plain`) are the functions of
                    <- pallas/kernels.py fast_encode_fused_pallas
     reconstruct    csrc/reconstruct.cu  <- pallas/kernels.py reconstruct_pallas
 
+`encode_slices` takes a subset of the moduli (`moduli_idx`, the chunks of
+the moduli-chunked schedule), and `reconstruct` takes, besides int8 and
+uint8 residues, raw int32 slice products and the weighted CRT sum as
+16-bit limbs (`input_kind="limbs"`: what `hopper.matmul.matmul_crt` and the
+chunked schedule's fold produce).
+
 `mag7_operand` reads GEMMUL8_FUSED_MAG7 at call time, as the JAX package's
 `mag7_operand_pallas` does: "1" takes mag7_fused, anything else the emax +
 mag7 pair.
@@ -22,6 +28,7 @@ mag7 pair.
 
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
@@ -228,25 +235,35 @@ def _q_max(num_moduli: int) -> int:
     return max(tables.threshold_accurate(num_moduli) - 1 - 52, 0)
 
 
+def host_idx(idx) -> np.ndarray:
+    """A moduli index list as the int32 array a C entry point reads on the
+    host (pass `.ctypes.data`; keep the array alive over the call)."""
+    return np.asarray(idx, dtype=np.int32)
+
+
 def encode_slices(x: torch.Tensor, sft: torch.Tensor, num_moduli: int,
-                  axis: int) -> torch.Tensor:
-    """(L, *x.shape) int8 centered residues of trunc(x * 2^sft)."""
+                  axis: int, moduli_idx=None) -> torch.Tensor:
+    """(L', *x.shape) int8 centered residues of trunc(x * 2^sft): slice l
+    for modulus moduli_idx[l], any tuple of distinct indices below
+    num_moduli (default: all of them in order)."""
     _check_f64(x)
     want = (x.shape[0], 1) if axis == 1 else (1, x.shape[1])
     if tuple(sft.shape) != want or axis not in (0, 1):
         raise ValueError(f"sft shape {tuple(sft.shape)}, expected {want}")
+    idx = enc.check_moduli_idx(moduli_idx, num_moduli)
     if _on_cpu(x):
-        return encode_slices_plain(x, sft, num_moduli, axis)
+        return encode_slices_plain(x, sft, num_moduli, axis, idx)
     if sft.dtype != torch.int32:
         raise TypeError("sft must be int32")
     build.require_cuda(x, sft)
     d0, d1 = x.shape
-    out = torch.empty((num_moduli, d0, d1), dtype=torch.int8,
-                      device=x.device)
+    out = torch.empty((len(idx), d0, d1), dtype=torch.int8, device=x.device)
+    idx_host = host_idx(idx)
     with torch.cuda.device(x.device):
         code = build.lib().gm8_encode_slices(
             x.data_ptr(), sft.data_ptr(), out.data_ptr(), d0, d1, axis,
-            num_moduli, _q_max(num_moduli), build.stream_ptr(x.device))
+            idx_host.ctypes.data, len(idx), _q_max(num_moduli),
+            build.stream_ptr(x.device))
     build.check(code, "encode_slices")
     build.LAUNCHES["encode_slices"] += 1
     return out
@@ -276,10 +293,12 @@ def fast_encode_fused(x: torch.Tensor, num_moduli: int, axis: int):
     return out, sft
 
 
+@functools.lru_cache(maxsize=None)
 def crt_table_bytes() -> bytes:
-    """The reconstruct kernel's constant table (`CrtTable` in
-    csrc/reconstruct.cu), one entry per moduli count 0..20: the CRT
-    weights, M and floor(M/2) + 1 as 32-bit words, and 1/M."""
+    """The CRT constants (`CrtTable` in csrc/crt.cuh), one entry per moduli
+    count 0..20: the CRT weights, M and floor(M/2) + 1 as 32-bit words, and
+    1/M. The reconstruct kernel keeps the whole table in __constant__
+    memory; the CRT-fused GEMMs take one entry by value."""
     dt = np.dtype([("w", "<u4", (tables.MAX_MODULI, 6)), ("m", "<u4", 6),
                    ("half1", "<u4", 6), ("rinv", "<f8"), ("pad", "<i4", 2)])
     tab = np.zeros(tables.MAX_MODULI + 1, dtype=dt)
@@ -297,6 +316,13 @@ def crt_table_bytes() -> bytes:
     return tab.tobytes()
 
 
+def crt_table_entry(num_moduli: int) -> np.ndarray:
+    """The `CrtTable` of one moduli count, as bytes on the host."""
+    blob = np.frombuffer(crt_table_bytes(), dtype=np.uint8)
+    size = len(blob) // (tables.MAX_MODULI + 1)
+    return blob[num_moduli * size:(num_moduli + 1) * size]
+
+
 _tables_on = set()
 
 
@@ -311,27 +337,45 @@ def _ensure_crt_tables(device: torch.device) -> None:
     _tables_on.add(device.index)
 
 
+# the reconstruct kernel's input kinds (csrc/reconstruct.cu)
+_KIND_U8, _KIND_CENTERED, _KIND_PRODUCTS, _KIND_LIMBS = range(4)
+
+
 def reconstruct(r: torch.Tensor, sft_a: torch.Tensor, sft_b: torch.Tensor,
-                num_moduli: int, out_dtype: str = "f64",
-                e_extra: int = 0) -> torch.Tensor:
-    """(L, m, n) residues (int8 holding r - 128, or uint8) and shifts
-    (m, 1), (1, n) -> (m, n) result. The kernel writes float64; f32 output
-    and int32 residues run only in the plain version for now."""
-    if r.dim() != 3 or r.shape[0] != num_moduli:
-        raise ValueError(f"expected ({num_moduli}, m, n) residues")
-    L, m, n = r.shape
+                num_moduli: int, out_dtype: str = "f64", e_extra: int = 0,
+                input_kind: str = "residues") -> torch.Tensor:
+    """Residues and shifts (m, 1), (1, n) -> the (m, n) result. r is
+    (L, m, n): int8 holding r - 128, uint8, or int32 raw slice products
+    (reduced mod m_j in the kernel); or, with input_kind="limbs", the
+    weighted CRT sum itself as (num_limbs, m, n) int32 16-bit limbs,
+    canonical or with each limb nonnegative and below 2^29 (what
+    `hopper.matmul.matmul_crt` and the chunked schedule's fold give). The
+    kernel writes float64; f32 output runs only in the plain version."""
+    if input_kind not in ("residues", "limbs"):
+        raise ValueError(f"input_kind {input_kind!r}")
+    limbs = input_kind == "limbs"
+    planes = tables.num_limbs(num_moduli) if limbs else num_moduli
+    if r.dim() != 3 or r.shape[0] != planes:
+        raise ValueError(f"expected ({planes}, m, n) {input_kind}")
+    _, m, n = r.shape
     if tuple(sft_a.shape) != (m, 1) or tuple(sft_b.shape) != (1, n):
         raise ValueError("shifts must be (m, 1) and (1, n)")
     if _on_cpu(r):
         return reconstruct_plain(r, sft_a, sft_b, num_moduli, out_dtype,
-                                 e_extra)
+                                 e_extra, input_kind)
     if out_dtype != "f64":
         raise NotImplementedError(
             "f32 output of the reconstruct kernel: ROADMAP A4")
-    if r.dtype not in (torch.int8, torch.uint8):
-        raise NotImplementedError(
-            "int32 residues and limb input of the reconstruct kernel: "
-            "ROADMAP A6")
+    if limbs:
+        if r.dtype != torch.int32:
+            raise TypeError("limbs must be int32")
+        kind = _KIND_LIMBS
+    elif r.dtype in (torch.int8, torch.uint8, torch.int32):
+        kind = {torch.uint8: _KIND_U8, torch.int8: _KIND_CENTERED,
+                torch.int32: _KIND_PRODUCTS}[r.dtype]
+    else:
+        raise TypeError(f"residues must be int8, uint8 or int32, not "
+                        f"{r.dtype}")
     if sft_a.dtype != torch.int32 or sft_b.dtype != torch.int32:
         raise TypeError("shifts must be int32")
     build.require_cuda(r, sft_a, sft_b)
@@ -341,8 +385,8 @@ def reconstruct(r: torch.Tensor, sft_a: torch.Tensor, sft_b: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.float64, device=r.device)
     with torch.cuda.device(r.device):
         code = build.lib().gm8_reconstruct_f64(
-            r.data_ptr(), int(r.dtype == torch.int8), sft_a.data_ptr(),
-            sft_b.data_ptr(), out.data_ptr(), L, m, n, e_extra,
+            r.data_ptr(), kind, planes, sft_a.data_ptr(), sft_b.data_ptr(),
+            out.data_ptr(), num_moduli, m, n, e_extra,
             build.stream_ptr(r.device))
     build.check(code, "reconstruct")
     build.LAUNCHES["reconstruct"] += 1

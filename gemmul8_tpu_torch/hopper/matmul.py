@@ -10,12 +10,20 @@
         <- pallas/matmul.py magmax_matmul_scratch
     matmul_complex_mod  csrc/matmul_complex.cu
         <- pallas/matmul.py matmul_complex_mod_pallas
+    matmul_crt          csrc/matmul_crt.cu
+        <- pallas/matmul.py matmul_crt_pallas
+    matmul_reconstruct  csrc/matmul_reconstruct.cu
+        <- pallas/megakernel.py matmul_reconstruct_pallas
 
 A CPU tensor takes the plain version (exact f64 products, then the mod or
 the row/col max); a CUDA tensor launches the kernel. The GEMM kernels with
 a mod first copy each B operand into a K-major workspace the wrapper
 allocates; the magnitude GEMMs read both operands K-major in place where
-their layout allows (as `hopper.kernels.mag7` writes them).
+their layout allows (as `hopper.kernels.mag7` writes them). The two
+CRT-fused GEMMs also get a scratch of residues sized by the blocks in
+flight (csrc/crt_gemm.cuh). `matmul_crt` has no switch, as in the JAX
+package: it is called directly, and its limbs go to
+`hopper.kernels.reconstruct(..., input_kind="limbs")`.
 
 Two dispatchers read the JAX package's switches at call time:
 `matmul_mod_u8` sends uncentered calls to `matmul_mod_u8_pipelined` under
@@ -31,8 +39,10 @@ import os
 import torch
 import torch.nn.functional as F
 
+from .. import tables
 from ..core import slicegemm as sg
 from . import build
+from . import kernels as hk
 
 matmul_mod_u8_plain = sg.matmul_mod
 matmul_mod_u8_pipelined_plain = functools.partial(sg.matmul_mod,
@@ -40,8 +50,11 @@ matmul_mod_u8_pipelined_plain = functools.partial(sg.matmul_mod,
 magmax_plain = sg.magmax
 magmax_scratch_plain = sg.magmax
 matmul_complex_mod_plain = sg.matmul_complex_mod
+matmul_crt_plain = sg.matmul_crt
+matmul_reconstruct_plain = sg.matmul_reconstruct
 
-_TILE = 128  # kBM = kBN of csrc/mma_s8.cuh, the magnitude GEMM's tile
+_TILE = 128  # kBM = kBN of csrc/mma_s8.cuh, the GEMM kernels' tile
+_BLOCKS_PER_SM = 2  # __launch_bounds__(256, 2) of the CRT-fused GEMMs
 
 
 def _pad_k(a8: torch.Tensor, kp: int) -> torch.Tensor:
@@ -53,52 +66,149 @@ def _pad_k(a8: torch.Tensor, kp: int) -> torch.Tensor:
 
 
 def matmul_mod_u8(a8: torch.Tensor, b8: torch.Tensor, num_moduli: int,
-                  centered: bool = False) -> torch.Tensor:
-    """(L, m, k) int8 x (L, k, n) int8 -> (L, m, n) residues mod MODULI[l]:
-    canonical uint8, or r - 128 as int8 when centered. Uncentered calls
-    take `matmul_mod_u8_pipelined` under GEMMUL8_MM_PIPELINE=1, as the JAX
-    package's `matmul_mod_u8` dispatches (its k and VMEM limits are the
-    TPU's; the port's kernel takes any k <= 2^17)."""
+                  centered: bool = False, moduli_idx=None) -> torch.Tensor:
+    """(L', m, k) int8 x (L', k, n) int8 -> (L', m, n) residues, slice l
+    mod MODULI[moduli_idx[l]] (any tuple of distinct indices below
+    num_moduli; default: all of them in order): canonical uint8, or r - 128
+    as int8 when centered. Uncentered calls take `matmul_mod_u8_pipelined`
+    under GEMMUL8_MM_PIPELINE=1, as the JAX package's `matmul_mod_u8`
+    dispatches (its k and VMEM limits are the TPU's; the port's kernel
+    takes any k <= 2^17)."""
     if not centered and os.environ.get("GEMMUL8_MM_PIPELINE") == "1":
-        return matmul_mod_u8_pipelined(a8, b8, num_moduli)
-    sg._check_matmul_args(a8, b8, num_moduli)
+        return matmul_mod_u8_pipelined(a8, b8, num_moduli, moduli_idx)
+    idx = sg._check_matmul_args(a8, b8, num_moduli, moduli_idx)
     if a8.device.type == "cpu" and b8.device.type == "cpu":
-        return matmul_mod_u8_plain(a8, b8, num_moduli, centered)
-    return _launch_mod("matmul_mod_u8", a8, b8, centered, int(centered))
+        return matmul_mod_u8_plain(a8, b8, num_moduli, centered, idx)
+    return _launch_mod("matmul_mod_u8", a8, b8, idx, centered, int(centered))
 
 
 def matmul_mod_u8_pipelined(a8: torch.Tensor, b8: torch.Tensor,
-                            num_moduli: int) -> torch.Tensor:
-    """(L, m, k) int8 x (L, k, n) int8 -> (L, m, n) canonical uint8
+                            num_moduli: int, moduli_idx=None) -> torch.Tensor:
+    """(L', m, k) int8 x (L', k, n) int8 -> (L', m, n) canonical uint8
     residues, the bits of `matmul_mod_u8(..., centered=False)`, with each
     n-tile's mod run while the next tile's product is formed."""
-    sg._check_matmul_args(a8, b8, num_moduli)
+    idx = sg._check_matmul_args(a8, b8, num_moduli, moduli_idx)
     if a8.device.type == "cpu" and b8.device.type == "cpu":
-        return matmul_mod_u8_pipelined_plain(a8, b8, num_moduli)
-    return _launch_mod("matmul_mod_u8_pipelined", a8, b8, False)
+        return matmul_mod_u8_pipelined_plain(a8, b8, num_moduli,
+                                             moduli_idx=idx)
+    return _launch_mod("matmul_mod_u8_pipelined", a8, b8, idx, False)
 
 
-def _launch_mod(name: str, a8: torch.Tensor, b8: torch.Tensor,
+def _k_workspace(a8: torch.Tensor, n: int):
+    """(a8 as the GEMM tile reads it, kp, the (L, n, kp) workspace the
+    kernel copies B into K-major): the kernel reads A in 16-byte chunks
+    along k, so k is padded to a multiple of 16 with zeros (exact: zero
+    terms) and A starts on a 16-byte boundary."""
+    L, _, k = a8.shape
+    kp = -(-k // 16) * 16
+    return (_pad_k(a8, kp), kp,
+            torch.empty((L, n, kp), dtype=torch.int8, device=a8.device))
+
+
+def _launch_mod(name: str, a8: torch.Tensor, b8: torch.Tensor, idx: tuple,
                 centered: bool, *flags) -> torch.Tensor:
     """Launch gm8_<name>, a batched GEMM with the mod in its epilogue, on
-    CUDA slices: B is copied into a K-major workspace by the kernel; flags
-    go between kp and the stream."""
+    CUDA slices of the moduli idx: B is copied into a K-major workspace by
+    the kernel; flags go between kp and the stream."""
     build.require_cuda(a8, b8)
     L, m, k = a8.shape
     n = b8.shape[2]
-    # the kernel reads A in 16-byte chunks along k: pad k to a multiple of
-    # 16 with zeros (exact: zero terms) and start on a 16-byte boundary
-    kp = -(-k // 16) * 16
-    a8 = _pad_k(a8, kp)
-    bt = torch.empty((L, n, kp), dtype=torch.int8, device=a8.device)
+    a8, kp, bt = _k_workspace(a8, n)
     out = torch.empty((L, m, n), dtype=torch.int8 if centered else torch.uint8,
                       device=a8.device)
+    idx_host = hk.host_idx(idx)
     with torch.cuda.device(a8.device):
         code = getattr(build.lib(), f"gm8_{name}")(
-            a8.data_ptr(), b8.data_ptr(), bt.data_ptr(), out.data_ptr(), L,
-            m, n, k, kp, *flags, build.stream_ptr(a8.device))
+            a8.data_ptr(), b8.data_ptr(), bt.data_ptr(), out.data_ptr(),
+            idx_host.ctypes.data, L, m, n, k, kp, *flags,
+            build.stream_ptr(a8.device))
     build.check(code, name)
     build.LAUNCHES[name] += 1
+    return out
+
+
+def _crt_scratch(device: torch.device, L: int, m: int, n: int):
+    """(nblocks, scratch): the persistent grid of a CRT-fused GEMM, two
+    blocks per SM or one per tile if fewer, and each block's (L, 128 * 128)
+    bytes of residues."""
+    tiles = -(-m // _TILE) * -(-n // _TILE)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    nblocks = min(tiles, _BLOCKS_PER_SM * sms)
+    return nblocks, torch.empty((nblocks, L, _TILE * _TILE),
+                                dtype=torch.uint8, device=device)
+
+
+def matmul_crt(a8: torch.Tensor, b8: torch.Tensor,
+               num_moduli: int) -> torch.Tensor:
+    """(L, m, k) int8 x (L, k, n) int8 -> (num_limbs, m, n) int32 canonical
+    16-bit limbs of X = sum_l w_l * ((a8[l] @ b8[l]) mod m_l), the weighted
+    CRT sum `reconstruct(..., input_kind="limbs")` finishes: the residues
+    never leave the kernel."""
+    sg._check_matmul_args(a8, b8, num_moduli)
+    if a8.device.type == "cpu" and b8.device.type == "cpu":
+        return matmul_crt_plain(a8, b8, num_moduli)
+    build.require_cuda(a8, b8)
+    L, m, k = a8.shape
+    n = b8.shape[2]
+    nl = tables.num_limbs(L)
+    a8, kp, bt = _k_workspace(a8, n)
+    nblocks, scratch = _crt_scratch(a8.device, L, m, n)
+    out = torch.empty((nl, m, n), dtype=torch.int32, device=a8.device)
+    table = hk.crt_table_entry(L)
+    with torch.cuda.device(a8.device):
+        code = build.lib().gm8_matmul_crt(
+            a8.data_ptr(), b8.data_ptr(), bt.data_ptr(), scratch.data_ptr(),
+            out.data_ptr(), table.ctypes.data, L, nl, m, n, k, kp, nblocks,
+            build.stream_ptr(a8.device))
+    build.check(code, "matmul_crt")
+    build.LAUNCHES["matmul_crt"] += 1
+    return out
+
+
+def fused_reconstruct_ok(m: int, n: int, k: int, num_moduli: int) -> bool:
+    """Whether `matmul_reconstruct` takes the problem (the gate `gemm_core`
+    asks under GEMMUL8_FUSED_RECONSTRUCT=1; where it says no the default
+    kernels run). The JAX function of this name fits tiles into the TPU's
+    VMEM; the port's kernel parks its residues in a scratch sized by the
+    blocks in flight, so its only limits are the residue GEMM's own:
+    k <= 2^17 and 2 to 20 moduli."""
+    return (m > 0 and n > 0 and 0 < k <= tables.MAX_K
+            and 2 <= num_moduli <= tables.MAX_MODULI)
+
+
+def matmul_reconstruct(a8: torch.Tensor, b8: torch.Tensor,
+                       sft_a: torch.Tensor, sft_b: torch.Tensor,
+                       num_moduli: int,
+                       out_dtype: str = "f64") -> torch.Tensor:
+    """(L, m, k) int8 x (L, k, n) int8 + shifts (m, 1), (1, n) -> the (m, n)
+    float64 result of `matmul_mod_u8` + `reconstruct` from one kernel, with
+    no (L, m, n) residues stored."""
+    sg._check_matmul_args(a8, b8, num_moduli)
+    L, m, k = a8.shape
+    n = b8.shape[2]
+    if tuple(sft_a.shape) != (m, 1) or tuple(sft_b.shape) != (1, n):
+        raise ValueError("shifts must be (m, 1) and (1, n)")
+    if a8.device.type == "cpu" and b8.device.type == "cpu":
+        return matmul_reconstruct_plain(a8, b8, sft_a, sft_b, num_moduli,
+                                        out_dtype)
+    if out_dtype != "f64":
+        raise NotImplementedError(
+            "f32 output of the fused matmul + reconstruct kernel: ROADMAP A4")
+    if sft_a.dtype != torch.int32 or sft_b.dtype != torch.int32:
+        raise TypeError("shifts must be int32")
+    build.require_cuda(a8, b8, sft_a, sft_b)
+    a8, kp, bt = _k_workspace(a8, n)
+    nblocks, scratch = _crt_scratch(a8.device, L, m, n)
+    out = torch.empty((m, n), dtype=torch.float64, device=a8.device)
+    table = hk.crt_table_entry(L)
+    with torch.cuda.device(a8.device):
+        code = build.lib().gm8_matmul_reconstruct(
+            a8.data_ptr(), b8.data_ptr(), bt.data_ptr(), scratch.data_ptr(),
+            sft_a.data_ptr(), sft_b.data_ptr(), out.data_ptr(),
+            table.ctypes.data, L, m, n, k, kp, nblocks,
+            build.stream_ptr(a8.device))
+    build.check(code, "matmul_reconstruct")
+    build.LAUNCHES["matmul_reconstruct"] += 1
     return out
 
 

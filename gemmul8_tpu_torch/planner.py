@@ -1,0 +1,115 @@
+"""Workspace / memory planner of the port.
+
+Counterpart of `gemmul8_tpu/planner.py`, with the same functions and the
+same chunking, but its byte counts model what THIS package holds live on
+the card (not the TPU's 128-lane padding, nor the JAX package's int32
+product batches): it (a) reports the expected peak auxiliary footprint of a
+call for capacity planning, and (b) decides the moduli-chunked low-memory
+schedule: when the slice buffers exceed a budget, the moduli loop is split
+into chunks whose slices are encoded, multiplied, reduced and folded into
+the CRT limbs before the next chunk is made.
+
+What is counted, per modulus held at one time (`_per_modulus`): the int8
+slices of A (m x kp) and B (k x n), the K-major copy of B the residue GEMM
+makes (n x kp), and the one-byte residues (m x n); kp is k rounded up to 16,
+as the GEMM wrapper pads it. Fixed: the f64 output (8 bytes an element),
+the int32 shifts, and, for a chunked call only, the int32 CRT limbs
+(num_limbs x m x n x 4), which stay live across the chunks. The operands
+themselves are the caller's and are not counted. Not counted either: the
+transient the chunk fold makes (one int32 plane, 4mn, smaller than the
+output that is counted though it is not live yet), and accurate mode's two
+int8 magnitude buffers, freed before the first slice is made.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+from . import tables
+from .types import ComputeType
+
+
+def _ceil_to(x: int, a: int) -> int:
+    return (x + a - 1) // a * a
+
+
+def _per_modulus(m: int, n: int, k: int, slice_sets: int = 1,
+                 residue_sets: int = 1) -> int:
+    kp = _ceil_to(k, 16)
+    return slice_sets * (m * kp + k * n + n * kp) + residue_sets * m * n
+
+
+def _fixed(m: int, n: int, outputs: int = 1) -> int:
+    return outputs * m * n * 8 + (m + n) * 4
+
+
+def _limbs(m: int, n: int, num_moduli: int) -> int:
+    return tables.num_limbs(num_moduli) * m * n * 4
+
+
+def workspace_bytes(m: int, n: int, k: int, num_moduli: int,
+                    compute_type: ComputeType = ComputeType.REAL_DEFAULT,
+                    moduli_chunk: int | None = None) -> int:
+    """Expected peak auxiliary bytes on the device for one emulated GEMM
+    call (see the module docstring for what is counted).
+
+    Real: num_moduli (or, chunked, moduli_chunk) times the per-modulus
+    buffers, plus the output and shifts, plus the limbs when chunked. A
+    complex call holds two slice sets a side (Re, Im; three with the
+    Karatsuba sums), each B set's K-major copy, two residue sets and two
+    outputs; the big-matrix strategy runs the classic 4-product kernel
+    here, so it counts as CLASSIC. Complex calls have no chunked
+    schedule."""
+    L = num_moduli
+    if compute_type in (ComputeType.REAL_DEFAULT, None):
+        if moduli_chunk is not None and moduli_chunk < L:
+            return (max(moduli_chunk, 1) * _per_modulus(m, n, k)
+                    + _limbs(m, n, L) + _fixed(m, n))
+        return L * _per_modulus(m, n, k) + _fixed(m, n)
+    if moduli_chunk is not None and moduli_chunk < L:
+        raise ValueError("complex calls have no moduli-chunked schedule")
+    sets = 3 if compute_type == ComputeType.COMPLEX_KARATSUBA_MULT else 2
+    return L * _per_modulus(m, n, k, sets, 2) + _fixed(m, n, 2)
+
+
+@dataclass(frozen=True)
+class ModuliSchedule:
+    """How the moduli loop is chunked for the low-memory mode."""
+
+    num_moduli: int
+    chunk: int  # moduli per materialized chunk
+
+    @property
+    def num_chunks(self) -> int:
+        return math.ceil(self.num_moduli / self.chunk)
+
+    def chunks(self):
+        """[(first modulus, width)] of each chunk, in order."""
+        return [(j, min(self.chunk, self.num_moduli - j))
+                for j in range(0, self.num_moduli, self.chunk)]
+
+
+def plan_schedule(m: int, n: int, k: int, num_moduli: int,
+                  budget_bytes: int | None = None) -> ModuliSchedule:
+    """Pick the moduli chunking: the largest chunk whose
+    `workspace_bytes(..., moduli_chunk=chunk)` stays within budget_bytes,
+    at least 1 (a budget below the limbs and one modulus cannot be met).
+    None budget, or one the one-shot call fits: all moduli at once."""
+    if budget_bytes is None or budget_bytes >= workspace_bytes(
+            m, n, k, num_moduli):
+        return ModuliSchedule(num_moduli, num_moduli)
+    room = budget_bytes - _limbs(m, n, num_moduli) - _fixed(m, n)
+    chunk = max(1, room // max(_per_modulus(m, n, k), 1))
+    return ModuliSchedule(num_moduli, min(int(chunk), num_moduli))
+
+
+def plan_workspace(gemm_list) -> int:
+    """Peak auxiliary bytes over a list of upcoming one-shot GEMMs. Entries:
+    (m, n, k, num_moduli) or (m, n, k, num_moduli, compute_type)."""
+    peak = 0
+    for entry in gemm_list:
+        m, n, k, num_moduli = entry[:4]
+        ct = entry[4] if len(entry) > 4 else ComputeType.REAL_DEFAULT
+        peak = max(peak, workspace_bytes(m, n, k, num_moduli, ct))
+    return peak

@@ -117,10 +117,8 @@ def test_gemm_numpy_needs_device():
 
 @pytest.mark.parametrize("kwargs", [
     dict(alpha=2.0), dict(beta=1.0, c=np.ones((4, 4))), dict(op_a="T"),
-    dict(op_b="C"), dict(fastmode=False, moduli_chunk=4),
-    dict(out_dtype=torch.float32),
+    dict(op_b="C"), dict(out_dtype=torch.float32),
     dict(out_dtype=torch.complex128),
-    dict(moduli_chunk=4), dict(max_workspace_bytes=1 << 20),
     dict(n_panel=2), dict(return_times=True)])
 def test_gemm_unported_arguments_name_roadmap(kwargs):
     a = torch.ones((4, 4), dtype=torch.float64)

@@ -11,6 +11,7 @@ _PROBE = """
 import sys
 import gemmul8_tpu_torch
 import gemmul8_tpu_torch.api, gemmul8_tpu_torch.core.gemm
+import gemmul8_tpu_torch.planner
 import gemmul8_tpu_torch.core.complexgemm
 import gemmul8_tpu_torch.core.encode, gemmul8_tpu_torch.core.reconstruct
 import gemmul8_tpu_torch.core.slicegemm, gemmul8_tpu_torch.core.limbs
@@ -40,11 +41,13 @@ def test_sources_are_cuda_files():
     from gemmul8_tpu_torch.hopper import build
 
     names = sorted(p.name for p in build.sources())
-    assert names == ["common.cuh", "encode.cu", "fast_encode_fused.cu",
-                     "fast_sft.cu", "fast_stats.cuh", "mag7.cu", "magmax.cu",
-                     "matmul_complex.cu", "matmul_mod.cu",
-                     "matmul_mod_pipelined.cu", "mma_s8.cuh",
-                     "reconstruct.cu", "residue.cuh", "transpose_b.cuh"]
+    assert names == ["common.cuh", "crt.cuh", "crt_gemm.cuh", "encode.cu",
+                     "fast_encode_fused.cu", "fast_sft.cu", "fast_stats.cuh",
+                     "mag7.cu", "magmax.cu", "matmul_complex.cu",
+                     "matmul_crt.cu", "matmul_mod.cu",
+                     "matmul_mod_pipelined.cu", "matmul_reconstruct.cu",
+                     "mma_s8.cuh", "moduli.cuh", "reconstruct.cu",
+                     "residue.cuh", "transpose_b.cuh"]
 
 
 def test_every_entry_point_has_a_signature():
@@ -66,8 +69,9 @@ def test_every_entry_point_has_a_signature():
 
 
 def test_crt_table_layout():
-    """The reconstruct kernel's __constant__ table: 544 bytes per moduli
-    count, weights that rebuild the CRT weights exactly."""
+    """The CRT constants (the reconstruct kernel's __constant__ table, and
+    entry by entry the CRT-fused GEMMs' kernel parameter): 544 bytes per
+    moduli count, weights that rebuild the CRT weights exactly."""
     import numpy as np
 
     from gemmul8_tpu_torch import tables
@@ -82,3 +86,4 @@ def test_crt_table_layout():
             assert sum(int(w[j, i]) << (32 * i) for i in range(6)) == wj
         m = sum(int(words[L, 120 + i]) << (32 * i) for i in range(6))
         assert m == tables.big_m(L)
+        assert hk.crt_table_entry(L).tobytes() == blob[544 * L:544 * (L + 1)]

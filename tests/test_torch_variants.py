@@ -398,7 +398,6 @@ def test_complex_accurate_under_switch_matches_jax(monkeypatch, env):
 # ---- the switches whose kernels are not ported ---------------------------
 
 @pytest.mark.parametrize("env,item", [
-    ({"GEMMUL8_FUSED_RECONSTRUCT": "1"}, "B14"),
     ({"GEMMUL8_PIPELINE": "1"}, "B15"), ({"GEMMUL8_PIPELINE": "2"}, "B15"),
     ({"GEMMUL8_PIPELINE": "3"}, "B15")])
 @pytest.mark.parametrize("fastmode", [True, False])
