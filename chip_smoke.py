@@ -112,15 +112,49 @@ The low-memory schedule, the limb input and the two CRT-fused GEMMs add:
       (chunk 5 and chunk 1) and the FUSED_RECONSTRUCT call beside the
       default call of their mode.
 
+The panel/rider pipeline (GEMMUL8_PIPELINE 1-3) and the column-panel
+schedule (n_panel) add:
+  3p. on the card against the plain versions, bit-equal: the rider step
+      with no rider, the reconstruct rider, the encode rider and both (its
+      first launch also copying B K-major), at 2048^3 (2 panels), 768 x 384
+      x 1024 (3 panels of 256; 2, 8, 14, 20 moduli) and 1536 x 1024 x 1024
+      (3 panels of 512); the B-split pair with and without the A-panel-1
+      rider; encode_slices(col_tiles=), also at phase 3's ragged 1000 x
+      1500; reconstruct(out=) and reconstruct_into into rows of a larger
+      output;
+  3g. every entry of tests/data/torch_golden.npz (the JAX package's shifts
+      and output digests for ragged real, complex and pipelined calls)
+      recomputed with the kernels: the same shifts and bits;
+  4p. at 8192^3, 14 moduli, on phase 4's operands: GEMMUL8_PIPELINE=1, 2
+      and 3 fast, 1 and 3 accurate (choose_panels gives 8 panels of 1024
+      rows; mode 3's B split applies), and a 8192 x 8192 x 16384 call (B =
+      phi_matrix(8192, 16384, 0.5, seed=2)) with n_panel=4096, pipeline
+      off and at 1: each returns the one-shot call's bits, its launch
+      counts show its path, its gate is < 1e-8, and its peak of device
+      memory above the operands is logged beside the one-shot call's; then
+      each at 2048^3 against the all-plain path;
+  5p. at 8192^2 operands, 14 moduli, panels of 1024 rows (medians of five
+      rounds in rotated order): the rider step in its four forms beside
+      what it replaces on one panel (matmul_mod_u8, reconstruct and
+      encode_slices of one panel), the pair beside panel 0's matmul_mod_u8
+      and the encode of B's right half and A's panel 1, reconstruct_into
+      beside reconstruct of one panel, and each beside its plain version
+      (warm-up outputs held bit for bit); then each pipelined call against
+      the default call of its mode, and the n_panel calls against the
+      one-shot 16384-column call.
+Phase 4s also holds each measured peak of the one-shot and chunked calls
+to the planner's figure: at or under it, and within 5%.
+
 The line before the last is a JSON object of per-kernel results
 (`launches` sums the main-path calls of phase 4, real and complex, for the
-variant kernels those of phase 4v at 8192^3, and for matmul_crt and
-matmul_reconstruct those of phase 4s at 8192^3; the statistics mode of
-fast_sft counts as fast_sft); `bound_ms` is the least time the card could
-take for the phase-5 work, from the bytes the function must move at 3.35
-TB/s or its int8 operations at 1,979 TOPS, whichever is larger; no single
-PyTorch call computes any of these functions, so `library_ms` is null. The
-last line is {"ok": true, "device": {...}}.
+variant kernels those of phase 4v at 8192^3, for matmul_crt and
+matmul_reconstruct those of phase 4s at 8192^3, and for the pipeline's
+kernels those of phase 4p at 8192^3; the statistics mode of fast_sft
+counts as fast_sft); `bound_ms` is the least time the card could take for
+the phase-5 work, from the bytes the function must move at 3.35 TB/s or
+its int8 operations at 1,979 TOPS, whichever is larger; no single PyTorch
+call computes any of these functions, so `library_ms` is null. The last
+line is {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -135,17 +169,21 @@ import numpy as np
 import torch
 
 import gemmul8_tpu_torch as gt
+from gemmul8_tpu_torch import pipelined as pl
 from gemmul8_tpu_torch import planner, tables
+from gemmul8_tpu_torch.bench import golden
 from gemmul8_tpu_torch.bench.matrices import phi_matrix
 from gemmul8_tpu_torch.bench.native import dd_gemm, relerr_vs_dd
 from gemmul8_tpu_torch.core import complexgemm as cg
 from gemmul8_tpu_torch.core import encode as enc
 from gemmul8_tpu_torch.core import gemm as tg
 from gemmul8_tpu_torch.core import reconstruct as rec
+from gemmul8_tpu_torch.core import riders
 from gemmul8_tpu_torch.core import slicegemm as sg
 from gemmul8_tpu_torch.hopper import build
 from gemmul8_tpu_torch.hopper import kernels as hk
 from gemmul8_tpu_torch.hopper import matmul as hm
+from gemmul8_tpu_torch.hopper import pipelined as hp
 
 DEVICE = "cuda"
 N = 8192                 # the main path's m = n = k
@@ -186,6 +224,12 @@ KERNELS = {
                    "gemmul8_tpu/pallas/matmul.py:637"),
     "matmul_reconstruct": ("gemmul8_tpu_torch/csrc/matmul_reconstruct.cu",
                            "gemmul8_tpu/pallas/megakernel.py:80"),
+    "matmul_rider_step": ("gemmul8_tpu_torch/csrc/matmul_rider.cu",
+                          "gemmul8_tpu/pallas/pipelined.py:195"),
+    "matmul_bsplit_pair": ("gemmul8_tpu_torch/csrc/matmul_rider.cu",
+                           "gemmul8_tpu/pallas/pipelined.py:475"),
+    "reconstruct_into": ("gemmul8_tpu_torch/csrc/reconstruct.cu",
+                         "gemmul8_tpu/pallas/pipelined.py:672"),
 }
 # wrapper counts that launch another entry's kernel (its second mode)
 KERNEL_OF = {"fast_stats": "fast_sft"}
@@ -238,6 +282,20 @@ CHUNK = 5                # phase 4s: moduli_chunk of the chunked calls
 BUDGET_CHUNK = 4         # and the chunk its max_workspace_bytes call plans
 SCHEDULE_KERNELS = ("matmul_crt", "matmul_reconstruct")
 SCHEDULE_ROUNDS = 3
+PLANNER_SLACK = 0.05     # phase 4s: a measured peak within 5% under the model
+# phase 3p: (m, k, n), moduli counts, panel_m; 2 or 3 panels, where the
+# pipeline's gates apply
+PIPELINE_CASES = [((2048, 2048, 2048), (L_MAIN,), 1024),
+                  ((768, 384, 1024), (2, 8, 14, 20), 256),
+                  ((1536, 1024, 1024), (L_MAIN,), 512)]
+PIPELINE_KERNELS = ("matmul_rider_step", "matmul_bsplit_pair",
+                    "reconstruct_into")
+PANEL_M = 1024           # choose_panels at 8192^3: (1024, 512), 8 panels
+N_WIDE = 16384           # phase 4p's column-panel call: B is N x N_WIDE
+N_PANEL = 4096
+PIPELINE_ROUNDS = 5
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                      "data", "torch_golden.npz")
 # the card's published peaks (H100 SXM5 data sheet, dense): device-memory
 # bytes per second and int8 tensor-core operations per second
 HBM_BYTES_PER_S = 3.35e12
@@ -1084,6 +1142,15 @@ def schedule_calls():
     ]
 
 
+def check_plan(name, peak, plan):
+    """A measured peak at or under the planner's figure, within
+    PLANNER_SLACK of it."""
+    assert peak <= plan, f"{name}: peak {peak} over the planner's {plan}"
+    assert peak >= (1 - PLANNER_SLACK) * plan, \
+        f"{name}: peak {peak} more than {PLANNER_SLACK:.0%} under the " \
+        f"planner's {plan}"
+
+
 def phase_schedules(a, b, refs, oracle, launches):
     """Phase 4s: the chunked, fused-reconstruct and matmul_crt paths at N^3,
     each held to the default call's bits (refs: fastmode -> output), its
@@ -1097,9 +1164,13 @@ def phase_schedules(a, b, refs, oracle, launches):
             a, b, num_moduli=L, fastmode=fastmode, device=DEVICE))
         assert torch.equal(bits64(c), bits64(refs[fastmode]))
         del c
+    plan = planner.workspace_bytes(N, N, N, L)
+    for fastmode in (True, False):
+        check_plan(f"one-shot {'fast' if fastmode else 'accurate'}",
+                   one_shot[fastmode], plan)
     log(f"  one-shot {N}^3 calls: peak device memory above the operands "
         f"fast {one_shot[True]} bytes, accurate {one_shot[False]}; planner "
-        f"{planner.workspace_bytes(N, N, N, L)}")
+        f"{plan}")
     rels = {}
     for name, fastmode, fn, want, chunk in schedule_calls():
         c, counts, peak = counted(lambda: fn(a, b))
@@ -1116,7 +1187,7 @@ def phase_schedules(a, b, refs, oracle, launches):
             plan = planner.workspace_bytes(N, N, N, L, moduli_chunk=chunk)
             assert peak < one_shot[fastmode], \
                 f"{name}: peak {peak} not below the one-shot call's"
-            assert peak <= plan, f"{name}: peak {peak} over the planner's"
+            check_plan(name, peak, plan)
             line += (f" (one-shot {one_shot[fastmode]}, planner at chunk "
                      f"{chunk}: {plan})")
         log(line)
@@ -1492,6 +1563,334 @@ def phase_schedule_times(a, b, errs):
     return kerns, plain_ms, by_name
 
 
+def hold_all(errs, name, got, ref, what):
+    """Every output of a kernel call and of its plain version bit-equal
+    (None where the other is None)."""
+    for x, y in zip(got, ref):
+        assert (x is None) == (y is None), f"{what}: outputs differ in kind"
+        if x is not None:
+            hold(errs, name, x, y, what)
+
+
+def phase_pipeline_kernels(errs):
+    """Phase 3p: the pipeline's kernels vs their plain versions."""
+    for (m, k, n), Ls, pm in PIPELINE_CASES:
+        a, b = operands(m, k, n, 9, False)
+        for L in Ls:
+            tag = f"m={m} k={k} n={n} L={L} panel_m={pm}"
+            sa = hk.fast_sft_plain(a, L, axis=1)
+            sb = hk.fast_sft_plain(b, L, axis=0)
+            a8 = hk.encode_slices(a, sa, L, axis=1)
+            b8 = hk.encode_slices(b, sb, L, axis=0)
+            bt = torch.empty((L, n, k), dtype=torch.int8, device=DEVICE)
+            r0, _, _ = hp.matmul_rider_step(a8, bt, 0, None, -1, sa, sb, L,
+                                            pm, b8=b8)
+            assert torch.equal(bt, riders.kmajor(b8)), f"{tag}: B copy"
+            pbt = torch.empty_like(bt)
+            hold_all(errs, "matmul_rider_step", (r0,),
+                     hp.matmul_rider_step_plain(a8, pbt, 0, None, -1, sa, sb,
+                                                L, pm, b8=b8)[:1],
+                     f"rider step, first {tag}")
+            last = m // pm - 1
+            for rec_on, enc_on in ((False, False), (True, False),
+                                   (False, True), (True, True)):
+                out = torch.zeros((m, n), dtype=torch.float64, device=DEVICE)
+                a8p = riders.panel_rows(a8, 1, pm).contiguous()
+                args = (bt, 1, r0 if rec_on else None, 0, sa, sb, L, pm)
+                kw = dict(a_src=a if enc_on else None,
+                          next_panel=min(2, last), out=out)
+                for slices in (a8, a8p):
+                    got = hp.matmul_rider_step(slices, *args, **kw)
+                    ref = hp.matmul_rider_step_plain(
+                        slices, *args, **{**kw, "out": out.clone()})
+                    hold_all(errs, "matmul_rider_step", got, ref,
+                             f"rider step rec={rec_on} enc={enc_on} "
+                             f"{'all of A' if slices is a8 else 'panel'} "
+                             f"{tag}")
+                # without out=: the previous panel's rows as a tensor
+                hold_all(errs, "matmul_rider_step",
+                         hp.matmul_rider_step(a8p, *args, a_src=kw["a_src"],
+                                              next_panel=kw["next_panel"]),
+                         hp.matmul_rider_step_plain(
+                             a8p, *args, a_src=kw["a_src"],
+                             next_panel=kw["next_panel"]),
+                         f"rider step pieces rec={rec_on} enc={enc_on} {tag}")
+            # the pair: B's left half encoded, its right half by the rider
+            tiles = (0, max(n // 2 // 512, 1))
+            b8l = hk.encode_slices(b, sb, L, 0, col_tiles=tiles)
+            h = min(tiles[1] * 512, n)
+            assert torch.equal(b8l[:, :, :h], b8[:, :, :h]), \
+                f"encode_slices col_tiles {tag}"
+            if h == n // 2:
+                for src in (None, a):
+                    a8_0 = riders.panel_rows(a8, 0, pm).contiguous()
+                    got = hp.matmul_bsplit_pair(a8_0, b8l, b, sa, sb, L, pm,
+                                                a_src=src)
+                    hold_all(errs, "matmul_bsplit_pair", got,
+                             hp.matmul_bsplit_pair_plain(
+                                 a8_0, b8l, b, sa, sb, L, pm, a_src=src),
+                             f"bsplit pair a_src={src is not None} {tag}")
+                    assert torch.equal(got[1], bt), f"{tag}: pair's B"
+            # the last panel's reconstruct into rows of the output, and
+            # reconstruct(out=)
+            out = torch.zeros((m, n), dtype=torch.float64, device=DEVICE)
+            hp.reconstruct_into(r0, sa, sb, L, out, last, pm)
+            rows = riders.panel_rows(out, last, pm)
+            ref = torch.zeros_like(out)
+            hp.reconstruct_into_plain(r0, sa, sb, L, ref, last, pm)
+            hold(errs, "reconstruct_into", out, ref, f"reconstruct_into {tag}")
+            assert not out[:last * pm].any(), f"{tag}: rows of no panel"
+            into = torch.zeros((pm + 8, n), dtype=torch.float64,
+                               device=DEVICE)
+            hk.reconstruct(r0, riders.panel_rows(sa, last, pm), sb, L,
+                           out=into[8:])
+            hold(errs, "reconstruct", into[8:], rows,
+                 f"reconstruct(out=) {tag}")
+        log(f"  pipeline kernels == plain at m={m} k={k} n={n} L={Ls} "
+            f"panel_m={pm}")
+    # col_tiles on a ragged width, along rows and columns
+    a, b = operands(1000, 777, 1500, 7, True)
+    for x, axis in ((a, 1), (b, 0)):
+        sft = hk.fast_sft_plain(x, L_MAIN, axis)
+        for tiles in ((0, 1), (1, 2), (2, 3), (0, 3)):
+            if tiles[0] * enc.ENC_BLOCK[1] >= x.shape[1]:
+                continue
+            got = hk.encode_slices(x, sft, L_MAIN, axis, col_tiles=tiles)
+            c0, c1 = enc.col_range(tiles, x.shape[1])
+            ref = hk.encode_slices_plain(x, sft, L_MAIN, axis,
+                                         col_tiles=tiles)
+            hold(errs, "encode_slices", got[:, :, c0:c1], ref[:, :, c0:c1],
+                 f"encode_slices col_tiles={tiles} axis={axis}")
+    log("  encode_slices(col_tiles=) == plain at 1000 x 777 x 1500")
+
+
+def phase_golden():
+    """Phase 3g: the golden file's entries with the kernels: the JAX
+    package's shifts and output digests."""
+    specs, arrays = golden.load(GOLDEN)
+    for name, spec in specs.items():
+        sa, sb, digest = golden.port_entry(spec, DEVICE)
+        assert np.array_equal(sa, arrays[f"{name}.sft_a"]) and \
+            np.array_equal(sb, arrays[f"{name}.sft_b"]), \
+            f"golden {name}: shifts differ from the JAX package's"
+        assert digest == str(arrays[f"{name}.digest"]), \
+            f"golden {name}: output bits differ from the JAX package's"
+    log(f"  {len(specs)} golden entries (JAX package, CPU) == kernels on "
+        f"the card: {', '.join(specs)}")
+
+
+def pipeline_calls():
+    """Phase 4p's N^3 calls: (name, fastmode, GEMMUL8_PIPELINE, launch
+    counts)."""
+    panels = N // PANEL_M
+    pre = {True: {"fast_sft": 2},
+           False: {"emax": 2, "mag7": 2, "magmax_matmul": 1}}
+    steps = {"encode_slices": 2, "matmul_rider_step": panels,
+             "reconstruct_into": 1}
+    split = {"encode_slices": 2, "matmul_bsplit_pair": 2,
+             "matmul_rider_step": panels - 1, "reconstruct_into": 1}
+    return [(f"{'fast' if f else 'accurate'} PIPELINE={pipe}", f, pipe,
+             {**pre[f], **(split if pipe == "3" else steps)})
+            for f, pipe in ((True, "1"), (True, "2"), (True, "3"),
+                            (False, "1"), (False, "3"))]
+
+
+def panel_calls(n_wide):
+    """The column-panel calls on a (N, n_wide) B: (name, GEMMUL8_PIPELINE,
+    launch counts)."""
+    cols = n_wide // N_PANEL
+    both = {"fast_sft": 1 + cols, "encode_slices": 1 + cols}
+    return [(f"n_panel={N_PANEL}", "0",
+             {**both, "matmul_mod_u8": cols, "reconstruct": cols}),
+            (f"n_panel={N_PANEL} PIPELINE=1", "1",
+             {**both, "matmul_rider_step": cols * (N // PANEL_M),
+              "reconstruct_into": cols})]
+
+
+def pipe_gemm(a, b, fastmode, pipe, **kwargs):
+    return under({"GEMMUL8_PIPELINE": pipe}, lambda: gt.gemm(
+        a, b, num_moduli=L_MAIN, fastmode=fastmode, device=DEVICE, **kwargs))
+
+
+def phase_pipeline(a, b, refs, oracle, launches):
+    """Phase 4p: the pipelined calls at N^3 and the column-panel calls on an
+    N x N_WIDE B, each held to the one-shot call's bits, its launch counts
+    and the gate, its peak memory logged beside the one-shot call's; then
+    each at N_PLAIN^3 against the all-plain path. Returns (gate relerr of
+    each call, the wide B, the one-shot call's peak memory by name)."""
+    L = L_MAIN
+    assert pl.choose_panels(N, N, N, L) == (PANEL_M, 512)
+    assert pl.choose_panels(N, N, N, L, True) == (PANEL_M, 512)
+    assert pl.bsplit_applicable(N, N, N, L, PANEL_M, 512)
+    assert pl.choose_panels(N, N_PANEL, N, L) == (PANEL_M, 512)
+    one_shot, rels = {}, {}
+    for fastmode in (True, False):
+        c, _, one_shot[fastmode] = counted(lambda: gt.gemm(
+            a, b, num_moduli=L, fastmode=fastmode, device=DEVICE))
+        assert torch.equal(bits64(c), bits64(refs[fastmode]))
+        del c
+    for name, fastmode, pipe, want in pipeline_calls():
+        c, counts, peak = counted(lambda: pipe_gemm(a, b, fastmode, pipe))
+        log(f"  launches in the {N}^3 {name} call: {counts}")
+        assert counts == want, f"{name} launch counts {counts}"
+        assert torch.equal(bits64(c), bits64(refs[fastmode])), \
+            f"{name}: not the one-shot call's bits"
+        rels[name] = gate(c, oracle)
+        assert rels[name] < 1e-8, f"{name} relerr {rels[name]} >= 1e-8"
+        del c
+        log(f"  {N}^3 {name} == one-shot call (bits), gate relerr "
+            f"{rels[name]!r}, peak {peak} bytes (one-shot "
+            f"{one_shot[fastmode]})")
+        for kname in PIPELINE_KERNELS:
+            launches[kname] = launches.get(kname, 0) + counts.get(kname, 0)
+    # N x N_WIDE in column panels of N_PANEL, against its one-shot call
+    b_wide = torch.from_numpy(phi_matrix(N, N_WIDE, 0.5, seed=2)).to(DEVICE)
+    oracle_wide = {(r0, c0): dd_gemm(
+        a[r0:r0 + 256].cpu().numpy(),
+        np.ascontiguousarray(b_wide[:, c0:c0 + 256].cpu().numpy()))
+        for r0, c0 in [(0, 0), (N // 2, N_WIDE // 2 + 128),
+                       (N - 256, N_WIDE - 256)]}
+    ref_wide, _, peak_wide = counted(lambda: gt.gemm(
+        a, b_wide, num_moduli=L, device=DEVICE))
+    rels[f"{N_WIDE} columns one-shot"] = gate(ref_wide, oracle_wide)
+    assert rels[f"{N_WIDE} columns one-shot"] < 1e-8
+    for name, pipe, want in panel_calls(N_WIDE):
+        c, counts, peak = counted(lambda: pipe_gemm(a, b_wide, True, pipe,
+                                                    n_panel=N_PANEL))
+        log(f"  launches in the {N} x {N} x {N_WIDE} {name} call: {counts}")
+        assert counts == want, f"{name} launch counts {counts}"
+        assert torch.equal(bits64(c), bits64(ref_wide)), \
+            f"{name}: not the one-shot call's bits"
+        rels[name] = gate(c, oracle_wide)
+        assert rels[name] < 1e-8, f"{name} relerr {rels[name]} >= 1e-8"
+        del c
+        log(f"  {N} x {N} x {N_WIDE} {name} == one-shot call (bits), gate "
+            f"relerr {rels[name]!r}, peak {peak} bytes (one-shot "
+            f"{peak_wide})")
+        for kname in PIPELINE_KERNELS:
+            launches[kname] = launches.get(kname, 0) + counts.get(kname, 0)
+    del ref_wide
+    # N_PLAIN^3: every call against the all-plain path on the same shifts
+    a2 = a[:N_PLAIN, :N_PLAIN].contiguous()
+    b2 = b[:N_PLAIN, :N_PLAIN].contiguous()
+    assert pl.bsplit_applicable(N_PLAIN, N_PLAIN, N_PLAIN, L,
+                                *pl.choose_panels(N_PLAIN, N_PLAIN, N_PLAIN,
+                                                  L, True))
+    assert pl.choose_panels(N_PLAIN, N_PLAIN // 2, N_PLAIN, L) is not None
+    plain = {True: plain_gemm(a2, b2, L, (hk.fast_sft(a2, L, 1),
+                                          hk.fast_sft(b2, L, 0)))[0],
+             False: plain_gemm(a2, b2, L, tg.accurate_sfts(a2, b2, L))[0]}
+    for name, fastmode, pipe, _ in pipeline_calls():
+        assert_bits_equal(pipe_gemm(a2, b2, fastmode, pipe), plain[fastmode],
+                          f"{N_PLAIN}^3 {name} vs plain path")
+    for name, pipe, _ in panel_calls(N_WIDE):
+        assert_bits_equal(pipe_gemm(a2, b2, True, pipe,
+                                    n_panel=N_PLAIN // 2),
+                          plain[True], f"{N_PLAIN}^3 {name} vs plain path")
+    log(f"  {N_PLAIN}^3 pipelined and column-panel calls == all-plain path "
+        "(bits)")
+    return rels, b_wide, peak_wide
+
+
+def phase_pipeline_times(a, b, b_wide, errs):
+    """Phase 5p: at the main path's shapes (N^2 operands, 14 moduli, panels
+    of PANEL_M rows), the rider step in its four forms, the pair and
+    reconstruct_into beside what they replace and beside their plain
+    versions (the warm-up outputs held bit for bit), PIPELINE_ROUNDS
+    rounds in rotated order; then the pipelined calls against the default
+    call of their mode, and the column-panel calls against the one-shot
+    call on the wide B. Returns ({label: [ms]}, {kernel: plain ms},
+    {call: [ms]})."""
+    L, pm = L_MAIN, PANEL_M
+    sa, sb = hk.fast_sft(a, L, 1), hk.fast_sft(b, L, 0)
+    a8, b8 = hk.encode_slices(a, sa, L, 1), hk.encode_slices(b, sb, L, 0)
+    bt = torch.empty((L, N, N), dtype=torch.int8, device=DEVICE)
+    r0, _, _ = hp.matmul_rider_step(a8, bt, 0, None, -1, sa, sb, L, pm,
+                                    b8=b8)
+    a8p = riders.panel_rows(a8, 1, pm).contiguous()
+    a8_0 = riders.panel_rows(a8, 0, pm).contiguous()
+    b8l = hk.encode_slices(b, sb, L, 0, col_tiles=(0, N // 2 // 512))
+    out = torch.empty((N, N), dtype=torch.float64, device=DEVICE)
+    nxt = min(2, N // pm - 1)        # the panel the encode rider encodes
+    sa1, sa2 = riders.panel_rows(sa, 0, pm), riders.panel_rows(sa, nxt, pm)
+    a2_rows = riders.panel_rows(a, nxt, pm)
+
+    def step(rec_on, enc_on):
+        return lambda: hp.matmul_rider_step(
+            a8p, bt, 1, r0 if rec_on else None, 0, sa, sb, L, pm,
+            a_src=a if enc_on else None, next_panel=nxt, out=out)
+
+    plain_ms = {}
+    for name, kern, plain in (
+            ("matmul_rider_step", step(True, True),
+             lambda: hp.matmul_rider_step_plain(
+                 a8p, bt, 1, r0, 0, sa, sb, L, pm, a_src=a, next_panel=nxt,
+                 out=out.clone())),
+            ("matmul_bsplit_pair",
+             lambda: hp.matmul_bsplit_pair(a8_0, b8l, b, sa, sb, L, pm,
+                                           a_src=a),
+             lambda: hp.matmul_bsplit_pair_plain(a8_0, b8l, b, sa, sb, L, pm,
+                                                 a_src=a)),
+            ("reconstruct_into",
+             lambda: (hp.reconstruct_into(r0, sa, sb, L, out, N // pm - 1,
+                                          pm),),
+             lambda: (hp.reconstruct_into_plain(r0, sa, sb, L, out.clone(),
+                                                N // pm - 1, pm),))):
+        got = kern()
+        plain_ms[name], ref = timed(plain, 1)
+        if name == "reconstruct_into":
+            got = (riders.panel_rows(got[0], N // pm - 1, pm),)
+            ref = (riders.panel_rows(ref[0], N // pm - 1, pm),)
+        hold_all(errs, name, got, ref, f"{name} at {N}^2, {L} moduli")
+        del got, ref
+        log(f"  {name} == plain at the main path's shapes ({N}^2 operands, "
+            f"panels of {pm}, {L} moduli)")
+    kerns, _ = timed_rounds({
+        "rider step, no rider": step(False, False),
+        "rider step, reconstruct rider": step(True, False),
+        "rider step, encode rider": step(False, True),
+        "matmul_rider_step": step(True, True),
+        "matmul_mod_u8, one panel (its copy of B included)":
+            lambda: hm.matmul_mod_u8(a8p, b8, L, centered=True),
+        "reconstruct, one panel": lambda: hk.reconstruct(r0, sa1, sb, L),
+        "encode_slices, one panel of A":
+            lambda: hk.encode_slices(a2_rows, sa2, L, 1),
+        "matmul_mod_u8 + reconstruct + encode_slices, one panel": lambda: (
+            hm.matmul_mod_u8(a8p, b8, L, centered=True),
+            hk.reconstruct(r0, sa1, sb, L),
+            hk.encode_slices(a2_rows, sa2, L, 1)),
+        "matmul_bsplit_pair": lambda: hp.matmul_bsplit_pair(
+            a8_0, b8l, b, sa, sb, L, pm, a_src=a),
+        "matmul_mod_u8 panel 0 + encode_slices of B's right half and of A "
+        "panel 1": lambda: (
+            hm.matmul_mod_u8(a8_0, b8, L, centered=True),
+            hk.encode_slices(b, sb, L, 0, col_tiles=(N // 2 // 512,
+                                                     N // 512)),
+            hk.encode_slices(riders.panel_rows(a, 1, pm),
+                             riders.panel_rows(sa, 1, pm), L, 1)),
+        "reconstruct_into": lambda: hp.reconstruct_into(
+            r0, sa, sb, L, out, N // pm - 1, pm),
+    }, PIPELINE_ROUNDS, 5)
+    del a8, b8, bt, r0, a8p, a8_0, b8l, out
+    calls = {"fast default": (True, "0")}
+    calls.update({name: (f, pipe) for name, f, pipe, _ in pipeline_calls()
+                  if f})
+    calls["accurate default"] = (False, "0")
+    calls.update({name: (f, pipe) for name, f, pipe, _ in pipeline_calls()
+                  if not f})
+    by_name, _ = timed_rounds(
+        {name: (lambda f=f, pipe=pipe: pipe_gemm(a, b, f, pipe))
+         for name, (f, pipe) in calls.items()}, PIPELINE_ROUNDS, 2)
+    wide = {f"{N_WIDE} columns one-shot": lambda: pipe_gemm(a, b_wide, True,
+                                                            "0")}
+    wide.update({name: (lambda pipe=pipe: pipe_gemm(
+        a, b_wide, True, pipe, n_panel=N_PANEL))
+        for name, pipe, _ in panel_calls(N_WIDE)})
+    wide_ms, _ = timed_rounds(wide, PIPELINE_ROUNDS, 2)
+    by_name.update(wide_ms)
+    return kerns, plain_ms, by_name
+
+
 def bound(nbytes, ops=0):
     """(ms, "bytes" or "operations"): the least time the card could take,
     the larger of nbytes of device memory at HBM_BYTES_PER_S and ops int8
@@ -1509,6 +1908,7 @@ def kernel_bounds(a, b, L):
     peak; it is below the byte bound of these kernels)."""
     m, k = a.shape
     n = b.shape[1]
+    pm = PANEL_M                     # the pipeline's kernels: one panel
     x = a.numel() + b.numel()        # f64 elements of both operands
     s = 4 * (m + n)                  # int32 shifts, exponents or maxima
     ops = 2 * m * n * k              # int8 operations of one product
@@ -1532,6 +1932,20 @@ def kernel_bounds(a, b, L):
         # not a kernel of its own: reconstruct on its limb input
         "reconstruct (limbs)": bound(4 * tables.num_limbs(L) * m * n + s
                                      + 8 * m * n),
+        # both riders: A's panel slices, B, the previous panel's residues,
+        # the next panel's f64 rows and the shifts read; the residues, the
+        # previous panel's f64 rows and the next panel's slices written
+        "matmul_rider_step": bound(
+            L * (pm * k + k * n + pm * n) + L * pm * n + 8 * pm * n
+            + 8 * pm * k + L * pm * k + 4 * (3 * pm + n), L * 2 * pm * n * k),
+        # with the A-panel-1 rider: panel 0's slices, B's left-half slices
+        # and B's right half in f64 read; the residues, all of B's slices
+        # (K-major) and A-panel 1's slices written
+        "matmul_bsplit_pair": bound(
+            L * pm * k + L * k * (n // 2) + 8 * k * (n // 2) + L * pm * n
+            + L * k * n + 8 * pm * k + L * pm * k + 4 * (2 * pm + n),
+            L * 2 * pm * n * k),
+        "reconstruct_into": bound(L * pm * n + 4 * (pm + n) + 8 * pm * n),
     }
 
 
@@ -1560,6 +1974,8 @@ def main():
     phase_complex_kernels(errs)
     phase_variant_kernels(errs)
     phase_schedule_kernels(errs)
+    phase_pipeline_kernels(errs)
+    phase_golden()
     log(f"[3/5] every kernel == its plain version "
         f"({time.perf_counter() - t0:.1f} s)")
 
@@ -1569,6 +1985,8 @@ def main():
     A, B, rels = phase_complex(launches)
     variant_rels = phase_variants(a, b, refs, oracle, A, launches)
     schedule_rels = phase_schedules(a, b, refs, oracle, launches)
+    pipe_rels, b_wide, peak_wide = phase_pipeline(a, b, refs, oracle,
+                                                  launches)
     del refs
     log(f"[4/5] main path checked ({time.perf_counter() - t0:.1f} s)")
 
@@ -1648,6 +2066,31 @@ def main():
         log(f"  gemm {N}^3 {L_MAIN} moduli f64 {name}: median {ms:.3f} ms "
             f"(rounds {', '.join(f'{t:.3f}' for t in mss)}), "
             f"{tflops:.2f} TFLOP/s, gate relerr {rel!r} ({card})")
+    pkerns, pplain, pcalls = phase_pipeline_times(a, b, b_wide, errs)
+    for label, mss in pkerns.items():
+        line = (f"  {label}: median {float(np.median(mss)):.3f} ms (rounds "
+                f"{', '.join(f'{t:.3f}' for t in mss)})")
+        if label in pplain:
+            ms, by = bounds[label]
+            line += f"; plain {pplain[label]:.3f} ms; bound {ms:.3f} ms ({by})"
+        log(line + f" ({N}^2 operands, panels of {PANEL_M} rows, {L_MAIN} "
+            f"moduli; {card})")
+    for name in PIPELINE_KERNELS:
+        times[name] = (float(np.median(pkerns[name])), pplain[name])
+    log(f"  pipelined and column-panel calls, {PIPELINE_ROUNDS} rounds in "
+        "rotated order, 2 calls per timing:")
+    for name, mss in pcalls.items():
+        ms = float(np.median(mss))
+        wide = name.startswith(("n_panel", str(N_WIDE)))
+        flop = 2 * N * N * (N_WIDE if wide else N)
+        rel = pipe_rels.get(name, rel_fast if name.startswith("fast")
+                            else rel_accu)
+        log(f"  gemm {N} x {N} x {N_WIDE if wide else N} {L_MAIN} moduli "
+            f"f64 {name}: median {ms:.3f} ms (rounds "
+            f"{', '.join(f'{t:.3f}' for t in mss)}), "
+            f"{flop / (ms * 1e-3) / 1e12:.2f} TFLOP/s, gate relerr {rel!r}"
+            f"{f'; one-shot peak {peak_wide} bytes' if wide else ''} "
+            f"({card})")
     log("[5/5] times taken")
 
     kernels = [{"name": name, "route": "cuda", "source": src,

@@ -4,10 +4,11 @@ Counterpart of `gemmul8_tpu/api.py` `gemm` and `workspace_bytes`, for the
 part of its surface that is ported: float64 x float64 -> float64 and
 complex128 (or float64 mixed with complex128) -> complex128 under all three
 complex compute types, op N/N, alpha = 1, beta = 0, fast and accurate mode;
-for real operands the one-shot schedule and the moduli-chunked low-memory
-one (`moduli_chunk`, or `max_workspace_bytes` through the planner). Every
-other argument value raises NotImplementedError naming the ROADMAP item
-that adds it.
+for real operands the one-shot schedule (and under GEMMUL8_PIPELINE its
+panel/rider pipeline), the moduli-chunked low-memory one (`moduli_chunk`,
+or `max_workspace_bytes` through the planner) and the column-panel one
+(`n_panel`). Every other argument value raises NotImplementedError naming
+the ROADMAP item that adds it.
 """
 
 from __future__ import annotations
@@ -80,7 +81,11 @@ def gemm(
     three give the same bits. moduli_chunk (real operands) keeps only that
     many residue slices of each operand alive at a time, with the one-shot
     call's bits; max_workspace_bytes lets `planner.plan_schedule` pick the
-    chunk for that budget. numpy operands need device=."""
+    chunk for that budget. n_panel < n (real operands) makes B, its
+    residues and the output n_panel columns at a time (the one-shot call's
+    bits in fast mode; accurate mode takes each panel's shifts from that
+    panel, as the JAX package does); n_panel >= n is the one-shot call.
+    numpy operands need device=."""
     if not 2 <= num_moduli <= tables.MAX_MODULI:
         raise ValueError(f"num_moduli must be in [2, {tables.MAX_MODULI}]")
     if alpha != 1.0 or beta != 0.0 or c is not None:
@@ -122,13 +127,16 @@ def gemm(
         if moduli_chunk is not None or max_workspace_bytes is not None:
             raise ValueError("n_panel and moduli_chunk/max_workspace_bytes "
                              "are mutually exclusive schedules")
-        raise NotImplementedError(
-            "the column-panel schedule: ROADMAP A6/B15")
+        if n_panel < 1:
+            raise ValueError(f"n_panel={n_panel}: expected >= 1")
     if moduli_chunk is None and max_workspace_bytes is not None:
         moduli_chunk = _planner.plan_schedule(m, n, k, num_moduli,
                                               max_workspace_bytes).chunk
     if return_times:
         raise NotImplementedError("phase times: ROADMAP A8")
+    if n_panel is not None and n_panel < n:
+        return _g.gemm_core_panels(ta, tb, num_moduli, fastmode, "f64",
+                                   n_panel)
     return _g.gemm_core(ta, tb, num_moduli, fastmode, "f64", moduli_chunk)
 
 

@@ -1,0 +1,95 @@
+"""The port's side of the golden file `tests/data/torch_golden.npz`.
+
+The file holds the JAX package's shifts and output digests for a few calls
+(written by `tests/test_torch_golden.py`, which runs the JAX package); each
+entry says how to make its operands and which call it is. This module
+makes the operands and the port's (sft_a, sft_b, digest) of an entry on
+any device, so that the CPU tests and `chip_smoke.py` on the card hold the
+port to the same file without JAX.
+
+An entry's spec: [kind ("real" or "complex"), [m, k, n], num_moduli,
+fastmode, phi, [seed_a, seed_b], complex compute type name or None,
+GEMMUL8_PIPELINE value].
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+
+import numpy as np
+import torch
+
+from .. import api
+from ..core import complexgemm as cg
+from ..core import encode as enc
+from ..core import gemm as tg
+from ..hopper import kernels as hk
+from ..types import ComputeType
+from .matrices import phi_matrix
+
+
+def load(path) -> tuple[dict, dict]:
+    """(specs by name, arrays by key) of a golden file."""
+    with np.load(path) as f:
+        arrays = {key: f[key] for key in f.files}
+    return json.loads(str(arrays["spec"])), arrays
+
+
+def operands(kind: str, shape, phi: float, seeds):
+    """numpy operands (a, b) of an entry; complex128 for kind "complex",
+    the Im parts from seed + 100."""
+    m, k, n = shape
+    a = phi_matrix(m, k, phi, seed=seeds[0])
+    b = phi_matrix(k, n, phi, seed=seeds[1])
+    if kind == "complex":
+        a = a + 1j * phi_matrix(m, k, phi, seed=seeds[0] + 100)
+        b = b + 1j * phi_matrix(k, n, phi, seed=seeds[1] + 100)
+    return a, b
+
+
+def digest(c: np.ndarray) -> str:
+    """SHA-256 of an output's bits: float64 words in C order, or the Re
+    words then the Im words."""
+    c = np.ascontiguousarray(c)
+    parts = [c.real, c.imag] if np.iscomplexobj(c) else [c]
+    h = hashlib.sha256()
+    for p in parts:
+        h.update(np.ascontiguousarray(p, dtype=np.float64).view(
+            np.uint64).tobytes())
+    return h.hexdigest()
+
+
+def port_entry(spec, device="cpu"):
+    """(sft_a, sft_b, digest) of an entry from the port on `device`: the
+    plain versions for the CPU, the kernels for a card. The switch the
+    entry names is set for the call and restored after."""
+    kind, shape, L, fastmode, phi, seeds, ct, pipe = spec
+    a, b = operands(kind, shape, phi, seeds)
+    ta, tb = torch.from_numpy(a).to(device), torch.from_numpy(b).to(device)
+    saved = os.environ.get("GEMMUL8_PIPELINE")
+    os.environ["GEMMUL8_PIPELINE"] = pipe
+    try:
+        if kind == "real":
+            if fastmode:
+                sa, sb = hk.fast_sft(ta, L, 1), hk.fast_sft(tb, L, 0)
+            else:
+                sa, sb = tg.accurate_sfts(ta, tb, L)
+            c = api.gemm(ta, tb, num_moduli=L, fastmode=fastmode)
+        else:
+            ar, ai = cg.canon_complex(ta)
+            br, bi = cg.canon_complex(tb)
+            if fastmode:
+                sa = enc.joint_fast_sft(ar, ai, L, 1, stats=hk.fast_stats)
+                sb = enc.joint_fast_sft(br, bi, L, 0, stats=hk.fast_stats)
+            else:
+                sa, sb = cg.accurate_sfts_complex(ar, ai, br, bi, L)
+            c = api.gemm(ta, tb, num_moduli=L, fastmode=fastmode,
+                         compute_type=ComputeType[ct])
+    finally:
+        if saved is None:
+            os.environ.pop("GEMMUL8_PIPELINE", None)
+        else:
+            os.environ["GEMMUL8_PIPELINE"] = saved
+    return sa.cpu().numpy(), sb.cpu().numpy(), digest(c.cpu().numpy())

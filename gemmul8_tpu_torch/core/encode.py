@@ -232,20 +232,48 @@ def check_moduli_idx(moduli_idx, num_moduli: int) -> tuple:
     return idx
 
 
+# The JAX package's encode block; its second entry is the unit of
+# `encode_slices`' col_tiles (the panel pipeline's B split).
+ENC_BLOCK = (64, 512)
+
+
+def col_range(col_tiles, width: int):
+    """The columns [c0, c1) of col_tiles (j0, j1), in units of
+    ENC_BLOCK[1] columns, within an operand `width` columns wide."""
+    j0, j1 = (int(j) for j in col_tiles)
+    c0, c1 = j0 * ENC_BLOCK[1], min(j1 * ENC_BLOCK[1], width)
+    if not 0 <= c0 < c1:
+        raise ValueError(f"col_tiles {tuple(col_tiles)} select no column of "
+                         f"{width}")
+    return c0, c1
+
+
 def encode_slices(x: torch.Tensor, sft: torch.Tensor, num_moduli: int,
-                  axis: int, moduli_idx=None) -> torch.Tensor:
+                  axis: int, moduli_idx=None,
+                  col_tiles=None) -> torch.Tensor:
     """(L', *x.shape) int8 centered residues of trunc(x * 2^sft): slice l
     for modulus moduli_idx[l] (default: all num_moduli in order). sft is
-    (m, 1) for axis=1 (rows of A), (1, n) for axis=0 (columns of B)."""
+    (m, 1) for axis=1 (rows of A), (1, n) for axis=0 (columns of B).
+    col_tiles (j0, j1) encodes only x's columns in `col_range`; the other
+    columns of the full-shape result hold zeros here (the kernel leaves
+    them unwritten)."""
     if x.dtype != torch.float64 or x.dim() != 2:
         raise TypeError("encode_slices expects a 2-D float64 tensor")
     want = (x.shape[0], 1) if axis == 1 else (1, x.shape[1])
     if tuple(sft.shape) != want:
         raise ValueError(f"sft shape {tuple(sft.shape)}, expected {want}")
+    idx = check_moduli_idx(moduli_idx, num_moduli)
+    if col_tiles is not None:
+        c0, c1 = col_range(col_tiles, x.shape[1])
+        out = torch.zeros((len(idx), *x.shape), dtype=torch.int8,
+                          device=x.device)
+        out[:, :, c0:c1] = encode_slices(
+            x[:, c0:c1], sft if axis == 1 else sft[:, c0:c1], num_moduli,
+            axis, idx)
+        return out
     chunks, exp, sign, _ = _f64_fields(x)
     return _encode_with_sft(chunks, exp, sign, sft.to(torch.int64),
-                            num_moduli,
-                            check_moduli_idx(moduli_idx, num_moduli))
+                            num_moduli, idx)
 
 
 def fast_encode_fused(x: torch.Tensor, num_moduli: int, axis: int):

@@ -1,14 +1,17 @@
 """GEMM-emulation orchestrator: shifts -> residue slices -> int8 matmul
 with the mod in its epilogue -> CRT reconstruct.
 
-Counterpart of `gemmul8_tpu/core/gemm.py` `gemm_core` (its Pallas branch),
-in fast and accurate mode, with its two schedules: one-shot, and
-moduli-chunked (the low-memory mode: only `moduli_chunk` residue slices of
-each operand exist at a time; each chunk's residues are folded into the
-int32 CRT limbs before the next chunk is encoded, and the reconstruct
-kernel finishes from the limbs). Each step goes through a wrapper of
-`gemmul8_tpu_torch.hopper`, which launches the Hopper kernel for CUDA
-tensors and runs the plain PyTorch version for CPU tensors.
+Counterpart of `gemmul8_tpu/core/gemm.py` `gemm_core` and
+`gemm_core_panels` (their Pallas branches), in fast and accurate mode, with
+their schedules: one-shot; moduli-chunked (the low-memory mode: only
+`moduli_chunk` residue slices of each operand exist at a time; each chunk's
+residues are folded into the int32 CRT limbs before the next chunk is
+encoded, and the reconstruct kernel finishes from the limbs); the
+panel/rider pipeline (`gemmul8_tpu_torch.pipelined`); and column panels
+(`gemm_core_panels`: B and the output one n-panel at a time). Each step
+goes through a wrapper of `gemmul8_tpu_torch.hopper`, which launches the
+Hopper kernel for CUDA tensors and runs the plain PyTorch version for CPU
+tensors.
 
 The JAX package's switches are read at call time from the environment,
 with its values and defaults; every variant gives the default's bits:
@@ -21,11 +24,17 @@ with its values and defaults; every variant gives the default's bits:
   read by `hopper.kernels.mag7_operand` and `hopper.matmul.magmax_matmul`;
 - GEMMUL8_FUSED_RECONSTRUCT=1 (one-shot schedule, alpha_e == 0): the
   matmul and the reconstruct from one kernel, `matmul_reconstruct`;
-- GEMMUL8_PIPELINE in 1..3 selects kernels not ported yet (ROADMAP B15)
-  and raises NotImplementedError.
+- GEMMUL8_PIPELINE (default "0"; 1 reconstruct rider, 2 and the encode
+  rider, 3 and the B split): the one-shot schedule with alpha_e == 0 and
+  selected shifts (not under GEMMUL8_FUSED_ENCODE=1) runs the panel/rider
+  pipeline where `pipelined.choose_panels` finds panels, before
+  GEMMUL8_FUSED_RECONSTRUCT is looked at; the column-panel schedule runs it
+  per column panel at level 1 (any level above 0), as the JAX package's.
 GEMMUL8_MXU_ENC is not read: in the JAX package it picks a contraction
 inside `encode_slices_pallas` that works around the TPU's slow integer
 division, with the same bits; the port's encode kernel has one form.
+GEMMUL8_RIDER_UNCOND is not read either: it drops the TPU riders' predicates,
+with the same bits (`gemmul8_tpu_torch.pipelined`).
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ import os
 
 import torch
 
+from .. import pipelined as pl
 from .. import tables
 from ..hopper import kernels as hk
 from ..hopper import matmul as hm
@@ -85,9 +95,11 @@ def gemm_core(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
         raise ValueError(f"moduli_chunk={moduli_chunk}: expected >= 1")
     if a.device != b.device:
         raise ValueError(f"operands on {a.device} and {b.device}")
-    check_unported_switches()
     a, b = a.contiguous(), b.contiguous()
     one_shot = moduli_chunk is None or moduli_chunk >= num_moduli
+    # read where the JAX package reads it: an invalid value raises even
+    # where the pipeline cannot run (FUSED_ENCODE)
+    pipe = pl.pipeline_mode() if one_shot and alpha_e == 0 else 0
     if (fastmode and one_shot
             and os.environ.get("GEMMUL8_FUSED_ENCODE") == "1"):
         a8, sft_a = hk.fast_encode_fused(a, num_moduli, axis=1)
@@ -102,6 +114,14 @@ def gemm_core(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
         if not one_shot:
             return _gemm_chunked(a, b, sft_a, sft_b, num_moduli,
                                  moduli_chunk, out_dtype, alpha_e)
+        cfg = (pl.choose_panels(m, n, k, num_moduli, encode_rider=pipe >= 2)
+               if pipe else None)
+        if cfg:
+            bsp = pipe == 3 and pl.bsplit_applicable(m, n, k, num_moduli,
+                                                     *cfg)
+            return pl.gemm_pipelined(a, b, num_moduli, panel_m=cfg[0],
+                                     bn=cfg[1], sfts=(sft_a, sft_b),
+                                     encode_rider=pipe >= 2, b_rider=bsp)
         a8 = hk.encode_slices(a, sft_a, num_moduli, axis=1)
         b8 = hk.encode_slices(b, sft_b, num_moduli, axis=0)
     if (alpha_e == 0 and os.environ.get("GEMMUL8_FUSED_RECONSTRUCT") == "1"
@@ -145,14 +165,55 @@ def centered_residues() -> bool:
     return os.environ.get("GEMMUL8_MXU_CRT", "1") == "1"
 
 
-def check_unported_switches() -> None:
-    """Raise on the JAX package's switches whose kernels are not ported,
-    rather than run the default kernels under them."""
-    pipe = os.environ.get("GEMMUL8_PIPELINE") or "0"
-    if pipe not in ("0", "1", "2", "3"):
-        raise ValueError(
-            f"GEMMUL8_PIPELINE={pipe!r}: expected one of '0','1','2','3'")
-    if pipe != "0":
+def gemm_core_panels(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
+                     fastmode: bool = True, out_dtype: str = "f64",
+                     n_panel: int | None = None,
+                     alpha_e: int = 0) -> torch.Tensor:
+    """The column-panel schedule: C = 2^alpha_e * A @ B with B, its slices,
+    its residues and the output's columns made n_panel columns at a time,
+    so that the residue memory follows the panel's width. Each panel's
+    result goes into its columns of one (m, n) output. Fast mode encodes A
+    once (B's shifts are per column, so the bits are the one-shot call's);
+    accurate mode takes the shifts, and A's slices, anew for each panel
+    (they depend on B), as the JAX package's `gemm_core_panels` does. With
+    GEMMUL8_PIPELINE above 0 (and alpha_e == 0) a panel that
+    `pipelined.choose_panels` takes runs the panel/rider pipeline (the
+    reconstruct rider) on A's slices."""
+    m, k, n = check_shapes(a, b)
+    if not fastmode and (out_dtype != "f64" or a.dtype != torch.float64
+                         or b.dtype != torch.float64):
         raise NotImplementedError(
-            f"GEMMUL8_PIPELINE={pipe}: the panel/rider pipeline kernels "
-            "are not ported (ROADMAP B15)")
+            "accurate mode with f32 operands or output: ROADMAP A4")
+    if n_panel is None or n_panel < 1:
+        raise ValueError(f"n_panel={n_panel}: expected >= 1")
+    if a.device != b.device:
+        raise ValueError(f"operands on {a.device} and {b.device}")
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty((m, n), dtype=torch.float64, device=a.device)
+    sft_a = hk.fast_sft(a, num_moduli, axis=1) if fastmode else None
+    a8 = None
+    for j0 in range(0, n, n_panel):
+        bp = b[:, j0:j0 + n_panel].contiguous()
+        if fastmode:
+            sft_b = hk.fast_sft(bp, num_moduli, axis=0)
+        else:
+            sft_a, sft_b = accurate_sfts(a, bp, num_moduli)
+            a8 = None  # accurate shifts depend on B: A is encoded anew
+        if a8 is None:
+            a8 = hk.encode_slices(a, sft_a, num_moduli, axis=1)
+        cfg = (pl.choose_panels(m, bp.shape[1], k, num_moduli)
+               if pl.pipeline_mode() and alpha_e == 0 else None)
+        if cfg:
+            piece = pl.gemm_pipelined(a, bp, num_moduli, panel_m=cfg[0],
+                                      bn=cfg[1], sfts=(sft_a, sft_b), a8=a8)
+        else:
+            b8 = hk.encode_slices(bp, sft_b, num_moduli, axis=0)
+            r8 = hm.matmul_mod_u8(a8, b8, num_moduli,
+                                  centered=centered_residues())
+            del b8
+            piece = hk.reconstruct(r8, sft_a, sft_b, num_moduli, out_dtype,
+                                   e_extra=alpha_e)
+            del r8
+        out[:, j0:j0 + bp.shape[1]] = piece
+        del bp, piece
+    return out

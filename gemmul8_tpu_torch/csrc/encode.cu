@@ -1,6 +1,8 @@
 // Residue slices of an f64 operand: out[l] = centered residue of
 // trunc(x * 2^sft) mod m_j as int8, j = moduli_idx[l]: every modulus of the
-// call in order, or the chunk of a moduli-chunked call.
+// call in order, or the chunk of a moduli-chunked call; all of x's columns,
+// or a range of them (the panel pipeline's B split: the left half of B is
+// encoded up front, the right half by a rider, matmul_rider.cu).
 //
 // Replaces: encode_slices_pallas, gemmul8_tpu/pallas/kernels.py:691.
 // Bound on the H100: device-memory bytes. Per element it reads 8 bytes and
@@ -29,9 +31,9 @@ __global__ void __launch_bounds__(kThreads)
 encode_kernel(const unsigned long long* __restrict__ x,
               const int* __restrict__ sft, signed char* __restrict__ out,
               int d0, int d1, int axis, int q_max, int j0, int j1,
-              const __grid_constant__ gm8::ModSlots slots) {
-  const int col = blockIdx.x * kThreads + threadIdx.x;
-  if (col >= d1) return;
+              int c0, int c1, const __grid_constant__ gm8::ModSlots slots) {
+  const int col = c0 + blockIdx.x * kThreads + threadIdx.x;
+  if (col >= c1) return;
   const size_t total = static_cast<size_t>(d0) * d1;
   for (int row = blockIdx.y; row < d0; row += gridDim.y) {
     const size_t idx = static_cast<size_t>(row) * d1 + col;
@@ -49,20 +51,20 @@ encode_kernel(const unsigned long long* __restrict__ x,
 
 // x: (d0, d1) f64 bits; sft: d0 shifts (axis=1) or d1 shifts (axis=0);
 // moduli_idx: n_idx distinct indices into the moduli table, on the host;
-// out: (n_idx, d0, d1) int8, slice l for modulus moduli_idx[l]. q_max: the
-// static left-shift cap max(threshold_accurate - 53, 0) of the call's
-// moduli count.
+// out: (n_idx, d0, d1) int8, slice l for modulus moduli_idx[l], written in
+// columns [c0, c1) only. q_max: the static left-shift cap
+// max(threshold_accurate - 53, 0) of the call's moduli count.
 GM8_EXPORT int gm8_encode_slices(const void* x, const void* sft, void* out,
                                  int d0, int d1, int axis,
                                  const void* moduli_idx, int n_idx,
-                                 int q_max, void* stream) {
+                                 int q_max, int c0, int c1, void* stream) {
   auto idx = static_cast<const int*>(moduli_idx);
   gm8::ModSlots slots;
-  if (!gm8::mod_slots(idx, n_idx, &slots))
+  if (!gm8::mod_slots(idx, n_idx, &slots) || c0 < 0 || c1 > d1 || c0 >= c1)
     return static_cast<int>(cudaErrorInvalidValue);
   bool range = true;
   for (int l = 1; l < n_idx; ++l) range = range && idx[l] == idx[0] + l;
-  dim3 grid((d1 + kThreads - 1) / kThreads, d0 < 65535 ? d0 : 65535);
+  dim3 grid((c1 - c0 + kThreads - 1) / kThreads, d0 < 65535 ? d0 : 65535);
   auto s = static_cast<cudaStream_t>(stream);
   auto xp = static_cast<const unsigned long long*>(x);
   auto sp = static_cast<const int*>(sft);
@@ -70,12 +72,12 @@ GM8_EXPORT int gm8_encode_slices(const void* x, const void* sft, void* out,
   const int j0 = idx[0], j1 = idx[0] + n_idx;
   if (range && j0 == 0)
     encode_kernel<kPrefix><<<grid, kThreads, 0, s>>>(
-        xp, sp, op, d0, d1, axis, q_max, j0, j1, slots);
+        xp, sp, op, d0, d1, axis, q_max, j0, j1, c0, c1, slots);
   else if (range)
     encode_kernel<kRange><<<grid, kThreads, 0, s>>>(
-        xp, sp, op, d0, d1, axis, q_max, j0, j1, slots);
+        xp, sp, op, d0, d1, axis, q_max, j0, j1, c0, c1, slots);
   else
     encode_kernel<kSlots><<<grid, kThreads, 0, s>>>(
-        xp, sp, op, d0, d1, axis, q_max, j0, j1, slots);
+        xp, sp, op, d0, d1, axis, q_max, j0, j1, c0, c1, slots);
   return gm8::launch_status();
 }

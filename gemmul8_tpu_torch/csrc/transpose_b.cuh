@@ -1,8 +1,10 @@
 // B's int8 slices (L, k, n), N-major, copied into a K-major workspace
 // (L, n, kp) with zeros in [k, kp): the layout the tensor-core tile of
 // mma_s8.cuh reads. Shared by the real (matmul_mod.cu) and the complex
-// (matmul_complex.cu) residue GEMMs. The kernel has internal linkage, so
-// each including source gets its own copy.
+// (matmul_complex.cu) residue GEMMs and the panel pipeline
+// (matmul_rider.cu, which copies one column half of B with a row stride of
+// its own). The kernel has internal linkage, so each including source gets
+// its own copy.
 #pragma once
 
 #include "common.cuh"
@@ -14,12 +16,13 @@ constexpr int kTT = 64;  // transpose tile: 64 k x 64 n bytes
 
 __global__ void __launch_bounds__(256)
 transpose_b_kernel(const signed char* __restrict__ b,
-                   signed char* __restrict__ bt, int k, int n, int kp) {
+                   signed char* __restrict__ bt, int k, int n, int kp,
+                   int ldb, int bt_rows) {
   __shared__ unsigned sm[kTT][kTT / 4 + 1];  // [n][k word]
   const int l = blockIdx.z;
   const int n0 = blockIdx.x * kTT, k0 = blockIdx.y * kTT;
-  const signed char* bl = b + static_cast<size_t>(l) * k * n;
-  signed char* btl = bt + static_cast<size_t>(l) * n * kp;
+  const signed char* bl = b + static_cast<size_t>(l) * k * ldb;
+  signed char* btl = bt + static_cast<size_t>(l) * bt_rows * kp;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;  // 4x4 blocks
   unsigned w[4];
 #pragma unroll
@@ -27,7 +30,7 @@ transpose_b_kernel(const signed char* __restrict__ b,
     const int kk = k0 + ty * 4 + r, nn = n0 + tx * 4;
     unsigned v = 0;
     if (kk < k) {
-      const signed char* p = bl + static_cast<size_t>(kk) * n + nn;
+      const signed char* p = bl + static_cast<size_t>(kk) * ldb + nn;
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         if (nn + i < n)
@@ -58,11 +61,15 @@ transpose_b_kernel(const signed char* __restrict__ b,
   }
 }
 
-// b: (L, k, n) int8 -> bt: (L, n, kp) int8, kp % 16 == 0, kp >= k
+// b: (L, k, n) int8 -> bt: (L, n, kp) int8, kp % 16 == 0, kp >= k. With
+// ldb and bt_rows (0: n), the first n columns of a (L, k, ldb) b go to the
+// first n rows of each (bt_rows, kp) plane of bt.
 inline void transpose_b(const signed char* b, signed char* bt, int L, int k,
-                        int n, int kp, cudaStream_t s) {
+                        int n, int kp, cudaStream_t s, int ldb = 0,
+                        int bt_rows = 0) {
   dim3 grid((n + kTT - 1) / kTT, (kp + kTT - 1) / kTT, L);
-  transpose_b_kernel<<<grid, 256, 0, s>>>(b, bt, k, n, kp);
+  transpose_b_kernel<<<grid, 256, 0, s>>>(b, bt, k, n, kp, ldb ? ldb : n,
+                                          bt_rows ? bt_rows : n);
 }
 
 }  // namespace

@@ -51,8 +51,9 @@ _SIGNATURES = {
     "gm8_fast_sft": [_P, _P, _I, _I, _I, _I, _F, _P],
     # x, out_emax, out_nrm2, out_any, rows, kdim, axis, stream
     "gm8_fast_stats": [_P, _P, _P, _P, _I, _I, _I, _P],
-    # x, sft, out, d0, d1, axis, moduli_idx (host), n_idx, q_max, stream
-    "gm8_encode_slices": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _P],
+    # x, sft, out, d0, d1, axis, moduli_idx (host), n_idx, q_max, c0, c1,
+    # stream
+    "gm8_encode_slices": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P],
     # a8, b8, bt (workspace), out, moduli_idx (host), L, m, n, k, kp,
     # centered, stream
     "gm8_matmul_mod_u8": [_P] * 5 + [_I] * 6 + [_P],
@@ -83,6 +84,12 @@ _SIGNATURES = {
     # a8, b8, bt, scratch (workspaces), sft_a, sft_b, out, table (host), L,
     # m, n, k, kp, nblocks, stream
     "gm8_matmul_reconstruct": [_P] * 8 + [_I] * 6 + [_P],
+    # a8, b8 (or null), bt, res, r_prev, r_sa, sb, r_out, a_src, a_sft,
+    # a_out, table (host), a_rows, a_row0, L, pm, n, k, q_max, stream
+    "gm8_matmul_rider_step": [_P] * 12 + [_I] * 7 + [_P],
+    # a8, b8, bt, res, b_src, b_sft, a_src, a_sft, a_out, L, pm, n, k,
+    # q_max, stream
+    "gm8_matmul_bsplit_pair": [_P] * 9 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

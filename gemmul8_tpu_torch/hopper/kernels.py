@@ -16,10 +16,12 @@ never falls back. The plain versions (`*_plain`) are the functions of
     reconstruct    csrc/reconstruct.cu  <- pallas/kernels.py reconstruct_pallas
 
 `encode_slices` takes a subset of the moduli (`moduli_idx`, the chunks of
-the moduli-chunked schedule), and `reconstruct` takes, besides int8 and
-uint8 residues, raw int32 slice products and the weighted CRT sum as
-16-bit limbs (`input_kind="limbs"`: what `hopper.matmul.matmul_crt` and the
-chunked schedule's fold produce).
+the moduli-chunked schedule) and a range of columns (`col_tiles`, the panel
+pipeline's B split), and `reconstruct` takes, besides int8 and uint8
+residues, raw int32 slice products and the weighted CRT sum as 16-bit limbs
+(`input_kind="limbs"`: what `hopper.matmul.matmul_crt` and the chunked
+schedule's fold produce), and writes into a given output (`out=`, rows of
+the panel pipeline's full-size output).
 
 `mag7_operand` reads GEMMUL8_FUSED_MAG7 at call time, as the JAX package's
 `mag7_operand_pallas` does: "1" takes mag7_fused, anything else the emax +
@@ -242,27 +244,30 @@ def host_idx(idx) -> np.ndarray:
 
 
 def encode_slices(x: torch.Tensor, sft: torch.Tensor, num_moduli: int,
-                  axis: int, moduli_idx=None) -> torch.Tensor:
+                  axis: int, moduli_idx=None, col_tiles=None) -> torch.Tensor:
     """(L', *x.shape) int8 centered residues of trunc(x * 2^sft): slice l
     for modulus moduli_idx[l], any tuple of distinct indices below
-    num_moduli (default: all of them in order)."""
+    num_moduli (default: all of them in order). col_tiles (j0, j1): only
+    x's columns [j0, j1) x enc.ENC_BLOCK[1] (clipped to its width) are
+    written, the rest of the full-shape output is left as allocated."""
     _check_f64(x)
     want = (x.shape[0], 1) if axis == 1 else (1, x.shape[1])
     if tuple(sft.shape) != want or axis not in (0, 1):
         raise ValueError(f"sft shape {tuple(sft.shape)}, expected {want}")
     idx = enc.check_moduli_idx(moduli_idx, num_moduli)
+    d0, d1 = x.shape
+    c0, c1 = (0, d1) if col_tiles is None else enc.col_range(col_tiles, d1)
     if _on_cpu(x):
-        return encode_slices_plain(x, sft, num_moduli, axis, idx)
+        return encode_slices_plain(x, sft, num_moduli, axis, idx, col_tiles)
     if sft.dtype != torch.int32:
         raise TypeError("sft must be int32")
     build.require_cuda(x, sft)
-    d0, d1 = x.shape
     out = torch.empty((len(idx), d0, d1), dtype=torch.int8, device=x.device)
     idx_host = host_idx(idx)
     with torch.cuda.device(x.device):
         code = build.lib().gm8_encode_slices(
             x.data_ptr(), sft.data_ptr(), out.data_ptr(), d0, d1, axis,
-            idx_host.ctypes.data, len(idx), _q_max(num_moduli),
+            idx_host.ctypes.data, len(idx), _q_max(num_moduli), c0, c1,
             build.stream_ptr(x.device))
     build.check(code, "encode_slices")
     build.LAUNCHES["encode_slices"] += 1
@@ -343,14 +348,26 @@ _KIND_U8, _KIND_CENTERED, _KIND_PRODUCTS, _KIND_LIMBS = range(4)
 
 def reconstruct(r: torch.Tensor, sft_a: torch.Tensor, sft_b: torch.Tensor,
                 num_moduli: int, out_dtype: str = "f64", e_extra: int = 0,
-                input_kind: str = "residues") -> torch.Tensor:
+                input_kind: str = "residues",
+                out: torch.Tensor | None = None) -> torch.Tensor:
     """Residues and shifts (m, 1), (1, n) -> the (m, n) result. r is
     (L, m, n): int8 holding r - 128, uint8, or int32 raw slice products
     (reduced mod m_j in the kernel); or, with input_kind="limbs", the
     weighted CRT sum itself as (num_limbs, m, n) int32 16-bit limbs,
     canonical or with each limb nonnegative and below 2^29 (what
     `hopper.matmul.matmul_crt` and the chunked schedule's fold give). The
-    kernel writes float64; f32 output runs only in the plain version."""
+    kernel writes float64; f32 output runs only in the plain version.
+    out: a contiguous (m, n) float64 tensor (rows of a larger output) to
+    write into and return, instead of a new one."""
+    return reconstruct_launch("reconstruct", r, sft_a, sft_b, num_moduli,
+                              out_dtype, e_extra, input_kind, out)
+
+
+def reconstruct_launch(name: str, r, sft_a, sft_b, num_moduli: int,
+                       out_dtype: str = "f64", e_extra: int = 0,
+                       input_kind: str = "residues", out=None):
+    """`reconstruct`, its launch counted under `name` (the panel
+    pipeline's last reconstruct counts as its own kernel)."""
     if input_kind not in ("residues", "limbs"):
         raise ValueError(f"input_kind {input_kind!r}")
     limbs = input_kind == "limbs"
@@ -360,9 +377,16 @@ def reconstruct(r: torch.Tensor, sft_a: torch.Tensor, sft_b: torch.Tensor,
     _, m, n = r.shape
     if tuple(sft_a.shape) != (m, 1) or tuple(sft_b.shape) != (1, n):
         raise ValueError("shifts must be (m, 1) and (1, n)")
+    if out is not None and (tuple(out.shape) != (m, n)
+                            or out.device != r.device
+                            or out.dtype != torch.float64
+                            or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous ({m}, {n}) float64 "
+                         f"tensor on {r.device}")
     if _on_cpu(r):
-        return reconstruct_plain(r, sft_a, sft_b, num_moduli, out_dtype,
-                                 e_extra, input_kind)
+        c = reconstruct_plain(r, sft_a, sft_b, num_moduli, out_dtype,
+                              e_extra, input_kind)
+        return c if out is None else out.copy_(c)
     if out_dtype != "f64":
         raise NotImplementedError(
             "f32 output of the reconstruct kernel: ROADMAP A4")
@@ -382,12 +406,13 @@ def reconstruct(r: torch.Tensor, sft_a: torch.Tensor, sft_b: torch.Tensor,
     if not -(1 << 20) < e_extra < (1 << 20):
         raise ValueError("e_extra out of range")
     _ensure_crt_tables(r.device)
-    out = torch.empty((m, n), dtype=torch.float64, device=r.device)
+    if out is None:
+        out = torch.empty((m, n), dtype=torch.float64, device=r.device)
     with torch.cuda.device(r.device):
         code = build.lib().gm8_reconstruct_f64(
             r.data_ptr(), kind, planes, sft_a.data_ptr(), sft_b.data_ptr(),
             out.data_ptr(), num_moduli, m, n, e_extra,
             build.stream_ptr(r.device))
-    build.check(code, "reconstruct")
-    build.LAUNCHES["reconstruct"] += 1
+    build.check(code, name)
+    build.LAUNCHES[name] += 1
     return out

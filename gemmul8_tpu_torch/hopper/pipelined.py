@@ -1,0 +1,190 @@
+"""Wrappers of the panel pipeline's Hopper kernels, beside their plain
+versions.
+
+    matmul_rider_step   csrc/matmul_rider.cu (gm8_matmul_rider_step)
+        <- pallas/pipelined.py matmul_rider_step
+    matmul_bsplit_pair  csrc/matmul_rider.cu (gm8_matmul_bsplit_pair,
+                        two launches) <- pallas/pipelined.py matmul_bsplit_pair
+    reconstruct_into    csrc/reconstruct.cu on the last panel, into its rows
+                        of the output <- pallas/pipelined.py _reconstruct_into
+
+A CPU tensor takes the plain version (`gemmul8_tpu_torch.core.riders`); a
+CUDA tensor launches the kernel. `build.LAUNCHES` counts each kernel launch
+under the wrapper's name (the pair adds two). The panel GEMMs read B
+K-major, (L, n, k); k must be a multiple of 16 (the pipeline's gates ask
+128), so A's slices need no padding.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core import riders
+from . import build
+from . import kernels as hk
+
+matmul_rider_step_plain = riders.matmul_rider_step
+matmul_bsplit_pair_plain = riders.matmul_bsplit_pair
+reconstruct_into_plain = riders.reconstruct_into
+
+
+def _check_slices(a8, bt, num_moduli: int, panel_m: int):
+    """(L, k, n) of a panel GEMM's operands: a8 (L, rows, k), a multiple of
+    panel_m rows; bt (L, n, k) K-major."""
+    if a8.dtype != torch.int8 or bt.dtype != torch.int8:
+        raise TypeError("slices must be int8")
+    if a8.dim() != 3 or bt.dim() != 3:
+        raise ValueError("slices must be (L, rows, k) and (L, n, k)")
+    L, rows, k = a8.shape
+    if L != num_moduli or bt.shape[0] != L or bt.shape[2] != k:
+        raise ValueError(f"expected ({num_moduli}, rows, k) and "
+                         f"({num_moduli}, n, k) slices")
+    if k % 16 or panel_m < 1 or rows % panel_m:
+        raise ValueError(f"k={k} must be a multiple of 16 and the rows "
+                         f"{rows} of panel_m={panel_m}")
+    return L, k, bt.shape[1]
+
+
+def _check_shifts(sft_a, sft_b, m: int, n: int):
+    if sft_a.dim() != 2 or sft_a.shape[1] != 1 or sft_a.shape[0] < m \
+            or tuple(sft_b.shape) != (1, n):
+        raise ValueError("shifts must be (m, 1) and (1, n)")
+
+
+def _new(shape, dtype, like):
+    return torch.empty(shape, dtype=dtype, device=like.device)
+
+
+def matmul_rider_step(a8, bt, panel: int, r_prev, prev_panel: int, sft_a,
+                      sft_b, num_moduli: int, panel_m: int, *, b8=None,
+                      a_src=None, next_panel: int = -1, out=None):
+    """One pipeline stage, `riders.matmul_rider_step`'s function: the
+    (L, panel_m, n) uint8 residues of A-panel `panel` with, as riders, the
+    reconstruct of panel `prev_panel` from r_prev (into rows of out when
+    given) and the encode of A-panel `next_panel` from a_src. Returns
+    (res, rec_rows or None, a8_next or None)."""
+    L, k, n = _check_slices(a8, bt, num_moduli, panel_m)
+    m = sft_a.shape[0]
+    _check_shifts(sft_a, sft_b, m, n)
+    a_row0 = 0 if a8.shape[1] == panel_m else panel * panel_m
+    if not 0 <= a_row0 <= a8.shape[1] - panel_m:
+        raise ValueError(f"panel {panel} out of range")
+    if b8 is not None and tuple(b8.shape) != (L, k, n):
+        raise ValueError(f"b8 must be ({L}, {k}, {n})")
+    if r_prev is not None:
+        if tuple(r_prev.shape) != (L, panel_m, n) or r_prev.dtype != \
+                torch.uint8:
+            raise ValueError(f"r_prev must be ({L}, {panel_m}, {n}) uint8")
+        if not 0 <= prev_panel < m // panel_m:
+            raise ValueError(f"prev_panel {prev_panel} out of range")
+    if a_src is not None:
+        if a_src.dtype != torch.float64 or a_src.shape[1] != k:
+            raise ValueError(f"a_src must be (m, {k}) float64")
+        if not 0 <= next_panel < min(a_src.shape[0], m) // panel_m:
+            raise ValueError(f"next_panel {next_panel} out of range")
+    if out is not None and (tuple(out.shape) != (m, n)
+                            or out.dtype != torch.float64):
+        raise ValueError(f"out must be ({m}, {n}) float64")
+    operands = [a8, bt, sft_a, sft_b] + [
+        x for x in (b8, r_prev, a_src, out) if x is not None]
+    if all(x.device.type == "cpu" for x in operands):
+        return matmul_rider_step_plain(
+            a8, bt, panel, r_prev, prev_panel, sft_a, sft_b, num_moduli,
+            panel_m, b8=b8, a_src=a_src, next_panel=next_panel, out=out)
+    if sft_a.dtype != torch.int32 or sft_b.dtype != torch.int32:
+        raise TypeError("shifts must be int32")
+    build.require_cuda(*operands)
+    res = _new((L, panel_m, n), torch.uint8, a8)
+    # the riders' pointers, null for a rider that is off
+    rec = [None] * 4      # residues, row shifts, rows out, CRT table
+    nxt = [None] * 3      # source rows, row shifts, slices out
+    rec_rows = a8_next = None
+    if r_prev is not None:
+        rec_rows = (_new((panel_m, n), torch.float64, a8) if out is None
+                    else riders.panel_rows(out, prev_panel, panel_m))
+        table = hk.crt_table_entry(L)   # alive until the call returns
+        rec = [r_prev.data_ptr(),
+               riders.panel_rows(sft_a, prev_panel, panel_m).data_ptr(),
+               rec_rows.data_ptr(), table.ctypes.data]
+    if a_src is not None:
+        a8_next = _new((L, panel_m, k), torch.int8, a8)
+        nxt = [riders.panel_rows(a_src, next_panel, panel_m).data_ptr(),
+               riders.panel_rows(sft_a, next_panel, panel_m).data_ptr(),
+               a8_next.data_ptr()]
+    with torch.cuda.device(a8.device):
+        code = build.lib().gm8_matmul_rider_step(
+            a8.data_ptr(), None if b8 is None else b8.data_ptr(),
+            bt.data_ptr(), res.data_ptr(), rec[0], rec[1], sft_b.data_ptr(),
+            rec[2], *nxt, rec[3], a8.shape[1], a_row0, L, panel_m, n, k,
+            hk._q_max(num_moduli), build.stream_ptr(a8.device))
+    build.check(code, "matmul_rider_step")
+    build.LAUNCHES["matmul_rider_step"] += 1
+    return res, rec_rows, a8_next
+
+
+def matmul_bsplit_pair(a8_p0, b8_left, b_src, sft_a, sft_b, num_moduli: int,
+                       panel_m: int, *, a_src=None):
+    """Panel 0 as two launches over B's column halves,
+    `riders.matmul_bsplit_pair`'s function: the left half's GEMM carries
+    the encode of B's right half from b_src into the K-major B, the right
+    half's the encode of A-panel 1 from a_src. Returns (res0 (L, panel_m,
+    n) uint8, bt (L, n, k) int8 K-major, a8_next or None)."""
+    if b8_left.dtype != torch.int8 or b8_left.dim() != 3:
+        raise ValueError("b8_left must be (L, k, n) int8")
+    L, k, n = b8_left.shape
+    _check_slices(a8_p0, b8_left.transpose(1, 2), num_moduli, panel_m)
+    if a8_p0.shape[1] != panel_m or n % 2:
+        raise ValueError(f"expected panel 0's ({L}, {panel_m}, {k}) slices "
+                         "and an even n")
+    if b_src.dtype != torch.float64 or tuple(b_src.shape) != (k, n):
+        raise ValueError(f"b_src must be ({k}, {n}) float64")
+    _check_shifts(sft_a, sft_b, 2 * panel_m if a_src is not None else
+                  panel_m, n)
+    if a_src is not None and (a_src.dtype != torch.float64
+                              or a_src.shape[1] != k
+                              or a_src.shape[0] < 2 * panel_m):
+        raise ValueError(f"a_src must be (m >= {2 * panel_m}, {k}) float64")
+    operands = [a8_p0, b8_left, b_src, sft_a, sft_b] + (
+        [a_src] if a_src is not None else [])
+    if all(x.device.type == "cpu" for x in operands):
+        return matmul_bsplit_pair_plain(a8_p0, b8_left, b_src, sft_a, sft_b,
+                                        num_moduli, panel_m, a_src=a_src)
+    if sft_a.dtype != torch.int32 or sft_b.dtype != torch.int32:
+        raise TypeError("shifts must be int32")
+    build.require_cuda(*operands)
+    res = _new((L, panel_m, n), torch.uint8, a8_p0)
+    bt = _new((L, n, k), torch.int8, a8_p0)
+    a8_next = None
+    src = sft = None
+    if a_src is not None:
+        a8_next = _new((L, panel_m, k), torch.int8, a8_p0)
+        src = riders.panel_rows(a_src, 1, panel_m).data_ptr()
+        sft = riders.panel_rows(sft_a, 1, panel_m).data_ptr()
+    with torch.cuda.device(a8_p0.device):
+        code = build.lib().gm8_matmul_bsplit_pair(
+            a8_p0.data_ptr(), b8_left.data_ptr(), bt.data_ptr(),
+            res.data_ptr(), b_src.data_ptr(), sft_b.data_ptr(), src, sft,
+            None if a8_next is None else a8_next.data_ptr(), L, panel_m, n,
+            k, hk._q_max(num_moduli), build.stream_ptr(a8_p0.device))
+    build.check(code, "matmul_bsplit_pair")
+    build.LAUNCHES["matmul_bsplit_pair"] += 2
+    return res, bt, a8_next
+
+
+def reconstruct_into(r8, sft_a, sft_b, num_moduli: int, out,
+                     last_panel: int, panel_m: int):
+    """The last panel's reconstruct from (L, panel_m, n) residues, written
+    into its rows of the (m, n) float64 output `out` (the reconstruct
+    kernel with `out=`, counted as reconstruct_into); returns out."""
+    m, n = out.shape
+    if not 0 <= last_panel < m // panel_m:
+        raise ValueError(f"last_panel {last_panel} out of range")
+    _check_shifts(sft_a, sft_b, m, n)
+    if r8.device.type == "cpu" and out.device.type == "cpu":
+        return reconstruct_into_plain(r8, sft_a, sft_b, num_moduli, out,
+                                      last_panel, panel_m)
+    hk.reconstruct_launch("reconstruct_into", r8,
+                          riders.panel_rows(sft_a, last_panel, panel_m),
+                          sft_b, num_moduli,
+                          out=riders.panel_rows(out, last_panel, panel_m))
+    return out

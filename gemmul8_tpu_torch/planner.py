@@ -9,16 +9,20 @@ schedule: when the slice buffers exceed a budget, the moduli loop is split
 into chunks whose slices are encoded, multiplied, reduced and folded into
 the CRT limbs before the next chunk is made.
 
-What is counted, per modulus held at one time (`_per_modulus`): the int8
-slices of A (m x kp) and B (k x n), the K-major copy of B the residue GEMM
-makes (n x kp), and the one-byte residues (m x n); kp is k rounded up to 16,
-as the GEMM wrapper pads it. Fixed: the f64 output (8 bytes an element),
-the int32 shifts, and, for a chunked call only, the int32 CRT limbs
-(num_limbs x m x n x 4), which stay live across the chunks. The operands
-themselves are the caller's and are not counted. Not counted either: the
-transient the chunk fold makes (one int32 plane, 4mn, smaller than the
-output that is counted though it is not live yet), and accurate mode's two
-int8 magnitude buffers, freed before the first slice is made.
+What is counted is what is live at the call's peak, which is the larger
+of two moments. During the residue GEMM: per modulus held at one time
+(`_per_modulus`) the int8 slices of A (m x kp) and B (k x n), the K-major
+copy of B the GEMM makes (n x kp) and the one-byte residues (m x n); kp is
+k rounded up to 16, as the GEMM wrapper pads it. During the reconstruct:
+the residues and the f64 output (8 bytes an element), the slices being
+freed by then. A chunked call holds the int32 CRT limbs (num_limbs x m x n
+x 4) across both moments, and at its reconstruct the limbs and the output
+only. The int32 shifts are live throughout. The operands themselves are
+the caller's and are not counted. Not counted either: the transient the
+chunk fold makes (one int32 plane, 4mn, below a chunk's slices and copy of
+B beside the limbs), and accurate mode's two int8 magnitude buffers, freed
+before the first slice is made. A complex call is counted with its
+slices, copies, residues and outputs all live at once.
 """
 
 from __future__ import annotations
@@ -40,8 +44,12 @@ def _per_modulus(m: int, n: int, k: int, slice_sets: int = 1,
     return slice_sets * (m * kp + k * n + n * kp) + residue_sets * m * n
 
 
-def _fixed(m: int, n: int, outputs: int = 1) -> int:
-    return outputs * m * n * 8 + (m + n) * 4
+def _output(m: int, n: int, outputs: int = 1) -> int:
+    return outputs * m * n * 8
+
+
+def _shifts(m: int, n: int) -> int:
+    return (m + n) * 4
 
 
 def _limbs(m: int, n: int, num_moduli: int) -> int:
@@ -54,23 +62,27 @@ def workspace_bytes(m: int, n: int, k: int, num_moduli: int,
     """Expected peak auxiliary bytes on the device for one emulated GEMM
     call (see the module docstring for what is counted).
 
-    Real: num_moduli (or, chunked, moduli_chunk) times the per-modulus
-    buffers, plus the output and shifts, plus the limbs when chunked. A
-    complex call holds two slice sets a side (Re, Im; three with the
-    Karatsuba sums), each B set's K-major copy, two residue sets and two
-    outputs; the big-matrix strategy runs the classic 4-product kernel
-    here, so it counts as CLASSIC. Complex calls have no chunked
-    schedule."""
+    Real: the larger of num_moduli (or, chunked, moduli_chunk) times the
+    per-modulus buffers and the residues plus the output; chunked, the
+    limbs beside either (the chunk's residues are folded into them before
+    the output is made); plus the shifts. A complex call holds two slice
+    sets a side (Re, Im; three with the Karatsuba sums), each B set's
+    K-major copy, two residue sets and two outputs; the big-matrix strategy
+    runs the classic 4-product kernel here, so it counts as CLASSIC.
+    Complex calls have no chunked schedule."""
     L = num_moduli
     if compute_type in (ComputeType.REAL_DEFAULT, None):
         if moduli_chunk is not None and moduli_chunk < L:
-            return (max(moduli_chunk, 1) * _per_modulus(m, n, k)
-                    + _limbs(m, n, L) + _fixed(m, n))
-        return L * _per_modulus(m, n, k) + _fixed(m, n)
+            return (_limbs(m, n, L) + max(
+                max(moduli_chunk, 1) * _per_modulus(m, n, k), _output(m, n))
+                + _shifts(m, n))
+        return (max(L * _per_modulus(m, n, k), L * m * n + _output(m, n))
+                + _shifts(m, n))
     if moduli_chunk is not None and moduli_chunk < L:
         raise ValueError("complex calls have no moduli-chunked schedule")
     sets = 3 if compute_type == ComputeType.COMPLEX_KARATSUBA_MULT else 2
-    return L * _per_modulus(m, n, k, sets, 2) + _fixed(m, n, 2)
+    return (L * _per_modulus(m, n, k, sets, 2) + _output(m, n, 2)
+            + _shifts(m, n))
 
 
 @dataclass(frozen=True)
@@ -99,7 +111,7 @@ def plan_schedule(m: int, n: int, k: int, num_moduli: int,
     if budget_bytes is None or budget_bytes >= workspace_bytes(
             m, n, k, num_moduli):
         return ModuliSchedule(num_moduli, num_moduli)
-    room = budget_bytes - _limbs(m, n, num_moduli) - _fixed(m, n)
+    room = budget_bytes - _limbs(m, n, num_moduli) - _shifts(m, n)
     chunk = max(1, room // max(_per_modulus(m, n, k), 1))
     return ModuliSchedule(num_moduli, min(int(chunk), num_moduli))
 

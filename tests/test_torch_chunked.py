@@ -312,20 +312,30 @@ def test_plan_schedule_keeps_its_budget_and_is_monotone(mnk):
 
 
 def test_workspace_bytes_counts_what_the_port_holds():
-    """The model at the headline size: per modulus the A and B slices, B's
-    K-major copy and the residues, one byte an element each; the f64 output
-    and the shifts; chunked, the int32 limbs too."""
+    """The model at the headline size: the peak is in the residue GEMM,
+    where per modulus the A and B slices, B's K-major copy and the residues
+    are live, one byte an element each, and not in the reconstruct (the
+    residues and the f64 output); chunked, the int32 limbs beside either;
+    the shifts throughout. These are the peaks measured on the card at
+    8192^3, 14 moduli (one-shot, chunk 5, chunk 4: PERF.md)."""
     n, L = 8192, 14
     plane = n * n
-    fixed = 8 * plane + 4 * 2 * n
-    assert gt.workspace_bytes(n, n, n, L) == L * 4 * plane + fixed
+    shifts = 4 * 2 * n
+    limbs = tables.num_limbs(L) * 4 * plane
+    assert gt.workspace_bytes(n, n, n, L) == L * 4 * plane + shifts \
+        == 3_758_161_920
     assert gt.workspace_bytes(n, n, n, L, moduli_chunk=5) == (
-        5 * 4 * plane + tables.num_limbs(L) * 4 * plane + fixed)
+        5 * 4 * plane + limbs + shifts) == 3_489_726_464
+    assert gt.workspace_bytes(n, n, n, L, moduli_chunk=4) == 3_221_291_008
     assert gt.workspace_bytes(n, n, n, L, moduli_chunk=L) == \
         gt.workspace_bytes(n, n, n, L)
+    # where the output outweighs the GEMM's buffers: residues + output
+    assert gt.workspace_bytes(n, n, 16, 2) == 2 * plane + 8 * plane + shifts
+    assert gt.workspace_bytes(n, n, 16, 14, moduli_chunk=1) == (
+        limbs + 8 * plane + shifts)
     # k is padded to a multiple of 16 where the GEMM reads it K-major
     assert planner.workspace_bytes(8, 8, 5, 2) == 2 * (8 * 16 + 5 * 8
-                                                       + 8 * 16 + 64) + 576
+                                                       + 8 * 16 + 64) + 64
     CT = gt.ComputeType
     classic = gt.workspace_bytes(n, n, n, L, CT.COMPLEX_CLASSIC_MULT)
     assert classic == gt.workspace_bytes(n, n, n, L,

@@ -118,8 +118,7 @@ def test_gemm_numpy_needs_device():
 @pytest.mark.parametrize("kwargs", [
     dict(alpha=2.0), dict(beta=1.0, c=np.ones((4, 4))), dict(op_a="T"),
     dict(op_b="C"), dict(out_dtype=torch.float32),
-    dict(out_dtype=torch.complex128),
-    dict(n_panel=2), dict(return_times=True)])
+    dict(out_dtype=torch.complex128), dict(return_times=True)])
 def test_gemm_unported_arguments_name_roadmap(kwargs):
     a = torch.ones((4, 4), dtype=torch.float64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -138,6 +137,22 @@ def test_gemm_argument_errors():
         gt.gemm(a[:, :0], a[:0])
     c = tg.gemm_core(a, a, 14, fastmode=False)
     assert torch.equal(c, torch.full((4, 4), 4.0, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("shapes", [((3, 0), (0, 4)), ((0, 0), (0, 0)),
+                                    ((1, 0), (0, 1))])
+def test_empty_inner_dim_raises_like_jax(shapes):
+    """k = 0: the JAX package's gemm raises ValueError on the CPU (its
+    statistics reduce an empty axis), and so does the port, on purpose
+    (ROADMAP C7)."""
+    sa, sb = shapes
+    with pytest.raises(ValueError):
+        g8.gemm(np.ones(sa), np.ones(sb))
+    with pytest.raises(ValueError, match="empty"):
+        gt.gemm(np.ones(sa), np.ones(sb), device="cpu")
+    with pytest.raises(ValueError, match="empty"):
+        tg.gemm_core(torch.ones(sa, dtype=torch.float64),
+                     torch.ones(sb, dtype=torch.float64), 14)
 
 
 @pytest.mark.cuda

@@ -1,0 +1,194 @@
+"""Golden bits of the JAX package, for the port on any device.
+
+`tests/data/torch_golden.npz` holds, for a few calls of ragged shapes (real
+fast and accurate, complex fast and accurate, one pipelined call), how to
+make the operands (shape, phi, seeds of `phi_matrix`), the JAX package's
+shifts and a SHA-256 digest of the JAX package's output bits
+(`gemmul8_tpu_torch.bench.golden` makes the operands and digests). The JAX
+side is `gemm_core` / `gemm_complex_core` with use_pallas=True (Pallas in
+interpret mode) on the CPU. Two tests run in Tier-1:
+
+- the file is regenerated from the JAX package and compared with the
+  committed one, so it cannot go stale;
+- the port's plain path on the CPU gives the same shifts and digests.
+
+`chip_smoke.py` recomputes every entry with the Hopper kernels on the card
+and compares, which holds the card to the JAX package without JAX on the
+card's host. The entries' seeds are chosen so that no fast-mode shift's
+pre-floor value lies within 1e-4 of an integer (`MARGIN`, the repo's
+floor-boundary rule), where the f32 norm's summation order on the card
+could legally move it by one.
+
+    python tests/test_torch_golden.py    # rewrites tests/data/torch_golden.npz
+"""
+
+import json
+import os
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+import jax  # noqa: E402
+
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_enable_x64", True)
+
+import torch  # noqa: E402
+
+from gemmul8_tpu.core import complexgemm as jcg  # noqa: E402
+from gemmul8_tpu.core import gemm as gg  # noqa: E402
+from gemmul8_tpu.pallas import kernels as pk  # noqa: E402
+from gemmul8_tpu.types import bits_to_f64, f64_to_bits  # noqa: E402
+from gemmul8_tpu_torch.bench.golden import (digest, operands,  # noqa: E402
+                                            port_entry)
+from gemmul8_tpu_torch.core import encode as enc  # noqa: E402
+
+GOLDEN = Path(__file__).resolve().parent / "data" / "torch_golden.npz"
+MARGIN = 1e-4
+
+# name -> (kind, (m, k, n), num_moduli, fastmode, phi, seeds, compute type,
+# GEMMUL8_PIPELINE)
+ENTRIES = {
+    "real_fast_ragged": ("real", (72, 200, 56), 14, True, 0.5, (3, 4),
+                         None, "0"),
+    "real_fast_two_chunks": ("real", (24, 2600, 20), 14, True, 1.0, (6, 7),
+                             None, "0"),
+    "real_fast_L8": ("real", (40, 136, 24), 8, True, 2.0, (13, 14), None,
+                     "0"),
+    "real_accurate_ragged": ("real", (72, 200, 56), 14, False, 0.5, (3, 4),
+                             None, "0"),
+    "complex_fast": ("complex", (40, 72, 24), 14, True, 0.5, (21, 22),
+                     "COMPLEX_KARATSUBA_MULT", "0"),
+    "complex_accurate": ("complex", (40, 72, 24), 14, False, 0.5, (21, 22),
+                         "COMPLEX_BIG_MATRIX_ENCODE", "0"),
+    "pipelined_mode3": ("real", (512, 128, 1024), 5, True, 1.0, (41, 42),
+                        None, "3"),
+}
+
+
+def _bits(a):
+    return f64_to_bits(np.ascontiguousarray(a))
+
+
+def jax_entry(name):
+    """(sft_a, sft_b, digest) of an entry from the JAX package."""
+    kind, shape, L, fastmode, phi, seeds, ct, pipe = ENTRIES[name]
+    a, b = operands(kind, shape, phi, seeds)
+    saved = os.environ.get("GEMMUL8_PIPELINE")
+    os.environ["GEMMUL8_PIPELINE"] = pipe
+    try:
+        if kind == "real":
+            A, B = _bits(a), _bits(b)
+            if fastmode:
+                sa = pk.fast_sft_pallas(A, L, axis=1)
+                sb = pk.fast_sft_pallas(B, L, axis=0)
+            else:
+                sa, sb = gg.accurate_sfts(A, B, L, use_pallas=True)
+            c = bits_to_f64(gg.gemm_core(A, B, L, fastmode, "f64",
+                                         use_pallas=True), to_numpy=True)
+        else:
+            parts = [_bits(x) for x in (a.real, a.imag, b.real, b.imag)]
+            if fastmode:
+                sa = jcg._joint_sft_pallas(parts[0], parts[1], L, 1)
+                sb = jcg._joint_sft_pallas(parts[2], parts[3], L, 0)
+            else:
+                sa, sb = jcg._accurate_sfts_pallas(*parts, L)
+            re, im = jcg.gemm_complex_core(*parts, L, fastmode,
+                                           jcg.ComputeType[ct], "f64",
+                                           use_pallas=True)
+            c = (bits_to_f64(re, to_numpy=True)
+                 + 1j * bits_to_f64(im, to_numpy=True))
+    finally:
+        if saved is None:
+            os.environ.pop("GEMMUL8_PIPELINE", None)
+        else:
+            os.environ["GEMMUL8_PIPELINE"] = saved
+    return (np.asarray(sa, dtype=np.int32), np.asarray(sb, dtype=np.int32),
+            digest(c))
+
+
+def shift_margin(name) -> float:
+    """The least distance of a fast-mode shift's pre-floor value from an
+    integer over the entry's rows and columns (1.0 in accurate mode, whose
+    shifts the card computes with the CPU's ops on exact integers)."""
+    kind, shape, L, fastmode, phi, seeds, _, _ = ENTRIES[name]
+    if not fastmode:
+        return 1.0
+    a, b = operands(kind, shape, phi, seeds)
+    worst = 1.0
+    for x, axis in ((a, 1), (b, 0)):
+        if kind == "real":
+            t = torch.from_numpy(x)
+            _, nrm2, _ = enc.fast_stats(t, axis)
+            frac = enc.sft_floor_frac(nrm2, t.shape[axis], L)
+        else:
+            re = torch.from_numpy(np.ascontiguousarray(x.real))
+            im = torch.from_numpy(np.ascontiguousarray(x.imag))
+            _, nrm2, _ = enc.merge_stats(enc.fast_stats(re, axis),
+                                         enc.fast_stats(im, axis))
+            frac = enc.sft_floor_frac(nrm2, 2 * re.shape[axis], L)
+        worst = min(worst, float(frac.min()))
+    return worst
+
+
+def generate(names=None):
+    """The golden arrays: per entry its spec, the JAX shifts and digest."""
+    out = {"spec": np.asarray(json.dumps(ENTRIES, sort_keys=True))}
+    for name in names or ENTRIES:
+        sa, sb, dg = jax_entry(name)
+        out[f"{name}.sft_a"] = sa
+        out[f"{name}.sft_b"] = sb
+        out[f"{name}.digest"] = np.asarray(dg)
+    return out
+
+
+@pytest.fixture(scope="module")
+def golden():
+    with np.load(GOLDEN) as f:
+        return {key: f[key] for key in f.files}
+
+
+def test_golden_spec_is_this_file(golden):
+    """The committed file describes these entries, each with a margin."""
+    spec = json.loads(str(golden["spec"]))
+    assert spec == json.loads(json.dumps(ENTRIES))
+    assert GOLDEN.stat().st_size < 1 << 20
+    for name in ENTRIES:
+        assert shift_margin(name) > MARGIN, name
+
+
+@pytest.mark.parametrize("name", list(ENTRIES))
+def test_golden_file_is_fresh(golden, name):
+    """Regenerated from the JAX package, the entry is the committed one."""
+    sa, sb, dg = jax_entry(name)
+    np.testing.assert_array_equal(golden[f"{name}.sft_a"], sa)
+    np.testing.assert_array_equal(golden[f"{name}.sft_b"], sb)
+    assert str(golden[f"{name}.digest"]) == dg
+
+
+@pytest.mark.parametrize("name", list(ENTRIES))
+def test_port_matches_golden(golden, monkeypatch, name):
+    """The port's plain path on the CPU: the JAX package's shifts and bits
+    (the one-shot default and, for the pipelined entry, under its switch
+    too)."""
+    for key in ("GEMMUL8_FUSED_ENCODE", "GEMMUL8_FUSED_MAG7",
+                "GEMMUL8_MAGMAX_SCRATCH", "GEMMUL8_MM_PIPELINE",
+                "GEMMUL8_MXU_CRT", "GEMMUL8_FUSED_RECONSTRUCT"):
+        monkeypatch.delenv(key, raising=False)
+    sa, sb, dg = port_entry(ENTRIES[name])
+    np.testing.assert_array_equal(golden[f"{name}.sft_a"], sa)
+    np.testing.assert_array_equal(golden[f"{name}.sft_b"], sb)
+    assert str(golden[f"{name}.digest"]) == dg
+
+
+if __name__ == "__main__":
+    GOLDEN.parent.mkdir(parents=True, exist_ok=True)
+    for entry in ENTRIES:
+        print(f"{entry}: margin {shift_margin(entry):.3g}", flush=True)
+    np.savez_compressed(GOLDEN, **generate())
+    print(f"wrote {GOLDEN} ({GOLDEN.stat().st_size} bytes)")

@@ -11,7 +11,8 @@ _PROBE = """
 import sys
 import gemmul8_tpu_torch
 import gemmul8_tpu_torch.api, gemmul8_tpu_torch.core.gemm
-import gemmul8_tpu_torch.planner
+import gemmul8_tpu_torch.planner, gemmul8_tpu_torch.pipelined
+import gemmul8_tpu_torch.core.riders, gemmul8_tpu_torch.hopper.pipelined
 import gemmul8_tpu_torch.core.complexgemm
 import gemmul8_tpu_torch.core.encode, gemmul8_tpu_torch.core.reconstruct
 import gemmul8_tpu_torch.core.slicegemm, gemmul8_tpu_torch.core.limbs
@@ -46,6 +47,7 @@ def test_sources_are_cuda_files():
                      "mag7.cu", "magmax.cu", "matmul_complex.cu",
                      "matmul_crt.cu", "matmul_mod.cu",
                      "matmul_mod_pipelined.cu", "matmul_reconstruct.cu",
+                     "matmul_rider.cu",
                      "mma_s8.cuh", "moduli.cuh", "reconstruct.cu",
                      "residue.cuh", "transpose_b.cuh"]
 

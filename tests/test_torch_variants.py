@@ -395,21 +395,7 @@ def test_complex_accurate_under_switch_matches_jax(monkeypatch, env):
                                   got.view(np.uint64))
 
 
-# ---- the switches whose kernels are not ported ---------------------------
-
-@pytest.mark.parametrize("env,item", [
-    ({"GEMMUL8_PIPELINE": "1"}, "B15"), ({"GEMMUL8_PIPELINE": "2"}, "B15"),
-    ({"GEMMUL8_PIPELINE": "3"}, "B15")])
-@pytest.mark.parametrize("fastmode", [True, False])
-def test_unported_switches_raise(monkeypatch, env, item, fastmode):
-    for key, value in env.items():
-        monkeypatch.setenv(key, value)
-    a = torch.ones((4, 4), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match=item):
-        tg.gemm_core(a, a, 14, fastmode=fastmode)
-    with pytest.raises(NotImplementedError, match=item):
-        gt.gemm(a, a, fastmode=fastmode)
-
+# ---- GEMMUL8_PIPELINE (its levels run: tests/test_torch_pipelined.py) ----
 
 def test_pipeline_switch_values(monkeypatch):
     """An empty GEMMUL8_PIPELINE is 0, as in the JAX package; a value
