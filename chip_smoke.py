@@ -145,6 +145,43 @@ schedule (n_panel) add:
 Phase 4s also holds each measured peak of the one-shot and chunked calls
 to the planner's figure: at or under it, and within 5%.
 
+The real front end (f32 and mixed operands, f32 output, op N/T/C,
+alpha/beta) and the f32 forms of fast_sft, encode_slices, emax, mag7 and
+reconstruct add:
+  3f. each f32 form against its plain version on f32 operands, bit-equal
+      (fast_sft under the floor rule), at 2048^3 (8 moduli), 1000 x 777 x
+      1500 (2 to 20 moduli), 300 x 5 x 200 and 1000 x 4100 x 1500 (k over
+      three norm chunks), with f32 special lines (zero, subnormal-only rows
+      and columns, subnormals inside normal lines, mixed exponents, values
+      near FLT_MAX): the encode on every modulus, on subsets and on column
+      ranges; reconstruct with f32 output on the residues of their slices,
+      on fast and accurate shifts;
+  3b (f32). reconstruct with f32 output from uint8, int8, int32 products
+      and limbs on values built to hit its rounding branches (f32 ties and
+      one away on each side, integers where rounding through f64 would round
+      twice, subnormal results, overflow to inf), held to its plain version
+      and to the exactly rounded values (`exact_f32`);
+  3g. the golden file's f32, mixed, alpha/beta and op T entries too;
+  4f. at 2048^3, every front-end combination (f32/f64 operands in each
+      order, f16 and bf16 widened, f32/f64 output, fast and accurate, op
+      T/C, alpha/beta and the pow2 fold, moduli_chunk=3, n_panel=1024)
+      bit-equal to the all-plain path, its epilogue to numpy's separate
+      roundings; at 8192^3 on A = phi_matrix(8192, 8192, 0.5, seed=0) cast
+      to f32 and B = A.T: f32 -> f32 at 8 moduli fast and accurate (launch
+      counts of the f32 forms asserted; median relerr of the three gate
+      tiles < 2e-7 against the dd oracle of the f32 operands), f64 x f32 ->
+      f64 at 14 moduli (gate < 1e-8), alpha=1.7 beta=-0.3 with C in f64 and
+      f32 output (numpy's epilogue on the raw call's bits), op_a="T" (the op
+      N call's bits), peak memory beside the planner's figure; and the four
+      switches whose kernels are f64-only refusing f32 calls, naming ROADMAP
+      B18;
+  5f. at 8192^2 operands, 8 moduli: each f32 form beside its f64 form
+      (medians of five rotated rounds) and its plain version (warm-up
+      outputs held bit for bit); then the f32 and f64 fast-8 and
+      accurate-8 calls and torch.matmul in f32 with TF32 off, medians of
+      five rotated rounds, as 2mnk/t.
+The f32 forms' `launches` sum the 8192^3 calls of phase 4f.
+
 The line before the last is a JSON object of per-kernel results
 (`launches` sums the main-path calls of phase 4, real and complex, for the
 variant kernels those of phase 4v at 8192^3, for matmul_crt and
@@ -296,6 +333,19 @@ N_PANEL = 4096
 PIPELINE_ROUNDS = 5
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                       "data", "torch_golden.npz")
+L_F32 = 8                # the f32 main path's moduli count (SGEMM grade)
+# phase 3f: phase 3's shapes and k over three norm chunks, 2 to 20 moduli
+F32_CASES = [((2048, 2048, 2048), (L_F32,), False),
+             ((1000, 777, 1500), (2, 8, 14, 20), True),
+             ((300, 5, 200), (8, 20), True),
+             ((1000, 4100, 1500), (2, 8), True)]
+# the kernels with an f32 form (f32 operands; f32 output for reconstruct)
+F32_KERNELS = ("fast_sft", "encode_slices", "emax", "mag7", "reconstruct")
+F32_GATE_MEDIAN = 2e-7   # tests/test_gemm.py:75's band at 8 moduli
+F32_ROUNDS = 5
+ALPHA, BETA = 1.7, -0.3  # phase 4f's general epilogue (not f32 values)
+KERNELS.update({build.form(name, True): KERNELS[name]
+                for name in F32_KERNELS})
 # the card's published peaks (H100 SXM5 data sheet, dense): device-memory
 # bytes per second and int8 tensor-core operations per second
 HBM_BYTES_PER_S = 3.35e12
@@ -335,18 +385,25 @@ def check_sft(kern, plain, x, axis, L):
 
 
 def max_abs(x, y):
-    if x.dtype == torch.float64:
-        d = (x - y).abs()
+    if x.is_floating_point():
+        d = (x.double() - y.double()).abs()
         d = torch.where(torch.isnan(d), torch.zeros_like(d), d)
         return float(d.max())
     return float((x.long() - y.long()).abs().max())
 
 
+def words(t):
+    """The IEEE words of a float64 or float32 tensor (anything else as
+    it is)."""
+    if t.dtype == torch.float64:
+        return bits64(t)
+    if t.dtype == torch.float32:
+        return t.contiguous().view(torch.int32)
+    return t
+
+
 def assert_bits_equal(x, y, what):
-    if x.dtype == torch.float64:
-        ok = torch.equal(bits64(x), bits64(y))
-    else:
-        ok = torch.equal(x, y)
+    ok = x.dtype == y.dtype and torch.equal(words(x), words(y))
     assert ok, f"{what}: kernel and plain version disagree"
 
 
@@ -805,11 +862,13 @@ def phase_schedule_kernels(errs):
 
 
 def accurate_plain_sfts(a, b, L):
-    """Accurate-mode shifts with every step a plain version."""
+    """Accurate-mode shifts with every step a plain version (each operand
+    at its own exponent bias, f64 or f32)."""
     ea, eb = hk.emax_plain(a, 1), hk.emax_plain(b, 0)
     sa, sb = hm.magmax_plain(hk.mag7_plain(a, ea, 1),
                              hk.mag7_plain(b, eb, 0))
-    return enc.accurate_sft(sa, ea, L), enc.accurate_sft(sb, eb, L)
+    return (enc.accurate_sft(sa, ea, L, mant_bits=enc.mant_bits_of(a)),
+            enc.accurate_sft(sb, eb, L, mant_bits=enc.mant_bits_of(b)))
 
 
 def plain_gemm(a, b, L, sfts=None):
@@ -1891,6 +1950,509 @@ def phase_pipeline_times(a, b, b_wide, errs):
     return kerns, plain_ms, by_name
 
 
+# ---- f32 operands and output: phases 3f, 3b (f32), 4f, 5f -----------------
+
+def operands32(m, k, n, seed, special):
+    """f32 operands on the card; with special, A has a subnormal-only row,
+    a zero row, -0.0, a row of mixed exponents, values near FLT_MAX and
+    subnormals inside a normal row, and B a zero column, a subnormal-only
+    column, subnormals inside a normal column and values near -FLT_MAX."""
+    a = phi_matrix(m, k, 0.5, seed=seed).astype(np.float32)
+    b = phi_matrix(k, n, 0.5, seed=seed + 1).astype(np.float32)
+    if special:
+        rng = np.random.default_rng(seed + 2)
+        a[0, :] = rng.integers(1, 1 << 23, k).astype(np.uint32).view(
+            np.float32)
+        a[1, :] = 0.0
+        a[2, ::7] = -0.0
+        a[3, ::5] *= np.float32(2.0 ** 40)
+        a[4, ::3] = np.float32(3.3e38)
+        a[5, ::4] = np.uint32(5).view(np.float32)
+        b[:, 3] = 0.0
+        b[:, 4] = rng.integers(1, 1 << 23, k).astype(np.uint32).view(
+            np.float32)
+        b[::11, 5] = np.float32(1e-40)
+        b[::3, 6] = np.float32(-3.3e38)
+    return (torch.from_numpy(a).to(DEVICE), torch.from_numpy(b).to(DEVICE))
+
+
+def phase_f32_kernels(errs):
+    """Phase 3f: the f32 forms of fast_sft, encode_slices (every modulus,
+    subsets of the moduli, column ranges), emax and mag7 against their
+    plain versions on f32 operands, and reconstruct with f32 output on the
+    matmul of their slices, on fast and accurate shifts."""
+    for (m, k, n), Ls, special in F32_CASES:
+        a, b = operands32(m, k, n, 17, special)
+        tag0 = f"m={m} k={k} n={n} f32"
+        pea, peb = hk.emax_plain(a, 1), hk.emax_plain(b, 0)
+        hold(errs, "emax[f32]", (hk.emax(a, 1), hk.emax(b, 0)), (pea, peb),
+             f"emax {tag0}")
+        pma, pmb = hk.mag7_plain(a, pea, 1), hk.mag7_plain(b, peb, 0)
+        hold(errs, "mag7[f32]", (hk.mag7(a, pea, 1), hk.mag7(b, peb, 0)),
+             (pma, pmb), f"mag7 {tag0}")
+        if special:   # the subnormal-only lines: max exponent 1
+            assert (int(pea[0]), int(peb[0, 4])) == (1, 1)
+        smax = hm.magmax_plain(pma, pmb)
+        for L in Ls:
+            tag = f"{tag0} L={L}"
+            pa, pb = hk.fast_sft_plain(a, L, 1), hk.fast_sft_plain(b, L, 0)
+            sa, sb = hk.fast_sft(a, L, 1), hk.fast_sft(b, L, 0)
+            torch.cuda.synchronize()
+            errs["fast_sft[f32]"] = max(errs["fast_sft[f32]"],
+                                        check_sft(sa, pa, a, 1, L),
+                                        check_sft(sb, pb, b, 0, L))
+            acc = (enc.accurate_sft(smax[0], pea, L, mant_bits=24),
+                   enc.accurate_sft(smax[1], peb, L, mant_bits=24))
+            for mode, (xa, xb) in (("fast", (pa, pb)), ("accurate", acc)):
+                a8 = hk.encode_slices(a, xa, L, axis=1)
+                b8 = hk.encode_slices(b, xb, L, axis=0)
+                hold(errs, "encode_slices[f32]", (a8, b8),
+                     (hk.encode_slices_plain(a, xa, L, 1),
+                      hk.encode_slices_plain(b, xb, L, 0)),
+                     f"encode_slices {mode} {tag}")
+                r8 = hm.matmul_mod_u8(a8, b8, L, centered=True)
+                hold(errs, "reconstruct[f32]",
+                     hk.reconstruct(r8, xa, xb, L, "f32"),
+                     hk.reconstruct_plain(r8, xa, xb, L, "f32"),
+                     f"reconstruct f32 output {mode} {tag}")
+            for x, s, axis in ((a, pa, 1), (b, pb, 0)):
+                for idx in moduli_subsets(L):
+                    hold(errs, "encode_slices[f32]",
+                         hk.encode_slices(x, s, L, axis, moduli_idx=idx),
+                         hk.encode_slices_plain(x, s, L, axis,
+                                                moduli_idx=idx),
+                         f"encode_slices moduli_idx={idx} axis={axis} {tag}")
+                for tiles in ((0, 1), (1, 2), (0, 3)):
+                    if tiles[0] * enc.ENC_BLOCK[1] >= x.shape[1]:
+                        continue
+                    c0, c1 = enc.col_range(tiles, x.shape[1])
+                    got = hk.encode_slices(x, s, L, axis, col_tiles=tiles)
+                    ref = hk.encode_slices_plain(x, s, L, axis,
+                                                 col_tiles=tiles)
+                    hold(errs, "encode_slices[f32]", got[:, :, c0:c1],
+                         ref[:, :, c0:c1],
+                         f"encode_slices col_tiles={tiles} axis={axis} {tag}")
+        log(f"  f32 kernel forms == plain at {tag0} L={Ls} (moduli subsets "
+            "and column ranges of the encode too)")
+
+
+# (x, e): reconstruct with f32 output must give x * 2^e rounded once to
+# nearest even in f32
+F32_ROUNDING_VALUES = [
+    # f32 ties and one away on each side, a far sticky bit
+    (2 ** 25 + 2, 0), (2 ** 25 + 1, 0), (2 ** 25 + 3, 0), (2 ** 25 + 6, 0),
+    (2 ** 24 + 1, 0), (2 ** 24 + 3, 0), (-(2 ** 24 + 1), 5),
+    ((2 ** 24 + 1) * 2 ** 40 + 1, -40),
+    # rounding to f64 first and then to f32 would round these twice
+    (2 ** 53 + 2 ** 29 + 1, -30), (2 ** 53 + 2 ** 29, -30),
+    (2 ** 53 + 2 ** 29 - 1, -30), (-(2 ** 53 + 2 ** 29 + 1), 7),
+    # f32 subnormals, underflow to 0, a subnormal tie rounding up into the
+    # smallest normal, the largest finite value, overflow to inf
+    (3, -151), (1, -150), (3, -150), (12345, -160), (1, -149), (-5, -151),
+    (1, -152), (2 ** 24 - 1, -150), (-(2 ** 24 - 1), -150),
+    (2 ** 24 - 1, 104), (2 ** 25 - 1, 103), (7, 126), (1, 127),
+    (2 ** 60, 100), (-(2 ** 25 - 1), 103)]
+
+
+def exact_f32(x, e):
+    """x * 2^e rounded once to nearest even into f32 (subnormals, overflow
+    to inf), from Python integers."""
+    v = Fraction(x) * Fraction(2) ** e
+    if v == 0:
+        return 0.0
+    a = abs(v)
+    p = a.numerator.bit_length() - a.denominator.bit_length()
+    if Fraction(2) ** p > a:
+        p -= 1                              # 2^p <= a < 2^(p+1)
+    q = max(p, -126) - 23                   # the f32 step at a
+    r = round(a / Fraction(2) ** q) * Fraction(2) ** q   # half to even
+    if r >= 2 ** 128:
+        return float("inf") if x > 0 else float("-inf")
+    return float(r) if x > 0 else -float(r)
+
+
+def phase_rounding_f32(errs):
+    """Phase 3b, f32 output: reconstruct's f32 rounding from uint8, int8,
+    int32 products and limbs (a carry pushed back into limb 0), held to its
+    plain version and to the exactly rounded values."""
+    for L in (8, 14, 20):
+        half = tables.big_m(L) // 2
+        vals = [(x, e) for x, e in F32_ROUNDING_VALUES if abs(x) < half]
+        r = torch.tensor([[[x % tables.MODULI[j] for x, _ in vals]]
+                          for j in range(L)], dtype=torch.int64)
+        sft_a = torch.zeros((1, 1), dtype=torch.int32, device=DEVICE)
+        sft_b = -torch.tensor([[e for _, e in vals]], dtype=torch.int32,
+                              device=DEVICE)
+        want = torch.tensor([[exact_f32(x, e) for x, e in vals]],
+                            dtype=torch.float32)
+        mods = torch.tensor(tables.MODULI[:L]).view(L, 1, 1)
+        mult = torch.arange(-3, len(vals) - 3).view(1, 1, -1) * 1000003
+        prod = (r + mods * (mult % 7919 - 4000)).to(torch.int32)
+        limbs = torch.stack(rec.accumulate_weighted(r, L))
+        back = limbs[1] > 0
+        limbs[1][back] -= 1
+        limbs[0][back] += 1 << 16
+        for x, kind, what in (((r - 128).to(torch.int8), "residues", "int8"),
+                              (r.to(torch.uint8), "residues", "uint8"),
+                              (prod, "residues", "int32 products"),
+                              (limbs.to(torch.int32), "limbs", "limbs")):
+            x = x.to(DEVICE)
+            c = hk.reconstruct(x, sft_a, sft_b, L, "f32", input_kind=kind)
+            tag = f"reconstruct f32 rounding L={L} {what}"
+            hold(errs, "reconstruct[f32]", c,
+                 hk.reconstruct_plain(x, sft_a, sft_b, L, "f32", 0, kind),
+                 tag)
+            assert torch.equal(words(c.cpu()), words(want)), \
+                f"{tag}: not the correctly rounded values"
+        log(f"  reconstruct f32 rounding == plain == exact, L={L}, "
+            f"{len(vals)} values (ties +-1, double-rounding traps, "
+            "subnormals, inf), int8, uint8, int32 products and limbs")
+
+
+def held_shifts(a, b, L, fastmode):
+    """The all-plain path's shifts: the plain versions' (accurate: equal
+    to the kernels'); in fast mode the kernels' where the floor rule lets
+    a shift differ by 1."""
+    if not fastmode:
+        ka, kb = tg.accurate_sfts(a, b, L)
+        pa, pb = accurate_plain_sfts(a, b, L)
+        assert torch.equal(ka, pa) and torch.equal(kb, pb), \
+            "accurate shifts: kernel path vs plain path"
+        return pa, pb
+    ka, kb = hk.fast_sft(a, L, 1), hk.fast_sft(b, L, 0)
+    check_sft(ka, hk.fast_sft_plain(a, L, 1), a, 1, L)
+    check_sft(kb, hk.fast_sft_plain(b, L, 0), b, 0, L)
+    return ka, kb
+
+
+def plain_call(a, b, L, fastmode, out_dtype, e_extra=0):
+    """The all-plain path on f64, f32 or mixed operands (op N, shifts by
+    held_shifts): plain encode, matmul and reconstruct into out_dtype."""
+    sa, sb = held_shifts(a, b, L, fastmode)
+    a8 = hk.encode_slices_plain(a, sa, L, 1)
+    b8 = hk.encode_slices_plain(b, sb, L, 0)
+    r8 = hm.matmul_mod_u8_plain(a8, b8, L, centered=True)
+    return hk.reconstruct_plain(r8, sa, sb, L, out_dtype, e_extra)
+
+
+def np_epilogue(raw, alpha, beta, c):
+    """alpha * raw + beta * c in numpy on the host, each product and the sum
+    rounded once in raw's dtype (f32: alpha, beta and c rounded to f32
+    first): the epilogue's reference, independent of torch on the card."""
+    raw = raw.cpu().numpy()
+    dt = raw.dtype.type
+    with np.errstate(over="ignore", under="ignore"):
+        out = raw * dt(alpha) if alpha != 1.0 else raw
+        if beta != 0.0:
+            out = out + dt(beta) * c.astype(dt)
+    return out
+
+
+def f32_combos():
+    """Phase 4f's N_PLAIN^3 calls: (name, a dtype, b dtype, gemm kwargs)."""
+    calls = []
+    for da, db in (("f32", "f32"), ("f64", "f32"), ("f32", "f64"),
+                   ("f64", "f64")):
+        for out in ("f32", "f64"):
+            for fm in (True, False):
+                calls.append((f"{da} x {db} -> {out} "
+                              f"{'fast' if fm else 'accurate'}", da, db,
+                              dict(out_dtype=out, fastmode=fm)))
+    for fm in (True, False):
+        mode = "fast" if fm else "accurate"
+        calls += [
+            (f"f32 x f64 op_a=T op_b=C {mode}", "f32", "f64",
+             dict(fastmode=fm, op_a="T", op_b="C")),
+            (f"f32 x f32 -> f32 alpha={ALPHA} beta={BETA} {mode}", "f32",
+             "f32", dict(fastmode=fm, alpha=ALPHA, beta=BETA)),
+            (f"f64 x f32 -> f64 alpha={ALPHA} beta={BETA} {mode}", "f64",
+             "f32", dict(fastmode=fm, alpha=ALPHA, beta=BETA)),
+            (f"f32 x f32 alpha=0.25 (folded) {mode}", "f32", "f32",
+             dict(fastmode=fm, alpha=0.25)),
+            (f"f32 x f32 moduli_chunk=3 {mode}", "f32", "f32",
+             dict(fastmode=fm, moduli_chunk=3)),
+            (f"f32 x f64 -> f32 n_panel=1024 {mode}", "f32", "f64",
+             dict(fastmode=fm, out_dtype="f32", n_panel=1024)),
+            (f"f16 x bf16 (widened) {mode}", "f16", "bf16",
+             dict(fastmode=fm))]
+    return calls
+
+
+def check_f32_combo(name, a, b, kw, got, c_np):
+    """One N_PLAIN^3 call against the all-plain path: each n_panel panel
+    on its own shifts in accurate mode, the power-of-two alpha folded, the
+    epilogue in numpy."""
+    fm = kw["fastmode"]
+    L = L_F32 if got.dtype == torch.float32 else L_MAIN
+    out = "f32" if got.dtype == torch.float32 else "f64"
+    alpha, beta = kw.get("alpha", 1.0), kw.get("beta", 0.0)
+    e_extra = 0
+    if beta == 0.0 and gt.api.pow2_exponent(alpha) is not None:
+        e_extra, alpha = gt.api.pow2_exponent(alpha), 1.0
+    if "n_panel" in kw and not fm:
+        p = kw["n_panel"]
+        raw = torch.cat([plain_call(a, b[:, j:j + p].contiguous(), L, fm,
+                                    out, e_extra)
+                         for j in range(0, b.shape[1], p)], dim=1)
+    else:
+        raw = plain_call(a, b, L, fm, out, e_extra)
+    want = np_epilogue(raw, alpha, beta, c_np)
+    assert np.array_equal(words(got.cpu()).numpy(),
+                          words(torch.from_numpy(want)).numpy()), \
+        f"{N_PLAIN}^3 {name}: not the all-plain path's bits"
+
+
+def f32_main_calls(a, b32, a32, c_dev):
+    """Phase 4f's N^3 calls: (name, fn, expected launch counts, gate kind:
+    "f32" (median) or "f64" (max), or None where the bits are another
+    call's)."""
+    fast32 = {"fast_sft[f32]": 2, "encode_slices[f32]": 2,
+              "matmul_mod_u8": 1, "reconstruct[f32]": 1}
+    accu32 = {"emax[f32]": 2, "mag7[f32]": 2, "magmax_matmul": 1,
+              "encode_slices[f32]": 2, "matmul_mod_u8": 1,
+              "reconstruct[f32]": 1}
+    mixed = {"fast_sft": 1, "fast_sft[f32]": 1, "encode_slices": 1,
+             "encode_slices[f32]": 1, "matmul_mod_u8": 1, "reconstruct": 1}
+    return [
+        ("f32 x f32 -> f32 fast, 8 moduli", lambda: gt.gemm(
+            a32, b32, num_moduli=L_F32, device=DEVICE), fast32, "f32"),
+        ("f32 x f32 -> f32 accurate, 8 moduli", lambda: gt.gemm(
+            a32, b32, num_moduli=L_F32, fastmode=False, device=DEVICE),
+         accu32, "f32"),
+        ("f64 x f32 -> f64 fast, 14 moduli", lambda: gt.gemm(
+            a, b32, num_moduli=L_MAIN, device=DEVICE), mixed, "f64"),
+        (f"f64 x f32 -> f64 alpha={ALPHA} beta={BETA}", lambda: gt.gemm(
+            a, b32, num_moduli=L_MAIN, alpha=ALPHA, beta=BETA, c=c_dev,
+            device=DEVICE), mixed, None),
+        (f"f32 x f32 -> f32 alpha={ALPHA} beta={BETA}", lambda: gt.gemm(
+            a32, b32, num_moduli=L_F32, alpha=ALPHA, beta=BETA, c=c_dev,
+            device=DEVICE), fast32, None),
+        ("f32 x f32 -> f32 op_a=T", lambda: gt.gemm(
+            b32, b32, num_moduli=L_F32, op_a="T", device=DEVICE), fast32,
+         None)]
+
+
+def gate_median(c, oracle):
+    """(max, median) relerr of the three 256 x 256 tiles of c together
+    against the dd oracle."""
+    got = np.concatenate([c[r0:r0 + 256, c0:c0 + 256].cpu().numpy()
+                          .astype(np.float64) for r0, c0 in oracle])
+    hi = np.concatenate([hi for hi, _ in oracle.values()])
+    lo = np.concatenate([lo for _, lo in oracle.values()])
+    return relerr_vs_dd(got, hi, lo)
+
+
+def refusal_checks():
+    """f32 operands or output under each switch whose kernels have their
+    f64 forms only: NotImplementedError naming ROADMAP B18."""
+    a = torch.from_numpy(phi_matrix(512, 128, 0.5, seed=5)).to(DEVICE)
+    b = torch.from_numpy(phi_matrix(128, 1024, 0.5, seed=6)).to(DEVICE)
+    cases = [({"GEMMUL8_FUSED_ENCODE": "1"}, True),
+             ({"GEMMUL8_FUSED_MAG7": "1"}, False),
+             ({"GEMMUL8_FUSED_RECONSTRUCT": "1"}, True),
+             ({"GEMMUL8_PIPELINE": "1"}, True)]
+    for env, fm in cases:
+        for args in ((a.float(), b, None), (a, b.float(), None),
+                     (a, b, "f32")):
+            build.LAUNCHES.clear()
+            try:
+                with switches(env):
+                    gt.gemm(args[0], args[1], num_moduli=L_F32, fastmode=fm,
+                            out_dtype=args[2], device=DEVICE)
+            except NotImplementedError as e:
+                assert "ROADMAP B18" in str(e), f"{env}: {e}"
+            else:
+                raise AssertionError(f"{env} ran an f32 call")
+            variant = {"matmul_reconstruct", "fast_encode_fused",
+                       "mag7_fused", "matmul_rider_step"}
+            assert not variant & set(build.LAUNCHES), \
+                f"{env}: launched {dict(build.LAUNCHES)}"
+    log("  f32 operands or output under FUSED_ENCODE, FUSED_MAG7, "
+        "FUSED_RECONSTRUCT and PIPELINE=1 refuse, naming ROADMAP B18, and "
+        "launch none of their kernels")
+
+
+def phase_f32(a, b, launches):
+    """Phase 4f: every front-end combination at N_PLAIN^3 against the
+    all-plain path; the f32 and mixed N^3 calls with launch counts, gates
+    (f32: median relerr < F32_GATE_MEDIAN at 8 moduli; f64 < 1e-8), the
+    epilogue in numpy and op_a="T"; peak memory beside the planner's
+    figure; the switch refusals. Returns (a32, b32, gate of each call)."""
+    a_np = a.cpu().numpy()
+    a32_np = a_np.astype(np.float32)
+    a32 = torch.from_numpy(a32_np).to(DEVICE)
+    b32 = a32.t().contiguous()
+    c_np = phi_matrix(N, N, 0.5, seed=3)
+    c_dev = torch.from_numpy(c_np).to(DEVICE)
+    # N_PLAIN^3: every combination against the all-plain path
+    n2 = N_PLAIN
+    srcs = {"f64": (a[:n2, :n2].contiguous(), b[:n2, :n2].contiguous()),
+            "f32": (a32[:n2, :n2].contiguous(), b32[:n2, :n2].contiguous())}
+    srcs["f16"] = tuple(x.half() for x in srcs["f32"])
+    srcs["bf16"] = tuple(x.bfloat16() for x in srcs["f32"])
+    c2 = c_np[:n2, :n2].copy()
+    for name, da, db, kw in f32_combos():
+        a2, b2 = srcs[da][0], srcs[db][1]
+        call_a = a2.t().contiguous() if kw.get("op_a", "N") != "N" else a2
+        call_b = b2.t().contiguous() if kw.get("op_b", "N") != "N" else b2
+        c_arg = c2 if kw.get("beta", 0.0) else None
+        got = gt.gemm(call_a, call_b, num_moduli=L_F32
+                      if kw.get("out_dtype") == "f32"
+                      or (kw.get("out_dtype") is None
+                          and "f64" not in (da, db)) else L_MAIN,
+                      c=c_arg, device=DEVICE, **kw)
+        check_f32_combo(name, a2.float() if da in ("f16", "bf16") else a2,
+                        b2.float() if db in ("f16", "bf16") else b2, kw, got,
+                        c2)
+        del got
+    log(f"  {N_PLAIN}^3: {len(f32_combos())} front-end calls (f32, mixed, "
+        "f16/bf16 widened, f32/f64 output, op T/C, alpha/beta, the pow2 "
+        "fold, moduli_chunk=3, n_panel=1024; fast and accurate) == all-plain "
+        "path (bits), the epilogue held to numpy's separate roundings")
+    # N^3
+    b32_np = np.ascontiguousarray(a32_np.T)
+    tiles = [(0, 0), (N // 2, N - 256), (N - 256, N - 256)]
+    oracle32 = {(r0, c0): dd_gemm(a32_np[r0:r0 + 256].astype(np.float64),
+                                  b32_np[:, c0:c0 + 256].astype(np.float64))
+                for r0, c0 in tiles}
+    oracle_mixed = {(r0, c0): dd_gemm(a_np[r0:r0 + 256],
+                                      b32_np[:, c0:c0 + 256].astype(
+                                          np.float64))
+                    for r0, c0 in tiles}
+    plan = planner.workspace_bytes(N, N, N, L_F32)
+    rels, outs = {}, {}
+    for name, fn, want, kind in f32_main_calls(a, b32, a32, c_dev):
+        c, counts, peak = counted(fn)
+        log(f"  launches in the {N}^3 {name} call: {counts}")
+        assert counts == want, f"{name} launch counts {counts}"
+        for key, cnt in counts.items():
+            if key.endswith("[f32]"):
+                launches[key] = launches.get(key, 0) + cnt
+        assert c.shape == (N, N) and bool(torch.isfinite(c).all())
+        line = f"  {N}^3 {name}: peak {peak} bytes above the operands"
+        if kind == "f32":
+            assert c.dtype == torch.float32
+            rels[name] = gate_median(c, oracle32)
+            assert rels[name][1] < F32_GATE_MEDIAN, \
+                f"{name}: median relerr {rels[name][1]} >= {F32_GATE_MEDIAN}"
+            line += (f" (planner, f64 output: {plan}); gate relerr max "
+                     f"{rels[name][0]!r}, median {rels[name][1]!r}")
+            outs.setdefault("f32", c)
+        elif kind == "f64":
+            assert c.dtype == torch.float64
+            rels[name] = gate_median(c, oracle_mixed)
+            assert rels[name][0] < 1e-8, f"{name}: relerr {rels[name][0]}"
+            line += (f"; gate relerr max {rels[name][0]!r}, median "
+                     f"{rels[name][1]!r}")
+            outs["f64"] = c
+        elif "alpha" in name:
+            raw = outs["f32" if c.dtype == torch.float32 else "f64"]
+            want_np = np_epilogue(raw, ALPHA, BETA, c_np)
+            assert np.array_equal(words(c.cpu()).numpy(),
+                                  words(torch.from_numpy(want_np)).numpy()), \
+                f"{name}: not numpy's epilogue on the raw call"
+            line += "; == numpy's separate roundings on the raw call (bits)"
+        else:
+            assert torch.equal(words(c), words(outs["f32"])), \
+                f"{name}: not the op N call's bits"
+            line += "; == the op N call (bits)"
+        log(line)
+        del c
+    del outs
+    refusal_checks()
+    return a32, b32, rels
+
+
+def phase_f32_times(a, b, a32, b32, errs):
+    """Phase 5f: at N^2 operands and 8 moduli, each f32 kernel form beside
+    its f64 form (rotated rounds) and its plain version (warm-up outputs
+    held bit for bit); then the f32 and f64 N^3 calls at 8 moduli and
+    torch.matmul in f32 with TF32 off, F32_ROUNDS rounds in rotated order.
+    Returns ({kernel: (f32 ms, f64 ms, plain ms)}, {call: [ms]})."""
+    L = L_F32
+    sft = {}
+    for tag, (x, y) in (("f64", (a, b)), ("f32", (a32, b32))):
+        sft[tag] = (hk.fast_sft(x, L, 1), hk.fast_sft(y, L, 0))
+    sa, sb = sft["f32"]
+    r8 = hm.matmul_mod_u8(hk.encode_slices(a32, sa, L, 1),
+                          hk.encode_slices(b32, sb, L, 0), L, centered=True)
+    ex = {"f64": (hk.emax(a, 1), hk.emax(b, 0)),
+          "f32": (hk.emax(a32, 1), hk.emax(b32, 0))}
+
+    def forms(tag):
+        x, y = (a, b) if tag == "f64" else (a32, b32)
+        s, e = sft[tag], ex[tag]
+        out = "f32" if tag == "f32" else "f64"
+        return {
+            "fast_sft": lambda: (hk.fast_sft(x, L, 1), hk.fast_sft(y, L, 0)),
+            "encode_slices": lambda: (hk.encode_slices(x, s[0], L, 1),
+                                      hk.encode_slices(y, s[1], L, 0)),
+            "emax": lambda: (hk.emax(x, 1), hk.emax(y, 0)),
+            "mag7": lambda: (hk.mag7(x, e[0], 1), hk.mag7(y, e[1], 0)),
+            "reconstruct": lambda: hk.reconstruct(r8, sa, sb, L, out)}
+
+    plain = {
+        "fast_sft": lambda: (hk.fast_sft_plain(a32, L, 1),
+                             hk.fast_sft_plain(b32, L, 0)),
+        "encode_slices": lambda: (hk.encode_slices_plain(a32, sa, L, 1),
+                                  hk.encode_slices_plain(b32, sb, L, 0)),
+        "emax": lambda: (hk.emax_plain(a32, 1), hk.emax_plain(b32, 0)),
+        "mag7": lambda: (hk.mag7_plain(a32, ex["f32"][0], 1),
+                         hk.mag7_plain(b32, ex["f32"][1], 0)),
+        "reconstruct": lambda: hk.reconstruct_plain(r8, sa, sb, L, "f32")}
+    f64_forms, f32_forms = forms("f64"), forms("f32")
+    kerns = {}
+    for name in F32_KERNELS:
+        key = build.form(name, True)
+        got = f32_forms[name]()
+        ref = plain[name]()
+        if name == "fast_sft":
+            errs[key] = max(errs[key], check_sft(got[0], ref[0], a32, 1, L),
+                            check_sft(got[1], ref[1], b32, 0, L))
+        else:
+            hold(errs, key, got, ref, f"{key} at {N}^2, {L} moduli")
+        del got, ref
+        by_name, _ = timed_rounds({key: f32_forms[name],
+                                   name: f64_forms[name]}, F32_ROUNDS, 5)
+        pms, _ = timed(plain[name], 2)
+        kerns[key] = (float(np.median(by_name[key])),
+                      float(np.median(by_name[name])), pms)
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.get_float32_matmul_precision())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        calls, _ = timed_rounds({
+            "f32 fast-8": lambda: gt.gemm(a32, b32, num_moduli=L,
+                                          device=DEVICE),
+            "f32 accurate-8": lambda: gt.gemm(a32, b32, num_moduli=L,
+                                              fastmode=False, device=DEVICE),
+            "f64 fast-8": lambda: gt.gemm(a, b, num_moduli=L, device=DEVICE),
+            "f64 accurate-8": lambda: gt.gemm(a, b, num_moduli=L,
+                                              fastmode=False, device=DEVICE),
+            "torch.matmul f32 (TF32 off)": lambda: torch.matmul(a32, b32)},
+            F32_ROUNDS, 2)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev[0]
+        torch.set_float32_matmul_precision(prev[1])
+    return kerns, calls
+
+
+def kernel_bounds_f32(a32, b32, L):
+    """bound() of each f32 form's phase-5f work (both operands where the
+    path runs it twice), as kernel_bounds counts: f32 elements read as 4
+    bytes; reconstruct's f32 output written as 4."""
+    m, k = a32.shape
+    n = b32.shape[1]
+    x = a32.numel() + b32.numel()
+    s = 4 * (m + n)
+    return {"fast_sft[f32]": bound(4 * x + s),
+            "encode_slices[f32]": bound(4 * x + s + L * x),
+            "emax[f32]": bound(4 * x + s),
+            "mag7[f32]": bound(4 * x + s + x),
+            "reconstruct[f32]": bound(L * m * n + s + 4 * m * n)}
+
+
 def bound(nbytes, ops=0):
     """(ms, "bytes" or "operations"): the least time the card could take,
     the larger of nbytes of device memory at HBM_BYTES_PER_S and ops int8
@@ -1975,6 +2537,8 @@ def main():
     phase_variant_kernels(errs)
     phase_schedule_kernels(errs)
     phase_pipeline_kernels(errs)
+    phase_f32_kernels(errs)
+    phase_rounding_f32(errs)
     phase_golden()
     log(f"[3/5] every kernel == its plain version "
         f"({time.perf_counter() - t0:.1f} s)")
@@ -1988,6 +2552,7 @@ def main():
     pipe_rels, b_wide, peak_wide = phase_pipeline(a, b, refs, oracle,
                                                   launches)
     del refs
+    a32, b32, f32_rels = phase_f32(a, b, launches)
     log(f"[4/5] main path checked ({time.perf_counter() - t0:.1f} s)")
 
     times, total, total_accu = phase_times(a, b, errs)
@@ -2077,6 +2642,30 @@ def main():
             f"moduli; {card})")
     for name in PIPELINE_KERNELS:
         times[name] = (float(np.median(pkerns[name])), pplain[name])
+    fkerns, fcalls = phase_f32_times(a, b, a32, b32, errs)
+    bounds.update(kernel_bounds_f32(a32, b32, L_F32))
+    for key, (ms, ms64, pms) in fkerns.items():
+        times[key] = (ms, pms)
+        log(f"  {key}: median {ms:.3f} ms beside its f64 form {ms64:.3f} ms "
+            f"(rotated rounds); plain {pms:.3f} ms; bound "
+            f"{bounds[key][0]:.3f} ms ({bounds[key][1]}) ({N}^2 operands, "
+            f"{L_F32} moduli; {card})")
+    log(f"  f32 and f64 calls at {N}^3, {F32_ROUNDS} rounds in rotated "
+        f"order, 2 calls per timing ({card}):")
+    for name, mss in fcalls.items():
+        ms = float(np.median(mss))
+        gate_note = ""
+        mode = {"f32 fast-8": "fast", "f32 accurate-8": "accurate"}.get(name)
+        if mode:
+            rel = f32_rels[f"f32 x f32 -> f32 {mode}, {L_F32} moduli"]
+            gate_note = (f", gate relerr max {rel[0]!r} median {rel[1]!r}; "
+                         "the reference library's GH200 figures are "
+                         "OS2-fast-8 126.96, OS2-accu-8 107.55 TFLOP/s "
+                         "(BASELINE.md, not this card's)")
+        log(f"  {name} {N}^3: median {ms:.3f} ms (rounds "
+            f"{', '.join(f'{t:.3f}' for t in mss)}), "
+            f"{2 * N ** 3 / (ms * 1e-3) / 1e12:.2f} TFLOP/s (2mnk/t)"
+            f"{gate_note} ({card})")
     log(f"  pipelined and column-panel calls, {PIPELINE_ROUNDS} rounds in "
         "rotated order, 2 calls per timing:")
     for name, mss in pcalls.items():

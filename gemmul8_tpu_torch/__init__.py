@@ -1,10 +1,11 @@
 """gemmul8_tpu_torch — Ozaki Scheme II GEMM emulation on PyTorch and CUDA.
 
-The port of `gemmul8_tpu` to an NVIDIA H100: f64 and complex128 GEMM
-emulated as `num_moduli` exact int8 residue matmuls recombined by CRT,
-with the statistics, encode, int8 matmul + mod (real and complex) and
-reconstruct steps as hand-written Hopper kernels (`csrc/`). CPU tensors run the plain PyTorch versions of
-those kernels. Importing the package needs neither JAX, nvcc nor a GPU;
+The port of `gemmul8_tpu` to an NVIDIA H100: f64, f32 and mixed real GEMM
+(f64 or f32 output, op N/T/C, alpha/beta) and complex128 GEMM emulated as
+`num_moduli` exact int8 residue matmuls recombined by CRT, with the
+statistics, encode, int8 matmul + mod (real and complex) and reconstruct
+steps as hand-written Hopper kernels (`csrc/`). CPU tensors run the plain
+PyTorch versions of those kernels. Importing the package needs neither JAX, nvcc nor a GPU;
 the kernels build at their first launch.
 """
 

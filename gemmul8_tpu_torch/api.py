@@ -1,14 +1,25 @@
-"""Public front end: C = A @ B emulated in f64 with Ozaki Scheme II.
+"""Public front end: C = alpha * op(A) @ op(B) + beta * C emulated with
+Ozaki Scheme II.
 
-Counterpart of `gemmul8_tpu/api.py` `gemm` and `workspace_bytes`, for the
-part of its surface that is ported: float64 x float64 -> float64 and
-complex128 (or float64 mixed with complex128) -> complex128 under all three
-complex compute types, op N/N, alpha = 1, beta = 0, fast and accurate mode;
-for real operands the one-shot schedule (and under GEMMUL8_PIPELINE its
-panel/rider pipeline), the moduli-chunked low-memory one (`moduli_chunk`,
-or `max_workspace_bytes` through the planner) and the column-panel one
-(`n_panel`). Every other argument value raises NotImplementedError naming
-the ROADMAP item that adds it.
+Counterpart of `gemmul8_tpu/api.py` `gemm` and `workspace_bytes`. Real
+operands: float64 and float32 in any combination (float16 and bfloat16
+widen to float32, exactly), f64 or f32 output (`out_dtype`; by default
+f64 if either operand is f64), op N/T/C (C is T on a real operand), alpha
+and beta, fast and accurate mode, the one-shot schedule (and under
+GEMMUL8_PIPELINE its panel/rider pipeline, f64 only), the moduli-chunked
+low-memory one (`moduli_chunk`, or `max_workspace_bytes` through the
+planner) and the column-panel one (`n_panel`). Complex: complex128 (or
+float64 mixed with complex128) -> complex128 under all three complex
+compute types, op N/N, alpha = 1, beta = 0. Every other argument value
+raises NotImplementedError naming the ROADMAP item that adds it.
+
+The epilogue is separate multiplies and adds, each rounded once, as the
+JAX package's: for f64 output out * alpha, c * beta, then their sum, in
+native f64 (the JAX package's softfloat gives the IEEE bits); for f32
+output alpha and beta are rounded to f32, c is narrowed to f32, then out *
+alpha and out + beta * c in f32. A power-of-two alpha with beta == 0 folds
+into the reconstruct's exponent instead (one rounding of the exact
+product).
 """
 
 from __future__ import annotations
@@ -52,6 +63,105 @@ def _as_tensor(x: ArrayLike, device, name: str) -> torch.Tensor:
     return x
 
 
+_WIDEN = (torch.float32, torch.float16, torch.bfloat16)
+
+
+def _canon_real(x: ArrayLike) -> ArrayLike:
+    """A real operand as float64 or float32, as the JAX package's
+    `_canon_real`: float64 stays; float32, float16 and bfloat16 become
+    float32 (exactly); a numpy array of any other dtype becomes float32; a
+    tensor of any other dtype raises TypeError."""
+    if isinstance(x, np.ndarray):
+        if x.dtype == np.float64 or np.iscomplexobj(x):
+            return x
+        return np.asarray(x, np.float32)
+    if isinstance(x, torch.Tensor) and not x.is_complex():
+        if x.dtype == torch.float64:
+            return x
+        if x.dtype in _WIDEN:
+            return x.float()
+        raise TypeError(f"unsupported operand dtype {x.dtype}")
+    return x
+
+
+def _is_complex_dtype(out_dtype) -> bool:
+    if isinstance(out_dtype, torch.dtype):
+        return out_dtype.is_complex
+    return "complex" in str(out_dtype) or str(out_dtype) in ("c64", "c128")
+
+
+def _out_kind(a: torch.Tensor, b: torch.Tensor, out_dtype) -> str:
+    """"f64" or "f32", as the JAX package's `_out_kind` parses out_dtype
+    (a torch or numpy dtype, or a string: "64" in its name is f64, "32"
+    is f32, anything else a ValueError); by default f64 if either operand
+    is float64."""
+    if out_dtype is None:
+        return "f64" if torch.float64 in (a.dtype, b.dtype) else "f32"
+    if _is_complex_dtype(out_dtype):
+        raise NotImplementedError(
+            f"out_dtype {out_dtype} for real operands: ROADMAP A4 (the "
+            "complex front end)")
+    s = str(out_dtype)
+    if "64" in s:
+        return "f64"
+    if "32" in s:
+        return "f32"
+    raise ValueError(f"unsupported out_dtype {out_dtype}")
+
+
+def _apply_op(x: torch.Tensor, op: str) -> torch.Tensor:
+    """BLAS-style op of a real operand: "N" itself, "T" and "C" (the
+    conjugate of a real matrix is itself) its transpose."""
+    if op == "N":
+        return x
+    if op in ("T", "C"):
+        return x.t()
+    raise ValueError(f"op must be N/T/C, got {op}")
+
+
+def pow2_exponent(x) -> Optional[int]:
+    """e if x == 2.0**e exactly (finite, positive, normal float) with
+    -900 <= e <= 900, else None: the alpha `gemm` folds into the
+    reconstruct's exponent, as the JAX package's `pow2_exponent`."""
+    try:
+        xf = float(x)
+    except (TypeError, ValueError):
+        return None
+    if not np.isfinite(xf) or xf <= 0.0:
+        return None
+    m, e = np.frexp(xf)
+    if m != 0.5:
+        return None
+    e = int(e) - 1
+    return e if -900 <= e <= 900 else None
+
+
+def _epilogue(out: torch.Tensor, alpha: float, beta: float,
+              c: Optional[torch.Tensor]) -> torch.Tensor:
+    """alpha * out + beta * c in out's dtype, as separate roundings in the
+    JAX package's order: out * alpha, then beta * c, then the sum. Each
+    step is its own tensor operation, so nothing contracts into an FMA
+    (ROADMAP C2). For f32 output alpha and beta are rounded to f32 first
+    and c is narrowed to f32; for f64 output c is widened to f64
+    (exactly)."""
+    dt = out.dtype
+    if alpha != 1.0:
+        out = out * torch.tensor(alpha, dtype=dt)
+    if beta != 0.0:
+        cb = c.to(dt) * torch.tensor(beta, dtype=dt)
+        out = out + cb
+    return out
+
+
+def _check_c(c: torch.Tensor, m: int, n: int, device: torch.device):
+    if c.dim() != 2 or tuple(c.shape) != (m, n):
+        raise ValueError(f"c has shape {tuple(c.shape)}, expected {(m, n)}")
+    if c.device != device:
+        raise ValueError(f"c lies on {c.device}, not on {device}")
+    if c.is_complex() or not c.is_floating_point():
+        raise TypeError(f"unsupported c dtype {c.dtype}")
+
+
 def gemm(
     a: ArrayLike,
     b: ArrayLike,
@@ -71,34 +181,51 @@ def gemm(
     return_times: bool = False,
     device=None,
 ) -> torch.Tensor:
-    """Emulated DGEMM: a (m, k) @ b (k, n) as a float64 tensor on the
-    operands' device, or as a complex128 tensor when either operand is
-    complex128 (the other may be float64). num_moduli in [2, 20] trades
-    accuracy for int8 GEMM count (DGEMM grade at about 14); fastmode=False
-    picks the shifts from an extra int8 GEMM of 7-bit magnitudes, tighter
-    at the same count. compute_type picks the complex strategy (real
-    operands ignore it; REAL_DEFAULT means COMPLEX_BIG_MATRIX_ENCODE); all
-    three give the same bits. moduli_chunk (real operands) keeps only that
-    many residue slices of each operand alive at a time, with the one-shot
-    call's bits; max_workspace_bytes lets `planner.plan_schedule` pick the
-    chunk for that budget. n_panel < n (real operands) makes B, its
-    residues and the output n_panel columns at a time (the one-shot call's
-    bits in fast mode; accurate mode takes each panel's shifts from that
-    panel, as the JAX package does); n_panel >= n is the one-shot call.
-    numpy operands need device=."""
+    """Emulated GEMM: alpha * op_a(a) @ op_b(b) + beta * c, op(a) (m, k)
+    and op(b) (k, n), on the operands' device.
+
+    Real operands: float64 or float32 (float16 and bfloat16 widen to
+    float32; a numpy array of another dtype becomes float32), in any
+    combination; each is encoded at its own precision. The result is
+    float64 or float32 by out_dtype (a torch or numpy dtype or a string;
+    default: float64 if either operand is float64). op "N", "T" or "C"
+    (the transpose, for a real operand). beta != 0 needs c (m, n), widened
+    to float64 or narrowed to float32 with the output.
+
+    Complex: complex128, or float64 mixed with complex128, gives
+    complex128; compute_type picks the strategy (real operands ignore it;
+    REAL_DEFAULT means COMPLEX_BIG_MATRIX_ENCODE); all three give the same
+    bits; op N/N, alpha 1, beta 0 only.
+
+    num_moduli in [2, 20] trades accuracy for int8 GEMM count (DGEMM grade
+    at about 14, SGEMM grade at about 8); fastmode=False picks the shifts
+    from an extra int8 GEMM of 7-bit magnitudes, tighter at the same
+    count. moduli_chunk (real operands) keeps only that many residue
+    slices of each operand alive at a time, with the one-shot call's
+    bits; max_workspace_bytes lets `planner.plan_schedule` pick the chunk
+    for that budget. n_panel < n (real operands) makes B, its residues and
+    the output n_panel columns at a time (the one-shot call's bits in fast
+    mode; accurate mode takes each panel's shifts from that panel, as the
+    JAX package does); n_panel >= n is the one-shot call. numpy operands
+    need device=; a numpy c goes to the operands' device."""
     if not 2 <= num_moduli <= tables.MAX_MODULI:
         raise ValueError(f"num_moduli must be in [2, {tables.MAX_MODULI}]")
-    if alpha != 1.0 or beta != 0.0 or c is not None:
-        raise NotImplementedError("alpha/beta epilogue: ROADMAP A4")
-    if op_a != "N" or op_b != "N":
-        raise NotImplementedError("op T/C: ROADMAP A4")
-    ta = _as_tensor(a, device, "a")
-    tb = _as_tensor(b, device, "b")
+    for op in (op_a, op_b):
+        if op not in ("N", "T", "C"):
+            raise ValueError(f"op must be N/T/C, got {op}")
+    ta = _as_tensor(_canon_real(a), device, "a")
+    tb = _as_tensor(_canon_real(b), device, "b")
     if ta.device != tb.device:
         raise ValueError(f"a lies on {ta.device}, b on {tb.device}")
     schedule = (moduli_chunk is not None or max_workspace_bytes is not None
                 or n_panel is not None)
     if ta.is_complex() or tb.is_complex():
+        if alpha != 1.0 or beta != 0.0 or c is not None:
+            raise NotImplementedError(
+                "complex alpha/beta epilogue: ROADMAP A4 (complex half)")
+        if op_a != "N" or op_b != "N":
+            raise NotImplementedError(
+                "op T/C on complex operands: ROADMAP A4 (complex half)")
         if out_dtype is not None and out_dtype not in (
                 torch.complex128, np.complex128, "complex128", "c128"):
             raise NotImplementedError(f"out_dtype {out_dtype}: ROADMAP A4")
@@ -114,14 +241,8 @@ def gemm(
         re, im = _cg.gemm_complex_core(a_re, a_im, b_re, b_im, num_moduli,
                                        fastmode, compute_type)
         return torch.complex(re, im)
-    for x in (ta, tb):
-        if x.dtype != torch.float64:
-            raise NotImplementedError(
-                f"{x.dtype} operands: ROADMAP A4 (only float64 and "
-                "complex128 are ported)")
-    if out_dtype is not None and out_dtype not in (torch.float64, np.float64,
-                                                   "float64", "f64"):
-        raise NotImplementedError(f"out_dtype {out_dtype}: ROADMAP A4")
+    ta, tb = _apply_op(ta, op_a), _apply_op(tb, op_b)
+    kind = _out_kind(ta, tb, out_dtype)
     m, k, n = _g.check_shapes(ta, tb)
     if n_panel is not None:
         if moduli_chunk is not None or max_workspace_bytes is not None:
@@ -134,10 +255,26 @@ def gemm(
                                               max_workspace_bytes).chunk
     if return_times:
         raise NotImplementedError("phase times: ROADMAP A8")
+    tc = None
+    if beta != 0.0:
+        if c is None:
+            raise ValueError("beta != 0 requires c")
+        tc = _as_tensor(c, device if device is not None else ta.device, "c")
+        _check_c(tc, m, n, ta.device)
+    # a power-of-two alpha folds into the reconstruct's exponent: exact
+    # (the product is rounded once at the folded scale) and free
+    alpha_e = 0
+    if beta == 0.0:
+        e = pow2_exponent(alpha)
+        if e is not None:
+            alpha_e, alpha = e, 1.0
     if n_panel is not None and n_panel < n:
-        return _g.gemm_core_panels(ta, tb, num_moduli, fastmode, "f64",
-                                   n_panel)
-    return _g.gemm_core(ta, tb, num_moduli, fastmode, "f64", moduli_chunk)
+        out = _g.gemm_core_panels(ta, tb, num_moduli, fastmode, kind,
+                                  n_panel, alpha_e=alpha_e)
+    else:
+        out = _g.gemm_core(ta, tb, num_moduli, fastmode, kind, moduli_chunk,
+                           alpha_e=alpha_e)
+    return _epilogue(out, float(alpha), float(beta), tc)
 
 
 def workspace_bytes(m: int, n: int, k: int, num_moduli: int,

@@ -9,7 +9,11 @@ port to the same file without JAX.
 
 An entry's spec: [kind ("real" or "complex"), [m, k, n], num_moduli,
 fastmode, phi, [seed_a, seed_b], complex compute type name or None,
-GEMMUL8_PIPELINE value].
+GEMMUL8_PIPELINE value, call], where call is a dict of the front end's
+arguments: "dtypes" (the operands', "f64" or "f32"), "out_dtype" (None for
+the default), "alpha", "beta" (c is phi_matrix(m, n, phi, seed_a + 200)
+where beta != 0) and "ops" (op_a, op_b; an operand under "T" is stored
+transposed, so op(A) is (m, k) and op(B) (k, n) whatever the ops).
 """
 
 from __future__ import annotations
@@ -37,27 +41,44 @@ def load(path) -> tuple[dict, dict]:
     return json.loads(str(arrays["spec"])), arrays
 
 
-def operands(kind: str, shape, phi: float, seeds):
-    """numpy operands (a, b) of an entry; complex128 for kind "complex",
-    the Im parts from seed + 100."""
+_DTYPE = {"f64": np.float64, "f32": np.float32}
+
+
+def operands(kind: str, shape, phi: float, seeds, call=None):
+    """numpy operands (a, b) of an entry as the call passes them: complex128
+    for kind "complex", the Im parts from seed + 100; for a real call in
+    its dtypes, an operand under op "T" (or "C") stored transposed."""
     m, k, n = shape
     a = phi_matrix(m, k, phi, seed=seeds[0])
     b = phi_matrix(k, n, phi, seed=seeds[1])
     if kind == "complex":
         a = a + 1j * phi_matrix(m, k, phi, seed=seeds[0] + 100)
         b = b + 1j * phi_matrix(k, n, phi, seed=seeds[1] + 100)
-    return a, b
+        return a, b
+    out = []
+    for x, dt, op in zip((a, b), call["dtypes"], call["ops"]):
+        x = x.astype(_DTYPE[dt])
+        out.append(x if op == "N" else np.ascontiguousarray(x.T))
+    return tuple(out)
+
+
+def c_operand(shape, phi: float, seeds):
+    """The c of an entry whose beta != 0: float64 (m, n)."""
+    return phi_matrix(shape[0], shape[2], phi, seed=seeds[0] + 200)
 
 
 def digest(c: np.ndarray) -> str:
-    """SHA-256 of an output's bits: float64 words in C order, or the Re
-    words then the Im words."""
+    """SHA-256 of an output's bits: float64 (or float32) words in C order,
+    or the Re words then the Im words."""
     c = np.ascontiguousarray(c)
     parts = [c.real, c.imag] if np.iscomplexobj(c) else [c]
     h = hashlib.sha256()
     for p in parts:
-        h.update(np.ascontiguousarray(p, dtype=np.float64).view(
-            np.uint64).tobytes())
+        if p.dtype == np.float32:
+            words = np.ascontiguousarray(p).view(np.uint32)
+        else:
+            words = np.ascontiguousarray(p, dtype=np.float64).view(np.uint64)
+        h.update(words.tobytes())
     return h.hexdigest()
 
 
@@ -65,18 +86,26 @@ def port_entry(spec, device="cpu"):
     """(sft_a, sft_b, digest) of an entry from the port on `device`: the
     plain versions for the CPU, the kernels for a card. The switch the
     entry names is set for the call and restored after."""
-    kind, shape, L, fastmode, phi, seeds, ct, pipe = spec
-    a, b = operands(kind, shape, phi, seeds)
+    kind, shape, L, fastmode, phi, seeds, ct, pipe, call = spec
+    a, b = operands(kind, shape, phi, seeds, call)
     ta, tb = torch.from_numpy(a).to(device), torch.from_numpy(b).to(device)
     saved = os.environ.get("GEMMUL8_PIPELINE")
     os.environ["GEMMUL8_PIPELINE"] = pipe
     try:
         if kind == "real":
+            # the shifts of op(A) and op(B)
+            oa = ta if call["ops"][0] == "N" else ta.t().contiguous()
+            ob = tb if call["ops"][1] == "N" else tb.t().contiguous()
             if fastmode:
-                sa, sb = hk.fast_sft(ta, L, 1), hk.fast_sft(tb, L, 0)
+                sa, sb = hk.fast_sft(oa, L, 1), hk.fast_sft(ob, L, 0)
             else:
-                sa, sb = tg.accurate_sfts(ta, tb, L)
-            c = api.gemm(ta, tb, num_moduli=L, fastmode=fastmode)
+                sa, sb = tg.accurate_sfts(oa, ob, L)
+            c_in = (torch.from_numpy(c_operand(shape, phi, seeds)).to(device)
+                    if call["beta"] != 0.0 else None)
+            c = api.gemm(ta, tb, num_moduli=L, fastmode=fastmode,
+                         out_dtype=call["out_dtype"], alpha=call["alpha"],
+                         beta=call["beta"], c=c_in, op_a=call["ops"][0],
+                         op_b=call["ops"][1])
         else:
             ar, ai = cg.canon_complex(ta)
             br, bi = cg.canon_complex(tb)

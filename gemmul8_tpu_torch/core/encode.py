@@ -1,9 +1,11 @@
-"""Residue-slice encoding (Ozaki Scheme II) on f64 bit fields.
+"""Residue-slice encoding (Ozaki Scheme II) on f64 and f32 bit fields.
 
-Counterpart of `gemmul8_tpu/core/encode.py` for f64 operands, fast and
-accurate mode. For an operand X and per-row (A, axis=1) or per-column
-(B, axis=0) shifts sft, slice j holds the centered residue of
-trunc(X * 2^sft) mod m_j as int8.
+Counterpart of `gemmul8_tpu/core/encode.py` for f64 and f32 operands, fast
+and accurate mode. Every function that takes an operand dispatches on its
+dtype: float64 has a 53-bit significand (bias 1023), float32 a 24-bit one
+(bias 127), the JAX package's `mant_bits` 53 and 24. For an operand X and
+per-row (A, axis=1) or per-column (B, axis=0) shifts sft, slice j holds the
+centered residue of trunc(X * 2^sft) mod m_j as int8.
 
 In fast mode the shift comes from the "vecnorm" statistics: the maximum
 biased exponent, and the squared norm of the magnitudes scaled by that
@@ -31,8 +33,8 @@ from .. import tables
 from .modmath import mod_u26
 
 _M32 = 0xFFFFFFFF
-_MANT_SHIFT = 1075   # 1023 bias + 52 stored mantissa bits
-_BIAS = 1023
+_BIAS = {53: 1023, 24: 127}
+_MANT_SHIFT = {53: 1075, 24: 150}   # bias + stored mantissa bits
 
 
 def _f64_fields(x: torch.Tensor):
@@ -53,11 +55,45 @@ def _f64_fields(x: torch.Tensor):
     return chunks, torch.clamp(exp, min=1), sign, nonzero
 
 
+def _f32_fields(x: torch.Tensor):
+    """Bit fields of an f32 tensor: (chunks, exp_eff, sign, nonzero).
+
+    value = (-1)^sign * mant24 * 2^(exp_eff - 150), mant24 = chunks[0] +
+    chunks[1] * 2^16; exact for normals and subnormals (exp_eff = 1, no
+    implicit bit, but nonzero)."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & _M32
+    exp = (bits >> 23) & 0xFF
+    sign = (bits >> 31) & 1
+    is_normal = exp > 0
+    nonzero = is_normal | ((bits & 0x7FFFFF) != 0)
+    chunks = [bits & 0xFFFF,
+              ((bits >> 16) & 0x7F) | torch.where(is_normal, 0x80, 0)]
+    return chunks, torch.clamp(exp, min=1), sign, nonzero
+
+
+def mant_bits_of(x: torch.Tensor) -> int:
+    """53 for a float64 operand, 24 for a float32 one; other dtypes and
+    shapes raise."""
+    if x.dim() != 2 or x.dtype not in (torch.float64, torch.float32):
+        raise TypeError("expected a 2-D float64 or float32 tensor")
+    return 53 if x.dtype == torch.float64 else 24
+
+
+def _fields(x: torch.Tensor):
+    """The bit fields of a float64 or float32 operand (its dtype's)."""
+    return _f64_fields(x) if mant_bits_of(x) == 53 else _f32_fields(x)
+
+
 def _scaled_abs_f32(chunks, exp, emax, nonzero):
     """|x| * 2^-(emax - bias) as f32 in [0, 2): exponent arithmetic and the
-    top 23 stored mantissa bits; 0 where the f32 exponent would underflow."""
+    top 23 stored mantissa bits; 0 where the f32 exponent would underflow.
+    A subnormal gets the implicit bit here (rounded up into the normal
+    form with the same mantissa bits), as in the JAX package."""
     eb = exp - emax + 127
-    m23 = ((chunks[3] & 0xF) << 19) | (chunks[2] << 3) | (chunks[1] >> 13)
+    if len(chunks) == 4:
+        m23 = ((chunks[3] & 0xF) << 19) | (chunks[2] << 3) | (chunks[1] >> 13)
+    else:
+        m23 = ((chunks[1] & 0x7F) << 16) | chunks[0]
     keep = nonzero & (eb >= 1)
     f32bits = torch.where(keep, (eb << 23) | m23, 0).to(torch.int32)
     return f32bits.view(torch.float32)
@@ -72,18 +108,18 @@ def _pow2_f32(e: torch.Tensor) -> torch.Tensor:
 
 
 def fast_stats(x: torch.Tensor, axis: int):
-    """Fast-mode statistics (emax, nrm2, anyfinite), keepdims shaped.
+    """Fast-mode statistics (emax, nrm2, anyfinite), keepdims shaped, of a
+    float64 or float32 operand.
 
     emax: max biased exponent over nonzero elements (int64); nrm2: f32
     squared norm relative to 2^(emax - bias), summed per STATS_CHUNK chunk
     and merged online; anyfinite: any nonzero element (bool)."""
-    if x.dtype != torch.float64 or x.dim() != 2:
-        raise TypeError("fast_stats expects a 2-D float64 tensor")
+    mant_bits_of(x)
     rows = x if axis == 1 else x.t()
     kdim = rows.shape[1]
     e_acc = s_acc = af_acc = None
     for c0 in range(0, kdim, tables.STATS_CHUNK):
-        chunks, exp, _, nz = _f64_fields(rows[:, c0:c0 + tables.STATS_CHUNK])
+        chunks, exp, _, nz = _fields(rows[:, c0:c0 + tables.STATS_CHUNK])
         e_blk = torch.where(nz, exp, 0).amax(dim=1, keepdim=True)
         xs = _scaled_abs_f32(chunks, exp, e_blk, nz)
         s_blk = (xs * xs).sum(dim=1, keepdim=True, dtype=torch.float32)
@@ -105,14 +141,15 @@ def _norm_guard(k_total: int) -> float:
     return float(np.float32(1.0 + k_total * 2.0 ** -23))
 
 
-def sft_from_stats(emax, nrm2, anyfinite, k_total: int, num_moduli: int):
+def sft_from_stats(emax, nrm2, anyfinite, k_total: int, num_moduli: int,
+                   mant_bits: int = 53):
     """Fast-mode shift from the raw statistics, in f32 step by step:
-    min(T-1, floor(-0.51 * log2(max(nrm2 * guard, 1)) + T)) - (emax - 1023).
-    """
+    min(T-1, floor(-0.51 * log2(max(nrm2 * guard, 1)) + T)) - (emax - bias),
+    bias 1023 for an f64 operand (mant_bits 53), 127 for f32 (24)."""
     t_f = tables.threshold_fast(num_moduli)
     n2 = torch.clamp(nrm2 * _norm_guard(k_total), min=1.0)
     v = torch.floor(torch.log2(n2) * -0.51 + float(t_f)).to(torch.int64)
-    sft = torch.clamp(v, max=t_f - 1) - (emax - _BIAS)
+    sft = torch.clamp(v, max=t_f - 1) - (emax - _BIAS[mant_bits])
     return torch.where(anyfinite, sft, 0).to(torch.int32)
 
 
@@ -127,10 +164,11 @@ def sft_floor_frac(nrm2, k_total: int, num_moduli: int):
 
 
 def fast_sft(x: torch.Tensor, num_moduli: int, axis: int) -> torch.Tensor:
-    """Fast-mode shifts of a float64 operand: (m, 1) int32 for axis=1,
-    (1, n) for axis=0."""
+    """Fast-mode shifts of a float64 or float32 operand: (m, 1) int32 for
+    axis=1, (1, n) for axis=0."""
     emax, nrm2, anyfinite = fast_stats(x, axis)
-    return sft_from_stats(emax, nrm2, anyfinite, x.shape[axis], num_moduli)
+    return sft_from_stats(emax, nrm2, anyfinite, x.shape[axis], num_moduli,
+                          mant_bits_of(x))
 
 
 def merge_stats(re_stats, im_stats):
@@ -158,26 +196,47 @@ def joint_fast_sft(re: torch.Tensor, im: torch.Tensor, num_moduli: int,
 
 
 def _shifted_value_words(chunks, q, q_max_static: int):
-    """32-bit words (int64, masked) of v = trunc(mant53 * 2^q).
+    """32-bit words (int64, masked) of v = trunc(mant * 2^q), mant the
+    53-bit (4 chunks) or 24-bit (2 chunks) significand.
 
     q < 0 truncates; 0 <= q <= q_max_static scales up. f64 operands need at
-    most q_max_static = 25 (20 moduli), so no whole-word shift arises."""
-    words = [chunks[0] | (chunks[1] << 16), chunks[2] | (chunks[3] << 16)]
-    ur = torch.clamp(-q, 0, 63)
-    u1 = torch.clamp(ur, max=31)
-    lo, hi = words
-    lo_sh = (lo >> u1) | ((((hi << (31 - u1)) & _M32) << 1) & _M32)
-    u2 = torch.clamp(ur - 32, 0, 31)
-    rw = [torch.where(ur < 32, lo_sh, hi >> u2),
-          torch.where(ur < 32, hi >> u1, 0)]
+    most q_max_static = 24 (20 moduli), f32 operands up to 53, so the left
+    shift is a whole-word shift (0 or 1 words) and an in-word one."""
+    if len(chunks) == 2:
+        w = chunks[0] | (chunks[1] << 16)
+        ur = torch.clamp(-q, 0, 63)
+        rw = [torch.where(ur <= 31, w >> torch.clamp(ur, max=31), 0)]
+        mbits = 24
+    else:
+        words = [chunks[0] | (chunks[1] << 16), chunks[2] | (chunks[3] << 16)]
+        ur = torch.clamp(-q, 0, 63)
+        u1 = torch.clamp(ur, max=31)
+        lo, hi = words
+        lo_sh = (lo >> u1) | ((((hi << (31 - u1)) & _M32) << 1) & _M32)
+        u2 = torch.clamp(ur - 32, 0, 31)
+        rw = [torch.where(ur < 32, lo_sh, hi >> u2),
+              torch.where(ur < 32, hi >> u1, 0)]
+        mbits = 53
     if q_max_static <= 0:
         return rw
-    nw_out = (53 + 1 + q_max_static + 31) // 32
-    b = torch.clamp(q, 0, q_max_static)
+    nw_out = (mbits + 1 + q_max_static + 31) // 32
+    ql = torch.clamp(q, 0, q_max_static)
+    b = ql & 31
     zero = torch.zeros_like(rw[0])
-    padded = [zero] + rw + [zero] * max(nw_out - len(rw), 0)
-    return [((padded[i + 1] << b) & _M32)
-            | ((padded[i] >> (31 - b)) >> 1) for i in range(nw_out)]
+    padded = [zero, zero] + rw + [zero] * max(nw_out - len(rw), 0)
+
+    def at(i):  # logical word i (i may be < 0)
+        return padded[i + 2]
+
+    def funnel(lo, hi):
+        return ((lo << b) & _M32) | ((hi >> (31 - b)) >> 1)
+
+    if q_max_static < 32:
+        return [funnel(at(i), at(i - 1)) for i in range(nw_out)]
+    one = (ql >> 5) == 1
+    return [funnel(torch.where(one, at(i - 1), at(i)),
+                   torch.where(one, at(i - 2), at(i - 1)))
+            for i in range(nw_out)]
 
 
 def _residues_from_chunks(chunks, q, sign, moduli_idx, q_max_static: int):
@@ -186,7 +245,8 @@ def _residues_from_chunks(chunks, q, sign, moduli_idx, q_max_static: int):
     d = []
     for w in words:
         d += [w & 0xFFFF, w >> 16]
-    d = d[: (53 + 1 + max(q_max_static, 0) + 15) // 16]
+    mbits = 53 if len(chunks) == 4 else 24
+    d = d[: (mbits + 1 + max(q_max_static, 0) + 15) // 16]
     bound = 26 if len(d) <= 4 else 27
     neg = sign == 1
     out = []
@@ -210,10 +270,17 @@ def _residues_from_chunks(chunks, q, sign, moduli_idx, q_max_static: int):
     return torch.stack(out, dim=0)
 
 
+def q_max(num_moduli: int, mant_bits: int = 53) -> int:
+    """The static left-shift cap of the encode: max(T_accu - mant_bits,
+    0), 24 at most for f64 and 53 for f32 operands (20 moduli)."""
+    return max(tables.threshold_accurate(num_moduli) - mant_bits, 0)
+
+
 def _encode_with_sft(chunks, exp, sign, sft, num_moduli: int,
                      moduli_idx=None):
-    q = exp - _MANT_SHIFT + sft
-    q_max_static = max(tables.threshold_accurate(num_moduli) - 1 - 52, 0)
+    mbits = 53 if len(chunks) == 4 else 24
+    q = exp - _MANT_SHIFT[mbits] + sft
+    q_max_static = q_max(num_moduli, mbits)
     if moduli_idx is None:
         moduli_idx = tuple(range(num_moduli))
     return _residues_from_chunks(chunks, q, sign, moduli_idx, q_max_static)
@@ -251,14 +318,13 @@ def col_range(col_tiles, width: int):
 def encode_slices(x: torch.Tensor, sft: torch.Tensor, num_moduli: int,
                   axis: int, moduli_idx=None,
                   col_tiles=None) -> torch.Tensor:
-    """(L', *x.shape) int8 centered residues of trunc(x * 2^sft): slice l
-    for modulus moduli_idx[l] (default: all num_moduli in order). sft is
-    (m, 1) for axis=1 (rows of A), (1, n) for axis=0 (columns of B).
-    col_tiles (j0, j1) encodes only x's columns in `col_range`; the other
-    columns of the full-shape result hold zeros here (the kernel leaves
-    them unwritten)."""
-    if x.dtype != torch.float64 or x.dim() != 2:
-        raise TypeError("encode_slices expects a 2-D float64 tensor")
+    """(L', *x.shape) int8 centered residues of trunc(x * 2^sft) of a
+    float64 or float32 operand: slice l for modulus moduli_idx[l] (default:
+    all num_moduli in order). sft is (m, 1) for axis=1 (rows of A), (1, n)
+    for axis=0 (columns of B). col_tiles (j0, j1) encodes only x's columns
+    in `col_range`; the other columns of the full-shape result hold zeros
+    here (the kernel leaves them unwritten)."""
+    mant_bits_of(x)
     want = (x.shape[0], 1) if axis == 1 else (1, x.shape[1])
     if tuple(sft.shape) != want:
         raise ValueError(f"sft shape {tuple(sft.shape)}, expected {want}")
@@ -271,7 +337,7 @@ def encode_slices(x: torch.Tensor, sft: torch.Tensor, num_moduli: int,
             x[:, c0:c1], sft if axis == 1 else sft[:, c0:c1], num_moduli,
             axis, idx)
         return out
-    chunks, exp, sign, _ = _f64_fields(x)
+    chunks, exp, sign, _ = _fields(x)
     return _encode_with_sft(chunks, exp, sign, sft.to(torch.int64),
                             num_moduli, idx)
 
@@ -296,16 +362,18 @@ MAG_SHIFT_COMPLEX = 4
 
 
 def _extract_mag7(chunks, exp, emax, mag_shift: int = MAG_SHIFT):
-    """ceil(|x| * 2^(mag_shift - (emax - 1023))) as int8 in
-    [0, 2^(mag_shift + 1)] for f64 fields.
+    """ceil(|x| * 2^(mag_shift - (emax - bias))) as int8 in
+    [0, 2^(mag_shift + 1)] for f64 (4 chunks) or f32 (2 chunks) fields.
 
-    |x| = mant53 * 2^(exp - 1075), so the scaled value is mant53 >> u with
-    u = emax + 52 - mag_shift - exp, rounded up when any dropped bit is
-    set. The JAX package works on two 32-bit words; a 64-bit word gives the
-    same bits (u is clipped to [0, 63] in both)."""
-    mant = (chunks[0] | (chunks[1] << 16) | (chunks[2] << 32)
-            | (chunks[3] << 48))
-    u = torch.clamp(emax + (52 - mag_shift) - exp, 0, 63)
+    |x| = mant * 2^(exp - bias - (mant_bits - 1)), so the scaled value is
+    mant >> u with u = emax + mant_bits - 1 - mag_shift - exp, rounded up
+    when any dropped bit is set. The JAX package works on 32-bit words; a
+    64-bit word gives the same bits (u is clipped to [0, 63] in both)."""
+    mant = chunks[0] | (chunks[1] << 16)
+    if len(chunks) == 4:
+        mant = mant | (chunks[2] << 32) | (chunks[3] << 48)
+    stored = 52 if len(chunks) == 4 else 23
+    u = torch.clamp(emax + (stored - mag_shift) - exp, 0, 63)
     v = mant >> u
     sticky = (v << u) != mant
     return (v + sticky.to(torch.int64)).to(torch.int8)
@@ -313,26 +381,24 @@ def _extract_mag7(chunks, exp, emax, mag_shift: int = MAG_SHIFT):
 
 def emax(x: torch.Tensor, axis: int) -> torch.Tensor:
     """Max biased exponent over the nonzero elements of each row (axis=1)
-    or column (axis=0) of a float64 tensor, keepdims int32; subnormals
-    count as 1, an all-zero row or column gives 0."""
-    if x.dtype != torch.float64 or x.dim() != 2:
-        raise TypeError("emax expects a 2-D float64 tensor")
-    _, exp, _, nonzero = _f64_fields(x)
+    or column (axis=0) of a float64 or float32 tensor, keepdims int32;
+    subnormals count as 1, an all-zero row or column gives 0."""
+    _, exp, _, nonzero = _fields(x)
     return torch.where(nonzero, exp, 0).amax(dim=axis, keepdim=True).to(
         torch.int32)
 
 
 def mag7(x: torch.Tensor, emax: torch.Tensor, axis: int,
          mag_shift: int = MAG_SHIFT) -> torch.Tensor:
-    """Round-up 7-bit magnitudes of x below its row (axis=1) or column
-    (axis=0) max exponent `emax`: int8 of x's shape, values in
-    [0, 2^(mag_shift + 1)] ([0, 64] at the real path's shift 5)."""
-    if x.dtype != torch.float64 or x.dim() != 2:
-        raise TypeError("mag7 expects a 2-D float64 tensor")
+    """Round-up 7-bit magnitudes of x (float64 or float32) below its row
+    (axis=1) or column (axis=0) max exponent `emax`: int8 of x's shape,
+    values in [0, 2^(mag_shift + 1)] ([0, 64] at the real path's shift
+    5)."""
+    mant_bits_of(x)
     want = (x.shape[0], 1) if axis == 1 else (1, x.shape[1])
     if tuple(emax.shape) != want:
         raise ValueError(f"emax shape {tuple(emax.shape)}, expected {want}")
-    chunks, exp, _, _ = _f64_fields(x)
+    chunks, exp, _, _ = _fields(x)
     return _extract_mag7(chunks, exp, emax.to(torch.int64), mag_shift)
 
 
@@ -357,15 +423,16 @@ def _accurate_pre_floor(smax: torch.Tensor, num_moduli: int):
 
 
 def accurate_sft(smax: torch.Tensor, emax: torch.Tensor, num_moduli: int,
-                 mag_shift: int = MAG_SHIFT) -> torch.Tensor:
+                 mag_shift: int = MAG_SHIFT, *,
+                 mant_bits: int = 53) -> torch.Tensor:
     """Accurate-mode shift from the |A| x |B| row/col max `smax` of
     magnitudes taken at `mag_shift` and the operand's max exponent, in f32
     as the JAX package takes it:
     min(s - e + floor(-0.51 * log2(max(smax, 1)) + T), T - 1 - e) with
-    e = emax - 1023 and s = mag_shift. All-zero rows and columns get
-    T - 1 + 1023."""
+    e = emax - bias (1023 for an f64 operand, mant_bits 53; 127 for f32,
+    24) and s = mag_shift. All-zero rows and columns get T - 1 + bias."""
     t_a = tables.threshold_accurate(num_moduli)
-    e = emax.to(torch.int64) - _BIAS
+    e = emax.to(torch.int64) - _BIAS[mant_bits]
     v = torch.floor(_accurate_pre_floor(smax, num_moduli)).to(torch.int64)
     sft = torch.minimum(mag_shift - e + v, t_a - 1 - e)
     return sft.to(torch.int32)

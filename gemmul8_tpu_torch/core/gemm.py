@@ -2,8 +2,10 @@
 with the mod in its epilogue -> CRT reconstruct.
 
 Counterpart of `gemmul8_tpu/core/gemm.py` `gemm_core` and
-`gemm_core_panels` (their Pallas branches), in fast and accurate mode, with
-their schedules: one-shot; moduli-chunked (the low-memory mode: only
+`gemm_core_panels` (their Pallas branches), in fast and accurate mode, for
+float64 or float32 operands (each encoded at its own significand width, as
+the JAX package dispatches per operand) and f64 or f32 output, with their
+schedules: one-shot; moduli-chunked (the low-memory mode: only
 `moduli_chunk` residue slices of each operand exist at a time; each chunk's
 residues are folded into the int32 CRT limbs before the next chunk is
 encoded, and the reconstruct kernel finishes from the limbs); the
@@ -35,6 +37,11 @@ inside `encode_slices_pallas` that works around the TPU's slow integer
 division, with the same bits; the port's encode kernel has one form.
 GEMMUL8_RIDER_UNCOND is not read either: it drops the TPU riders' predicates,
 with the same bits (`gemmul8_tpu_torch.pipelined`).
+The kernels of FUSED_ENCODE, FUSED_MAG7, FUSED_RECONSTRUCT and the pipeline
+have their f64 forms only: a call with a float32 operand or f32 output
+raises NotImplementedError (ROADMAP B18) where one of those switches would
+act, and never runs another kernel in its place. MXU_CRT and MM_PIPELINE
+act on int8 data and run for every call.
 """
 
 from __future__ import annotations
@@ -68,14 +75,42 @@ def check_shapes(a: torch.Tensor, b: torch.Tensor):
 def accurate_sfts(a: torch.Tensor, b: torch.Tensor, num_moduli: int):
     """Accurate-mode shifts (sft_a (m, 1), sft_b (1, n)) int32: 7-bit
     round-up magnitudes of both operands, one int8 GEMM |A| x |B| with its
-    row/col max, then the shifts from those maxima (the counterpart of the
-    JAX package's `accurate_sfts`, whose Pallas and jnp branches agree bit
-    for bit)."""
+    row/col max, then the shifts from those maxima, each at its operand's
+    exponent bias (the counterpart of the JAX package's `accurate_sfts`,
+    whose Pallas and jnp branches agree bit for bit)."""
     mag_a, emax_a = hk.mag7_operand(a, axis=1)
     mag_b, emax_b = hk.mag7_operand(b, axis=0)
     smax_a, smax_b = hm.magmax_matmul(mag_a, mag_b)
-    return (enc.accurate_sft(smax_a, emax_a, num_moduli),
-            enc.accurate_sft(smax_b, emax_b, num_moduli))
+    return (enc.accurate_sft(smax_a, emax_a, num_moduli,
+                             mant_bits=enc.mant_bits_of(a)),
+            enc.accurate_sft(smax_b, emax_b, num_moduli,
+                             mant_bits=enc.mant_bits_of(b)))
+
+
+def _check_call(a: torch.Tensor, b: torch.Tensor, out_dtype: str) -> bool:
+    """Check the operands and the output kind; whether the call has a
+    float32 operand or f32 output (an "f32 call")."""
+    if a.device != b.device:
+        raise ValueError(f"operands on {a.device} and {b.device}")
+    if out_dtype not in ("f64", "f32"):
+        raise ValueError(f"out_dtype {out_dtype!r}: expected 'f64' or 'f32'")
+    return 24 in (enc.mant_bits_of(a), enc.mant_bits_of(b)) or \
+        out_dtype == "f32"
+
+
+def refuse_f32(f32_call: bool, switch: str) -> None:
+    """NotImplementedError for an f32 call where `switch` would run a
+    kernel whose f32 form is not ported yet."""
+    if f32_call:
+        raise NotImplementedError(
+            f"{switch} with a float32 operand or f32 output: its kernels "
+            "have their f64 forms only (ROADMAP B18)")
+
+
+def _accurate_sfts_checked(a, b, num_moduli: int, f32_call: bool):
+    if os.environ.get("GEMMUL8_FUSED_MAG7", "0") == "1":
+        refuse_f32(f32_call, "GEMMUL8_FUSED_MAG7=1")
+    return accurate_sfts(a, b, num_moduli)
 
 
 def gemm_core(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
@@ -83,18 +118,14 @@ def gemm_core(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
               moduli_chunk: int | None = None,
               alpha_e: int = 0) -> torch.Tensor:
     """C = 2^alpha_e * A @ B emulated with num_moduli int8 GEMMs.
-    a: (m, k), b: (k, n) float64 tensors on one device. fastmode=False
-    takes the shifts from `accurate_sfts`. moduli_chunk < num_moduli runs
-    the moduli-chunked schedule, with the one-shot call's bits."""
+    a: (m, k), b: (k, n) float64 or float32 tensors on one device, in any
+    combination; out_dtype "f64" or "f32". fastmode=False takes the shifts
+    from `accurate_sfts`. moduli_chunk < num_moduli runs the
+    moduli-chunked schedule, with the one-shot call's bits."""
     m, k, n = check_shapes(a, b)
-    if not fastmode and (out_dtype != "f64" or a.dtype != torch.float64
-                         or b.dtype != torch.float64):
-        raise NotImplementedError(
-            "accurate mode with f32 operands or output: ROADMAP A4")
+    f32_call = _check_call(a, b, out_dtype)
     if moduli_chunk is not None and moduli_chunk < 1:
         raise ValueError(f"moduli_chunk={moduli_chunk}: expected >= 1")
-    if a.device != b.device:
-        raise ValueError(f"operands on {a.device} and {b.device}")
     a, b = a.contiguous(), b.contiguous()
     one_shot = moduli_chunk is None or moduli_chunk >= num_moduli
     # read where the JAX package reads it: an invalid value raises even
@@ -102,6 +133,7 @@ def gemm_core(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
     pipe = pl.pipeline_mode() if one_shot and alpha_e == 0 else 0
     if (fastmode and one_shot
             and os.environ.get("GEMMUL8_FUSED_ENCODE") == "1"):
+        refuse_f32(f32_call, "GEMMUL8_FUSED_ENCODE=1")
         a8, sft_a = hk.fast_encode_fused(a, num_moduli, axis=1)
         b8, sft_b = hk.fast_encode_fused(b, num_moduli, axis=0)
     else:
@@ -110,13 +142,14 @@ def gemm_core(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
             sft_a = hk.fast_sft(a, num_moduli, axis=1)
             sft_b = hk.fast_sft(b, num_moduli, axis=0)
         else:
-            sft_a, sft_b = accurate_sfts(a, b, num_moduli)
+            sft_a, sft_b = _accurate_sfts_checked(a, b, num_moduli, f32_call)
         if not one_shot:
             return _gemm_chunked(a, b, sft_a, sft_b, num_moduli,
                                  moduli_chunk, out_dtype, alpha_e)
         cfg = (pl.choose_panels(m, n, k, num_moduli, encode_rider=pipe >= 2)
                if pipe else None)
         if cfg:
+            refuse_f32(f32_call, f"GEMMUL8_PIPELINE={pipe}")
             bsp = pipe == 3 and pl.bsplit_applicable(m, n, k, num_moduli,
                                                      *cfg)
             return pl.gemm_pipelined(a, b, num_moduli, panel_m=cfg[0],
@@ -126,6 +159,7 @@ def gemm_core(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
         b8 = hk.encode_slices(b, sft_b, num_moduli, axis=0)
     if (alpha_e == 0 and os.environ.get("GEMMUL8_FUSED_RECONSTRUCT") == "1"
             and hm.fused_reconstruct_ok(m, n, k, num_moduli)):
+        refuse_f32(f32_call, "GEMMUL8_FUSED_RECONSTRUCT=1")
         return hm.matmul_reconstruct(a8, b8, sft_a, sft_b, num_moduli,
                                      out_dtype)
     r8 = hm.matmul_mod_u8(a8, b8, num_moduli, centered=centered_residues())
@@ -178,18 +212,15 @@ def gemm_core_panels(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
     (they depend on B), as the JAX package's `gemm_core_panels` does. With
     GEMMUL8_PIPELINE above 0 (and alpha_e == 0) a panel that
     `pipelined.choose_panels` takes runs the panel/rider pipeline (the
-    reconstruct rider) on A's slices."""
+    reconstruct rider) on A's slices. Operands and output as in
+    `gemm_core`; the output is allocated once in its dtype."""
     m, k, n = check_shapes(a, b)
-    if not fastmode and (out_dtype != "f64" or a.dtype != torch.float64
-                         or b.dtype != torch.float64):
-        raise NotImplementedError(
-            "accurate mode with f32 operands or output: ROADMAP A4")
+    f32_call = _check_call(a, b, out_dtype)
     if n_panel is None or n_panel < 1:
         raise ValueError(f"n_panel={n_panel}: expected >= 1")
-    if a.device != b.device:
-        raise ValueError(f"operands on {a.device} and {b.device}")
     a, b = a.contiguous(), b.contiguous()
-    out = torch.empty((m, n), dtype=torch.float64, device=a.device)
+    out = torch.empty((m, n), dtype=torch.float32 if out_dtype == "f32"
+                      else torch.float64, device=a.device)
     sft_a = hk.fast_sft(a, num_moduli, axis=1) if fastmode else None
     a8 = None
     for j0 in range(0, n, n_panel):
@@ -197,13 +228,15 @@ def gemm_core_panels(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
         if fastmode:
             sft_b = hk.fast_sft(bp, num_moduli, axis=0)
         else:
-            sft_a, sft_b = accurate_sfts(a, bp, num_moduli)
+            sft_a, sft_b = _accurate_sfts_checked(a, bp, num_moduli,
+                                                  f32_call)
             a8 = None  # accurate shifts depend on B: A is encoded anew
         if a8 is None:
             a8 = hk.encode_slices(a, sft_a, num_moduli, axis=1)
         cfg = (pl.choose_panels(m, bp.shape[1], k, num_moduli)
                if pl.pipeline_mode() and alpha_e == 0 else None)
         if cfg:
+            refuse_f32(f32_call, f"GEMMUL8_PIPELINE={pl.pipeline_mode()}")
             piece = pl.gemm_pipelined(a, bp, num_moduli, panel_m=cfg[0],
                                       bn=cfg[1], sfts=(sft_a, sft_b), a8=a8)
         else:

@@ -6,6 +6,8 @@
 //   crt_add_limb  acc += a 16-bit limb (>= 0, < 2^29) at its place
 //   crt_center  X -> |centered(X mod M)| and its sign
 //   crt_round_f64   RNE( +-magnitude * 2^e_fix ) as f64 bits
+//   crt_round_f32   RNE( +-magnitude * 2^e_fix ) as f32 bits, rounded once
+//                   from the integer (never through an f64)
 // The whole integer of one output element lives in one thread's registers
 // (X < 255 * 20 * M < 2^170). The quotient X / M is estimated in f64
 // (biased one low, then at most two exact subtractions of M), and the
@@ -139,24 +141,28 @@ __device__ __forceinline__ bool crt_center(unsigned (&x)[kWords],
   return neg;
 }
 
-// RNE( (-1)^neg * mag * 2^e_fix ) as f64 bits, subnormals, zero and overflow
-// to inf included. A caller loads its shifts between crt_center and this,
-// so they are not live across the reduction.
-__device__ __forceinline__ unsigned long long crt_round_f64(
+// RNE( (-1)^neg * mag * 2^e_fix ) into an IEEE word of kMant significand
+// bits (53: f64, 24: f32), exponent bias kBias and all-ones exponent
+// kExpMax; subnormals, zero and overflow to inf included. The integer is
+// rounded once, straight to the target width. A caller loads its shifts
+// between crt_center and this, so they are not live across the reduction.
+template <int kMant, int kBias, int kExpMax>
+__device__ __forceinline__ unsigned long long crt_round(
     const unsigned (&mag)[kWords], bool neg, int e_fix) {
+  constexpr int kSign = kMant == 53 ? 63 : 31;
   int p = -1;
 #pragma unroll
   for (int w = kWords - 1; w >= 0; --w)
     if (p < 0 && mag[w]) p = 32 * w + 31 - __clz(mag[w]);
   unsigned long long bits;
-  const int eb = p + e_fix + 1023;
+  const int eb = p + e_fix + kBias;
   if (p < 0) {
     bits = 0;
-  } else if (eb >= 0x7FF) {
-    bits = 0x7FF0000000000000ull;
+  } else if (eb >= kExpMax) {
+    bits = static_cast<unsigned long long>(kExpMax) << (kMant - 1);
   } else {
-    // shift the msb to bit 52, plus the subnormal extension
-    int sr = p - 52 + (eb < 1 ? 1 - eb : 0);
+    // shift the msb to bit kMant - 1, plus the subnormal extension
+    int sr = p - (kMant - 1) + (eb < 1 ? 1 - eb : 0);
     unsigned long long mant;
     if (sr <= 0) {
       mant = bits_at(mag, 0) << (-sr);
@@ -172,13 +178,25 @@ __device__ __forceinline__ unsigned long long crt_round_f64(
         sticky |= (w < (rb >> 5)) && mag[w] != 0;
       mant += (rbit && (sticky || (mant & 1ull))) ? 1ull : 0ull;
     }
-    // normal: adding the mantissa with its implicit bit to (eb-1) << 52
-    // carries a rounding overflow into the exponent (and to inf);
-    // subnormal: a round-up into bit 52 yields the smallest normal
+    // normal: adding the mantissa with its implicit bit to (eb-1) <<
+    // (kMant-1) carries a rounding overflow into the exponent (and to
+    // inf); subnormal: a round-up into bit kMant-1 yields the smallest
+    // normal
     bits = eb < 1 ? mant
-                  : (static_cast<unsigned long long>(eb - 1) << 52) + mant;
+                  : (static_cast<unsigned long long>(eb - 1) << (kMant - 1)) +
+                        mant;
   }
-  return bits | (static_cast<unsigned long long>(neg) << 63);
+  return bits | (static_cast<unsigned long long>(neg) << kSign);
+}
+
+__device__ __forceinline__ unsigned long long crt_round_f64(
+    const unsigned (&mag)[kWords], bool neg, int e_fix) {
+  return crt_round<53, 1023, 0x7FF>(mag, neg, e_fix);
+}
+
+__device__ __forceinline__ unsigned crt_round_f32(
+    const unsigned (&mag)[kWords], bool neg, int e_fix) {
+  return static_cast<unsigned>(crt_round<24, 127, 0xFF>(mag, neg, e_fix));
 }
 
 }  // namespace

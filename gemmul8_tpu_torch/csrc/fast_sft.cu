@@ -5,10 +5,12 @@
 // shared shift.
 //
 // Replaces: fast_sft_pallas, gemmul8_tpu/pallas/kernels.py:54 (both its
-// modes; return_stats=True is the second).
-// Bound on the H100: device-memory bytes. Each f64 element is read once
-// (8 bytes) for a handful of integer and f32 operations; at 8192^2 that is
-// 0.5 GB per operand, about 0.16 ms at 3.35 TB/s.
+// modes; return_stats=True is the second), for f64 operands, and the shift
+// mode for f32 operands (its F64Bits and f32 forms).
+// Bound on the H100: device-memory bytes. Each element is read once (8
+// bytes f64, 4 bytes f32) for a handful of integer and f32 operations; at
+// 8192^2 that is 0.5 GB per f64 operand (0.27 GB f32), about 0.16 ms
+// (0.08 ms) at 3.35 TB/s.
 // Design: rows of A (axis=1) are contiguous, so one 256-thread block per
 // row holds a 2048-wide chunk in registers (8 elements a thread), reduces
 // the chunk's max exponent and then its f32 squared norm across the block,
@@ -21,7 +23,10 @@
 // lies within f32 rounding of an integer (sft_floor_frac < 1e-4). The
 // bodies live in fast_stats.cuh, shared with the fused stats + encode
 // kernels (fast_encode_fused.cu), whose shifts are therefore these bits.
-// The two modes share them; a template flag picks the final store.
+// The two modes share them; a template flag picks the final store. The
+// source word is the other template parameter (src_word.cuh): an f32
+// operand's form reads 4-byte words with the same threads and order, and
+// its shift takes bias 127.
 #include "common.cuh"
 #include "fast_stats.cuh"
 
@@ -41,7 +46,7 @@ struct StatsOut {
 
 // the shift (kStats false) or the raw statistics (kStats true) of row or
 // column i
-template <bool kStats>
+template <bool kStats, typename Word>
 __device__ __forceinline__ void store(int* out, const StatsOut& st, int i,
                                       const gm8::Stats& s, int t_f,
                                       float guard) {
@@ -50,39 +55,42 @@ __device__ __forceinline__ void store(int* out, const StatsOut& st, int i,
     st.nrm2[i] = s.nrm2;
     st.any[i] = s.any != 0;
   } else {
-    out[i] = gm8::sft_from_stats(s.emax, s.nrm2, s.any, t_f, guard);
+    out[i] = gm8::sft_from_stats(s.emax, s.nrm2, s.any, t_f, guard,
+                                 gm8::Src<Word>::kBias);
   }
 }
 
-template <bool kStats>
+template <bool kStats, typename Word>
 __global__ void __launch_bounds__(kRowThreads)
-sft_rows(const unsigned long long* __restrict__ x, int* __restrict__ out,
-         StatsOut st, int kdim, int t_f, float guard) {
+sft_rows(const Word* __restrict__ x, int* __restrict__ out, StatsOut st,
+         int kdim, int t_f, float guard) {
   const gm8::Stats s =
       gm8::row_stats(x + static_cast<size_t>(blockIdx.x) * kdim, kdim);
-  if (threadIdx.x == 0) store<kStats>(out, st, blockIdx.x, s, t_f, guard);
+  if (threadIdx.x == 0)
+    store<kStats, Word>(out, st, blockIdx.x, s, t_f, guard);
 }
 
-template <bool kStats>
+template <bool kStats, typename Word>
 __global__ void __launch_bounds__(kColX * kColY)
-sft_cols(const unsigned long long* __restrict__ x, int* __restrict__ out,
-         StatsOut st, int kdim, int cols, int t_f, float guard) {
+sft_cols(const Word* __restrict__ x, int* __restrict__ out, StatsOut st,
+         int kdim, int cols, int t_f, float guard) {
   const int col = blockIdx.x * kColX + threadIdx.x;
   const bool valid = col < cols;
   const gm8::Stats s = gm8::col_stats(x, kdim, cols, col, valid);
-  if (valid && threadIdx.y == 0) store<kStats>(out, st, col, s, t_f, guard);
+  if (valid && threadIdx.y == 0)
+    store<kStats, Word>(out, st, col, s, t_f, guard);
 }
 
-template <bool kStats>
+template <bool kStats, typename Word>
 int launch(const void* x, int* out, const StatsOut& st, int rows, int kdim,
            int axis, int t_f, float guard, cudaStream_t s) {
-  auto xp = static_cast<const unsigned long long*>(x);
+  auto xp = static_cast<const Word*>(x);
   if (axis == 1) {
-    sft_rows<kStats><<<rows, kRowThreads, 0, s>>>(xp, out, st, kdim, t_f,
-                                                  guard);
+    sft_rows<kStats, Word><<<rows, kRowThreads, 0, s>>>(xp, out, st, kdim,
+                                                        t_f, guard);
   } else {
     dim3 block(kColX, kColY);
-    sft_cols<kStats><<<(rows + kColX - 1) / kColX, block, 0, s>>>(
+    sft_cols<kStats, Word><<<(rows + kColX - 1) / kColX, block, 0, s>>>(
         xp, out, st, kdim, rows, t_f, guard);
   }
   return gm8::launch_status();
@@ -90,20 +98,29 @@ int launch(const void* x, int* out, const StatsOut& st, int rows, int kdim,
 
 }  // namespace
 
-// x: (rows, kdim) for axis=1 or (kdim, rows) for axis=0, f64 bits.
-// out: rows int32 shifts. t_f: tables.threshold_fast; guard: f32(1+k*2^-23).
+// x: (rows, kdim) for axis=1 or (kdim, rows) for axis=0, f64 bits (f32 = 0)
+// or f32 bits (f32 = 1). out: rows int32 shifts. t_f:
+// tables.threshold_fast; guard: f32(1+k*2^-23).
 GM8_EXPORT int gm8_fast_sft(const void* x, void* out, int rows, int kdim,
-                            int axis, int t_f, float guard, void* stream) {
-  return launch<false>(x, static_cast<int*>(out), StatsOut{}, rows, kdim,
-                       axis, t_f, guard, static_cast<cudaStream_t>(stream));
+                            int axis, int t_f, float guard, int f32,
+                            void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto o = static_cast<int*>(out);
+  if (f32)
+    return launch<false, unsigned>(x, o, StatsOut{}, rows, kdim, axis, t_f,
+                                   guard, s);
+  return launch<false, unsigned long long>(x, o, StatsOut{}, rows, kdim,
+                                           axis, t_f, guard, s);
 }
 
-// x as for gm8_fast_sft. emax: rows int64; nrm2: rows f32; any: rows bool.
+// x as for gm8_fast_sft, f64 bits. emax: rows int64; nrm2: rows f32; any:
+// rows bool.
 GM8_EXPORT int gm8_fast_stats(const void* x, void* emax, void* nrm2,
                               void* any, int rows, int kdim, int axis,
                               void* stream) {
   const StatsOut st{static_cast<long long*>(emax), static_cast<float*>(nrm2),
                     static_cast<bool*>(any)};
-  return launch<true>(x, nullptr, st, rows, kdim, axis, 0, 0.0f,
-                      static_cast<cudaStream_t>(stream));
+  return launch<true, unsigned long long>(x, nullptr, st, rows, kdim, axis,
+                                          0, 0.0f,
+                                          static_cast<cudaStream_t>(stream));
 }

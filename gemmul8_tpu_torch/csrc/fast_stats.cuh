@@ -1,7 +1,9 @@
-// The fast-mode ("vecnorm") statistics of one row or column of an f64
-// operand: the max biased exponent, the f32 squared norm relative to it,
-// merged online over 2048-wide chunks, and the any-nonzero flag; and the
-// shift taken from them. Shared by the shift kernels (fast_sft.cu) and the
+// The fast-mode ("vecnorm") statistics of one row or column of an f64 or
+// f32 operand: the max biased exponent, the f32 squared norm relative to
+// it, merged online over 2048-wide chunks, and the any-nonzero flag; and
+// the shift taken from them. The source word is a template parameter
+// (unsigned long long: f64 bits, unsigned: f32 bits; src_word.cuh), so
+// every kernel built on these bodies gets both forms by instantiation. Shared by the shift kernels (fast_sft.cu) and the
 // fused stats + encode kernels (fast_encode_fused.cu), so both give the
 // same bits: one body, one summation order.
 //
@@ -17,6 +19,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "src_word.cuh"
 
 namespace gm8 {
 namespace {
@@ -38,12 +41,14 @@ struct Stats {
   int any;
 };
 
-__device__ __forceinline__ Fields fields(unsigned long long bits) {
+template <typename Word>
+__device__ __forceinline__ Fields fields(Word bits) {
+  using S = Src<Word>;
   Fields f;
-  int e = static_cast<int>((bits >> 52) & 0x7FF);
+  const int e = S::biased_exp(bits);
   f.exp = e > 0 ? e : 1;
-  f.nonzero = (bits << 1) != 0ull;
-  f.m23 = static_cast<unsigned>((bits >> 29) & 0x7FFFFF);
+  f.nonzero = (bits << 1) != Word(0);
+  f.m23 = static_cast<unsigned>((bits >> (S::kStored - 23)) & 0x7FFFFF);
   return f;
 }
 
@@ -64,12 +69,14 @@ __device__ __forceinline__ float merge(float s_acc, int e_acc, float s_blk,
                    __fmul_rn(s_blk, pow2f(2 * (e_blk - e_new))));
 }
 
+// bias: the operand's exponent bias (Src<Word>::kBias)
 __device__ __forceinline__ int sft_from_stats(int emax, float nrm2, int any,
-                                              int t_f, float guard) {
+                                              int t_f, float guard,
+                                              int bias = 1023) {
   float n2 = fmaxf(__fmul_rn(nrm2, guard), 1.0f);
   float v = floorf(__fadd_rn(__fmul_rn(log2f(n2), -0.51f),
                              static_cast<float>(t_f)));
-  int s = min(t_f - 1, static_cast<int>(v)) - (emax - 1023);
+  int s = min(t_f - 1, static_cast<int>(v)) - (emax - bias);
   return any ? s : 0;
 }
 
@@ -96,8 +103,9 @@ __device__ __forceinline__ float block_sum(float v, float* sh) {
 
 // the statistics of row xr (kdim elements); every thread of the
 // kRowThreads-thread block must call it
-__device__ __forceinline__ Stats row_stats(
-    const unsigned long long* __restrict__ xr, int kdim) {
+template <typename Word>
+__device__ __forceinline__ Stats row_stats(const Word* __restrict__ xr,
+                                           int kdim) {
   constexpr int kPer = kChunk / kRowThreads;
   __shared__ int sh_i[kRowThreads / 32];
   __shared__ float sh_f[kRowThreads / 32];
@@ -109,7 +117,7 @@ __device__ __forceinline__ Stats row_stats(
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
       int k = c0 + i * kRowThreads + threadIdx.x;
-      f[i] = fields(k < kdim ? xr[k] : 0ull);
+      f[i] = fields(k < kdim ? xr[k] : Word(0));
       if (f[i].nonzero) {
         e_t = max(e_t, f[i].exp);
         any_t = 1;
@@ -140,9 +148,10 @@ __device__ __forceinline__ Stats row_stats(
 
 // the statistics of column col of x (kdim, cols), valid = col < cols; every
 // thread of the kColX x kColY block must call it
-__device__ __forceinline__ Stats col_stats(
-    const unsigned long long* __restrict__ x, int kdim, int cols, int col,
-    bool valid) {
+template <typename Word>
+__device__ __forceinline__ Stats col_stats(const Word* __restrict__ x,
+                                           int kdim, int cols, int col,
+                                           bool valid) {
   constexpr int kRows = kChunk / kColY;
   __shared__ int sh_e[kColY][kColX];
   __shared__ int sh_a[kColY][kColX];

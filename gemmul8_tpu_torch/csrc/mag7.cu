@@ -1,14 +1,16 @@
 // Accurate-mode operand statistics: the max biased exponent of each row
-// (axis=1) or column (axis=0) of an f64 operand, and the round-up 7-bit
-// magnitudes below it, ceil(|x| * 2^(s - (emax - 1023))) in [0, 2^(s+1)]
-// for the magnitude shift s: 5 on the real path (<= 64), 4 on the complex
-// path, whose |Re| + |Im| sums (<= 32 + 32) must not wrap int8.
+// (axis=1) or column (axis=0) of an f64 or f32 operand, and the round-up
+// 7-bit magnitudes below it, ceil(|x| * 2^(s - (emax - bias))) in
+// [0, 2^(s+1)] for the magnitude shift s: 5 on the real path (<= 64), 4 on
+// the complex path, whose |Re| + |Im| sums (<= 32 + 32) must not wrap int8.
 //
 // Replaces: emax_pallas (gemmul8_tpu/pallas/kernels.py:333) and
-// mag7_pallas (gemmul8_tpu/pallas/kernels.py:408).
-// Bound on the H100: device-memory bytes. emax reads 8 bytes per element;
-// mag7 reads 8 and writes 1. At 8192^2 that is 0.54 GB and 0.60 GB per
-// operand, about 0.16 and 0.18 ms at 3.35 TB/s.
+// mag7_pallas (gemmul8_tpu/pallas/kernels.py:408), their F64Bits and f32
+// forms.
+// Bound on the H100: device-memory bytes. emax reads 8 bytes per element
+// (4 for f32); mag7 reads 8 (4) and writes 1. At 8192^2 that is 0.54 GB
+// and 0.60 GB per f64 operand (0.27 and 0.34 GB f32), about 0.16 and 0.18
+// ms (0.08 and 0.10 ms) at 3.35 TB/s.
 // Design: the max is order-independent, so any blocking gives the same
 // bits. emax over rows: one 256-thread block per row, neighbouring threads
 // on neighbouring elements. emax over columns (strided): as in
@@ -22,8 +24,10 @@
 // that is its own layout (a thread turns 4 elements into one 4-byte word);
 // for B (k, n) a block transposes a 64 x 64 tile through shared memory, so
 // both the 8-byte reads (along n) and the 4-byte writes (along k)
-// coalesce. The magnitude is computed on the 53-bit significand in one
-// 64-bit word, so no shift reaches the width of its operand.
+// coalesce. The magnitude is computed on the 53-bit (f32: 24-bit)
+// significand in one 64-bit word, so no shift reaches the width of its
+// operand. The source word is a template parameter (src_word.cuh): the
+// f32 forms read 4-byte words with the same blocks and tiles.
 //
 // gm8_mag7_fused computes both in one kernel and writes the same buffer.
 // Replaces: mag7_fused_pallas (gemmul8_tpu/pallas/kernels.py:465).
@@ -34,6 +38,7 @@
 // a row's second read hits L2, a strip's (2 MB at 8192) mostly does not.
 // The max is exact, so the outputs are the two-kernel pair's bits.
 #include "common.cuh"
+#include "src_word.cuh"
 
 namespace {
 
@@ -44,28 +49,31 @@ constexpr int kColRows = 256;  // ... rows of the contraction axis per block
 constexpr int kT = 64;         // mag7 over columns: 64 x 64 tile
 
 // biased exponent of a nonzero element (1 for subnormals); 0 for +-0
-__device__ __forceinline__ int exp_nonzero(unsigned long long bits) {
-  const int e = static_cast<int>((bits >> 52) & 0x7FF);
-  return (bits << 1) == 0ull ? 0 : max(e, 1);
+template <typename Word>
+__device__ __forceinline__ int exp_nonzero(Word bits) {
+  const int e = gm8::Src<Word>::biased_exp(bits);
+  return (bits << 1) == Word(0) ? 0 : max(e, 1);
 }
 
-// ceil(|x| * 2^(mag_shift - (emax - 1023))) mod 256 (in [0, 2^(mag_shift
+// ceil(|x| * 2^(mag_shift - (emax - bias))) mod 256 (in [0, 2^(mag_shift
 // + 1)] when emax is the max exponent of x's row or column)
-__device__ __forceinline__ unsigned mag7_byte(unsigned long long bits,
-                                              int emax, int mag_shift) {
-  const int e = static_cast<int>((bits >> 52) & 0x7FF);
-  const unsigned long long mant =
-      (bits & ((1ull << 52) - 1)) | (e > 0 ? (1ull << 52) : 0ull);
-  const int u = min(max(emax + 52 - mag_shift - max(e, 1), 0), 63);
+template <typename Word>
+__device__ __forceinline__ unsigned mag7_byte(Word bits, int emax,
+                                              int mag_shift) {
+  using S = gm8::Src<Word>;
+  const int e = S::biased_exp(bits);
+  const unsigned long long mant = S::mant(bits);
+  const int u =
+      min(max(emax + S::kStored - mag_shift - max(e, 1), 0), 63);
   const unsigned long long v = mant >> u;
   return static_cast<unsigned>(v + ((v << u) != mant ? 1ull : 0ull)) & 0xFFu;
 }
 
+template <typename Word>
 __global__ void __launch_bounds__(kThreads)
-emax_rows(const unsigned long long* __restrict__ x, int* __restrict__ out,
-          int kdim) {
+emax_rows(const Word* __restrict__ x, int* __restrict__ out, int kdim) {
   __shared__ int sh[kThreads / 32];
-  const unsigned long long* xr = x + static_cast<size_t>(blockIdx.x) * kdim;
+  const Word* xr = x + static_cast<size_t>(blockIdx.x) * kdim;
   int e = 0;
 #pragma unroll 4
   for (int k = threadIdx.x; k < kdim; k += kThreads)
@@ -79,9 +87,10 @@ emax_rows(const unsigned long long* __restrict__ x, int* __restrict__ out,
   }
 }
 
+template <typename Word>
 __global__ void __launch_bounds__(kColX * kColY)
-emax_cols(const unsigned long long* __restrict__ x, int* __restrict__ out,
-          int kdim, int cols) {
+emax_cols(const Word* __restrict__ x, int* __restrict__ out, int kdim,
+          int cols) {
   __shared__ int sh[kColY][kColX];
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int col = blockIdx.x * kColX + tx;
@@ -102,14 +111,15 @@ emax_cols(const unsigned long long* __restrict__ x, int* __restrict__ out,
 }
 
 // A (rows, kdim) -> (rows, ld) magnitudes, one 4-byte word per thread
+template <typename Word>
 __global__ void __launch_bounds__(kThreads)
-mag7_rows(const unsigned long long* __restrict__ x,
-          const int* __restrict__ emax, unsigned* __restrict__ out,
-          int rows, int kdim, int ld_words, int mag_shift) {
+mag7_rows(const Word* __restrict__ x, const int* __restrict__ emax,
+          unsigned* __restrict__ out, int rows, int kdim, int ld_words,
+          int mag_shift) {
   const int w = blockIdx.x * kThreads + threadIdx.x;
   if (w >= ld_words) return;
   for (int row = blockIdx.y; row < rows; row += gridDim.y) {
-    const unsigned long long* xr = x + static_cast<size_t>(row) * kdim;
+    const Word* xr = x + static_cast<size_t>(row) * kdim;
     const int e = emax[row];
     unsigned word = 0;
 #pragma unroll
@@ -122,10 +132,11 @@ mag7_rows(const unsigned long long* __restrict__ x,
 }
 
 // B (kdim, cols) -> (cols, ld) magnitudes, K-major, through a 64 x 64 tile
+template <typename Word>
 __global__ void __launch_bounds__(kThreads)
-mag7_cols(const unsigned long long* __restrict__ x,
-          const int* __restrict__ emax, unsigned char* __restrict__ out,
-          int kdim, int cols, int ld, int mag_shift) {
+mag7_cols(const Word* __restrict__ x, const int* __restrict__ emax,
+          unsigned char* __restrict__ out, int kdim, int cols, int ld,
+          int mag_shift) {
   // [column][k]; a row of 68 bytes keeps the byte stores of a warp (32
   // neighbouring columns, one k) on 32 different banks
   __shared__ __align__(16) unsigned char sm[kT][kT + 4];
@@ -136,8 +147,9 @@ mag7_cols(const unsigned long long* __restrict__ x,
 #pragma unroll 4
   for (int r = r0; r < kT; r += kThreads / kT) {
     const int k = k0 + r;
-    const unsigned long long bits =
-        col < cols && k < kdim ? x[static_cast<size_t>(k) * cols + col] : 0ull;
+    const Word bits =
+        col < cols && k < kdim ? x[static_cast<size_t>(k) * cols + col]
+                               : Word(0);
     sm[c][r] = static_cast<unsigned char>(mag7_byte(bits, e, mag_shift));
   }
   __syncthreads();
@@ -241,23 +253,51 @@ mag7_fused_cols(const unsigned long long* __restrict__ x,
   }
 }
 
-}  // namespace
-
-// x: (rows, kdim) f64 bits for axis=1, (kdim, rows) for axis=0.
-// out: rows int32, zero-filled by the caller. kdim <= 65535 * 256.
-GM8_EXPORT int gm8_emax(const void* x, void* out, int rows, int kdim,
-                        int axis, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  auto xp = static_cast<const unsigned long long*>(x);
-  auto op = static_cast<int*>(out);
+template <typename Word>
+int emax_launch(const void* x, int* op, int rows, int kdim, int axis,
+                cudaStream_t s) {
+  auto xp = static_cast<const Word*>(x);
   if (axis == 1) {
-    emax_rows<<<rows, kThreads, 0, s>>>(xp, op, kdim);
+    emax_rows<Word><<<rows, kThreads, 0, s>>>(xp, op, kdim);
   } else {
     dim3 grid((rows + kColX - 1) / kColX, (kdim + kColRows - 1) / kColRows);
     if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-    emax_cols<<<grid, dim3(kColX, kColY), 0, s>>>(xp, op, kdim, rows);
+    emax_cols<Word><<<grid, dim3(kColX, kColY), 0, s>>>(xp, op, kdim, rows);
   }
   return gm8::launch_status();
+}
+
+template <typename Word>
+int mag7_launch(const void* x, const int* ep, void* out, int rows, int kdim,
+                int axis, int ld, int mag_shift, cudaStream_t s) {
+  auto xp = static_cast<const Word*>(x);
+  if (axis == 1) {
+    const int ld_words = ld / 4;
+    dim3 grid((ld_words + kThreads - 1) / kThreads,
+              rows < 65535 ? rows : 65535);
+    mag7_rows<Word><<<grid, kThreads, 0, s>>>(
+        xp, ep, static_cast<unsigned*>(out), rows, kdim, ld_words,
+        mag_shift);
+  } else {
+    dim3 grid((rows + kT - 1) / kT, (ld + kT - 1) / kT);
+    if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    mag7_cols<Word><<<grid, kThreads, 0, s>>>(
+        xp, ep, static_cast<unsigned char*>(out), kdim, rows, ld, mag_shift);
+  }
+  return gm8::launch_status();
+}
+
+}  // namespace
+
+// x: (rows, kdim) for axis=1, (kdim, rows) for axis=0, f64 bits (f32 = 0)
+// or f32 bits (f32 = 1). out: rows int32, zero-filled by the caller. kdim
+// <= 65535 * 256.
+GM8_EXPORT int gm8_emax(const void* x, void* out, int rows, int kdim,
+                        int axis, int f32, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto op = static_cast<int*>(out);
+  return f32 ? emax_launch<unsigned>(x, op, rows, kdim, axis, s)
+             : emax_launch<unsigned long long>(x, op, rows, kdim, axis, s);
 }
 
 // x as for gm8_emax; emax: rows int32 (the max exponents); out: (rows, ld)
@@ -265,25 +305,15 @@ GM8_EXPORT int gm8_emax(const void* x, void* out, int rows, int kdim,
 // zeros in [kdim, ld); mag_shift in [0, 6] (5 real, 4 complex).
 GM8_EXPORT int gm8_mag7(const void* x, const void* emax, void* out,
                         int rows, int kdim, int axis, int ld, int mag_shift,
-                        void* stream) {
+                        int f32, void* stream) {
   if (ld % 4 != 0 || ld < kdim || mag_shift < 0 || mag_shift > 6)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  auto xp = static_cast<const unsigned long long*>(x);
   auto ep = static_cast<const int*>(emax);
-  if (axis == 1) {
-    const int ld_words = ld / 4;
-    dim3 grid((ld_words + kThreads - 1) / kThreads,
-              rows < 65535 ? rows : 65535);
-    mag7_rows<<<grid, kThreads, 0, s>>>(xp, ep, static_cast<unsigned*>(out),
-                                        rows, kdim, ld_words, mag_shift);
-  } else {
-    dim3 grid((rows + kT - 1) / kT, (ld + kT - 1) / kT);
-    if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-    mag7_cols<<<grid, kThreads, 0, s>>>(
-        xp, ep, static_cast<unsigned char*>(out), kdim, rows, ld, mag_shift);
-  }
-  return gm8::launch_status();
+  return f32 ? mag7_launch<unsigned>(x, ep, out, rows, kdim, axis, ld,
+                                     mag_shift, s)
+             : mag7_launch<unsigned long long>(x, ep, out, rows, kdim, axis,
+                                               ld, mag_shift, s);
 }
 
 // emax and mag7 in one kernel. x as for gm8_emax; emax: rows int32 (written

@@ -1,4 +1,5 @@
-// Centered residues of one f64 element: out[j * total + idx] = the centered
+// Centered residues of one f64 or f32 element (the source word a template
+// parameter, src_word.cuh): out[j * total + idx] = the centered
 // residue of trunc(x * 2^sft) mod m_j as int8, for j < num_moduli
 // (encode_element: the fused stats + encode kernels of fast_encode_fused.cu),
 // out[(j - j0) * total + idx] for j0 <= j < j1 (encode_element_range: the
@@ -15,6 +16,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "src_word.cuh"
 
 namespace gm8 {
 namespace {
@@ -39,21 +41,23 @@ __device__ __forceinline__ int centered_residue(unsigned long long lo,
   }
 }
 
-// |trunc(x * 2^sft)| = hi * 2^64 + lo and its sign, from x's f64 bits;
-// q_max: the static left-shift cap max(threshold_accurate - 53, 0)
+// |trunc(x * 2^sft)| = hi * 2^64 + lo and its sign, from x's f64 or f32
+// bits; q_max: the static left-shift cap max(threshold_accurate -
+// mant_bits, 0), at most 24 for f64 and 53 for f32 (20 moduli), so the
+// value has at most 77 bits
 struct Shifted {
   unsigned long long lo;
   unsigned hi;
   bool neg;
 };
 
-__device__ __forceinline__ Shifted shifted_value(unsigned long long bits,
-                                                 int sft, int q_max) {
-  const int e = static_cast<int>((bits >> 52) & 0x7FF);
-  const unsigned long long mant =
-      (bits & ((1ull << 52) - 1)) | (e > 0 ? (1ull << 52) : 0ull);
-  const int q = max(e, 1) - 1075 + sft;
-  Shifted v{0, 0, (bits >> 63) != 0};
+template <typename Word>
+__device__ __forceinline__ Shifted shifted_value(Word bits, int sft,
+                                                 int q_max) {
+  using S = Src<Word>;
+  const unsigned long long mant = S::mant(bits);
+  const int q = max(S::biased_exp(bits), 1) - S::kMantShift + sft;
+  Shifted v{0, 0, S::neg(bits)};
   if (q < 0) {
     v.lo = mant >> min(-q, 63);
   } else {
@@ -64,8 +68,8 @@ __device__ __forceinline__ Shifted shifted_value(unsigned long long bits,
   return v;
 }
 
-__device__ __forceinline__ void encode_element(unsigned long long bits,
-                                               int sft,
+template <typename Word>
+__device__ __forceinline__ void encode_element(Word bits, int sft,
                                                signed char* __restrict__ out,
                                                size_t total, size_t idx,
                                                int num_moduli, int q_max) {
@@ -79,9 +83,10 @@ __device__ __forceinline__ void encode_element(unsigned long long bits,
 }
 
 // moduli j0 <= j < j1 into slices 0 .. j1 - j0 - 1
+template <typename Word>
 __device__ __forceinline__ void encode_element_range(
-    unsigned long long bits, int sft, signed char* __restrict__ out,
-    size_t total, size_t idx, int j0, int j1, int q_max) {
+    Word bits, int sft, signed char* __restrict__ out, size_t total,
+    size_t idx, int j0, int j1, int q_max) {
   const Shifted v = shifted_value(bits, sft, q_max);
   // J * total + off == (J - j0) * total + idx in size_t's modular arithmetic
   const size_t off = idx - j0 * total;
@@ -115,9 +120,10 @@ inline bool mod_slots(const int* idx, int n, ModSlots* out) {
   return true;
 }
 
+template <typename Word>
 __device__ __forceinline__ void encode_element_slots(
-    unsigned long long bits, int sft, signed char* __restrict__ out,
-    size_t total, size_t idx, const ModSlots& slots, int q_max) {
+    Word bits, int sft, signed char* __restrict__ out, size_t total,
+    size_t idx, const ModSlots& slots, int q_max) {
   const Shifted v = shifted_value(bits, sft, q_max);
 #define GM8_ENCODE_ONE(J, M)                                                \
   if (slots.s[J] >= 0)                                                      \

@@ -17,7 +17,9 @@ runs at import: the first kernel launch builds and loads.
 The C entry points act on the current CUDA device: a wrapper calls them
 inside `torch.cuda.device(x.device)`, which restores the caller's device.
 Every C entry point returns `cudaGetLastError()` after its launch; `check`
-raises on a nonzero code. `LAUNCHES` counts kernel launches per wrapper.
+raises on a nonzero code. `LAUNCHES` counts kernel launches per wrapper;
+a kernel's f32 form (f32 operand, or f32 output for reconstruct) counts
+under its own key, the name with "[f32]" (`form`).
 """
 
 from __future__ import annotations
@@ -47,24 +49,25 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # x, out_sft, rows, kdim, axis, t_f, guard, stream
-    "gm8_fast_sft": [_P, _P, _I, _I, _I, _I, _F, _P],
+    # x, out_sft, rows, kdim, axis, t_f, guard, f32, stream
+    "gm8_fast_sft": [_P, _P, _I, _I, _I, _I, _F, _I, _P],
     # x, out_emax, out_nrm2, out_any, rows, kdim, axis, stream
     "gm8_fast_stats": [_P, _P, _P, _P, _I, _I, _I, _P],
     # x, sft, out, d0, d1, axis, moduli_idx (host), n_idx, q_max, c0, c1,
-    # stream
-    "gm8_encode_slices": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P],
+    # f32, stream
+    "gm8_encode_slices": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I,
+                          _P],
     # a8, b8, bt (workspace), out, moduli_idx (host), L, m, n, k, kp,
     # centered, stream
     "gm8_matmul_mod_u8": [_P] * 5 + [_I] * 6 + [_P],
     # table (host), nbytes
     "gm8_set_crt_tables": [_P, _I],
-    # r, kind, planes, sft_a, sft_b, out, L, m, n, e_extra, stream
-    "gm8_reconstruct_f64": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, out_emax, rows, kdim, axis, stream
-    "gm8_emax": [_P, _P, _I, _I, _I, _P],
-    # x, emax, out, rows, kdim, axis, ld, mag_shift, stream
-    "gm8_mag7": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # r, kind, planes, sft_a, sft_b, out, L, m, n, e_extra, out_f32, stream
+    "gm8_reconstruct": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, out_emax, rows, kdim, axis, f32, stream
+    "gm8_emax": [_P, _P, _I, _I, _I, _I, _P],
+    # x, emax, out, rows, kdim, axis, ld, mag_shift, f32, stream
+    "gm8_mag7": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # a, lda, bt, ldb, row_max, col_max, m, n, k, stream
     "gm8_magmax_matmul": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _P],
     # ar, ai, sa, br, bi, sb, bt (workspaces), out_re, out_im, L, m, n, k,
@@ -164,6 +167,11 @@ def lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = handle
         return _lib
+
+
+def form(name: str, f32: bool) -> str:
+    """The `LAUNCHES` key of a kernel's f64 or f32 form."""
+    return f"{name}[f32]" if f32 else name
 
 
 def check(code: int, name: str) -> None:

@@ -23,6 +23,12 @@ residues, raw int32 slice products and the weighted CRT sum as 16-bit limbs
 schedule's fold produce), and writes into a given output (`out=`, rows of
 the panel pipeline's full-size output).
 
+`fast_sft`, `emax`, `mag7` and `encode_slices` take a float64 or a float32
+operand and launch that dtype's form of their kernel; `reconstruct` writes
+float64 or float32 (`out_dtype`). An f32 form's launches count under its
+own key (`build.form`: "encode_slices[f32]"). The other wrappers here take
+float64 only; their f32 forms are ROADMAP B18.
+
 `mag7_operand` reads GEMMUL8_FUSED_MAG7 at call time, as the JAX package's
 `mag7_operand_pallas` does: "1" takes mag7_fused, anything else the emax +
 mag7 pair.
@@ -64,6 +70,12 @@ def _check_f64(x: torch.Tensor):
         raise TypeError("expected a 2-D float64 tensor")
 
 
+def _is_f32(x: torch.Tensor) -> bool:
+    """Whether x is a float32 operand (else float64); other dtypes and
+    shapes raise TypeError."""
+    return enc.mant_bits_of(x) == 24
+
+
 def _rows_kdim(x: torch.Tensor, axis: int):
     if axis not in (0, 1):
         raise ValueError("axis must be 0 or 1")
@@ -72,8 +84,9 @@ def _rows_kdim(x: torch.Tensor, axis: int):
 
 
 def fast_sft(x: torch.Tensor, num_moduli: int, axis: int) -> torch.Tensor:
-    """Fast-mode shifts: (m, 1) int32 for axis=1, (1, n) for axis=0."""
-    _check_f64(x)
+    """Fast-mode shifts of a float64 or float32 operand: (m, 1) int32 for
+    axis=1, (1, n) for axis=0."""
+    f32 = _is_f32(x)
     rows, kdim = _rows_kdim(x, axis)
     if _on_cpu(x):
         return fast_sft_plain(x, num_moduli, axis)
@@ -84,9 +97,9 @@ def fast_sft(x: torch.Tensor, num_moduli: int, axis: int) -> torch.Tensor:
         code = build.lib().gm8_fast_sft(
             x.data_ptr(), out.data_ptr(), rows, kdim, axis,
             tables.threshold_fast(num_moduli), enc._norm_guard(kdim),
-            build.stream_ptr(x.device))
+            int(f32), build.stream_ptr(x.device))
     build.check(code, "fast_sft")
-    build.LAUNCHES["fast_sft"] += 1
+    build.LAUNCHES[build.form("fast_sft", f32)] += 1
     return out
 
 
@@ -114,8 +127,9 @@ def fast_stats(x: torch.Tensor, axis: int):
 
 def emax(x: torch.Tensor, axis: int) -> torch.Tensor:
     """Max biased exponent over the nonzero elements of each row (axis=1,
-    (m, 1)) or column (axis=0, (1, n)), int32."""
-    _check_f64(x)
+    (m, 1)) or column (axis=0, (1, n)) of a float64 or float32 operand,
+    int32."""
+    f32 = _is_f32(x)
     rows, kdim = _rows_kdim(x, axis)
     if _on_cpu(x):
         return emax_plain(x, axis)
@@ -125,9 +139,10 @@ def emax(x: torch.Tensor, axis: int) -> torch.Tensor:
                       dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
         code = build.lib().gm8_emax(x.data_ptr(), out.data_ptr(), rows, kdim,
-                                    axis, build.stream_ptr(x.device))
+                                    axis, int(f32),
+                                    build.stream_ptr(x.device))
     build.check(code, "emax")
-    build.LAUNCHES["emax"] += 1
+    build.LAUNCHES[build.form("emax", f32)] += 1
     return out
 
 
@@ -145,15 +160,17 @@ def _mag7_buffer(x: torch.Tensor, emax: torch.Tensor, axis: int,
     if emax.dtype != torch.int32:
         raise TypeError("emax must be int32")
     build.require_cuda(x, emax)
+    f32 = _is_f32(x)
     rows, kdim = _rows_kdim(x, axis)
     ld = -(-kdim // 16) * 16
     out = torch.empty((rows, ld), dtype=torch.int8, device=x.device)
     with torch.cuda.device(x.device):
         code = build.lib().gm8_mag7(x.data_ptr(), emax.data_ptr(),
                                     out.data_ptr(), rows, kdim, axis, ld,
-                                    mag_shift, build.stream_ptr(x.device))
+                                    mag_shift, int(f32),
+                                    build.stream_ptr(x.device))
     build.check(code, "mag7")
-    build.LAUNCHES["mag7"] += 1
+    build.LAUNCHES[build.form("mag7", f32)] += 1
     return out
 
 
@@ -166,13 +183,14 @@ def _mag7_view(buf: torch.Tensor, kdim: int, axis: int) -> torch.Tensor:
 def mag7(x: torch.Tensor, emax: torch.Tensor, axis: int,
          mag_shift: int = enc.MAG_SHIFT) -> torch.Tensor:
     """Round-up magnitudes (int8 of x's shape, in [0, 2^(mag_shift + 1)])
-    below the row (axis=1) or column (axis=0) max exponents `emax`.
+    of a float64 or float32 operand below the row (axis=1) or column
+    (axis=0) max exponents `emax`.
 
     On the card the values sit K-major in a buffer whose rows are padded
     to a multiple of 16 bytes: for axis=0 the result is the transposed
     view of an (n, k) buffer. That is the layout `magmax_matmul` reads
     without a copy; the values are those of the plain version."""
-    _check_f64(x)
+    _is_f32(x)
     _check_emax(x, emax, axis)
     if _on_cpu(x):
         return mag7_plain(x, emax, axis, mag_shift)
@@ -204,8 +222,8 @@ def mag7_fused(x: torch.Tensor, axis: int, mag_shift: int = enc.MAG_SHIFT):
 
 
 def mag7_operand(x: torch.Tensor, axis: int):
-    """(magnitudes, emax) of one operand: the emax kernel, then mag7; or
-    mag7_fused under GEMMUL8_FUSED_MAG7=1."""
+    """(magnitudes, emax) of one operand: the emax kernel, then mag7 (f64
+    or f32 forms); or mag7_fused (f64 only) under GEMMUL8_FUSED_MAG7=1."""
     if os.environ.get("GEMMUL8_FUSED_MAG7", "0") == "1":
         return mag7_fused(x, axis)
     e = emax(x, axis)
@@ -232,11 +250,6 @@ def mag7_operand_complex(re: torch.Tensor, im: torch.Tensor, axis: int):
     return _mag7_view(buf, re.shape[axis], axis), e
 
 
-def _q_max(num_moduli: int) -> int:
-    """The encode kernels' static left-shift cap."""
-    return max(tables.threshold_accurate(num_moduli) - 1 - 52, 0)
-
-
 def host_idx(idx) -> np.ndarray:
     """A moduli index list as the int32 array a C entry point reads on the
     host (pass `.ctypes.data`; keep the array alive over the call)."""
@@ -245,12 +258,13 @@ def host_idx(idx) -> np.ndarray:
 
 def encode_slices(x: torch.Tensor, sft: torch.Tensor, num_moduli: int,
                   axis: int, moduli_idx=None, col_tiles=None) -> torch.Tensor:
-    """(L', *x.shape) int8 centered residues of trunc(x * 2^sft): slice l
-    for modulus moduli_idx[l], any tuple of distinct indices below
-    num_moduli (default: all of them in order). col_tiles (j0, j1): only
-    x's columns [j0, j1) x enc.ENC_BLOCK[1] (clipped to its width) are
-    written, the rest of the full-shape output is left as allocated."""
-    _check_f64(x)
+    """(L', *x.shape) int8 centered residues of trunc(x * 2^sft) of a
+    float64 or float32 operand: slice l for modulus moduli_idx[l], any
+    tuple of distinct indices below num_moduli (default: all of them in
+    order). col_tiles (j0, j1): only x's columns [j0, j1) x
+    enc.ENC_BLOCK[1] (clipped to its width) are written, the rest of the
+    full-shape output is left as allocated."""
+    f32 = _is_f32(x)
     want = (x.shape[0], 1) if axis == 1 else (1, x.shape[1])
     if tuple(sft.shape) != want or axis not in (0, 1):
         raise ValueError(f"sft shape {tuple(sft.shape)}, expected {want}")
@@ -267,10 +281,11 @@ def encode_slices(x: torch.Tensor, sft: torch.Tensor, num_moduli: int,
     with torch.cuda.device(x.device):
         code = build.lib().gm8_encode_slices(
             x.data_ptr(), sft.data_ptr(), out.data_ptr(), d0, d1, axis,
-            idx_host.ctypes.data, len(idx), _q_max(num_moduli), c0, c1,
+            idx_host.ctypes.data, len(idx),
+            enc.q_max(num_moduli, enc.mant_bits_of(x)), c0, c1, int(f32),
             build.stream_ptr(x.device))
     build.check(code, "encode_slices")
-    build.LAUNCHES["encode_slices"] += 1
+    build.LAUNCHES[build.form("encode_slices", f32)] += 1
     return out
 
 
@@ -291,7 +306,7 @@ def fast_encode_fused(x: torch.Tensor, num_moduli: int, axis: int):
         code = build.lib().gm8_fast_encode_fused(
             x.data_ptr(), out.data_ptr(), sft.data_ptr(), rows, kdim, axis,
             num_moduli, tables.threshold_fast(num_moduli),
-            enc._norm_guard(kdim), _q_max(num_moduli),
+            enc._norm_guard(kdim), enc.q_max(num_moduli),
             build.stream_ptr(x.device))
     build.check(code, "fast_encode_fused")
     build.LAUNCHES["fast_encode_fused"] += 1
@@ -355,10 +370,11 @@ def reconstruct(r: torch.Tensor, sft_a: torch.Tensor, sft_b: torch.Tensor,
     (reduced mod m_j in the kernel); or, with input_kind="limbs", the
     weighted CRT sum itself as (num_limbs, m, n) int32 16-bit limbs,
     canonical or with each limb nonnegative and below 2^29 (what
-    `hopper.matmul.matmul_crt` and the chunked schedule's fold give). The
-    kernel writes float64; f32 output runs only in the plain version.
-    out: a contiguous (m, n) float64 tensor (rows of a larger output) to
-    write into and return, instead of a new one."""
+    `hopper.matmul.matmul_crt` and the chunked schedule's fold give).
+    out_dtype "f64" writes float64, "f32" float32 (the integer rounded
+    once to 24 bits). out: a contiguous (m, n) float64 tensor (rows of a
+    larger output) to write into and return, instead of a new one; f64
+    output only."""
     return reconstruct_launch("reconstruct", r, sft_a, sft_b, num_moduli,
                               out_dtype, e_extra, input_kind, out)
 
@@ -367,9 +383,13 @@ def reconstruct_launch(name: str, r, sft_a, sft_b, num_moduli: int,
                        out_dtype: str = "f64", e_extra: int = 0,
                        input_kind: str = "residues", out=None):
     """`reconstruct`, its launch counted under `name` (the panel
-    pipeline's last reconstruct counts as its own kernel)."""
+    pipeline's last reconstruct counts as its own kernel), or under its
+    f32 form's key for f32 output."""
     if input_kind not in ("residues", "limbs"):
         raise ValueError(f"input_kind {input_kind!r}")
+    if out_dtype not in ("f64", "f32"):
+        raise ValueError(f"out_dtype {out_dtype!r}")
+    f32 = out_dtype == "f32"
     limbs = input_kind == "limbs"
     planes = tables.num_limbs(num_moduli) if limbs else num_moduli
     if r.dim() != 3 or r.shape[0] != planes:
@@ -377,19 +397,16 @@ def reconstruct_launch(name: str, r, sft_a, sft_b, num_moduli: int,
     _, m, n = r.shape
     if tuple(sft_a.shape) != (m, 1) or tuple(sft_b.shape) != (1, n):
         raise ValueError("shifts must be (m, 1) and (1, n)")
-    if out is not None and (tuple(out.shape) != (m, n)
+    if out is not None and (f32 or tuple(out.shape) != (m, n)
                             or out.device != r.device
                             or out.dtype != torch.float64
                             or not out.is_contiguous()):
         raise ValueError(f"out must be a contiguous ({m}, {n}) float64 "
-                         f"tensor on {r.device}")
+                         f"tensor on {r.device}, with f64 output")
     if _on_cpu(r):
         c = reconstruct_plain(r, sft_a, sft_b, num_moduli, out_dtype,
                               e_extra, input_kind)
         return c if out is None else out.copy_(c)
-    if out_dtype != "f64":
-        raise NotImplementedError(
-            "f32 output of the reconstruct kernel: ROADMAP A4")
     if limbs:
         if r.dtype != torch.int32:
             raise TypeError("limbs must be int32")
@@ -407,12 +424,13 @@ def reconstruct_launch(name: str, r, sft_a, sft_b, num_moduli: int,
         raise ValueError("e_extra out of range")
     _ensure_crt_tables(r.device)
     if out is None:
-        out = torch.empty((m, n), dtype=torch.float64, device=r.device)
+        out = torch.empty((m, n), dtype=torch.float32 if f32
+                          else torch.float64, device=r.device)
     with torch.cuda.device(r.device):
-        code = build.lib().gm8_reconstruct_f64(
+        code = build.lib().gm8_reconstruct(
             r.data_ptr(), kind, planes, sft_a.data_ptr(), sft_b.data_ptr(),
-            out.data_ptr(), num_moduli, m, n, e_extra,
+            out.data_ptr(), num_moduli, m, n, e_extra, int(f32),
             build.stream_ptr(r.device))
     build.check(code, name)
-    build.LAUNCHES[name] += 1
+    build.LAUNCHES[build.form(name, f32)] += 1
     return out

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core import encode as enc
 from ..core import riders
 from . import build
 from . import kernels as hk
@@ -116,7 +117,7 @@ def matmul_rider_step(a8, bt, panel: int, r_prev, prev_panel: int, sft_a,
             a8.data_ptr(), None if b8 is None else b8.data_ptr(),
             bt.data_ptr(), res.data_ptr(), rec[0], rec[1], sft_b.data_ptr(),
             rec[2], *nxt, rec[3], a8.shape[1], a_row0, L, panel_m, n, k,
-            hk._q_max(num_moduli), build.stream_ptr(a8.device))
+            enc.q_max(num_moduli), build.stream_ptr(a8.device))
     build.check(code, "matmul_rider_step")
     build.LAUNCHES["matmul_rider_step"] += 1
     return res, rec_rows, a8_next
@@ -165,7 +166,7 @@ def matmul_bsplit_pair(a8_p0, b8_left, b_src, sft_a, sft_b, num_moduli: int,
             a8_p0.data_ptr(), b8_left.data_ptr(), bt.data_ptr(),
             res.data_ptr(), b_src.data_ptr(), sft_b.data_ptr(), src, sft,
             None if a8_next is None else a8_next.data_ptr(), L, panel_m, n,
-            k, hk._q_max(num_moduli), build.stream_ptr(a8_p0.device))
+            k, enc.q_max(num_moduli), build.stream_ptr(a8_p0.device))
     build.check(code, "matmul_bsplit_pair")
     build.LAUNCHES["matmul_bsplit_pair"] += 2
     return res, bt, a8_next

@@ -310,7 +310,7 @@ def test_accurate_wrapper_argument_errors():
     with pytest.raises(ValueError):
         hk.emax(x, 2)
     with pytest.raises(TypeError):
-        hk.emax(x.float(), 1)
+        hk.emax(x.half(), 1)
     with pytest.raises(ValueError):
         hk.mag7(x, torch.zeros((1, 6), dtype=torch.int32), 1)
     m8 = torch.ones((4, 6), dtype=torch.int8)
@@ -322,16 +322,118 @@ def test_accurate_wrapper_argument_errors():
         hm.magmax_matmul(m8[:, :0], m8.t()[:0])
 
 
-@pytest.mark.parametrize("kwargs,item", [(dict(out_dtype="f32"), "A4")])
-def test_accurate_unported_combinations_name_roadmap(kwargs, item):
-    a = torch.ones((4, 4), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match=item):
-        tg.gemm_core(a, a, 14, fastmode=False, **kwargs)
+# ---- f32 operands and output ----------------------------------------------
+
+def _gemm_core_pallas_kinds(a, b, L, out_dtype):
+    """The JAX package's Pallas gemm_core (interpret mode) on f64 or f32
+    operands, as numpy words of out_dtype."""
+    ja = f64_to_bits(a) if a.dtype == np.float64 else jnp.asarray(a)
+    jb = f64_to_bits(b) if b.dtype == np.float64 else jnp.asarray(b)
+    ref = gg.gemm_core(ja, jb, L, False, out_dtype, use_pallas=True)
+    if out_dtype == "f64":
+        return bits_to_f64(ref, to_numpy=True)
+    return np.asarray(ref)
 
 
-def test_accurate_f32_operands_name_roadmap():
-    a = torch.ones((4, 4), dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="A4"):
-        tg.gemm_core(a, a, 14, fastmode=False)
-    with pytest.raises(NotImplementedError, match="A4"):
-        gt.gemm(a, a, fastmode=False)
+@pytest.mark.parametrize("L", [8, 14])
+def test_gemm_core_accurate_f32_output(L):
+    """Accurate mode with f32 output (refused until the f32 reconstruct
+    was ported): the JAX package's Pallas words on the same shifts."""
+    a = phi_matrix(40, 96, 0.5, seed=3)
+    b = phi_matrix(96, 32, 0.5, seed=4)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    got = tg.gemm_core(ta, tb, L, fastmode=False, out_dtype="f32")
+    assert got.dtype == torch.float32
+    sa, sb = tg.accurate_sfts(ta, tb, L)
+    ja, jb = gg.accurate_sfts(f64_to_bits(a), f64_to_bits(b), L)
+    if np.array_equal(np.asarray(ja), sa.numpy()) and np.array_equal(
+            np.asarray(jb), sb.numpy()):
+        np.testing.assert_array_equal(
+            _gemm_core_pallas_kinds(a, b, L, "f32").view(np.uint32),
+            got.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("dtypes", ["f32-f32", "f32-f64", "f64-f32"])
+def test_gemm_accurate_f32_operands_match_jax(dtypes):
+    """Accurate mode with f32 operands (refused until the f32 forms of
+    emax and mag7 were ported), each operand at its own bias: the JAX
+    package's Pallas shifts (under the f32 log2 rule) and words."""
+    da, db = (np.float32 if d == "f32" else np.float64
+              for d in dtypes.split("-"))
+    a = phi_matrix(48, 80, 1.0, seed=5).astype(da)
+    b = phi_matrix(80, 40, 1.0, seed=6).astype(db)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    out = "f64" if np.float64 in (da, db) else "f32"
+    got = tg.gemm_core(ta, tb, 14, fastmode=False, out_dtype=out).numpy()
+    sa, sb = tg.accurate_sfts(ta, tb, 14)
+    ja = f64_to_bits(a) if da == np.float64 else jnp.asarray(a)
+    jb = f64_to_bits(b) if db == np.float64 else jnp.asarray(b)
+    smax_a, smax_b = hm.magmax_matmul(hk.mag7_operand(ta, 1)[0],
+                                      hk.mag7_operand(tb, 0)[0])
+    ra, rb = gg.accurate_sfts(ja, jb, 14, use_pallas=True)
+    n = _assert_shift_rule(ra, sa.numpy(), smax_a, 14)
+    n += _assert_shift_rule(rb, sb.numpy(), smax_b, 14)
+    if n == 0:
+        np.testing.assert_array_equal(
+            _gemm_core_pallas_kinds(a, b, 14, out).view(np.uint8),
+            got.view(np.uint8))
+
+
+def _edge32(shape, axis, seed):
+    """An f32 (m, n) whose lines along `axis` (1: rows, 0: columns) are:
+    subnormals only, zeros, -0.0, partly -0.0, exponents spread over
+    2^-120 .. 2^120, values near FLT_MAX, and subnormals inside a normal
+    line."""
+    m, n = shape if axis == 1 else shape[::-1]
+    rng = np.random.default_rng(seed)
+    x = phi_matrix(m, n, 2.0, seed=seed).astype(np.float32)
+    x[0, :] = rng.integers(1, 1 << 23, n).astype(np.uint32).view(np.float32)
+    x[1, :] = 0.0
+    x[2, :] = -0.0
+    x[3, ::3] = -0.0
+    x[4, :] = ((rng.random(n) + 0.5) * rng.choice([-1.0, 1.0], n)
+               * 2.0 ** rng.integers(-120, 121, n)).astype(np.float32)
+    x[5, ::5] = np.float32(3.3e38)
+    x[6, ::4] = np.uint32(3).view(np.float32)
+    return x if axis == 1 else np.ascontiguousarray(x.T)
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("kind", ["phi", "edge"])
+def test_emax_mag7_f32_match_pallas(axis, kind):
+    """The f32 forms: emax over f32 exponents (subnormals count as 1) and
+    magnitudes below it at the 24-bit significand, bit-equal to the JAX
+    kernels on f32 operands, with a subnormal-only line, zeros, -0.0 and
+    values near FLT_MAX."""
+    if kind == "phi":
+        x = phi_matrix(88, 272, 2.0, seed=7).astype(np.float32)
+    else:
+        x = _edge32((40, 72), axis, seed=8)
+    t = torch.from_numpy(x)
+    je = np.asarray(pk.emax_pallas(jnp.asarray(x), axis))
+    te = hk.emax(t, axis)
+    np.testing.assert_array_equal(je, te.numpy())
+    jm = np.asarray(pk.mag7_pallas(jnp.asarray(x), jnp.asarray(je), axis))
+    np.testing.assert_array_equal(jm, hk.mag7(t, te, axis).numpy())
+    if kind == "edge":   # the widened f64 operand gives other exponents
+        assert not np.array_equal(je, hk.emax(t.double(), axis).numpy())
+
+
+@pytest.mark.parametrize("L", range(2, 21))
+def test_accurate_sft_f32_log2_rule(L):
+    """accurate_sft at prec 24 (bias 127) against the JAX package's at
+    every probe value: equal, or off by 1 at a floor boundary (C3's f32
+    log2 rule)."""
+    s = _log2_probe_values()
+    e = np.full((1, s.size), 127, np.int32)
+    smax = s.reshape(1, -1)
+    ref = np.asarray(jenc.accurate_sft(jnp.asarray(smax), jnp.asarray(e),
+                                       L, 24))
+    got = enc.accurate_sft(torch.from_numpy(smax), torch.from_numpy(e), L,
+                           mant_bits=24)
+    assert got.dtype == torch.int32
+    n = _assert_shift_rule(ref, got.numpy(), smax, L)
+    assert n < s.size // 1000, f"{n} of {s.size} shifts differ"
+    f64 = enc.accurate_sft(torch.from_numpy(smax), torch.from_numpy(e) + 896,
+                           L)
+    assert torch.equal(got, f64)   # the same shift, 896 bias steps apart

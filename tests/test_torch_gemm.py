@@ -116,8 +116,6 @@ def test_gemm_numpy_needs_device():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(alpha=2.0), dict(beta=1.0, c=np.ones((4, 4))), dict(op_a="T"),
-    dict(op_b="C"), dict(out_dtype=torch.float32),
     dict(out_dtype=torch.complex128), dict(return_times=True)])
 def test_gemm_unported_arguments_name_roadmap(kwargs):
     a = torch.ones((4, 4), dtype=torch.float64)
@@ -125,10 +123,42 @@ def test_gemm_unported_arguments_name_roadmap(kwargs):
         gt.gemm(a, a, **kwargs)
 
 
+# The front end's arguments that the real path now takes (they raised
+# NotImplementedError before it had them): each runs through gemm, with
+# the value of alpha * op(A) @ op(B) + beta * C in the dtype it asks for.
+# tests/test_torch_f32.py holds them to the JAX package's bits.
+@pytest.mark.parametrize("kwargs,value,dtype", [
+    (dict(alpha=2.0), 8.0, torch.float64),
+    (dict(alpha=0.1), 0.4, torch.float64),
+    (dict(beta=1.0, c=np.ones((4, 4))), 5.0, torch.float64),
+    (dict(op_a="T"), 4.0, torch.float64),
+    (dict(op_b="C"), 4.0, torch.float64),
+    (dict(out_dtype=torch.float32), 4.0, torch.float32),
+    (dict(alpha=-0.5, beta=0.25, c=np.full((4, 4), 8.0),
+          out_dtype="f32"), 0.0, torch.float32)])
+def test_gemm_front_end_arguments(kwargs, value, dtype):
+    a = torch.ones((4, 4), dtype=torch.float64)
+    got = gt.gemm(a, a, **kwargs)
+    assert got.dtype == dtype
+    assert torch.equal(got, torch.full((4, 4), value, dtype=dtype))
+
+
+def test_gemm_transposes_views():
+    """op_a="T" on a tensor and its transposed copy with op N give the same
+    bits; so does a non-contiguous view."""
+    a, b = _mk((40, 24), 0.5, seed=11), _mk((40, 16), 0.5, seed=12)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    got = gt.gemm(ta, tb, op_a="T")
+    assert torch.equal(got.view(torch.int64),
+                       gt.gemm(ta.t().contiguous(), tb).view(torch.int64))
+    assert torch.equal(got.view(torch.int64),
+                       gt.gemm(ta.t(), tb).view(torch.int64))
+
+
 def test_gemm_argument_errors():
     a = torch.ones((4, 4), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gt.gemm(a.float(), a.float())
+    c32 = gt.gemm(a.float(), a.float())
+    assert torch.equal(c32, torch.full((4, 4), 4.0, dtype=torch.float32))
     with pytest.raises(ValueError):
         gt.gemm(a, a, num_moduli=21)
     with pytest.raises(ValueError):

@@ -1,12 +1,16 @@
 """Golden bits of the JAX package, for the port on any device.
 
 `tests/data/torch_golden.npz` holds, for a few calls of ragged shapes (real
-fast and accurate, complex fast and accurate, one pipelined call), how to
-make the operands (shape, phi, seeds of `phi_matrix`), the JAX package's
-shifts and a SHA-256 digest of the JAX package's output bits
+fast and accurate, complex fast and accurate, one pipelined call; f32 and
+mixed operands, f32 output, alpha/beta and op T), how to make the operands
+(shape, phi, seeds of `phi_matrix`, dtypes, ops), the JAX package's shifts
+and a SHA-256 digest of the JAX package's output bits
 (`gemmul8_tpu_torch.bench.golden` makes the operands and digests). The JAX
 side is `gemm_core` / `gemm_complex_core` with use_pallas=True (Pallas in
-interpret mode) on the CPU. Two tests run in Tier-1:
+interpret mode) on the CPU, with the JAX front end's op, dtype, alpha fold
+and epilogue around it (`gemmul8_tpu.api`); the alpha/beta entry has f64
+output, whose epilogue is the softfloat's separate roundings (the f32 one
+is contracted by XLA, ROADMAP C9). Two tests run in Tier-1:
 
 - the file is regenerated from the JAX package and compared with the
   committed one, so it cannot go stale;
@@ -40,34 +44,58 @@ jax.config.update("jax_enable_x64", True)
 
 import torch  # noqa: E402
 
+from gemmul8_tpu import api as japi  # noqa: E402
 from gemmul8_tpu.core import complexgemm as jcg  # noqa: E402
 from gemmul8_tpu.core import gemm as gg  # noqa: E402
 from gemmul8_tpu.pallas import kernels as pk  # noqa: E402
 from gemmul8_tpu.types import bits_to_f64, f64_to_bits  # noqa: E402
-from gemmul8_tpu_torch.bench.golden import (digest, operands,  # noqa: E402
-                                            port_entry)
+from gemmul8_tpu_torch.bench.golden import (c_operand,  # noqa: E402
+                                            digest, operands, port_entry)
 from gemmul8_tpu_torch.core import encode as enc  # noqa: E402
 
 GOLDEN = Path(__file__).resolve().parent / "data" / "torch_golden.npz"
 MARGIN = 1e-4
 
+
+
+def _call(dtypes=("f64", "f64"), out_dtype=None, alpha=1.0, beta=0.0,
+          ops=("N", "N")):
+    return {"dtypes": list(dtypes), "out_dtype": out_dtype, "alpha": alpha,
+            "beta": beta, "ops": list(ops)}
+
+
+F64 = _call()
+F32 = _call(("f32", "f32"))
+
 # name -> (kind, (m, k, n), num_moduli, fastmode, phi, seeds, compute type,
-# GEMMUL8_PIPELINE)
+# GEMMUL8_PIPELINE, call)
 ENTRIES = {
     "real_fast_ragged": ("real", (72, 200, 56), 14, True, 0.5, (3, 4),
-                         None, "0"),
+                         None, "0", F64),
     "real_fast_two_chunks": ("real", (24, 2600, 20), 14, True, 1.0, (6, 7),
-                             None, "0"),
+                             None, "0", F64),
     "real_fast_L8": ("real", (40, 136, 24), 8, True, 2.0, (13, 14), None,
-                     "0"),
+                     "0", F64),
     "real_accurate_ragged": ("real", (72, 200, 56), 14, False, 0.5, (3, 4),
-                             None, "0"),
+                             None, "0", F64),
     "complex_fast": ("complex", (40, 72, 24), 14, True, 0.5, (21, 22),
-                     "COMPLEX_KARATSUBA_MULT", "0"),
+                     "COMPLEX_KARATSUBA_MULT", "0", F64),
     "complex_accurate": ("complex", (40, 72, 24), 14, False, 0.5, (21, 22),
-                         "COMPLEX_BIG_MATRIX_ENCODE", "0"),
+                         "COMPLEX_BIG_MATRIX_ENCODE", "0", F64),
     "pipelined_mode3": ("real", (512, 128, 1024), 5, True, 1.0, (41, 42),
-                        None, "3"),
+                        None, "3", F64),
+    "f32_fast_L8": ("real", (72, 200, 56), 8, True, 0.5, (3, 4), None, "0",
+                    F32),
+    "f32_accurate_L8": ("real", (72, 200, 56), 8, False, 0.5, (3, 4), None,
+                        "0", F32),
+    "f64_f32_to_f32": ("real", (40, 136, 24), 10, True, 2.0, (13, 14), None,
+                       "0", _call(("f64", "f32"), "f32")),
+    "f32_f32_to_f64_L10": ("real", (40, 2600, 24), 10, True, 1.0, (6, 7),
+                           None, "0", _call(("f32", "f32"), "f64")),
+    "alpha_beta_f64": ("real", (48, 96, 40), 14, True, 0.5, (31, 32), None,
+                       "0", _call(("f32", "f64"), None, 1.7, -0.3)),
+    "op_t_f32": ("real", (56, 120, 32), 8, False, 1.0, (33, 34), None, "0",
+                 _call(("f32", "f32"), None, 0.25, 0.0, ("T", "C"))),
 }
 
 
@@ -76,21 +104,31 @@ def _bits(a):
 
 
 def jax_entry(name):
-    """(sft_a, sft_b, digest) of an entry from the JAX package."""
-    kind, shape, L, fastmode, phi, seeds, ct, pipe = ENTRIES[name]
-    a, b = operands(kind, shape, phi, seeds)
+    """(sft_a, sft_b, digest) of an entry from the JAX package: its
+    Pallas core, inside the JAX front end's op, dtype, alpha fold and
+    epilogue for a real call."""
+    kind, shape, L, fastmode, phi, seeds, ct, pipe, call = ENTRIES[name]
+    a, b = operands(kind, shape, phi, seeds, call)
     saved = os.environ.get("GEMMUL8_PIPELINE")
     os.environ["GEMMUL8_PIPELINE"] = pipe
     try:
         if kind == "real":
-            A, B = _bits(a), _bits(b)
+            A = japi._canon_real(japi._apply_op(a, call["ops"][0], False))
+            B = japi._canon_real(japi._apply_op(b, call["ops"][1], False))
+            out = japi._out_kind(A, B, call["out_dtype"])
+            alpha, beta = call["alpha"], call["beta"]
+            alpha_e = japi.pow2_exponent(alpha) if beta == 0.0 else None
+            if alpha_e is not None:
+                alpha = 1.0
             if fastmode:
                 sa = pk.fast_sft_pallas(A, L, axis=1)
                 sb = pk.fast_sft_pallas(B, L, axis=0)
             else:
                 sa, sb = gg.accurate_sfts(A, B, L, use_pallas=True)
-            c = bits_to_f64(gg.gemm_core(A, B, L, fastmode, "f64",
-                                         use_pallas=True), to_numpy=True)
+            raw = gg.gemm_core(A, B, L, fastmode, out, use_pallas=True,
+                               alpha_e=alpha_e or 0)
+            c_in = c_operand(shape, phi, seeds) if beta != 0.0 else None
+            c = np.asarray(japi._finalize(raw, out, alpha, beta, c_in, True))
         else:
             parts = [_bits(x) for x in (a.real, a.imag, b.real, b.imag)]
             if fastmode:
@@ -116,10 +154,13 @@ def shift_margin(name) -> float:
     """The least distance of a fast-mode shift's pre-floor value from an
     integer over the entry's rows and columns (1.0 in accurate mode, whose
     shifts the card computes with the CPU's ops on exact integers)."""
-    kind, shape, L, fastmode, phi, seeds, _, _ = ENTRIES[name]
+    kind, shape, L, fastmode, phi, seeds, _, _, call = ENTRIES[name]
     if not fastmode:
         return 1.0
-    a, b = operands(kind, shape, phi, seeds)
+    a, b = operands(kind, shape, phi, seeds, call)
+    if kind == "real":   # the shifts are op(A)'s and op(B)'s
+        a = a if call["ops"][0] == "N" else np.ascontiguousarray(a.T)
+        b = b if call["ops"][1] == "N" else np.ascontiguousarray(b.T)
     worst = 1.0
     for x, axis in ((a, 1), (b, 0)):
         if kind == "real":

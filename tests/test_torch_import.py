@@ -49,7 +49,7 @@ def test_sources_are_cuda_files():
                      "matmul_mod_pipelined.cu", "matmul_reconstruct.cu",
                      "matmul_rider.cu",
                      "mma_s8.cuh", "moduli.cuh", "reconstruct.cu",
-                     "residue.cuh", "transpose_b.cuh"]
+                     "residue.cuh", "src_word.cuh", "transpose_b.cuh"]
 
 
 def test_every_entry_point_has_a_signature():

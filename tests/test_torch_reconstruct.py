@@ -17,6 +17,7 @@ from gemmul8_tpu.pallas import kernels as pk
 from gemmul8_tpu.types import bits_to_f64
 from gemmul8_tpu_torch import tables
 from gemmul8_tpu_torch.core import limbs as lb
+from gemmul8_tpu_torch.core import reconstruct as rec
 from gemmul8_tpu_torch.hopper import kernels as hk
 
 
@@ -170,3 +171,118 @@ def test_reconstruct_argument_checks():
         hk.reconstruct(r, sb, sa, 4)
     with pytest.raises(ValueError):
         hk.reconstruct(r.to("meta"), sa, sb, 4)
+
+
+# ---- f32 output --------------------------------------------------------------
+
+def exact_f32(x: int, e: int) -> float:
+    """x * 2^e rounded once to nearest even into f32 (subnormals, overflow
+    to inf), from Python integers."""
+    v = Fraction(x) * Fraction(2) ** e
+    if v == 0:
+        return 0.0
+    a = abs(v)
+    p = a.numerator.bit_length() - a.denominator.bit_length()
+    if Fraction(2) ** p > a:
+        p -= 1                              # 2^p <= a < 2^(p+1)
+    q = max(p, -126) - 23                   # the f32 step at a
+    n = round(a / Fraction(2) ** q)         # round half to even
+    r = n * Fraction(2) ** q
+    if r >= 2 ** 128:
+        return float("inf") if x > 0 else float("-inf")
+    return float(r) if x > 0 else -float(r)
+
+
+# (x, e): f32 ties and one away on each side, a far sticky bit, integers
+# where rounding to f64 first and then to f32 would round twice, f32
+# subnormals (a tie rounding up into the smallest normal among them),
+# underflow to 0, the largest finite value and overflow to inf
+F32_VALUES = [
+    (2 ** 25 + 2, 0), (2 ** 25 + 1, 0), (2 ** 25 + 3, 0), (2 ** 25 + 6, 0),
+    (2 ** 24 + 1, 0), (2 ** 24 + 3, 0), (-(2 ** 24 + 1), 5),
+    ((2 ** 24 + 1) * 2 ** 40 + 1, -40),
+    (2 ** 53 + 2 ** 29 + 1, -30), (2 ** 53 + 2 ** 29, -30),
+    (2 ** 53 + 2 ** 29 - 1, -30), (-(2 ** 53 + 2 ** 29 + 1), 7),
+    (3, -151), (1, -150), (3, -150), (12345, -160), (1, -149), (-5, -151),
+    (1, -152), (2 ** 24 - 1, -150), (-(2 ** 24 - 1), -150),
+    (2 ** 24 - 1, 104), (2 ** 25 - 1, 103), (7, 126), (1, 127),
+    (2 ** 60, 100), (-(2 ** 25 - 1), 103)]
+
+
+def test_exact_f32_oracle():
+    """The oracle against numpy's own f64 -> f32 rounding where the value
+    is an f64 (one rounding), and at the double-rounding trap."""
+    for x, e in [(2 ** 24 + 1, 0), (3, -151), (2 ** 25 - 1, 103)]:
+        with np.errstate(over="ignore"):
+            assert exact_f32(x, e) == float(np.float32(x * 2.0 ** e))
+    assert exact_f32(2 ** 53 + 2 ** 29 + 1, 0) == 2.0 ** 53 + 2.0 ** 30
+    assert float(np.float32(float(2 ** 53 + 2 ** 29 + 1))) == 2.0 ** 53
+
+
+@pytest.mark.parametrize("L", [2, 8, 14, 20])
+@pytest.mark.parametrize("kind", ["i8", "u8"])
+def test_reconstruct_f32_matches_pallas(L, kind):
+    """f32 output against reconstruct_pallas(out_kind="f32")."""
+    rng = np.random.default_rng(20 + L)
+    r = np.stack([rng.integers(0, tables.MODULI[j], (48, 64))
+                  for j in range(L)])
+    sa = rng.integers(-40, 40, (48, 1)).astype(np.int32)
+    sb = rng.integers(-40, 40, (1, 64)).astype(np.int32)
+    x = _as_input(r, kind)
+    ref = np.asarray(pk.reconstruct_pallas(jnp.asarray(x), jnp.asarray(sa),
+                                           jnp.asarray(sb), L, "f32",
+                                           block=(16, 64)))
+    got = hk.reconstruct(torch.from_numpy(x), torch.from_numpy(sa),
+                         torch.from_numpy(sb), L, "f32")
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(ref.view(np.uint32),
+                                  got.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("L", [8, 14])
+@pytest.mark.parametrize("input_kind", ["i8", "u8", "products", "limbs"])
+def test_reconstruct_f32_rounding_once(L, input_kind):
+    """F32_VALUES from every input kind (raw int32 products holding a
+    residue plus a multiple of its modulus, 16-bit limbs with a carry
+    pushed back into a lower limb): the exactly rounded f32 values, and
+    reconstruct_pallas' f32 words. (Values past M/2 are left out.)"""
+    vals = [(v, e) for v, e in F32_VALUES if abs(v) < tables.big_m(L) // 2]
+    r = _residues_of([v for v, _ in vals], L)
+    sa = np.zeros((1, 1), np.int32)
+    sb = -np.array([e for _, e in vals], np.int32).reshape(1, -1)
+    if input_kind in ("i8", "u8"):
+        x, jkind = _as_input(r, input_kind), "residues"
+    elif input_kind == "products":
+        mods = np.array(tables.MODULI[:L]).reshape(L, 1, 1)
+        mult = (np.arange(r.shape[2]).reshape(1, 1, -1) * 7919) % 2001 - 1000
+        x, jkind = (r + mods * mult).astype(np.int32), "residues"
+    else:
+        limbs = torch.stack(rec.accumulate_weighted(torch.from_numpy(r), L))
+        back = limbs[1] > 0   # a carry pushed back into limb 0
+        limbs[1][back] -= 1
+        limbs[0][back] += 1 << 16
+        x, jkind = limbs.to(torch.int32).numpy(), "limbs"
+    got = hk.reconstruct(torch.from_numpy(x), torch.from_numpy(sa),
+                         torch.from_numpy(sb), L, "f32",
+                         input_kind="limbs" if jkind == "limbs"
+                         else "residues").numpy()
+    want = np.array([[exact_f32(v, e) for v, e in vals]], np.float32)
+    np.testing.assert_array_equal(want.view(np.uint32), got.view(np.uint32))
+    if jkind == "limbs":   # the JAX limb input takes canonical limbs
+        x = torch.stack(rec.accumulate_weighted(torch.from_numpy(r), L)).to(
+            torch.int32).numpy()
+    ref = np.asarray(pk.reconstruct_pallas(jnp.asarray(x), jnp.asarray(sa),
+                                           jnp.asarray(sb), L, "f32",
+                                           input_kind=jkind))
+    np.testing.assert_array_equal(ref.view(np.uint32), got.view(np.uint32))
+
+
+def test_reconstruct_f32_argument_checks():
+    r = torch.zeros((4, 3, 5), dtype=torch.int8)
+    sa = torch.zeros((3, 1), dtype=torch.int32)
+    sb = torch.zeros((1, 5), dtype=torch.int32)
+    with pytest.raises(ValueError, match="out_dtype"):
+        hk.reconstruct(r, sa, sb, 4, "f16")
+    with pytest.raises(ValueError, match="f64 output"):
+        hk.reconstruct(r, sa, sb, 4, "f32",
+                       out=torch.zeros((3, 5), dtype=torch.float64))
