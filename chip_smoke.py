@@ -172,15 +172,55 @@ reconstruct add:
       tiles < 2e-7 against the dd oracle of the f32 operands), f64 x f32 ->
       f64 at 14 moduli (gate < 1e-8), alpha=1.7 beta=-0.3 with C in f64 and
       f32 output (numpy's epilogue on the raw call's bits), op_a="T" (the op
-      N call's bits), peak memory beside the planner's figure; and the four
-      switches whose kernels are f64-only refusing f32 calls, naming ROADMAP
-      B18;
+      N call's bits), peak memory beside the planner's figure; and
+      GEMMUL8_PIPELINE, whose kernels are f64-only, refusing f32 calls,
+      naming ROADMAP B18;
   5f. at 8192^2 operands, 8 moduli: each f32 form beside its f64 form
       (medians of five rotated rounds) and its plain version (warm-up
       outputs held bit for bit); then the f32 and f64 fast-8 and
       accurate-8 calls and torch.matmul in f32 with TF32 off, medians of
       five rotated rounds, as 2mnk/t.
 The f32 forms' `launches` sum the 8192^3 calls of phase 4f.
+
+The complex front end (complex64 and mixed complex operands, complex64
+output, op T/C, complex alpha/beta) and the f32 forms of fast_sft's
+statistics mode, fast_encode_fused, mag7_fused and matmul_reconstruct add:
+  3x. at phase 3f's shapes, moduli counts and special lines: the f32
+      statistics of each of four f32 parts (emax and flag bit-equal, the
+      norm under the floor rule) and the joint f32 shift; the f32 |Re| +
+      |Im| magnitudes; fast_encode_fused[f32] (shifts equal to the fast_sft
+      kernel's, slices bit-equal), mag7_fused[f32] (also the emax + mag7
+      kernels' bits) and matmul_reconstruct[f32] (also matmul_mod_u8 +
+      reconstruct's bits) against their plain versions;
+  3g. the golden file's complex64, complex128 x complex64 and f32-under-
+      switch entries too;
+  4x. at 8192^3 on A64 = complex64(A) (phase 4c's A rounded) and B64 =
+      A64.T: complex64 -> complex64 at 8 moduli, three strategies fast and
+      Karatsuba and big-matrix accurate, with launch counts (fast:
+      fast_stats[f32] 4, encode_slices[f32] 4, matmul_complex_mod 1,
+      reconstruct[f32] 2), median relerr of three 256 x 256 tiles < 2e-7
+      against the dd oracle of the complex64 operands, the fast strategies'
+      bits identical; complex128 x complex64 -> complex128 at 14 moduli
+      (each operand's forms launched, max relerr < 1e-8); op_a="C" on
+      numpy's conj(A64).T (the op N call's bits); alpha=1.5-0.5j,
+      beta=0.25+2j with a complex64 c (numpy's separate f32 roundings on
+      the host, on the raw call's bits); f32 x f32 -> f32 at 8 moduli under
+      GEMMUL8_FUSED_ENCODE, GEMMUL8_FUSED_MAG7 and GEMMUL8_FUSED_RECONSTRUCT
+      (the variant's f32 form launched, the default call's bits); then at
+      2048^3 complex64 (both modes, classic and Karatsuba) and complex128 x
+      complex64 through the kernels == the all-plain path (bits);
+  5x. at 8192^2 operands, 8 moduli: fast_stats[f32] on the four parts
+      beside the f64 statistics on four f64 parts; fast_encode_fused[f32]
+      and mag7_fused[f32] on A's rows and B's columns beside their f64
+      forms and the f32 pairs they replace; matmul_reconstruct[f32] beside
+      its f64 output and matmul_mod_u8 + reconstruct[f32] (medians of five
+      rotated rounds), each beside its plain version (warm-up outputs held:
+      bit for bit, shifts under the floor rule); the bounds of the f64
+      statistics mode and of the Karatsuba complex GEMM; then the complex64
+      8192^3 calls and torch.matmul in complex64 with TF32 off, medians of
+      five rotated rounds, as 2mnk/t and 8mnk/t.
+The new f32 forms' `launches` sum the 8192^3 calls of phase 4x (and the
+statistics mode's f32 form is an entry of its own).
 
 The line before the last is a JSON object of per-kernel results
 (`launches` sums the main-path calls of phase 4, real and complex, for the
@@ -346,6 +386,26 @@ F32_ROUNDS = 5
 ALPHA, BETA = 1.7, -0.3  # phase 4f's general epilogue (not f32 values)
 KERNELS.update({build.form(name, True): KERNELS[name]
                 for name in F32_KERNELS})
+# phases 3x/4x/5x: the f32 forms of the statistics mode (an entry of its
+# own) and of the one-shot variants
+KERNELS["fast_stats[f32]"] = KERNELS["fast_sft"]
+KERNELS.update({build.form(name, True): KERNELS[name]
+                for name in ("fast_encode_fused", "mag7_fused",
+                             "matmul_reconstruct")})
+C_ALPHA, C_BETA = 1.5 - 0.5j, 0.25 + 2j   # phase 4x's complex epilogue
+# phase 4x: f32 x f32 -> f32 calls at 8 moduli under the one-shot
+# variants' switches: (name, fastmode, switches, launch counts)
+F32_SWITCH_CALLS = [
+    ("f32 fast FUSED_ENCODE", True, {"GEMMUL8_FUSED_ENCODE": "1"},
+     {"fast_encode_fused[f32]": 2, "matmul_mod_u8": 1,
+      "reconstruct[f32]": 1}),
+    ("f32 accurate FUSED_MAG7", False, {"GEMMUL8_FUSED_MAG7": "1"},
+     {"mag7_fused[f32]": 2, "magmax_matmul": 1, "encode_slices[f32]": 2,
+      "matmul_mod_u8": 1, "reconstruct[f32]": 1}),
+    ("f32 fast FUSED_RECONSTRUCT", True, {"GEMMUL8_FUSED_RECONSTRUCT": "1"},
+     {"fast_sft[f32]": 2, "encode_slices[f32]": 2,
+      "matmul_reconstruct[f32]": 1}),
+]
 # the card's published peaks (H100 SXM5 data sheet, dense): device-memory
 # bytes per second and int8 tensor-core operations per second
 HBM_BYTES_PER_S = 3.35e12
@@ -642,16 +702,24 @@ def check_joint_sft(kern, plain, re, im, axis, L):
     return worst
 
 
+def stats_key(x):
+    """The kernel-line entry a fast_stats launch on x counts under: the
+    f64 statistics mode as fast_sft, its f32 form as its own."""
+    key = build.form("fast_stats", enc.mant_bits_of(x) == 24)
+    return KERNEL_OF.get(key, key)
+
+
 def check_stats(errs, x, axis, L):
-    """fast_stats vs its plain version: emax and the any flag bit-equal,
-    the norm under the floor-boundary rule on the shift it gives."""
+    """fast_stats vs its plain version on an f64 or f32 operand: emax and
+    the any flag bit-equal, the norm under the floor-boundary rule on the
+    shift it gives (at the operand's bias)."""
     got, ref = hk.fast_stats(x, axis), hk.fast_stats_plain(x, axis)
     assert torch.equal(got[0], ref[0]) and torch.equal(got[2], ref[2]), \
         "fast_stats: emax or any flag differs from the plain version"
-    kdim = x.shape[axis]
-    e = check_sft(enc.sft_from_stats(*got, kdim, L),
-                  enc.sft_from_stats(*ref, kdim, L), x, axis, L)
-    errs["fast_sft"] = max(errs["fast_sft"], e)
+    kdim, mb = x.shape[axis], enc.mant_bits_of(x)
+    e = check_sft(enc.sft_from_stats(*got, kdim, L, mb),
+                  enc.sft_from_stats(*ref, kdim, L, mb), x, axis, L)
+    errs[stats_key(x)] = max(errs[stats_key(x)], e)
 
 
 def mag7_complex_plain(re, im, axis):
@@ -951,18 +1019,22 @@ def phase_slice(launches):
 
 
 def accurate_plain_sfts_complex(a_re, a_im, b_re, b_im, L):
-    """Complex accurate-mode shifts with every step a plain version."""
+    """Complex accurate-mode shifts with every step a plain version (each
+    operand at its own exponent bias)."""
     ma, ea = mag7_complex_plain(a_re, a_im, 1)
     mb, eb = mag7_complex_plain(b_re, b_im, 0)
     sa, sb = hm.magmax_plain(ma, mb)
     shift = enc.MAG_SHIFT_COMPLEX
-    return (enc.accurate_sft(sa, ea, L, shift),
-            enc.accurate_sft(sb, eb, L, shift))
+    return (enc.accurate_sft(sa, ea, L, shift,
+                             mant_bits=enc.mant_bits_of(a_re)),
+            enc.accurate_sft(sb, eb, L, shift,
+                             mant_bits=enc.mant_bits_of(b_re)))
 
 
-def plain_gemm_complex(parts, L, fastmode, karatsuba, sfts=None):
+def plain_gemm_complex(parts, L, fastmode, karatsuba, sfts=None,
+                       out="f64"):
     """The complex path with every step a plain version, on the parts'
-    device: (complex128 product, sft_a, sft_b)."""
+    device: (complex128 or complex64 product, sft_a, sft_b)."""
     a_re, a_im, b_re, b_im = parts
     if sfts is None and fastmode:
         sfts = (enc.joint_fast_sft(a_re, a_im, L, 1),
@@ -976,30 +1048,39 @@ def plain_gemm_complex(parts, L, fastmode, karatsuba, sfts=None):
     if karatsuba:
         kara = (sg.recenter_add_int8(*a8, L), sg.recenter_add_int8(*b8, L))
     r_re, r_im = hm.matmul_complex_mod_plain(*a8, *b8, L, True, kara)
-    return (torch.complex(hk.reconstruct_plain(r_re, sa, sb, L),
-                          hk.reconstruct_plain(r_im, sa, sb, L)), sa, sb)
+    return (torch.complex(hk.reconstruct_plain(r_re, sa, sb, L, out),
+                          hk.reconstruct_plain(r_im, sa, sb, L, out)), sa,
+            sb)
+
+
+def complex_relerrs(c, oracle):
+    """|c - ref| / |ref| over three 256 x 256 tiles of c against the
+    complex dd oracle, the difference taken against hi, then lo."""
+    errs = []
+    for (r0, c0), ((hr, lr), (hi_, li)) in oracle.items():
+        got = c[r0:r0 + 256, c0:c0 + 256].cpu().numpy().astype(np.complex128)
+        d = np.hypot((got.real - hr) - lr, (got.imag - hi_) - li)
+        errs.append((d / np.hypot(hr, hi_)).ravel())
+    return np.concatenate(errs)
 
 
 def complex_gate(c, oracle):
-    """Max |c - ref| / |ref| over three 256 x 256 tiles of c against the
-    complex dd oracle, the difference taken against hi, then lo."""
-    worst = 0.0
-    for (r0, c0), ((hr, lr), (hi_, li)) in oracle.items():
-        got = c[r0:r0 + 256, c0:c0 + 256].cpu().numpy()
-        d = np.hypot((got.real - hr) - lr, (got.imag - hi_) - li)
-        worst = max(worst, float((d / np.hypot(hr, hi_)).max()))
-    return worst
+    """Max complex_relerrs."""
+    return float(complex_relerrs(c, oracle).max())
 
 
-def complex_oracle(a_re, a_im):
-    """dd products of three 256 x 256 tiles of A @ A.T, A = a_re + i a_im:
-    Re = [ReA, ImA] [ReB; -ImB] and Im = [ReA, ImA] [ImB; ReB] over the
-    k-concatenation, with B = A.T (negation is exact)."""
+def complex_oracle(a_re, a_im, x_re=None, x_im=None):
+    """dd products of three 256 x 256 tiles of A @ B, A = a_re + i a_im and
+    B = X.T (X = A unless x_re, x_im are given): Re = [ReA, ImA] [ReB;
+    -ImB] and Im = [ReA, ImA] [ImB; ReB] over the k-concatenation
+    (negation is exact). Parts are f64 numpy arrays (f32 values widened)."""
+    if x_re is None:
+        x_re, x_im = a_re, a_im
     oracle = {}
     for r0, c0 in [(0, 0), (N // 2, N - 256), (N - 256, N - 256)]:
         rows = np.hstack([a_re[r0:r0 + 256], a_im[r0:r0 + 256]])
-        b_re = a_re[c0:c0 + 256].T
-        b_im = a_im[c0:c0 + 256].T
+        b_re = x_re[c0:c0 + 256].T
+        b_im = x_im[c0:c0 + 256].T
         oracle[(r0, c0)] = (dd_gemm(rows, np.vstack([b_re, -b_im])),
                             dd_gemm(rows, np.vstack([b_im, b_re])))
     return oracle
@@ -2243,33 +2324,27 @@ def gate_median(c, oracle):
 
 
 def refusal_checks():
-    """f32 operands or output under each switch whose kernels have their
-    f64 forms only: NotImplementedError naming ROADMAP B18."""
+    """f32 operands or output under GEMMUL8_PIPELINE, whose kernels have
+    their f64 forms only: NotImplementedError naming ROADMAP B18, no rider
+    launched. (FUSED_ENCODE, FUSED_MAG7 and FUSED_RECONSTRUCT run f32
+    calls: phase 4x.)"""
     a = torch.from_numpy(phi_matrix(512, 128, 0.5, seed=5)).to(DEVICE)
     b = torch.from_numpy(phi_matrix(128, 1024, 0.5, seed=6)).to(DEVICE)
-    cases = [({"GEMMUL8_FUSED_ENCODE": "1"}, True),
-             ({"GEMMUL8_FUSED_MAG7": "1"}, False),
-             ({"GEMMUL8_FUSED_RECONSTRUCT": "1"}, True),
-             ({"GEMMUL8_PIPELINE": "1"}, True)]
-    for env, fm in cases:
-        for args in ((a.float(), b, None), (a, b.float(), None),
-                     (a, b, "f32")):
-            build.LAUNCHES.clear()
-            try:
-                with switches(env):
-                    gt.gemm(args[0], args[1], num_moduli=L_F32, fastmode=fm,
-                            out_dtype=args[2], device=DEVICE)
-            except NotImplementedError as e:
-                assert "ROADMAP B18" in str(e), f"{env}: {e}"
-            else:
-                raise AssertionError(f"{env} ran an f32 call")
-            variant = {"matmul_reconstruct", "fast_encode_fused",
-                       "mag7_fused", "matmul_rider_step"}
-            assert not variant & set(build.LAUNCHES), \
-                f"{env}: launched {dict(build.LAUNCHES)}"
-    log("  f32 operands or output under FUSED_ENCODE, FUSED_MAG7, "
-        "FUSED_RECONSTRUCT and PIPELINE=1 refuse, naming ROADMAP B18, and "
-        "launch none of their kernels")
+    env = {"GEMMUL8_PIPELINE": "1"}
+    for args in ((a.float(), b, None), (a, b.float(), None), (a, b, "f32")):
+        build.LAUNCHES.clear()
+        try:
+            with switches(env):
+                gt.gemm(args[0], args[1], num_moduli=L_F32, out_dtype=args[2],
+                        device=DEVICE)
+        except NotImplementedError as e:
+            assert "ROADMAP B18" in str(e), f"{env}: {e}"
+        else:
+            raise AssertionError(f"{env} ran an f32 call")
+        assert "matmul_rider_step" not in build.LAUNCHES, \
+            f"{env}: launched {dict(build.LAUNCHES)}"
+    log("  f32 operands or output under PIPELINE=1 refuse, naming ROADMAP "
+        "B18, and launch none of its kernels")
 
 
 def phase_f32(a, b, launches):
@@ -2438,6 +2513,394 @@ def phase_f32_times(a, b, a32, b32, errs):
     return kerns, calls
 
 
+# ---- complex64, mixed complex and the one-shot variants' f32 forms: -------
+# ---- phases 3x, 4x, 5x ----------------------------------------------------
+
+def c64_operands(m, k, n, seed, special):
+    """(a_re, a_im, b_re, b_im) f32 parts on the card, each with phase 3f's
+    special lines where special, and a row of A whose Im part is all zero
+    and a column of B whose Re part is."""
+    a_re, b_re = operands32(m, k, n, seed, special)
+    a_im, b_im = operands32(m, k, n, seed + 10, special)
+    if special:
+        a_im[6, :] = 0.0
+        b_re[:, 7] = 0.0
+    return a_re, a_im, b_re, b_im
+
+
+def phase_c64_kernels(errs):
+    """Phase 3x: the f32 statistics mode on each part and the joint f32
+    shift, the f32 |Re| + |Im| magnitudes, and fast_encode_fused[f32],
+    mag7_fused[f32] and matmul_reconstruct[f32] against their plain
+    versions at phase 3f's shapes and moduli counts (the fused stats
+    kernels' shifts also equal to the fast_sft kernel's)."""
+    key = build.form("fast_stats", True)
+    for (m, k, n), Ls, special in F32_CASES:
+        a_re, a_im, b_re, b_im = c64_operands(m, k, n, 23, special)
+        tag = f"m={m} k={k} n={n} f32"
+        for x, axis in ((a_re, 1), (a_im, 1), (b_re, 0), (b_im, 0)):
+            for L in Ls:
+                check_stats(errs, x, axis, L)
+        for L in Ls:
+            for re, im, axis in ((a_re, a_im, 1), (b_re, b_im, 0)):
+                errs[key] = max(errs[key], check_joint_sft(
+                    enc.joint_fast_sft(re, im, L, axis, stats=hk.fast_stats),
+                    enc.joint_fast_sft(re, im, L, axis), re, im, axis, L))
+        for re, im, axis in ((a_re, a_im, 1), (b_re, b_im, 0)):
+            hold(errs, "mag7[f32]", hk.mag7_operand_complex(re, im, axis),
+                 mag7_complex_plain(re, im, axis),
+                 f"complex magnitudes {tag} axis={axis}")
+        for x, axis in ((a_re, 1), (b_re, 0)):
+            got = hk.mag7_fused(x, axis)
+            hold(errs, "mag7_fused[f32]", got, hk.mag7_fused_plain(x, axis),
+                 f"mag7_fused {tag} axis={axis}")
+            e = hk.emax(x, axis)
+            assert torch.equal(got[1], e) and torch.equal(
+                got[0], hk.mag7(x, e, axis)), \
+                f"mag7_fused[f32] {tag}: not the emax + mag7 kernels' bits"
+            for L in Ls:
+                sl, sft = hk.fast_encode_fused(x, L, axis)
+                assert torch.equal(sft, hk.fast_sft(x, L, axis)), \
+                    f"fast_encode_fused[f32] {tag} L={L}: shifts differ " \
+                    "from the fast_sft kernel's"
+                _, psft = hk.fast_encode_fused_plain(x, L, axis)
+                errs["fast_encode_fused[f32]"] = max(
+                    errs["fast_encode_fused[f32]"],
+                    check_sft(sft, psft, x, axis, L))
+                hold(errs, "fast_encode_fused[f32]", sl,
+                     hk.encode_slices_plain(x, sft, L, axis),
+                     f"fast_encode_fused slices {tag} L={L} axis={axis}")
+        for L in Ls:
+            sa, sb = hk.fast_sft(a_re, L, 1), hk.fast_sft(b_re, L, 0)
+            a8 = hk.encode_slices(a_re, sa, L, 1)
+            b8 = hk.encode_slices(b_re, sb, L, 0)
+            got = hm.matmul_reconstruct(a8, b8, sa, sb, L, "f32")
+            hold(errs, "matmul_reconstruct[f32]", got,
+                 hm.matmul_reconstruct_plain(a8, b8, sa, sb, L, "f32"),
+                 f"matmul_reconstruct f32 output {tag} L={L}")
+            assert torch.equal(words(got), words(hk.reconstruct(
+                hm.matmul_mod_u8(a8, b8, L, centered=True), sa, sb, L,
+                "f32"))), f"matmul_reconstruct[f32] {tag} L={L}: not " \
+                "matmul_mod_u8 + reconstruct's bits"
+        log(f"  f32 stats (parts, joint), complex magnitudes, "
+            f"fast_encode_fused, mag7_fused, matmul_reconstruct f32 forms == "
+            f"plain at {tag} L={Ls}")
+
+
+def c64_launches(fastmode):
+    """The launch counts of a complex64 x complex64 call."""
+    if fastmode:
+        return {"fast_stats[f32]": 4, "encode_slices[f32]": 4,
+                "matmul_complex_mod": 1, "reconstruct[f32]": 2}
+    return {"emax[f32]": 4, "mag7[f32]": 4, "magmax_matmul": 1,
+            "encode_slices[f32]": 4, "matmul_complex_mod": 1,
+            "reconstruct[f32]": 2}
+
+
+def np_epilogue_c64(raw, alpha, beta, c):
+    """The complex64 epilogue in numpy on the host, as the JAX package's
+    source writes it: alpha and beta rounded to f32, c narrowed to
+    complex64, the full complex formula, each product and sum rounded
+    once."""
+    f32 = np.float32
+    raw = raw.cpu().numpy()
+    ore, oim = raw.real.copy(), raw.imag.copy()
+    ar, ai = f32(alpha.real), f32(alpha.imag)
+    br, bi = f32(beta.real), f32(beta.imag)
+    cn = np.asarray(c, np.complex64)
+    with np.errstate(over="ignore", invalid="ignore"):
+        ore, oim = ore * ar - oim * ai, ore * ai + oim * ar
+        ore = ore + cn.real * br - cn.imag * bi
+        oim = oim + cn.real * bi + cn.imag * br
+    out = np.empty(raw.shape, np.complex64)
+    out.real, out.imag = ore, oim
+    return out
+
+
+def cwords(t):
+    """The f32 or f64 words of a complex tensor, Re and Im interleaved."""
+    return words(torch.view_as_real(t))
+
+
+def counted_call(name, fn, want):
+    """fn() with the launch counts reset just before it and read just
+    after, asserted equal to want; returns (output, counts)."""
+    torch.cuda.synchronize()
+    build.LAUNCHES.clear()
+    c = fn()
+    torch.cuda.synchronize()
+    counts = dict(build.LAUNCHES)
+    log(f"  launches in the {N}^3 {name} call: {counts}")
+    assert counts == want, f"{name} launch counts {counts}"
+    return c, counts
+
+
+def add_launches(launches, counts):
+    for name, cnt in counts.items():
+        key = KERNEL_OF.get(name, name)
+        launches[key] = launches.get(key, 0) + cnt
+
+
+def phase_complex64(A, a32, b32, launches):
+    """Phase 4x: at N^3, complex64 x complex64 -> complex64 at 8 moduli
+    (A64 = A rounded to complex64 on the card, B64 = A64.T), the three
+    strategies fast and Karatsuba and big-matrix accurate, each with its
+    launch counts and the median relerr of three 256 x 256 tiles against
+    the dd oracle of the complex64 operands (< F32_GATE_MEDIAN), the fast
+    strategies' bits identical; complex128 x complex64 -> complex128 at 14
+    moduli (gate < 1e-8); op_a="C" on conj(A64).T made by numpy on the
+    host (the op N call's bits); complex alpha/beta with a complex64 c
+    (numpy's epilogue on the host, on the raw call's bits); f32 x f32 ->
+    f32 at 8 moduli under GEMMUL8_FUSED_ENCODE, GEMMUL8_FUSED_MAG7 and
+    GEMMUL8_FUSED_RECONSTRUCT (the default call's bits, the variant's f32
+    form launched); then at N_PLAIN^3 the complex64 and mixed kernel paths
+    against the all-plain path. Returns (A64, B64, gates)."""
+    L = L_F32
+    A64 = A.to(torch.complex64)
+    B64 = A64.t().contiguous()
+    h_re = A64.real.cpu().numpy().astype(np.float64)
+    h_im = A64.imag.cpu().numpy().astype(np.float64)
+    oracle64 = complex_oracle(h_re, h_im)
+    rels, fast_bits = {}, []
+    for strat, fastmode in COMPLEX_CALLS:
+        mode = f"complex64 {strat.name} {'fast' if fastmode else 'accurate'}"
+        c, counts = counted_call(mode, lambda: gt.gemm(
+            A64, B64, num_moduli=L, fastmode=fastmode, compute_type=strat,
+            device=DEVICE), c64_launches(fastmode))
+        add_launches(launches, counts)
+        assert c.shape == (N, N) and c.dtype == torch.complex64
+        assert bool(torch.isfinite(torch.view_as_real(c)).all())
+        e = complex_relerrs(c, oracle64)
+        rels[mode] = (float(e.max()), float(np.median(e)))
+        assert rels[mode][1] < F32_GATE_MEDIAN, \
+            f"{mode}: median relerr {rels[mode][1]} >= {F32_GATE_MEDIAN}"
+        log(f"  {N}^3 {mode}: gate relerr max {rels[mode][0]!r}, median "
+            f"{rels[mode][1]!r}")
+        if fastmode:
+            fast_bits.append(c)
+        del c
+    for c in fast_bits[1:]:
+        assert torch.equal(cwords(c), cwords(fast_bits[0])), \
+            "the fast complex64 strategies disagree in bits"
+    raw = fast_bits[0]
+    del fast_bits
+    log("  the three fast complex64 strategies give identical bits")
+    # complex128 x complex64
+    a_re, a_im = (x.cpu().numpy() for x in cg.canon_complex(A))
+    mixed = {"fast_stats": 2, "fast_stats[f32]": 2, "encode_slices": 2,
+             "encode_slices[f32]": 2, "matmul_complex_mod": 1,
+             "reconstruct": 2}
+    c, counts = counted_call("complex128 x complex64 -> complex128, 14 "
+                             "moduli", lambda: gt.gemm(
+                                 A, B64, num_moduli=L_MAIN, device=DEVICE),
+                             mixed)
+    add_launches(launches, counts)
+    assert c.dtype == torch.complex128 and bool(
+        torch.isfinite(torch.view_as_real(c)).all())
+    e = complex_relerrs(c, complex_oracle(a_re, a_im, h_re, h_im))
+    rels["c128 x c64"] = (float(e.max()), float(np.median(e)))
+    assert rels["c128 x c64"][0] < 1e-8, f"c128 x c64 relerr {e.max()}"
+    log(f"  {N}^3 complex128 x complex64 -> complex128: gate relerr max "
+        f"{rels['c128 x c64'][0]!r}, median {rels['c128 x c64'][1]!r}")
+    del c, a_re, a_im, h_re, h_im
+    # op C, on the conjugate transpose made by numpy on the host
+    stored = torch.from_numpy(np.ascontiguousarray(
+        np.conj(A64.cpu().numpy()).T)).to(DEVICE)
+    c, counts = counted_call("complex64 op_a=C", lambda: gt.gemm(
+        stored, B64, num_moduli=L, op_a="C", device=DEVICE),
+        c64_launches(True))
+    add_launches(launches, counts)
+    assert torch.equal(cwords(c), cwords(raw)), \
+        "op_a=C on numpy's conj(A).T: not the op N call's bits"
+    log(f"  {N}^3 complex64 op_a=C on numpy's conj(A).T == the op N call "
+        "(bits)")
+    del c, stored
+    # complex alpha/beta with a complex64 c, against numpy on the host
+    c_np = (phi_matrix(N, N, 0.5, seed=3)
+            + 1j * phi_matrix(N, N, 0.5, seed=4)).astype(np.complex64)
+    c_dev = torch.from_numpy(c_np).to(DEVICE)
+    c, counts = counted_call(
+        f"complex64 alpha={C_ALPHA} beta={C_BETA}", lambda: gt.gemm(
+            A64, B64, num_moduli=L, alpha=C_ALPHA, beta=C_BETA, c=c_dev,
+            device=DEVICE), c64_launches(True))
+    add_launches(launches, counts)
+    want = np_epilogue_c64(raw, C_ALPHA, C_BETA, c_np)
+    assert np.array_equal(cwords(c.cpu()).numpy(),
+                          cwords(torch.from_numpy(want)).numpy()), \
+        "complex alpha/beta: not numpy's separate roundings on the raw call"
+    log(f"  {N}^3 complex64 alpha={C_ALPHA} beta={C_BETA}: == numpy's "
+        "separate f32 roundings on the raw call (bits)")
+    del c, c_dev, c_np, want, raw
+    # f32 calls under the one-shot variants' switches
+    defaults = {}
+    for name, fastmode, env, want in F32_SWITCH_CALLS:
+        if fastmode not in defaults:
+            defaults[fastmode] = gt.gemm(a32, b32, num_moduli=L,
+                                         fastmode=fastmode, device=DEVICE)
+        c, counts = counted_call(name, lambda: under(env, lambda: gt.gemm(
+            a32, b32, num_moduli=L, fastmode=fastmode, device=DEVICE)), want)
+        add_launches(launches, counts)
+        assert torch.equal(words(c), words(defaults[fastmode])), \
+            f"{name}: not the default call's bits"
+        log(f"  {N}^3 {name} == the default call (bits)")
+        del c
+    del defaults
+    # N_PLAIN^3 against the all-plain path
+    n2 = N_PLAIN
+    A2, B2 = A64[:n2, :n2].contiguous(), B64[:n2, :n2].contiguous()
+    for fastmode in (True, False):
+        for strat in (CT.COMPLEX_CLASSIC_MULT, CT.COMPLEX_KARATSUBA_MULT):
+            check_plain_complex(A2, B2, L, fastmode, strat)
+    check_plain_complex(A[:n2, :n2].contiguous(), B2, L_MAIN, True,
+                        CT.COMPLEX_BIG_MATRIX_ENCODE)
+    return A64, B64, rels
+
+
+def check_plain_complex(A2, B2, L, fastmode, strat):
+    """One N_PLAIN^3 complex call through the kernels against the all-plain
+    path (the kernels' joint fast shifts where the floor rule lets them
+    differ)."""
+    parts = list(cg.canon_complex(A2)) + list(cg.canon_complex(B2))
+    out = "f64" if torch.float64 in (parts[0].dtype, parts[2].dtype) \
+        else "f32"
+    kara = strat == CT.COMPLEX_KARATSUBA_MULT
+    ck = gt.gemm(A2, B2, num_moduli=L, fastmode=fastmode, compute_type=strat,
+                 device=DEVICE)
+    cp, pa, pb = plain_gemm_complex(parts, L, fastmode, kara, out=out)
+    if fastmode:
+        sa = enc.joint_fast_sft(parts[0], parts[1], L, 1, stats=hk.fast_stats)
+        sb = enc.joint_fast_sft(parts[2], parts[3], L, 0, stats=hk.fast_stats)
+        if not (torch.equal(sa, pa) and torch.equal(sb, pb)):
+            check_joint_sft(sa, pa, parts[0], parts[1], 1, L)
+            check_joint_sft(sb, pb, parts[2], parts[3], 0, L)
+            cp, _, _ = plain_gemm_complex(parts, L, True, kara, (sa, sb), out)
+    else:
+        sa, sb = cg.accurate_sfts_complex(*parts, L)
+        assert torch.equal(sa, pa) and torch.equal(sb, pb), \
+            "complex accurate shifts: kernel path vs plain path"
+    kinds = f"{A2.dtype} x {B2.dtype}".replace("torch.", "")
+    assert ck.dtype == cp.dtype and torch.equal(cwords(ck), cwords(cp)), \
+        f"{N_PLAIN}^3 {kinds} {strat.name} kernel path vs plain"
+    log(f"  {N_PLAIN}^3 {kinds} {strat.name} "
+        f"{'fast' if fastmode else 'accurate'} kernel path == all-plain "
+        "path (bits)")
+
+
+def phase_complex64_times(A, A64, B64, a, b, a32, b32, errs):
+    """Phase 5x: at N^2 operands, 8 moduli, each new f32 form beside its
+    f64 form and the kernels it replaces (medians of F32_ROUNDS rotated
+    rounds) and beside its plain version, the warm-up outputs held to it
+    (shifts under the floor rule, everything else bit for bit): the
+    statistics mode on the four parts (A's rows, B's columns),
+    fast_encode_fused and mag7_fused on A's rows and B's columns,
+    matmul_reconstruct on their slices; then the complex64 N^3 calls and
+    torch.matmul in complex64 with TF32 off, F32_ROUNDS rotated rounds.
+    Returns ({key: (ms, {label: ms}, plain ms)}, {call: [ms]})."""
+    L = L_F32
+    p64 = list(cg.canon_complex(A)) + list(cg.canon_complex(A.t()))
+    p32 = list(cg.canon_complex(A64)) + list(cg.canon_complex(B64))
+    axes = (1, 1, 0, 0)
+    for x, axis in zip(p32, axes):
+        check_stats(errs, x, axis, L)
+    kerns = {}
+
+    def record(key, rounds, plain):
+        pms, _ = timed(plain, 1)
+        meds = {label: float(np.median(v)) for label, v in rounds.items()}
+        kerns[key] = (meds[key], meds, pms)
+
+    record("fast_stats[f32]", timed_rounds({
+        "fast_stats[f32]": lambda: [hk.fast_stats(x, ax)
+                                    for x, ax in zip(p32, axes)],
+        "fast_stats (f64 parts)": lambda: [hk.fast_stats(x, ax)
+                                           for x, ax in zip(p64, axes)],
+    }, F32_ROUNDS, 5)[0], lambda: [hk.fast_stats_plain(x, ax)
+                                   for x, ax in zip(p32, axes)])
+    del p64, p32
+    key = "fast_encode_fused[f32]"
+    got = (hk.fast_encode_fused(a32, L, 1), hk.fast_encode_fused(b32, L, 0))
+    for (sl, sft), x, axis in zip(got, (a32, b32), (1, 0)):
+        errs[key] = max(errs[key], check_sft(
+            sft, hk.fast_sft_plain(x, L, axis), x, axis, L))
+        hold(errs, key, sl, hk.encode_slices_plain(x, sft, L, axis),
+             f"{key} at {N}^2, {L} moduli, axis={axis}")
+    (a8, sa), (b8, sb) = got
+    del got
+    record(key, timed_rounds({
+        key: lambda: (hk.fast_encode_fused(a32, L, 1),
+                      hk.fast_encode_fused(b32, L, 0)),
+        "fast_encode_fused (f64)": lambda: (hk.fast_encode_fused(a, L, 1),
+                                            hk.fast_encode_fused(b, L, 0)),
+        "fast_sft[f32] + encode_slices[f32]": lambda: [
+            hk.encode_slices(x, hk.fast_sft(x, L, ax), L, ax)
+            for x, ax in ((a32, 1), (b32, 0))],
+    }, F32_ROUNDS, 5)[0], lambda: (hk.fast_encode_fused_plain(a32, L, 1),
+                                   hk.fast_encode_fused_plain(b32, L, 0)))
+    key = "mag7_fused[f32]"
+    for x, axis in ((a32, 1), (b32, 0)):
+        hold(errs, key, hk.mag7_fused(x, axis), hk.mag7_fused_plain(x, axis),
+             f"{key} at {N}^2, axis={axis}")
+    record(key, timed_rounds({
+        key: lambda: (hk.mag7_fused(a32, 1), hk.mag7_fused(b32, 0)),
+        "mag7_fused (f64)": lambda: (hk.mag7_fused(a, 1),
+                                     hk.mag7_fused(b, 0)),
+        "emax[f32] + mag7[f32]": lambda: [
+            hk.mag7(x, hk.emax(x, ax), ax) for x, ax in ((a32, 1), (b32, 0))],
+    }, F32_ROUNDS, 5)[0], lambda: (hk.mag7_fused_plain(a32, 1),
+                                   hk.mag7_fused_plain(b32, 0)))
+    key = "matmul_reconstruct[f32]"
+    hold(errs, key, hm.matmul_reconstruct(a8, b8, sa, sb, L, "f32"),
+         hm.matmul_reconstruct_plain(a8, b8, sa, sb, L, "f32"),
+         f"{key} at {N}^2, {L} moduli")
+    record(key, timed_rounds({
+        key: lambda: hm.matmul_reconstruct(a8, b8, sa, sb, L, "f32"),
+        "matmul_reconstruct (f64 output)": lambda: hm.matmul_reconstruct(
+            a8, b8, sa, sb, L),
+        "matmul_mod_u8 + reconstruct[f32]": lambda: hk.reconstruct(
+            hm.matmul_mod_u8(a8, b8, L, centered=True), sa, sb, L, "f32"),
+    }, F32_ROUNDS, 2)[0], lambda: hm.matmul_reconstruct_plain(
+        a8, b8, sa, sb, L, "f32"))
+    del a8, b8
+    log(f"  the new f32 forms == plain at the main path's shapes ({N}^2, "
+        f"{L} moduli)")
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.get_float32_matmul_precision())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        calls = {f"{strat.name} {'fast' if f else 'accurate'}":
+                 (lambda s=strat, f=f: gt.gemm(A64, B64, num_moduli=L,
+                                               fastmode=f, compute_type=s,
+                                               device=DEVICE))
+                 for strat, f in COMPLEX_CALLS}
+        calls["torch.matmul complex64 (TF32 off)"] = \
+            lambda: torch.matmul(A64, B64)
+        by_name, _ = timed_rounds(calls, F32_ROUNDS, 2)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev[0]
+        torch.set_float32_matmul_precision(prev[1])
+    return kerns, by_name
+
+
+def kernel_bounds_c64(L):
+    """bound() of each phase-5x measurement at N^2, L moduli, as
+    kernel_bounds counts (each input read once, each output written once):
+    the statistics on four f32 parts (emax int64, nrm2 f32, flag bool per
+    line), the fused kernels on A's rows and B's columns, the f32-output
+    matmul_reconstruct; and two bounds of earlier rows, the statistics mode
+    on four f64 parts and the Karatsuba complex GEMM (3 products of L
+    moduli)."""
+    x, s = 2 * N * N, 8 * N
+    ops = 2 * N ** 3
+    return {"fast_stats[f32]": bound(4 * (4 * N * N + 13 * N)),
+            "fast_encode_fused[f32]": bound(4 * x + L * x + s),
+            "mag7_fused[f32]": bound(4 * x + x + s),
+            "matmul_reconstruct[f32]": bound(L * x + s + 4 * N * N, L * ops),
+            "fast_stats (f64 parts)": bound(4 * (8 * N * N + 13 * N)),
+            "matmul_complex_mod Karatsuba": bound(
+                3 * L_MAIN * x + 2 * L_MAIN * N * N, 3 * L_MAIN * ops)}
+
+
 def kernel_bounds_f32(a32, b32, L):
     """bound() of each f32 form's phase-5f work (both operands where the
     path runs it twice), as kernel_bounds counts: f32 elements read as 4
@@ -2539,6 +3002,7 @@ def main():
     phase_pipeline_kernels(errs)
     phase_f32_kernels(errs)
     phase_rounding_f32(errs)
+    phase_c64_kernels(errs)
     phase_golden()
     log(f"[3/5] every kernel == its plain version "
         f"({time.perf_counter() - t0:.1f} s)")
@@ -2553,6 +3017,7 @@ def main():
                                                   launches)
     del refs
     a32, b32, f32_rels = phase_f32(a, b, launches)
+    A64, B64, c64_rels = phase_complex64(A, a32, b32, launches)
     log(f"[4/5] main path checked ({time.perf_counter() - t0:.1f} s)")
 
     times, total, total_accu = phase_times(a, b, errs)
@@ -2666,6 +3131,31 @@ def main():
             f"{', '.join(f'{t:.3f}' for t in mss)}), "
             f"{2 * N ** 3 / (ms * 1e-3) / 1e12:.2f} TFLOP/s (2mnk/t)"
             f"{gate_note} ({card})")
+    ckerns, ccalls = phase_complex64_times(A, A64, B64, a, b, a32, b32,
+                                           errs)
+    bounds.update(kernel_bounds_c64(L_F32))
+    for key, (ms, meds, pms) in ckerns.items():
+        times[key] = (ms, pms)
+        log(f"  {key}: " + "; ".join(f"{label} median {v:.3f} ms"
+                                     for label, v in meds.items())
+            + f" (rotated rounds); plain {pms:.3f} ms; bound "
+            f"{bounds[key][0]:.3f} ms ({bounds[key][1]}) ({N}^2 operands, "
+            f"{L_F32} moduli; {card})")
+    for key in ("fast_stats (f64 parts)", "matmul_complex_mod Karatsuba"):
+        log(f"  bound of {key} at {N}^2 ({L_MAIN} moduli): "
+            f"{bounds[key][0]:.3f} ms ({bounds[key][1]})")
+    log(f"  complex64 calls at {N}^3, {L_F32} moduli, {F32_ROUNDS} rounds in "
+        f"rotated order, 2 calls per timing ({card}):")
+    for name, mss in ccalls.items():
+        ms = float(np.median(mss))
+        rel = c64_rels.get(f"complex64 {name}")
+        log(f"  {name} {N}^3: median {ms:.3f} ms (rounds "
+            f"{', '.join(f'{t:.3f}' for t in mss)}), "
+            f"{2 * N ** 3 / (ms * 1e-3) / 1e12:.2f} TFLOP/s (2mnk/t), "
+            f"{8 * N ** 3 / (ms * 1e-3) / 1e12:.2f} real TFLOP/s (8mnk/t)"
+            + (f", gate relerr max {rel[0]!r} median {rel[1]!r}" if rel
+               else "") + f" ({card})")
+    del A64, B64
     log(f"  pipelined and column-panel calls, {PIPELINE_ROUNDS} rounds in "
         "rotated order, 2 calls per timing:")
     for name, mss in pcalls.items():

@@ -1,12 +1,14 @@
 """gemmul8_tpu_torch — Ozaki Scheme II GEMM emulation on PyTorch and CUDA.
 
 The port of `gemmul8_tpu` to an NVIDIA H100: f64, f32 and mixed real GEMM
-(f64 or f32 output, op N/T/C, alpha/beta) and complex128 GEMM emulated as
-`num_moduli` exact int8 residue matmuls recombined by CRT, with the
-statistics, encode, int8 matmul + mod (real and complex) and reconstruct
-steps as hand-written Hopper kernels (`csrc/`). CPU tensors run the plain
-PyTorch versions of those kernels. Importing the package needs neither JAX, nvcc nor a GPU;
-the kernels build at their first launch.
+and complex128, complex64 and mixed complex GEMM (each operand at its own
+word; f64/f32 or complex128/complex64 output, op N/T/C, alpha/beta)
+emulated as `num_moduli` exact int8 residue matmuls recombined by CRT,
+with the statistics, encode, int8 matmul + mod (real and complex) and
+reconstruct steps as hand-written Hopper kernels (`csrc/`). CPU tensors
+run the plain PyTorch versions of those kernels. Importing the package
+needs neither JAX, nvcc nor a GPU; the kernels build at their first
+launch.
 """
 
 from . import tables

@@ -8,18 +8,22 @@ f64 if either operand is f64), op N/T/C (C is T on a real operand), alpha
 and beta, fast and accurate mode, the one-shot schedule (and under
 GEMMUL8_PIPELINE its panel/rider pipeline, f64 only), the moduli-chunked
 low-memory one (`moduli_chunk`, or `max_workspace_bytes` through the
-planner) and the column-panel one (`n_panel`). Complex: complex128 (or
-float64 mixed with complex128) -> complex128 under all three complex
-compute types, op N/N, alpha = 1, beta = 0. Every other argument value
-raises NotImplementedError naming the ROADMAP item that adds it.
+planner) and the column-panel one (`n_panel`). Complex: complex128 and
+complex64 operands, and real ones mixed into a complex call, in any
+combination, each encoded at its own word (`core.complexgemm`), under all
+three complex compute types, complex128 or complex64 output, op N/T/C (C
+conjugates by the Im words' sign bits), complex alpha and beta; the
+schedules and phase times are real-only. Argument values not ported raise
+NotImplementedError naming the ROADMAP item that adds them.
 
 The epilogue is separate multiplies and adds, each rounded once, as the
 JAX package's: for f64 output out * alpha, c * beta, then their sum, in
 native f64 (the JAX package's softfloat gives the IEEE bits); for f32
 output alpha and beta are rounded to f32, c is narrowed to f32, then out *
-alpha and out + beta * c in f32. A power-of-two alpha with beta == 0 folds
-into the reconstruct's exponent instead (one rounding of the exact
-product).
+alpha and out + beta * c in f32. The complex epilogues are those of the
+JAX package's `gemm_complex` (`_complex_epilogue`). A real power-of-two
+alpha with beta == 0 folds into the reconstruct's exponent instead (one
+rounding of the exact product).
 """
 
 from __future__ import annotations
@@ -94,19 +98,39 @@ def _out_kind(a: torch.Tensor, b: torch.Tensor, out_dtype) -> str:
     """"f64" or "f32", as the JAX package's `_out_kind` parses out_dtype
     (a torch or numpy dtype, or a string: "64" in its name is f64, "32"
     is f32, anything else a ValueError); by default f64 if either operand
-    is float64."""
+    is float64. A complex out_dtype for real operands is a ValueError (the
+    JAX package reads "complex64" as f64 and "complex128" as an error:
+    ROADMAP C1)."""
     if out_dtype is None:
         return "f64" if torch.float64 in (a.dtype, b.dtype) else "f32"
     if _is_complex_dtype(out_dtype):
-        raise NotImplementedError(
-            f"out_dtype {out_dtype} for real operands: ROADMAP A4 (the "
-            "complex front end)")
+        raise ValueError(f"complex out_dtype {out_dtype} for real operands")
     s = str(out_dtype)
     if "64" in s:
         return "f64"
     if "32" in s:
         return "f32"
     raise ValueError(f"unsupported out_dtype {out_dtype}")
+
+
+def _complex_out_kind(kinds, out_dtype) -> str:
+    """"c128" or "c64" for a complex call: complex128 by default if either
+    operand is c128 (`core.complexgemm.complex_kind`), else complex64;
+    out_dtype a complex torch or numpy dtype, "complex128", "complex64",
+    "c128" or "c64". A real spelling is a ValueError (the JAX package reads
+    anything without "128" in it as complex64: ROADMAP C1)."""
+    if out_dtype is None:
+        return "c128" if "c128" in kinds else "c64"
+    if isinstance(out_dtype, torch.dtype):
+        if out_dtype in (torch.complex128, torch.complex64):
+            return "c128" if out_dtype == torch.complex128 else "c64"
+    else:
+        s = str(out_dtype)
+        if "complex128" in s or s == "c128":
+            return "c128"
+        if "complex64" in s or s == "c64":
+            return "c64"
+    raise ValueError(f"unsupported out_dtype {out_dtype} for a complex call")
 
 
 def _apply_op(x: torch.Tensor, op: str) -> torch.Tensor:
@@ -153,13 +177,63 @@ def _epilogue(out: torch.Tensor, alpha: float, beta: float,
     return out
 
 
-def _check_c(c: torch.Tensor, m: int, n: int, device: torch.device):
+def _check_c(c: torch.Tensor, m: int, n: int, device: torch.device,
+             complex_ok: bool = False):
     if c.dim() != 2 or tuple(c.shape) != (m, n):
         raise ValueError(f"c has shape {tuple(c.shape)}, expected {(m, n)}")
     if c.device != device:
         raise ValueError(f"c lies on {c.device}, not on {device}")
-    if c.is_complex() or not c.is_floating_point():
+    if c.is_complex() and complex_ok:
+        _cg.complex_kind(c)
+    elif c.is_complex() or not c.is_floating_point():
         raise TypeError(f"unsupported c dtype {c.dtype}")
+
+
+def _cscale(re: torch.Tensor, im: torch.Tensor, z: complex):
+    """(re, im) * z in f64, each product and sum its own rounding; a real
+    z skips the cross terms (which would also turn -0.0 Im words into
+    +0.0), as the JAX package's `_cscale`."""
+    zr = torch.tensor(z.real, dtype=torch.float64)
+    if z.imag == 0.0:
+        return re * zr, im * zr
+    zi = torch.tensor(z.imag, dtype=torch.float64)
+    return re * zr - im * zi, re * zi + im * zr
+
+
+def _complex_epilogue(ore: torch.Tensor, oim: torch.Tensor, alpha: complex,
+                      beta: complex, c: Optional[torch.Tensor]):
+    """alpha * out + beta * c of a complex call, as the JAX package's
+    `_jit_epi_c128` (float64 parts: `_cscale` of out by alpha and of c,
+    widened exactly, by beta, then the sums) or `_jit_epi_c64` (float32
+    parts: alpha and beta rounded to f32 and c narrowed to complex64; the
+    full complex formula even for a real alpha, so out * 0 terms are taken;
+    then (ore + cr*br) - ci*bi and (oim + cr*bi) + ci*br). Each multiply,
+    add and subtract is its own tensor operation, so each is rounded once
+    and nothing contracts into an FMA (ROADMAP C9); no torch complex
+    arithmetic runs."""
+    dt = ore.dtype
+    if c is not None:
+        cr, ci = _cg.canon_complex(c)
+        cr, ci = cr.to(dt), ci.to(dt)
+    if dt == torch.float64:
+        if alpha != 1.0:
+            ore, oim = _cscale(ore, oim, alpha)
+        if beta != 0.0:
+            tre, tim = _cscale(cr, ci, beta)
+            ore, oim = ore + tre, oim + tim
+        return ore, oim
+
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32)
+
+    if alpha != 1.0:
+        ar, ai = f32(alpha.real), f32(alpha.imag)
+        ore, oim = ore * ar - oim * ai, ore * ai + oim * ar
+    if beta != 0.0:
+        br, bi = f32(beta.real), f32(beta.imag)
+        ore = ore + cr * br - ci * bi
+        oim = oim + cr * bi + ci * br
+    return ore, oim
 
 
 def gemm(
@@ -192,10 +266,17 @@ def gemm(
     (the transpose, for a real operand). beta != 0 needs c (m, n), widened
     to float64 or narrowed to float32 with the output.
 
-    Complex: complex128, or float64 mixed with complex128, gives
-    complex128; compute_type picks the strategy (real operands ignore it;
+    Complex (either operand complex): complex128 and float64 operands are
+    encoded in f64, complex64 and any other real dtype in f32, each at its
+    own word (a c128 x c64 call is not widened); the result is complex128
+    if either operand is (c128 or f64), else complex64, or by out_dtype (a
+    complex torch or numpy dtype, "complex128", "complex64", "c128",
+    "c64"). compute_type picks the strategy (real operands ignore it;
     REAL_DEFAULT means COMPLEX_BIG_MATRIX_ENCODE); all three give the same
-    bits; op N/N, alpha 1, beta 0 only.
+    bits. op "C" conjugates by flipping the sign bit of every Im word.
+    alpha and beta may be complex; beta != 0 needs c (m, n), real or
+    complex, widened to complex128 or narrowed to complex64 with the
+    output.
 
     num_moduli in [2, 20] trades accuracy for int8 GEMM count (DGEMM grade
     at about 14, SGEMM grade at about 8); fastmode=False picks the shifts
@@ -213,34 +294,16 @@ def gemm(
     for op in (op_a, op_b):
         if op not in ("N", "T", "C"):
             raise ValueError(f"op must be N/T/C, got {op}")
+    if _is_complex_operand(a) or _is_complex_operand(b):
+        return _gemm_complex(a, b, alpha, beta, c, num_moduli, fastmode,
+                             compute_type, out_dtype, op_a, op_b, device,
+                             moduli_chunk is not None
+                             or max_workspace_bytes is not None
+                             or n_panel is not None, return_times)
     ta = _as_tensor(_canon_real(a), device, "a")
     tb = _as_tensor(_canon_real(b), device, "b")
     if ta.device != tb.device:
         raise ValueError(f"a lies on {ta.device}, b on {tb.device}")
-    schedule = (moduli_chunk is not None or max_workspace_bytes is not None
-                or n_panel is not None)
-    if ta.is_complex() or tb.is_complex():
-        if alpha != 1.0 or beta != 0.0 or c is not None:
-            raise NotImplementedError(
-                "complex alpha/beta epilogue: ROADMAP A4 (complex half)")
-        if op_a != "N" or op_b != "N":
-            raise NotImplementedError(
-                "op T/C on complex operands: ROADMAP A4 (complex half)")
-        if out_dtype is not None and out_dtype not in (
-                torch.complex128, np.complex128, "complex128", "c128"):
-            raise NotImplementedError(f"out_dtype {out_dtype}: ROADMAP A4")
-        if schedule:
-            raise NotImplementedError(
-                "moduli_chunk / max_workspace_bytes / n_panel are only "
-                "supported on the real path (the reference's low-memory "
-                "mode is likewise real-only)")
-        if return_times:
-            raise NotImplementedError("phase times: ROADMAP A8")
-        a_re, a_im = _cg.canon_complex(ta)
-        b_re, b_im = _cg.canon_complex(tb)
-        re, im = _cg.gemm_complex_core(a_re, a_im, b_re, b_im, num_moduli,
-                                       fastmode, compute_type)
-        return torch.complex(re, im)
     ta, tb = _apply_op(ta, op_a), _apply_op(tb, op_b)
     kind = _out_kind(ta, tb, out_dtype)
     m, k, n = _g.check_shapes(ta, tb)
@@ -275,6 +338,59 @@ def gemm(
         out = _g.gemm_core(ta, tb, num_moduli, fastmode, kind, moduli_chunk,
                            alpha_e=alpha_e)
     return _epilogue(out, float(alpha), float(beta), tc)
+
+
+def _is_complex_operand(x) -> bool:
+    if isinstance(x, np.ndarray):
+        return np.iscomplexobj(x)
+    return isinstance(x, torch.Tensor) and x.is_complex()
+
+
+def _gemm_complex(a, b, alpha, beta, c, num_moduli, fastmode, compute_type,
+                  out_dtype, op_a, op_b, device, schedule, return_times):
+    """The complex call of `gemm`, as the JAX package's `gemm_complex`:
+    each operand's parts of op(x) at its own word, the complex core, the
+    real power-of-two alpha fold, the epilogue of the output's kind."""
+    if schedule:
+        raise NotImplementedError(
+            "moduli_chunk / max_workspace_bytes / n_panel are only "
+            "supported on the real path (the reference's low-memory "
+            "mode is likewise real-only)")
+    if return_times:
+        raise NotImplementedError("phase times: ROADMAP A8")
+    # a real numpy array of another dtype than float64 becomes float32
+    # here, a tensor in `canon_complex`
+    ta = _as_tensor(_canon_real(a) if isinstance(a, np.ndarray) else a,
+                    device, "a")
+    tb = _as_tensor(_canon_real(b) if isinstance(b, np.ndarray) else b,
+                    device, "b")
+    if ta.device != tb.device:
+        raise ValueError(f"a lies on {ta.device}, b on {tb.device}")
+    kinds = (_cg.complex_kind(ta), _cg.complex_kind(tb))
+    kind = _complex_out_kind(kinds, out_dtype)
+    a_re, a_im = _cg.canon_complex(ta, op_a)
+    b_re, b_im = _cg.canon_complex(tb, op_b)
+    m, _, n = _g.check_shapes(a_re, b_re)
+    alpha, beta = complex(alpha), complex(beta)
+    tc = None
+    if beta != 0.0:
+        if c is None:
+            raise ValueError("beta != 0 requires c")
+        tc = _as_tensor(c, device if device is not None else ta.device, "c")
+        _check_c(tc, m, n, ta.device, complex_ok=True)
+    # a real power-of-two alpha folds into the reconstruct's exponent
+    e_extra = 0
+    if beta == 0.0 and alpha.imag == 0.0:
+        e = pow2_exponent(alpha.real)
+        if e is not None:
+            e_extra, alpha = e, 1.0 + 0.0j
+    re, im = _cg.gemm_complex_core(a_re, a_im, b_re, b_im, num_moduli,
+                                   fastmode, compute_type,
+                                   "f64" if kind == "c128" else "f32",
+                                   e_extra=e_extra)
+    if alpha != 1.0 or beta != 0.0:
+        re, im = _complex_epilogue(re, im, alpha, beta, tc)
+    return torch.complex(re, im)
 
 
 def workspace_bytes(m: int, n: int, k: int, num_moduli: int,

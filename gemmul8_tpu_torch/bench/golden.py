@@ -10,10 +10,14 @@ port to the same file without JAX.
 An entry's spec: [kind ("real" or "complex"), [m, k, n], num_moduli,
 fastmode, phi, [seed_a, seed_b], complex compute type name or None,
 GEMMUL8_PIPELINE value, call], where call is a dict of the front end's
-arguments: "dtypes" (the operands', "f64" or "f32"), "out_dtype" (None for
-the default), "alpha", "beta" (c is phi_matrix(m, n, phi, seed_a + 200)
-where beta != 0) and "ops" (op_a, op_b; an operand under "T" is stored
-transposed, so op(A) is (m, k) and op(B) (k, n) whatever the ops).
+arguments: "dtypes" (the operands' words, "f64" or "f32": for a complex
+entry complex128 or complex64 parts), "out_dtype" (None for the default),
+"alpha", "beta" (c is phi_matrix(m, n, phi, seed_a + 200) where beta !=
+0), "ops" (op_a, op_b; an operand under "T" is stored transposed, so op(A)
+is (m, k) and op(B) (k, n) whatever the ops) and, optionally, "env": more
+of the JAX package's switches the port's call runs under (the golden bits
+are then the JAX package's default call's, which every switch must
+give).
 """
 
 from __future__ import annotations
@@ -42,19 +46,22 @@ def load(path) -> tuple[dict, dict]:
 
 
 _DTYPE = {"f64": np.float64, "f32": np.float32}
+_CDTYPE = {"f64": np.complex128, "f32": np.complex64}
 
 
 def operands(kind: str, shape, phi: float, seeds, call=None):
-    """numpy operands (a, b) of an entry as the call passes them: complex128
-    for kind "complex", the Im parts from seed + 100; for a real call in
-    its dtypes, an operand under op "T" (or "C") stored transposed."""
+    """numpy operands (a, b) of an entry as the call passes them, in its
+    dtypes: for a complex entry complex128 or complex64, the Im parts from
+    seed + 100; for a real call an operand under op "T" (or "C") stored
+    transposed."""
     m, k, n = shape
     a = phi_matrix(m, k, phi, seed=seeds[0])
     b = phi_matrix(k, n, phi, seed=seeds[1])
     if kind == "complex":
         a = a + 1j * phi_matrix(m, k, phi, seed=seeds[0] + 100)
         b = b + 1j * phi_matrix(k, n, phi, seed=seeds[1] + 100)
-        return a, b
+        return tuple(x.astype(_CDTYPE[dt])
+                     for x, dt in zip((a, b), call["dtypes"]))
     out = []
     for x, dt, op in zip((a, b), call["dtypes"], call["ops"]):
         x = x.astype(_DTYPE[dt])
@@ -84,13 +91,14 @@ def digest(c: np.ndarray) -> str:
 
 def port_entry(spec, device="cpu"):
     """(sft_a, sft_b, digest) of an entry from the port on `device`: the
-    plain versions for the CPU, the kernels for a card. The switch the
-    entry names is set for the call and restored after."""
+    plain versions for the CPU, the kernels for a card. The switches the
+    entry names are set for the call and restored after."""
     kind, shape, L, fastmode, phi, seeds, ct, pipe, call = spec
     a, b = operands(kind, shape, phi, seeds, call)
     ta, tb = torch.from_numpy(a).to(device), torch.from_numpy(b).to(device)
-    saved = os.environ.get("GEMMUL8_PIPELINE")
-    os.environ["GEMMUL8_PIPELINE"] = pipe
+    env = {"GEMMUL8_PIPELINE": pipe, **call.get("env", {})}
+    saved = {key: os.environ.get(key) for key in env}
+    os.environ.update(env)
     try:
         if kind == "real":
             # the shifts of op(A) and op(B)
@@ -115,10 +123,12 @@ def port_entry(spec, device="cpu"):
             else:
                 sa, sb = cg.accurate_sfts_complex(ar, ai, br, bi, L)
             c = api.gemm(ta, tb, num_moduli=L, fastmode=fastmode,
-                         compute_type=ComputeType[ct])
+                         compute_type=ComputeType[ct],
+                         out_dtype=call["out_dtype"])
     finally:
-        if saved is None:
-            os.environ.pop("GEMMUL8_PIPELINE", None)
-        else:
-            os.environ["GEMMUL8_PIPELINE"] = saved
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
     return sa.cpu().numpy(), sb.cpu().numpy(), digest(c.cpu().numpy())

@@ -188,11 +188,15 @@ def joint_fast_sft(re: torch.Tensor, im: torch.Tensor, num_moduli: int,
                    axis: int, stats=fast_stats) -> torch.Tensor:
     """The fast-mode shift Re and Im of a complex operand share: each row
     (axis=1) or column (axis=0) gets the shift of its joint norm over both
-    parts, with the norm guard of 2k terms. `stats` takes the per-part
-    statistics (the plain `fast_stats`, or the kernel's wrapper)."""
+    parts, with the norm guard of 2k terms, at the parts' exponent bias
+    (both float64 or both float32). `stats` takes the per-part statistics
+    (the plain `fast_stats`, or the kernel's wrapper)."""
+    mant_bits = mant_bits_of(re)
+    if mant_bits_of(im) != mant_bits or im.shape != re.shape:
+        raise ValueError("Re and Im must have one shape and one dtype")
     emax, nrm2, anyfinite = merge_stats(stats(re, axis), stats(im, axis))
     return sft_from_stats(emax, nrm2, anyfinite, 2 * re.shape[axis],
-                          num_moduli)
+                          num_moduli, mant_bits)
 
 
 def _shifted_value_words(chunks, q, q_max_static: int):

@@ -37,11 +37,12 @@ inside `encode_slices_pallas` that works around the TPU's slow integer
 division, with the same bits; the port's encode kernel has one form.
 GEMMUL8_RIDER_UNCOND is not read either: it drops the TPU riders' predicates,
 with the same bits (`gemmul8_tpu_torch.pipelined`).
-The kernels of FUSED_ENCODE, FUSED_MAG7, FUSED_RECONSTRUCT and the pipeline
+The kernels of FUSED_ENCODE, FUSED_MAG7 and FUSED_RECONSTRUCT have their
+f32 forms too, so those switches act on every call. The pipeline's kernels
 have their f64 forms only: a call with a float32 operand or f32 output
-raises NotImplementedError (ROADMAP B18) where one of those switches would
-act, and never runs another kernel in its place. MXU_CRT and MM_PIPELINE
-act on int8 data and run for every call.
+raises NotImplementedError (ROADMAP B18) where the pipeline would act, and
+never runs another kernel in its place. MXU_CRT and MM_PIPELINE act on
+int8 data and run for every call.
 """
 
 from __future__ import annotations
@@ -100,17 +101,11 @@ def _check_call(a: torch.Tensor, b: torch.Tensor, out_dtype: str) -> bool:
 
 def refuse_f32(f32_call: bool, switch: str) -> None:
     """NotImplementedError for an f32 call where `switch` would run a
-    kernel whose f32 form is not ported yet."""
+    kernel whose f32 form is not ported yet (the pipeline's)."""
     if f32_call:
         raise NotImplementedError(
             f"{switch} with a float32 operand or f32 output: its kernels "
             "have their f64 forms only (ROADMAP B18)")
-
-
-def _accurate_sfts_checked(a, b, num_moduli: int, f32_call: bool):
-    if os.environ.get("GEMMUL8_FUSED_MAG7", "0") == "1":
-        refuse_f32(f32_call, "GEMMUL8_FUSED_MAG7=1")
-    return accurate_sfts(a, b, num_moduli)
 
 
 def gemm_core(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
@@ -133,7 +128,6 @@ def gemm_core(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
     pipe = pl.pipeline_mode() if one_shot and alpha_e == 0 else 0
     if (fastmode and one_shot
             and os.environ.get("GEMMUL8_FUSED_ENCODE") == "1"):
-        refuse_f32(f32_call, "GEMMUL8_FUSED_ENCODE=1")
         a8, sft_a = hk.fast_encode_fused(a, num_moduli, axis=1)
         b8, sft_b = hk.fast_encode_fused(b, num_moduli, axis=0)
     else:
@@ -142,7 +136,7 @@ def gemm_core(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
             sft_a = hk.fast_sft(a, num_moduli, axis=1)
             sft_b = hk.fast_sft(b, num_moduli, axis=0)
         else:
-            sft_a, sft_b = _accurate_sfts_checked(a, b, num_moduli, f32_call)
+            sft_a, sft_b = accurate_sfts(a, b, num_moduli)
         if not one_shot:
             return _gemm_chunked(a, b, sft_a, sft_b, num_moduli,
                                  moduli_chunk, out_dtype, alpha_e)
@@ -159,7 +153,6 @@ def gemm_core(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
         b8 = hk.encode_slices(b, sft_b, num_moduli, axis=0)
     if (alpha_e == 0 and os.environ.get("GEMMUL8_FUSED_RECONSTRUCT") == "1"
             and hm.fused_reconstruct_ok(m, n, k, num_moduli)):
-        refuse_f32(f32_call, "GEMMUL8_FUSED_RECONSTRUCT=1")
         return hm.matmul_reconstruct(a8, b8, sft_a, sft_b, num_moduli,
                                      out_dtype)
     r8 = hm.matmul_mod_u8(a8, b8, num_moduli, centered=centered_residues())
@@ -228,8 +221,7 @@ def gemm_core_panels(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
         if fastmode:
             sft_b = hk.fast_sft(bp, num_moduli, axis=0)
         else:
-            sft_a, sft_b = _accurate_sfts_checked(a, bp, num_moduli,
-                                                  f32_call)
+            sft_a, sft_b = accurate_sfts(a, bp, num_moduli)
             a8 = None  # accurate shifts depend on B: A is encoded anew
         if a8 is None:
             a8 = hk.encode_slices(a, sft_a, num_moduli, axis=1)

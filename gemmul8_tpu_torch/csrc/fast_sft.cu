@@ -5,8 +5,8 @@
 // shared shift.
 //
 // Replaces: fast_sft_pallas, gemmul8_tpu/pallas/kernels.py:54 (both its
-// modes; return_stats=True is the second), for f64 operands, and the shift
-// mode for f32 operands (its F64Bits and f32 forms).
+// modes; return_stats=True is the second), each in its F64Bits and f32
+// forms.
 // Bound on the H100: device-memory bytes. Each element is read once (8
 // bytes f64, 4 bytes f32) for a handful of integer and f32 operations; at
 // 8192^2 that is 0.5 GB per f64 operand (0.27 GB f32), about 0.16 ms
@@ -113,14 +113,18 @@ GM8_EXPORT int gm8_fast_sft(const void* x, void* out, int rows, int kdim,
                                            axis, t_f, guard, s);
 }
 
-// x as for gm8_fast_sft, f64 bits. emax: rows int64; nrm2: rows f32; any:
-// rows bool.
+// x as for gm8_fast_sft, f64 bits (f32 = 0) or f32 bits (f32 = 1). emax:
+// rows int64; nrm2: rows f32; any: rows bool. The statistics carry no
+// bias: the caller takes the shift at its operand's.
 GM8_EXPORT int gm8_fast_stats(const void* x, void* emax, void* nrm2,
                               void* any, int rows, int kdim, int axis,
-                              void* stream) {
+                              int f32, void* stream) {
   const StatsOut st{static_cast<long long*>(emax), static_cast<float*>(nrm2),
                     static_cast<bool*>(any)};
+  auto s = static_cast<cudaStream_t>(stream);
+  if (f32)
+    return launch<true, unsigned>(x, nullptr, st, rows, kdim, axis, 0, 0.0f,
+                                  s);
   return launch<true, unsigned long long>(x, nullptr, st, rows, kdim, axis,
-                                          0, 0.0f,
-                                          static_cast<cudaStream_t>(stream));
+                                          0, 0.0f, s);
 }

@@ -30,13 +30,16 @@
 // f32 forms read 4-byte words with the same blocks and tiles.
 //
 // gm8_mag7_fused computes both in one kernel and writes the same buffer.
-// Replaces: mag7_fused_pallas (gemmul8_tpu/pallas/kernels.py:465).
-// Bound: the same bytes with the operand read once, 0.60 GB per operand at
-// 8192^2, about 0.18 ms. Design: the max must be complete before any
-// magnitude of its row or column, so one block owns a row of A (256
-// threads) or a 32-column strip of B (32 x 16 threads) and reads it twice:
-// a row's second read hits L2, a strip's (2 MB at 8192) mostly does not.
-// The max is exact, so the outputs are the two-kernel pair's bits.
+// Replaces: mag7_fused_pallas (gemmul8_tpu/pallas/kernels.py:465), its
+// F64Bits and f32 forms.
+// Bound: the same bytes with the operand read once, 0.60 GB per f64
+// operand at 8192^2 (0.34 GB f32), about 0.18 ms (0.10 ms). Design: the
+// max must be complete before any magnitude of its row or column, so one
+// block owns a row of A (256 threads) or a 32-column strip of B (32 x 16
+// threads) and reads it twice: a row's second read hits L2, a strip's (2
+// MB at 8192 in f64) mostly does not. The max is exact, so the outputs are
+// the two-kernel pair's bits. Its f32 form reads 4-byte words with the
+// same blocks and tiles, as the pair's f32 forms do.
 #include "common.cuh"
 #include "src_word.cuh"
 
@@ -171,12 +174,13 @@ mag7_cols(const Word* __restrict__ x, const int* __restrict__ emax,
 // A (rows, kdim): the row's max exponent, then its magnitudes as 4-byte
 // words of the (rows, ld) buffer; the second read of the row (64 KB at k =
 // 8192) comes from L2 right after the first
+template <typename Word>
 __global__ void __launch_bounds__(kThreads)
-mag7_fused_rows(const unsigned long long* __restrict__ x,
-                int* __restrict__ emax, unsigned* __restrict__ out, int kdim,
-                int ld_words, int mag_shift) {
+mag7_fused_rows(const Word* __restrict__ x, int* __restrict__ emax,
+                unsigned* __restrict__ out, int kdim, int ld_words,
+                int mag_shift) {
   __shared__ int sh[kThreads / 32];
-  const unsigned long long* xr = x + static_cast<size_t>(blockIdx.x) * kdim;
+  const Word* xr = x + static_cast<size_t>(blockIdx.x) * kdim;
   int e = 0;
 #pragma unroll 4
   for (int k = threadIdx.x; k < kdim; k += kThreads)
@@ -204,12 +208,13 @@ constexpr int kFusedK = 128;    // k per transpose tile
 
 // B (kdim, cols): a kColX-column strip's max exponents, then its magnitudes
 // K-major into (cols, ld) through a kColX x kFusedK tile in shared memory.
-// The strip (kdim x 256 bytes) is read twice; at 8192^2 the strips of the
-// blocks in flight exceed L2, so the second read mostly misses it
+// The strip (kdim x 256 bytes in f64) is read twice; at 8192^2 the strips
+// of the blocks in flight exceed L2, so the second read mostly misses it
+template <typename Word>
 __global__ void __launch_bounds__(kColX * kFusedColY)
-mag7_fused_cols(const unsigned long long* __restrict__ x,
-                int* __restrict__ emax, unsigned char* __restrict__ out,
-                int kdim, int cols, int ld, int mag_shift) {
+mag7_fused_cols(const Word* __restrict__ x, int* __restrict__ emax,
+                unsigned char* __restrict__ out, int kdim, int cols, int ld,
+                int mag_shift) {
   __shared__ int sh[kFusedColY][kColX];
   // [column][k]; a row of kFusedK + 4 bytes keeps the byte stores of a warp
   // (kColX neighbouring columns, one k) on different banks
@@ -233,8 +238,9 @@ mag7_fused_cols(const unsigned long long* __restrict__ x,
 #pragma unroll
     for (int i = 0; i < kFusedK / kFusedColY; ++i) {
       const int r = ty + i * kFusedColY, k = k0 + r;
-      const unsigned long long bits =
-          valid && k < kdim ? x[static_cast<size_t>(k) * cols + col] : 0ull;
+      const Word bits =
+          valid && k < kdim ? x[static_cast<size_t>(k) * cols + col]
+                            : Word(0);
       sm[tx][r] = static_cast<unsigned char>(mag7_byte(bits, e, mag_shift));
     }
     __syncthreads();
@@ -287,6 +293,20 @@ int mag7_launch(const void* x, const int* ep, void* out, int rows, int kdim,
   return gm8::launch_status();
 }
 
+template <typename Word>
+void mag7_fused_launch(const void* x, int* ep, void* out, int rows, int kdim,
+                       int axis, int ld, int mag_shift, cudaStream_t s) {
+  auto xp = static_cast<const Word*>(x);
+  if (axis == 1) {
+    mag7_fused_rows<Word><<<rows, kThreads, 0, s>>>(
+        xp, ep, static_cast<unsigned*>(out), kdim, ld / 4, mag_shift);
+  } else {
+    mag7_fused_cols<Word><<<(rows + kColX - 1) / kColX,
+                            dim3(kColX, kFusedColY), 0, s>>>(
+        xp, ep, static_cast<unsigned char*>(out), kdim, rows, ld, mag_shift);
+  }
+}
+
 }  // namespace
 
 // x: (rows, kdim) for axis=1, (kdim, rows) for axis=0, f64 bits (f32 = 0)
@@ -316,23 +336,21 @@ GM8_EXPORT int gm8_mag7(const void* x, const void* emax, void* out,
                                                ld, mag_shift, s);
 }
 
-// emax and mag7 in one kernel. x as for gm8_emax; emax: rows int32 (written
-// whole, no zero fill); out and its conditions as for gm8_mag7.
+// emax and mag7 in one kernel. x as for gm8_emax (f32 = 0: f64 bits, 1:
+// f32 bits); emax: rows int32 (written whole, no zero fill); out and its
+// conditions as for gm8_mag7.
 GM8_EXPORT int gm8_mag7_fused(const void* x, void* emax, void* out, int rows,
                               int kdim, int axis, int ld, int mag_shift,
-                              void* stream) {
+                              int f32, void* stream) {
   if (ld % 4 != 0 || ld < kdim || mag_shift < 0 || mag_shift > 6)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  auto xp = static_cast<const unsigned long long*>(x);
   auto ep = static_cast<int*>(emax);
-  if (axis == 1) {
-    mag7_fused_rows<<<rows, kThreads, 0, s>>>(
-        xp, ep, static_cast<unsigned*>(out), kdim, ld / 4, mag_shift);
-  } else {
-    mag7_fused_cols<<<(rows + kColX - 1) / kColX, dim3(kColX, kFusedColY), 0,
-                      s>>>(xp, ep, static_cast<unsigned char*>(out), kdim,
-                           rows, ld, mag_shift);
-  }
+  if (f32)
+    mag7_fused_launch<unsigned>(x, ep, out, rows, kdim, axis, ld, mag_shift,
+                                s);
+  else
+    mag7_fused_launch<unsigned long long>(x, ep, out, rows, kdim, axis, ld,
+                                          mag_shift, s);
   return gm8::launch_status();
 }

@@ -1,15 +1,18 @@
 // Batched int8 GEMM fused with the CRT reconstruction:
 // out = RNE( centered(sum_l w_l (C_l mod m_l) mod M) * 2^(-sft_a - sft_b) ),
-// C_l = A8[l] @ B8[l], as f64: matmul_mod.cu and reconstruct.cu in one
-// kernel, the residues never stored as an (L, m, n) tensor.
+// C_l = A8[l] @ B8[l], as f64 or f32: matmul_mod.cu and reconstruct.cu in
+// one kernel, the residues never stored as an (L, m, n) tensor.
 //
 // Replaces: matmul_reconstruct_pallas, gemmul8_tpu/pallas/megakernel.py:80
-// (its f64 output).
+// (its f64 and f32 outputs).
 // Bound on the H100: tensor-core operations (L x 2mnk); beside the int8
-// operands it moves only the shifts and 8 bytes per output element.
+// operands it moves only the shifts and 8 bytes (f32: 4) per output
+// element.
 // Design: crt_gemm.cuh, the loop of matmul_crt.cu; after the last modulus
 // the block runs crt.cuh's tail (mod M, centering, rounding) on each CRT
-// sum of its tile and writes f64. The TPU kernel's T + 1 grid,
+// sum of its tile and writes f64, or f32 rounded once from the integer
+// (crt_round_f32, never through an f64: the output type is a template
+// parameter, the rest of the kernel is one body). The TPU kernel's T + 1 grid,
 // parity-banked accumulators and rider slots overlapped vector work with
 // the matrix unit inside one TPU core; here two blocks per SM overlap one
 // block's tail with the other's products. The scratch of residues is per
@@ -29,14 +32,15 @@ using gm8::kWords;
 constexpr int kThreads = gm8::kMmaThreads;
 constexpr int kSmemBytes = gm8::kMmaSmemBytes;
 
+// Out: unsigned long long (f64 bits) or unsigned (f32 bits)
+template <typename Out>
 __global__ void __launch_bounds__(kThreads, 2)
 matmul_reconstruct_kernel(const signed char* __restrict__ A,
                           const signed char* __restrict__ Bt,
                           unsigned char* __restrict__ scratch,
                           const int* __restrict__ sft_a,
                           const int* __restrict__ sft_b,
-                          unsigned long long* __restrict__ out, int L, int m,
-                          int n, int kp,
+                          Out* __restrict__ out, int L, int m, int n, int kp,
                           const __grid_constant__ gm8::CrtTable T,
                           const __grid_constant__ gm8::SlotModuli mods) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -52,10 +56,28 @@ matmul_reconstruct_kernel(const signed char* __restrict__ A,
         [&](int row, int col, unsigned (&x)[kWords]) {
           unsigned mag[kWords];
           const bool neg = gm8::crt_center(x, T, mag);
-          out[static_cast<size_t>(row) * n + col] =
-              gm8::crt_round_f64(mag, neg, -(sft_a[row] + sft_b[col]));
+          const int e_fix = -(sft_a[row] + sft_b[col]);
+          if constexpr (sizeof(Out) == 8)
+            out[static_cast<size_t>(row) * n + col] =
+                gm8::crt_round_f64(mag, neg, e_fix);
+          else
+            out[static_cast<size_t>(row) * n + col] =
+                gm8::crt_round_f32(mag, neg, e_fix);
         });
   }
+}
+
+template <typename Out>
+void launch(const signed char* a8, const signed char* btp,
+            unsigned char* scratch, const int* sa, const int* sb, void* out,
+            int L, int m, int n, int kp, int nblocks, const gm8::CrtTable& T,
+            const gm8::SlotModuli& mods, cudaStream_t s) {
+  cudaFuncSetAttribute(matmul_reconstruct_kernel<Out>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kSmemBytes);
+  matmul_reconstruct_kernel<Out><<<nblocks, kThreads, kSmemBytes, s>>>(
+      a8, btp, scratch, sa, sb, static_cast<Out*>(out), L, m, n, kp, T,
+      mods);
 }
 
 }  // namespace
@@ -63,14 +85,16 @@ matmul_reconstruct_kernel(const signed char* __restrict__ A,
 // a8: (L, m, kp) int8 with kp % 16 == 0 (zero-padded past k by the caller
 // when k % 16 != 0); b8: (L, k, n) int8; bt: (L, n, kp) int8 workspace;
 // scratch: (nblocks, L, 128 * 128) uint8 workspace; sft_a: m int32, sft_b:
-// n int32; out: (m, n) f64; table: the CrtTable of L moduli, on the host.
-// Slice l uses modulus MODULI[l]; k <= 2^17 (checked by the caller).
+// n int32; out: (m, n) f64 (out_f32 = 0) or f32 (out_f32 = 1); table: the
+// CrtTable of L moduli, on the host. Slice l uses modulus MODULI[l]; k <=
+// 2^17 (checked by the caller).
 GM8_EXPORT int gm8_matmul_reconstruct(const void* a8, const void* b8,
                                       void* bt, void* scratch,
                                       const void* sft_a, const void* sft_b,
                                       void* out, const void* table, int L,
                                       int m, int n, int k, int kp,
-                                      int nblocks, void* stream) {
+                                      int nblocks, int out_f32,
+                                      void* stream) {
   gm8::SlotModuli mods;
   if (kp % 16 != 0 || kp < k || nblocks < 1 ||
       !gm8::slot_moduli(nullptr, L, &mods))
@@ -80,13 +104,15 @@ GM8_EXPORT int gm8_matmul_reconstruct(const void* a8, const void* b8,
   auto s = static_cast<cudaStream_t>(stream);
   auto btp = static_cast<signed char*>(bt);
   gm8::transpose_b(static_cast<const signed char*>(b8), btp, L, k, n, kp, s);
-  cudaFuncSetAttribute(matmul_reconstruct_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       kSmemBytes);
-  matmul_reconstruct_kernel<<<nblocks, kThreads, kSmemBytes, s>>>(
-      static_cast<const signed char*>(a8), btp,
-      static_cast<unsigned char*>(scratch), static_cast<const int*>(sft_a),
-      static_cast<const int*>(sft_b), static_cast<unsigned long long*>(out),
-      L, m, n, kp, T, mods);
+  auto ap = static_cast<const signed char*>(a8);
+  auto sc = static_cast<unsigned char*>(scratch);
+  auto sa = static_cast<const int*>(sft_a);
+  auto sb = static_cast<const int*>(sft_b);
+  if (out_f32)
+    launch<unsigned>(ap, btp, sc, sa, sb, out, L, m, n, kp, nblocks, T, mods,
+                     s);
+  else
+    launch<unsigned long long>(ap, btp, sc, sa, sb, out, L, m, n, kp,
+                               nblocks, T, mods, s);
   return gm8::launch_status();
 }

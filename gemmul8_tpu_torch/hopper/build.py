@@ -18,8 +18,8 @@ The C entry points act on the current CUDA device: a wrapper calls them
 inside `torch.cuda.device(x.device)`, which restores the caller's device.
 Every C entry point returns `cudaGetLastError()` after its launch; `check`
 raises on a nonzero code. `LAUNCHES` counts kernel launches per wrapper;
-a kernel's f32 form (f32 operand, or f32 output for reconstruct) counts
-under its own key, the name with "[f32]" (`form`).
+a kernel's f32 form (f32 operand, or f32 output for reconstruct and
+matmul_reconstruct) counts under its own key, the name with "[f32]" (`form`).
 """
 
 from __future__ import annotations
@@ -51,8 +51,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # x, out_sft, rows, kdim, axis, t_f, guard, f32, stream
     "gm8_fast_sft": [_P, _P, _I, _I, _I, _I, _F, _I, _P],
-    # x, out_emax, out_nrm2, out_any, rows, kdim, axis, stream
-    "gm8_fast_stats": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # x, out_emax, out_nrm2, out_any, rows, kdim, axis, f32, stream
+    "gm8_fast_stats": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, sft, out, d0, d1, axis, moduli_idx (host), n_idx, q_max, c0, c1,
     # f32, stream
     "gm8_encode_slices": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I,
@@ -73,10 +73,12 @@ _SIGNATURES = {
     # ar, ai, sa, br, bi, sb, bt (workspaces), out_re, out_im, L, m, n, k,
     # kp, centered, kara, stream
     "gm8_matmul_complex_mod": [_P] * 9 + [_I] * 7 + [_P],
-    # x, out, sft, rows, kdim, axis, num_moduli, t_f, guard, q_max, stream
-    "gm8_fast_encode_fused": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
-    # x, emax, out, rows, kdim, axis, ld, mag_shift, stream
-    "gm8_mag7_fused": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, out, sft, rows, kdim, axis, num_moduli, t_f, guard, q_max, f32,
+    # stream
+    "gm8_fast_encode_fused": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
+                              _P],
+    # x, emax, out, rows, kdim, axis, ld, mag_shift, f32, stream
+    "gm8_mag7_fused": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # a, lda, bt, ldb, row_part, col_part, m, n, k, stream
     "gm8_magmax_matmul_scratch": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _P],
     # a8, b8, bt (workspace), out, moduli_idx (host), L, m, n, k, kp, stream
@@ -85,8 +87,8 @@ _SIGNATURES = {
     # kp, nblocks, stream
     "gm8_matmul_crt": [_P] * 6 + [_I] * 7 + [_P],
     # a8, b8, bt, scratch (workspaces), sft_a, sft_b, out, table (host), L,
-    # m, n, k, kp, nblocks, stream
-    "gm8_matmul_reconstruct": [_P] * 8 + [_I] * 6 + [_P],
+    # m, n, k, kp, nblocks, out_f32, stream
+    "gm8_matmul_reconstruct": [_P] * 8 + [_I] * 7 + [_P],
     # a8, b8 (or null), bt, res, r_prev, r_sa, sb, r_out, a_src, a_sft,
     # a_out, table (host), a_rows, a_row0, L, pm, n, k, q_max, stream
     "gm8_matmul_rider_step": [_P] * 12 + [_I] * 7 + [_P],

@@ -23,11 +23,10 @@ residues, raw int32 slice products and the weighted CRT sum as 16-bit limbs
 schedule's fold produce), and writes into a given output (`out=`, rows of
 the panel pipeline's full-size output).
 
-`fast_sft`, `emax`, `mag7` and `encode_slices` take a float64 or a float32
-operand and launch that dtype's form of their kernel; `reconstruct` writes
-float64 or float32 (`out_dtype`). An f32 form's launches count under its
-own key (`build.form`: "encode_slices[f32]"). The other wrappers here take
-float64 only; their f32 forms are ROADMAP B18.
+Every wrapper here takes a float64 or a float32 operand and launches that
+dtype's form of its kernel; `reconstruct` writes float64 or float32
+(`out_dtype`). An f32 form's launches count under its own key
+(`build.form`: "encode_slices[f32]").
 
 `mag7_operand` reads GEMMUL8_FUSED_MAG7 at call time, as the JAX package's
 `mag7_operand_pallas` does: "1" takes mag7_fused, anything else the emax +
@@ -65,11 +64,6 @@ def _on_cpu(x: torch.Tensor) -> bool:
     return False
 
 
-def _check_f64(x: torch.Tensor):
-    if x.dtype != torch.float64 or x.dim() != 2:
-        raise TypeError("expected a 2-D float64 tensor")
-
-
 def _is_f32(x: torch.Tensor) -> bool:
     """Whether x is a float32 operand (else float64); other dtypes and
     shapes raise TypeError."""
@@ -104,10 +98,11 @@ def fast_sft(x: torch.Tensor, num_moduli: int, axis: int) -> torch.Tensor:
 
 
 def fast_stats(x: torch.Tensor, axis: int):
-    """Fast-mode statistics (emax int64, nrm2 f32, anyfinite bool), each
-    (m, 1) for axis=1 or (1, n) for axis=0: what fast_sft takes its shift
-    from, for the complex path to merge over Re and Im."""
-    _check_f64(x)
+    """Fast-mode statistics (emax int64, nrm2 f32, anyfinite bool) of a
+    float64 or float32 operand, each (m, 1) for axis=1 or (1, n) for
+    axis=0: what fast_sft takes its shift from, for the complex path to
+    merge over Re and Im (the shift's bias is the operand's)."""
+    f32 = _is_f32(x)
     rows, kdim = _rows_kdim(x, axis)
     if _on_cpu(x):
         return fast_stats_plain(x, axis)
@@ -119,9 +114,9 @@ def fast_stats(x: torch.Tensor, axis: int):
     with torch.cuda.device(x.device):
         code = build.lib().gm8_fast_stats(
             x.data_ptr(), *(t.data_ptr() for t in out), rows, kdim, axis,
-            build.stream_ptr(x.device))
+            int(f32), build.stream_ptr(x.device))
     build.check(code, "fast_stats")
-    build.LAUNCHES["fast_stats"] += 1
+    build.LAUNCHES[build.form("fast_stats", f32)] += 1
     return out
 
 
@@ -199,10 +194,10 @@ def mag7(x: torch.Tensor, emax: torch.Tensor, axis: int,
 
 
 def mag7_fused(x: torch.Tensor, axis: int, mag_shift: int = enc.MAG_SHIFT):
-    """(magnitudes, emax) in one kernel: the values of `emax` and `mag7`,
-    the magnitudes in the same padded K-major buffer `mag7` writes on the
-    card."""
-    _check_f64(x)
+    """(magnitudes, emax) of a float64 or float32 operand in one kernel:
+    the values of `emax` and `mag7`, the magnitudes in the same padded
+    K-major buffer `mag7` writes on the card."""
+    f32 = _is_f32(x)
     rows, kdim = _rows_kdim(x, axis)
     if _on_cpu(x):
         return mag7_fused_plain(x, axis, mag_shift)
@@ -214,16 +209,16 @@ def mag7_fused(x: torch.Tensor, axis: int, mag_shift: int = enc.MAG_SHIFT):
     with torch.cuda.device(x.device):
         code = build.lib().gm8_mag7_fused(x.data_ptr(), e.data_ptr(),
                                           buf.data_ptr(), rows, kdim, axis,
-                                          ld, mag_shift,
+                                          ld, mag_shift, int(f32),
                                           build.stream_ptr(x.device))
     build.check(code, "mag7_fused")
-    build.LAUNCHES["mag7_fused"] += 1
+    build.LAUNCHES[build.form("mag7_fused", f32)] += 1
     return _mag7_view(buf, kdim, axis), e
 
 
 def mag7_operand(x: torch.Tensor, axis: int):
-    """(magnitudes, emax) of one operand: the emax kernel, then mag7 (f64
-    or f32 forms); or mag7_fused (f64 only) under GEMMUL8_FUSED_MAG7=1."""
+    """(magnitudes, emax) of one float64 or float32 operand: the emax
+    kernel, then mag7; or mag7_fused under GEMMUL8_FUSED_MAG7=1."""
     if os.environ.get("GEMMUL8_FUSED_MAG7", "0") == "1":
         return mag7_fused(x, axis)
     e = emax(x, axis)
@@ -231,16 +226,15 @@ def mag7_operand(x: torch.Tensor, axis: int):
 
 
 def mag7_operand_complex(re: torch.Tensor, im: torch.Tensor, axis: int):
-    """(magnitudes, emax) of a complex operand: emax of each part, their
-    max, then |Re| + |Im| of the parts' magnitudes at MAG_SHIFT_COMPLEX
-    (each <= 32, so the int8 sum <= 64). On the card the sum is taken in
-    place on the padded K-major buffer, so `magmax_matmul` still reads it
-    without a copy. The counterpart of the JAX package's
+    """(magnitudes, emax) of a complex operand whose Re and Im parts are
+    both float64 or both float32: emax of each part, their max, then |Re| +
+    |Im| of the parts' magnitudes at MAG_SHIFT_COMPLEX (each <= 32, so the
+    int8 sum <= 64). On the card the sum is taken in place on the padded
+    K-major buffer, whatever the parts' word, so `magmax_matmul` still
+    reads it without a copy. The counterpart of the JAX package's
     `_mag7_complex_pallas`."""
-    _check_f64(re)
-    _check_f64(im)
-    if re.shape != im.shape:
-        raise ValueError("Re and Im must have one shape")
+    if _is_f32(re) != _is_f32(im) or re.shape != im.shape:
+        raise ValueError("Re and Im must have one shape and one dtype")
     e = torch.maximum(emax(re, axis), emax(im, axis))
     shift = enc.MAG_SHIFT_COMPLEX
     if _on_cpu(re):
@@ -290,10 +284,10 @@ def encode_slices(x: torch.Tensor, sft: torch.Tensor, num_moduli: int,
 
 
 def fast_encode_fused(x: torch.Tensor, num_moduli: int, axis: int):
-    """(slices (L, *x.shape) int8, sft int32) in one kernel: the shifts of
-    `fast_sft` ((m, 1) for axis=1, (1, n) for axis=0) and the residues of
-    `encode_slices` with them."""
-    _check_f64(x)
+    """(slices (L, *x.shape) int8, sft int32) of a float64 or float32
+    operand in one kernel: the shifts of `fast_sft` ((m, 1) for axis=1,
+    (1, n) for axis=0) and the residues of `encode_slices` with them."""
+    f32 = _is_f32(x)
     rows, kdim = _rows_kdim(x, axis)
     if _on_cpu(x):
         return fast_encode_fused_plain(x, num_moduli, axis)
@@ -306,10 +300,10 @@ def fast_encode_fused(x: torch.Tensor, num_moduli: int, axis: int):
         code = build.lib().gm8_fast_encode_fused(
             x.data_ptr(), out.data_ptr(), sft.data_ptr(), rows, kdim, axis,
             num_moduli, tables.threshold_fast(num_moduli),
-            enc._norm_guard(kdim), enc.q_max(num_moduli),
-            build.stream_ptr(x.device))
+            enc._norm_guard(kdim), enc.q_max(num_moduli, enc.mant_bits_of(x)),
+            int(f32), build.stream_ptr(x.device))
     build.check(code, "fast_encode_fused")
-    build.LAUNCHES["fast_encode_fused"] += 1
+    build.LAUNCHES[build.form("fast_encode_fused", f32)] += 1
     return out, sft
 
 

@@ -181,9 +181,13 @@ def matmul_reconstruct(a8: torch.Tensor, b8: torch.Tensor,
                        num_moduli: int,
                        out_dtype: str = "f64") -> torch.Tensor:
     """(L, m, k) int8 x (L, k, n) int8 + shifts (m, 1), (1, n) -> the (m, n)
-    float64 result of `matmul_mod_u8` + `reconstruct` from one kernel, with
-    no (L, m, n) residues stored."""
+    float64 (out_dtype "f64") or float32 ("f32", the integer rounded once
+    to 24 bits) result of `matmul_mod_u8` + `reconstruct` from one kernel,
+    with no (L, m, n) residues stored."""
     sg._check_matmul_args(a8, b8, num_moduli)
+    if out_dtype not in ("f64", "f32"):
+        raise ValueError(f"out_dtype {out_dtype!r}")
+    f32 = out_dtype == "f32"
     L, m, k = a8.shape
     n = b8.shape[2]
     if tuple(sft_a.shape) != (m, 1) or tuple(sft_b.shape) != (1, n):
@@ -191,24 +195,22 @@ def matmul_reconstruct(a8: torch.Tensor, b8: torch.Tensor,
     if a8.device.type == "cpu" and b8.device.type == "cpu":
         return matmul_reconstruct_plain(a8, b8, sft_a, sft_b, num_moduli,
                                         out_dtype)
-    if out_dtype != "f64":
-        raise NotImplementedError(
-            "f32 output of the fused matmul + reconstruct kernel: ROADMAP A4")
     if sft_a.dtype != torch.int32 or sft_b.dtype != torch.int32:
         raise TypeError("shifts must be int32")
     build.require_cuda(a8, b8, sft_a, sft_b)
     a8, kp, bt = _k_workspace(a8, n)
     nblocks, scratch = _crt_scratch(a8.device, L, m, n)
-    out = torch.empty((m, n), dtype=torch.float64, device=a8.device)
+    out = torch.empty((m, n), dtype=torch.float32 if f32 else torch.float64,
+                      device=a8.device)
     table = hk.crt_table_entry(L)
     with torch.cuda.device(a8.device):
         code = build.lib().gm8_matmul_reconstruct(
             a8.data_ptr(), b8.data_ptr(), bt.data_ptr(), scratch.data_ptr(),
             sft_a.data_ptr(), sft_b.data_ptr(), out.data_ptr(),
-            table.ctypes.data, L, m, n, k, kp, nblocks,
+            table.ctypes.data, L, m, n, k, kp, nblocks, int(f32),
             build.stream_ptr(a8.device))
     build.check(code, "matmul_reconstruct")
-    build.LAUNCHES["matmul_reconstruct"] += 1
+    build.LAUNCHES[build.form("matmul_reconstruct", f32)] += 1
     return out
 
 

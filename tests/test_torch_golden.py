@@ -2,7 +2,11 @@
 
 `tests/data/torch_golden.npz` holds, for a few calls of ragged shapes (real
 fast and accurate, complex fast and accurate, one pipelined call; f32 and
-mixed operands, f32 output, alpha/beta and op T), how to make the operands
+mixed operands, f32 output, alpha/beta and op T; complex64 fast and
+accurate and a complex128 x complex64 call; f32 calls under
+GEMMUL8_FUSED_ENCODE, GEMMUL8_FUSED_MAG7 and GEMMUL8_FUSED_RECONSTRUCT,
+whose golden bits are the JAX package's default call's), how to make the
+operands
 (shape, phi, seeds of `phi_matrix`, dtypes, ops), the JAX package's shifts
 and a SHA-256 digest of the JAX package's output bits
 (`gemmul8_tpu_torch.bench.golden` makes the operands and digests). The JAX
@@ -42,13 +46,15 @@ import jax  # noqa: E402
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
+import jax.numpy as jnp  # noqa: E402
+
 import torch  # noqa: E402
 
 from gemmul8_tpu import api as japi  # noqa: E402
 from gemmul8_tpu.core import complexgemm as jcg  # noqa: E402
 from gemmul8_tpu.core import gemm as gg  # noqa: E402
 from gemmul8_tpu.pallas import kernels as pk  # noqa: E402
-from gemmul8_tpu.types import bits_to_f64, f64_to_bits  # noqa: E402
+from gemmul8_tpu.types import F64Bits, bits_to_f64, f64_to_bits  # noqa: E402
 from gemmul8_tpu_torch.bench.golden import (c_operand,  # noqa: E402
                                             digest, operands, port_entry)
 from gemmul8_tpu_torch.core import encode as enc  # noqa: E402
@@ -59,9 +65,12 @@ MARGIN = 1e-4
 
 
 def _call(dtypes=("f64", "f64"), out_dtype=None, alpha=1.0, beta=0.0,
-          ops=("N", "N")):
-    return {"dtypes": list(dtypes), "out_dtype": out_dtype, "alpha": alpha,
+          ops=("N", "N"), env=None):
+    call = {"dtypes": list(dtypes), "out_dtype": out_dtype, "alpha": alpha,
             "beta": beta, "ops": list(ops)}
+    if env:
+        call["env"] = env
+    return call
 
 
 F64 = _call()
@@ -96,17 +105,49 @@ ENTRIES = {
                        "0", _call(("f32", "f64"), None, 1.7, -0.3)),
     "op_t_f32": ("real", (56, 120, 32), 8, False, 1.0, (33, 34), None, "0",
                  _call(("f32", "f32"), None, 0.25, 0.0, ("T", "C"))),
+    "complex64_fast_L8": ("complex", (40, 72, 24), 8, True, 0.5, (21, 22),
+                          "COMPLEX_KARATSUBA_MULT", "0", F32),
+    "complex64_accurate_L8": ("complex", (40, 72, 24), 8, False, 0.5,
+                              (21, 22), "COMPLEX_BIG_MATRIX_ENCODE", "0",
+                              F32),
+    "c128_c64_fast": ("complex", (48, 96, 40), 14, True, 0.5, (25, 26),
+                      "COMPLEX_CLASSIC_MULT", "0", _call(("f64", "f32"))),
+    "f32_fused_encode": ("real", (72, 200, 56), 8, True, 0.5, (3, 4), None,
+                         "0", _call(("f32", "f32"),
+                                    env={"GEMMUL8_FUSED_ENCODE": "1"})),
+    "f32_fused_mag7": ("real", (72, 200, 56), 8, False, 0.5, (3, 4), None,
+                       "0", _call(("f32", "f64"), "f32",
+                                  env={"GEMMUL8_FUSED_MAG7": "1"})),
+    "f32_fused_reconstruct": ("real", (40, 136, 24), 10, True, 2.0,
+                              (13, 14), None, "0",
+                              _call(("f64", "f32"), "f32",
+                                    env={"GEMMUL8_FUSED_RECONSTRUCT": "1"})),
 }
 
 
-def _bits(a):
-    return f64_to_bits(np.ascontiguousarray(a))
+def _jax_part(a):
+    """The JAX package's operand of a part's bits: F64Bits or float32."""
+    a = np.ascontiguousarray(a)
+    return f64_to_bits(a) if a.dtype == np.float64 else jnp.asarray(a)
+
+
+def _assemble(re, im):
+    """A complex numpy array of the JAX core's (re, im) words, bit for
+    bit."""
+    if isinstance(re, F64Bits):
+        re, im = (bits_to_f64(x, to_numpy=True) for x in (re, im))
+    re, im = np.asarray(re), np.asarray(im)
+    c = np.empty(re.shape, np.complex128 if re.dtype == np.float64
+                 else np.complex64)
+    c.real, c.imag = re, im
+    return c
 
 
 def jax_entry(name):
     """(sft_a, sft_b, digest) of an entry from the JAX package: its
     Pallas core, inside the JAX front end's op, dtype, alpha fold and
-    epilogue for a real call."""
+    epilogue for a real call; the default call whatever switches the
+    entry's "env" names for the port."""
     kind, shape, L, fastmode, phi, seeds, ct, pipe, call = ENTRIES[name]
     a, b = operands(kind, shape, phi, seeds, call)
     saved = os.environ.get("GEMMUL8_PIPELINE")
@@ -130,17 +171,17 @@ def jax_entry(name):
             c_in = c_operand(shape, phi, seeds) if beta != 0.0 else None
             c = np.asarray(japi._finalize(raw, out, alpha, beta, c_in, True))
         else:
-            parts = [_bits(x) for x in (a.real, a.imag, b.real, b.imag)]
+            parts = [_jax_part(x) for x in (a.real, a.imag, b.real, b.imag)]
             if fastmode:
                 sa = jcg._joint_sft_pallas(parts[0], parts[1], L, 1)
                 sb = jcg._joint_sft_pallas(parts[2], parts[3], L, 0)
             else:
                 sa, sb = jcg._accurate_sfts_pallas(*parts, L)
+            out = "f64" if "f64" in call["dtypes"] else "f32"
             re, im = jcg.gemm_complex_core(*parts, L, fastmode,
-                                           jcg.ComputeType[ct], "f64",
+                                           jcg.ComputeType[ct], out,
                                            use_pallas=True)
-            c = (bits_to_f64(re, to_numpy=True)
-                 + 1j * bits_to_f64(im, to_numpy=True))
+            c = _assemble(re, im)
     finally:
         if saved is None:
             os.environ.pop("GEMMUL8_PIPELINE", None)

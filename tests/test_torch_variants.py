@@ -411,12 +411,13 @@ def test_pipeline_switch_values(monkeypatch):
 
 def test_variant_wrapper_argument_errors():
     x = torch.ones((4, 6), dtype=torch.float64)
+    # float64 and float32 operands are taken (the f32 forms); others raise
     with pytest.raises(TypeError):
-        hk.fast_encode_fused(x.float(), 14, 1)
+        hk.fast_encode_fused(x.half(), 14, 1)
     with pytest.raises(ValueError):
         hk.fast_encode_fused(x, 14, 2)
     with pytest.raises(TypeError):
-        hk.mag7_fused(x.float(), 1)
+        hk.mag7_fused(x.half(), 1)
     with pytest.raises(ValueError):
         hk.mag7_fused(x, 2)
     m8 = torch.ones((4, 6), dtype=torch.int8)
