@@ -172,9 +172,7 @@ reconstruct add:
       tiles < 2e-7 against the dd oracle of the f32 operands), f64 x f32 ->
       f64 at 14 moduli (gate < 1e-8), alpha=1.7 beta=-0.3 with C in f64 and
       f32 output (numpy's epilogue on the raw call's bits), op_a="T" (the op
-      N call's bits), peak memory beside the planner's figure; and
-      GEMMUL8_PIPELINE, whose kernels are f64-only, refusing f32 calls,
-      naming ROADMAP B18;
+      N call's bits), peak memory beside the planner's figure;
   5f. at 8192^2 operands, 8 moduli: each f32 form beside its f64 form
       (medians of five rotated rounds) and its plain version (warm-up
       outputs held bit for bit); then the f32 and f64 fast-8 and
@@ -221,6 +219,39 @@ statistics mode, fast_encode_fused, mag7_fused and matmul_reconstruct add:
       five rotated rounds, as 2mnk/t and 8mnk/t.
 The new f32 forms' `launches` sum the 8192^3 calls of phase 4x (and the
 statistics mode's f32 form is an entry of its own).
+
+The riders' f32 forms (f32 and mixed operands and f32 output under
+GEMMUL8_PIPELINE and n_panel) and the batched and timed entry points add:
+  3r. at phase 3p's shapes and moduli, with phase 3's f64 and phase 3f's
+      f32 special lines copied into every A panel and B's right half: the
+      rider step in each new (A word, output word) form (launch keys
+      matmul_rider_step[f32,f64], [f64,f32], [f32,f32]) with each rider
+      combination, on its operands' residues and on random ones, with and
+      without out=; the pair in each new (A word, B word) form; and
+      reconstruct_into[f32]: bit-equal to their plain versions;
+  4r. at 8192^3, no cut: f32 x f32 -> f32 at 8 moduli under PIPELINE 1, 2
+      and 3 fast and 1 accurate, f64 x f32 -> f64 (14 moduli, PIPELINE 3),
+      f32 x f64 -> f32 (8, PIPELINE 2), f32 x f64 -> f64 (14, PIPELINE 3),
+      f64 x f64 -> f32 (8, PIPELINE 2) and an f32 8192 x 8192 x 16384 call
+      with n_panel=4096 under PIPELINE=1: each bit-equal to its one-shot
+      call, its launch counts asserted (each form of the step and the pair
+      and reconstruct_into[f32] launched), its peak memory beside the
+      one-shot call's;
+  4b. gemm_batched on 2 x 8192^3: f64 fast at 14 moduli and complex64 at
+      8, each element gemm's bits, launch counts asserted; gemm_timed and
+      gemm(return_times=True) at 8192^3, f64 at 14 moduli and f32 at 8:
+      gemm's bits, four phase times >= 0, the mod phase under 1% of their
+      sum;
+  5r. at 8192^2 operands, panels of 1024 rows: each new form beside its
+      f64 form on the same residues (medians of five rotated rounds) and
+      its plain version (warm-up outputs held bit for bit), at the moduli
+      its main-path call takes; then each phase 4r call beside its
+      one-shot call, five rotated rounds;
+  5b. each batched call per element beside the single calls of its
+      elements; each timed call's four phases (iters=5) and their sum
+      beside the fused call's median.
+The new forms' `launches` sum the calls of phase 4r. The run's wall time
+is printed before the kernels line.
 
 The line before the last is a JSON object of per-kernel results
 (`launches` sums the main-path calls of phase 4, real and complex, for the
@@ -406,6 +437,17 @@ F32_SWITCH_CALLS = [
      {"fast_sft[f32]": 2, "encode_slices[f32]": 2,
       "matmul_reconstruct[f32]": 1}),
 ]
+# phases 3r/4r/5r: the riders' f32 forms, each combination of words a key
+# of its own (build.form: the step's A source and output words, the pair's
+# A and B source words)
+RIDER_F32_FORMS = tuple(
+    [build.form("matmul_rider_step", *w)
+     for w in ((True, False), (False, True), (True, True))]
+    + [build.form("matmul_bsplit_pair", *w)
+       for w in ((True, False), (False, True), (True, True))]
+    + ["reconstruct_into[f32]"])
+KERNELS.update({form: KERNELS[form.split("[")[0]]
+                for form in RIDER_F32_FORMS})
 # the card's published peaks (H100 SXM5 data sheet, dense): device-memory
 # bytes per second and int8 tensor-core operations per second
 HBM_BYTES_PER_S = 3.35e12
@@ -2323,36 +2365,12 @@ def gate_median(c, oracle):
     return relerr_vs_dd(got, hi, lo)
 
 
-def refusal_checks():
-    """f32 operands or output under GEMMUL8_PIPELINE, whose kernels have
-    their f64 forms only: NotImplementedError naming ROADMAP B18, no rider
-    launched. (FUSED_ENCODE, FUSED_MAG7 and FUSED_RECONSTRUCT run f32
-    calls: phase 4x.)"""
-    a = torch.from_numpy(phi_matrix(512, 128, 0.5, seed=5)).to(DEVICE)
-    b = torch.from_numpy(phi_matrix(128, 1024, 0.5, seed=6)).to(DEVICE)
-    env = {"GEMMUL8_PIPELINE": "1"}
-    for args in ((a.float(), b, None), (a, b.float(), None), (a, b, "f32")):
-        build.LAUNCHES.clear()
-        try:
-            with switches(env):
-                gt.gemm(args[0], args[1], num_moduli=L_F32, out_dtype=args[2],
-                        device=DEVICE)
-        except NotImplementedError as e:
-            assert "ROADMAP B18" in str(e), f"{env}: {e}"
-        else:
-            raise AssertionError(f"{env} ran an f32 call")
-        assert "matmul_rider_step" not in build.LAUNCHES, \
-            f"{env}: launched {dict(build.LAUNCHES)}"
-    log("  f32 operands or output under PIPELINE=1 refuse, naming ROADMAP "
-        "B18, and launch none of its kernels")
-
-
 def phase_f32(a, b, launches):
     """Phase 4f: every front-end combination at N_PLAIN^3 against the
     all-plain path; the f32 and mixed N^3 calls with launch counts, gates
     (f32: median relerr < F32_GATE_MEDIAN at 8 moduli; f64 < 1e-8), the
     epilogue in numpy and op_a="T"; peak memory beside the planner's
-    figure; the switch refusals. Returns (a32, b32, gate of each call)."""
+    figure. Returns (a32, b32, gate of each call)."""
     a_np = a.cpu().numpy()
     a32_np = a_np.astype(np.float32)
     a32 = torch.from_numpy(a32_np).to(DEVICE)
@@ -2434,7 +2452,6 @@ def phase_f32(a, b, launches):
         log(line)
         del c
     del outs
-    refusal_checks()
     return a32, b32, rels
 
 
@@ -2882,6 +2899,419 @@ def phase_complex64_times(A, A64, B64, a, b, a32, b32, errs):
     return kerns, by_name
 
 
+# ---- the riders' f32 forms, batched and timed calls: phases 3r, 4r, 5r, --
+# ---- 4b, 5b ---------------------------------------------------------------
+
+def spread_special(a, b, pm):
+    """a and b with the special lines of operands() / operands32() (A's
+    rows 0-5, B's columns 3-6) copied into the first rows of every A panel
+    and into B's right half, where the encode riders read."""
+    a, b = a.clone(), b.clone()
+    for p in range(1, a.shape[0] // pm):
+        a[p * pm:p * pm + 6] = a[:6]
+    h = b.shape[1] // 2
+    b[:, h + 3:h + 7] = b[:, 3:7]
+    return a, b
+
+
+def rider_operands(m, k, n, pm, seed):
+    """{word: (a, b)} on the card for "f64" and "f32", with the special
+    lines spread over every panel and B's right half."""
+    return {"f64": spread_special(*operands(m, k, n, seed, True), pm),
+            "f32": spread_special(*operands32(m, k, n, seed, True), pm)}
+
+
+def phase_rider_f32_kernels(errs):
+    """Phase 3r: the riders' f32 forms against their plain versions on
+    the card, bit-equal, at phase 3p's shapes and moduli, with f32 and f64
+    special lines in every panel and in B's right half: the rider step in
+    each new (A word, output word) form with each rider combination, with
+    and without out=, on the residues of its operands and on random
+    residues; the pair in each new (A word, B word) form with and without
+    the A-panel-1 rider; reconstruct_into with f32 output."""
+    for (m, k, n), Ls, pm in PIPELINE_CASES:
+        ops = rider_operands(m, k, n, pm, 9)
+        last = m // pm - 1
+        for L in Ls:
+            tag = f"m={m} k={k} n={n} L={L} panel_m={pm}"
+            rng = np.random.default_rng(L)
+            r_rand = torch.from_numpy(np.stack([
+                rng.integers(0, tables.MODULI[j], (pm, n))
+                for j in range(L)]).astype(np.uint8)).to(DEVICE)
+            enc_ops = {}
+            for aw, bw in (("f64", "f64"), ("f64", "f32"), ("f32", "f64"),
+                           ("f32", "f32")):
+                a, b = ops[aw][0], ops[bw][1]
+                sa = hk.fast_sft_plain(a, L, axis=1)
+                sb = hk.fast_sft_plain(b, L, axis=0)
+                a8 = hk.encode_slices(a, sa, L, axis=1)
+                b8 = hk.encode_slices(b, sb, L, axis=0)
+                enc_ops[aw, bw] = (a, b, sa, sb, a8, b8)
+            # the step: the words of A's source and of the output
+            for aw, ow in (("f64", "f32"), ("f32", "f64"), ("f32", "f32")):
+                a, b, sa, sb, a8, b8 = enc_ops[aw, "f64"]
+                name = build.form("matmul_rider_step", aw == "f32",
+                                  ow == "f32")
+                bt = riders.kmajor(b8)
+                a8p = riders.panel_rows(a8, 1, pm).contiguous()
+                r1 = hp.matmul_rider_step_plain(a8, bt, 1, None, -1, sa, sb,
+                                                L, pm)[0]
+                for r_prev, enc_on in ((None, False), (None, True),
+                                       (r1, False), (r1, True),
+                                       (r_rand, True)):
+                    kw = dict(a_src=a if enc_on else None,
+                              next_panel=min(2, last), a_kind=aw,
+                              out_kind=ow)
+                    args = (bt, 1, r_prev, 0, sa, sb, L, pm)
+                    what = (f"{name} rec={r_prev is not None} enc={enc_on}"
+                            f"{' random residues' if r_prev is r_rand else ''}"
+                            f" {tag}")
+                    for slices in (a8, a8p):
+                        out = torch.zeros((m, n), device=DEVICE,
+                                          dtype=riders.KINDS[ow])
+                        hold_all(errs, name,
+                                 hp.matmul_rider_step(slices, *args,
+                                                      out=out, **kw),
+                                 hp.matmul_rider_step_plain(
+                                     slices, *args, out=out.clone(), **kw),
+                                 what)
+                    hold_all(errs, name,
+                             hp.matmul_rider_step(a8p, *args, **kw),
+                             hp.matmul_rider_step_plain(a8p, *args, **kw),
+                             f"{what} pieces")
+            # the pair: the words of A's and of B's sources
+            for aw, bw in (("f64", "f32"), ("f32", "f64"), ("f32", "f32")):
+                a, b, sa, sb, a8, b8 = enc_ops[aw, bw]
+                name = build.form("matmul_bsplit_pair", aw == "f32",
+                                  bw == "f32")
+                b8l = hk.encode_slices(b, sb, L, 0,
+                                       col_tiles=(0, n // 2 // 512))
+                a8_0 = riders.panel_rows(a8, 0, pm).contiguous()
+                for src in (None, a):
+                    kw = dict(a_src=src, a_kind=aw, b_kind=bw)
+                    got = hp.matmul_bsplit_pair(a8_0, b8l, b, sa, sb, L, pm,
+                                                **kw)
+                    hold_all(errs, name, got, hp.matmul_bsplit_pair_plain(
+                        a8_0, b8l, b, sa, sb, L, pm, **kw),
+                        f"{name} a_src={src is not None} {tag}")
+                    assert torch.equal(got[1], riders.kmajor(b8)), \
+                        f"{name} {tag}: B"
+            # the last panel into f32 rows: its residues and random ones
+            a, b, sa, sb, a8, b8 = enc_ops["f32", "f32"]
+            r_last = hm.matmul_mod_u8(
+                riders.panel_rows(a8, last, pm).contiguous(), b8, L)
+            for r in (r_last, r_rand):
+                out = torch.zeros((m, n), dtype=torch.float32, device=DEVICE)
+                hp.reconstruct_into(r, sa, sb, L, out, last, pm, "f32")
+                ref = hp.reconstruct_into_plain(r, sa, sb, L,
+                                                torch.zeros_like(out), last,
+                                                pm, "f32")
+                hold(errs, "reconstruct_into[f32]", out, ref,
+                     f"reconstruct_into[f32] {tag}")
+                assert not out[:last * pm].any(), f"{tag}: rows of no panel"
+            del enc_ops
+        log(f"  riders' f32 forms == plain at m={m} k={k} n={n} L={Ls} "
+            f"panel_m={pm} (f32 special lines in every panel)")
+
+
+def pipeline_f32_calls(a, b, a32, b32, b32_wide):
+    """Phase 4r's calls: (name, (A, B, moduli, fastmode, out_dtype,
+    GEMMUL8_PIPELINE, extra arguments), launch counts)."""
+    panels = N // PANEL_M
+    step = build.form
+    f32 = {"fast_sft[f32]": 2, "encode_slices[f32]": 2}
+    rec32 = {"reconstruct_into[f32]": 1}
+    cols = N_WIDE // N_PANEL
+    return [
+        ("f32 x f32 -> f32 fast PIPELINE=1", (a32, b32, L_F32, True, None,
+                                              "1", {}),
+         {**f32, step("matmul_rider_step", True, True): panels, **rec32}),
+        ("f32 x f32 -> f32 fast PIPELINE=2", (a32, b32, L_F32, True, None,
+                                              "2", {}),
+         {**f32, step("matmul_rider_step", True, True): panels, **rec32}),
+        ("f32 x f32 -> f32 fast PIPELINE=3", (a32, b32, L_F32, True, None,
+                                              "3", {}),
+         {**f32, step("matmul_bsplit_pair", True, True): 2,
+          step("matmul_rider_step", True, True): panels - 1, **rec32}),
+        ("f32 x f32 -> f32 accurate PIPELINE=1",
+         (a32, b32, L_F32, False, None, "1", {}),
+         {"emax[f32]": 2, "mag7[f32]": 2, "magmax_matmul": 1,
+          "encode_slices[f32]": 2,
+          step("matmul_rider_step", True, True): panels, **rec32}),
+        ("f64 x f32 -> f64 fast PIPELINE=3", (a, b32, L_MAIN, True, None,
+                                              "3", {}),
+         {"fast_sft": 1, "fast_sft[f32]": 1, "encode_slices": 1,
+          "encode_slices[f32]": 1, step("matmul_bsplit_pair", False, True): 2,
+          "matmul_rider_step": panels - 1, "reconstruct_into": 1}),
+        ("f32 x f64 -> f32 fast PIPELINE=2", (a32, b, L_F32, True, "f32",
+                                              "2", {}),
+         {"fast_sft": 1, "fast_sft[f32]": 1, "encode_slices": 1,
+          "encode_slices[f32]": 1,
+          step("matmul_rider_step", True, True): panels, **rec32}),
+        ("f32 x f64 -> f64 fast PIPELINE=3", (a32, b, L_MAIN, True, None,
+                                              "3", {}),
+         {"fast_sft": 1, "fast_sft[f32]": 1, "encode_slices": 1,
+          "encode_slices[f32]": 1, step("matmul_bsplit_pair", True, False): 2,
+          step("matmul_rider_step", True, False): panels - 1,
+          "reconstruct_into": 1}),
+        ("f64 x f64 -> f32 fast PIPELINE=2", (a, b, L_F32, True, "f32", "2",
+                                              {}),
+         {"fast_sft": 2, "encode_slices": 2,
+          step("matmul_rider_step", False, True): panels, **rec32}),
+        (f"f32 x f32 -> f32 {N} x {N} x {N_WIDE} n_panel={N_PANEL} "
+         "PIPELINE=1", (a32, b32_wide, L_F32, True, None, "1",
+                        {"n_panel": N_PANEL}),
+         {"fast_sft[f32]": 1 + cols, "encode_slices[f32]": 1 + cols,
+          step("matmul_rider_step", True, True): cols * panels,
+          "reconstruct_into[f32]": cols}),
+    ]
+
+
+def f32_pipe_gemm(args, pipe=None):
+    """gemm on phase 4r's arguments under GEMMUL8_PIPELINE=pipe (default:
+    the call's own level; "0" and no n_panel: its one-shot call)."""
+    x, y, L, fastmode, out_dtype, level, kw = args
+    if pipe == "0":
+        kw = {}
+    return under({"GEMMUL8_PIPELINE": level if pipe is None else pipe},
+                 lambda: gt.gemm(x, y, num_moduli=L, fastmode=fastmode,
+                                 out_dtype=out_dtype, device=DEVICE, **kw))
+
+
+def phase_pipeline_f32(a, b, a32, b32, b_wide, launches):
+    """Phase 4r: the f32, mixed and f32-output calls under GEMMUL8_PIPELINE
+    1-3 and n_panel at N^3 (and N x N x N_WIDE), each held to its
+    one-shot call's bits, with its launch counts and its peak of device
+    memory beside the one-shot call's. Returns (the calls, the wide f32
+    B)."""
+    b32_wide = b_wide.float()
+    calls = pipeline_f32_calls(a, b, a32, b32, b32_wide)
+    for name, args, want in calls:
+        ref, _, peak_ref = counted(lambda: f32_pipe_gemm(args, "0"))
+        c, counts, peak = counted(lambda: f32_pipe_gemm(args))
+        log(f"  launches in the {name} call: {counts}")
+        assert counts == want, f"{name} launch counts {counts}"
+        assert_bits_equal(c, ref, f"{name} vs its one-shot call")
+        assert bool(torch.isfinite(c).all()), f"{name}: not finite"
+        log(f"  {name} == one-shot call (bits, {c.dtype}), peak {peak} "
+            f"bytes (one-shot {peak_ref})")
+        for key, cnt in counts.items():
+            if key in RIDER_F32_FORMS:
+                launches[key] = launches.get(key, 0) + cnt
+        del c, ref
+    return calls, b32_wide
+
+
+def rider_f32_setups(a, b, a32, b32):
+    """Phase 5r: per form, (its moduli count, the kernel call, its plain
+    version, the f64 form's call on the same panel) at the main path's
+    shapes, panels of PANEL_M rows; the rider step with both riders."""
+    pm = PANEL_M
+    nxt = min(2, N // pm - 1)        # the panel the encode rider encodes
+    src = {"f64": (a, b), "f32": (a32, b32)}
+    memo = {}
+
+    def prep(aw, bw, L):
+        key = (aw, bw, L)
+        if key not in memo:
+            x, y = src[aw][0], src[bw][1]
+            sa, sb = hk.fast_sft(x, L, 1), hk.fast_sft(y, L, 0)
+            a8, b8 = hk.encode_slices(x, sa, L, 1), hk.encode_slices(
+                y, sb, L, 0)
+            bt = riders.kmajor(b8)
+            r0 = hm.matmul_mod_u8(riders.panel_rows(a8, 0, pm).contiguous(),
+                                  b8, L)
+            b8l = hk.encode_slices(y, sb, L, 0, col_tiles=(0, N // 2 // 512))
+            memo[key] = dict(x=x, y=y, sa=sa, sb=sb, bt=bt, r0=r0, b8l=b8l,
+                             a8p=riders.panel_rows(a8, 1, pm).contiguous(),
+                             a8_0=riders.panel_rows(a8, 0, pm).contiguous())
+            del a8, b8
+        return memo[key]
+
+    def step(aw, ow, L, plain=False, as_f64=False):
+        d = prep(aw, "f64", L)
+        fn = hp.matmul_rider_step_plain if plain else hp.matmul_rider_step
+        kind = "f64" if as_f64 else ow
+        x = a if as_f64 else d["x"]
+        out = torch.empty((N, N), dtype=riders.KINDS[kind], device=DEVICE)
+        return lambda: fn(d["a8p"], d["bt"], 1, d["r0"], 0, d["sa"], d["sb"],
+                          L, pm, a_src=x, next_panel=nxt, out=out,
+                          a_kind="f64" if as_f64 else aw, out_kind=kind)
+
+    def pair(aw, bw, L, plain=False, as_f64=False):
+        d = prep(aw, bw, L)
+        fn = hp.matmul_bsplit_pair_plain if plain else hp.matmul_bsplit_pair
+        x, y = (a, b) if as_f64 else (d["x"], d["y"])
+        return lambda: fn(d["a8_0"], d["b8l"], y, d["sa"], d["sb"], L, pm,
+                          a_src=x, a_kind="f64" if as_f64 else aw,
+                          b_kind="f64" if as_f64 else bw)
+
+    def into(plain=False, as_f64=False):
+        d = prep("f32", "f32", L_F32)
+        fn = hp.reconstruct_into_plain if plain else hp.reconstruct_into
+        kind = "f64" if as_f64 else "f32"
+        out = torch.empty((N, N), dtype=riders.KINDS[kind], device=DEVICE)
+        return lambda: (fn(d["r0"], d["sa"], d["sb"], L_F32, out,
+                           N // pm - 1, pm, kind),)
+
+    setups = {}
+    for aw, ow, L in (("f32", "f32", L_F32), ("f64", "f32", L_F32),
+                      ("f32", "f64", L_MAIN)):
+        setups[build.form("matmul_rider_step", aw == "f32", ow == "f32")] = (
+            L, step(aw, ow, L), step(aw, ow, L, plain=True),
+            step(aw, ow, L, as_f64=True))
+    for aw, bw, L in (("f32", "f32", L_F32), ("f64", "f32", L_MAIN),
+                      ("f32", "f64", L_MAIN)):
+        setups[build.form("matmul_bsplit_pair", aw == "f32", bw == "f32")] = (
+            L, pair(aw, bw, L), pair(aw, bw, L, plain=True),
+            pair(aw, bw, L, as_f64=True))
+    setups["reconstruct_into[f32]"] = (L_F32, into(), into(plain=True),
+                                       into(as_f64=True))
+    return setups
+
+
+def phase_pipeline_f32_times(a, b, a32, b32, calls, errs):
+    """Phase 5r: each rider f32 form at the main path's shapes beside its
+    f64 form on the same residues (PIPELINE_ROUNDS rotated rounds) and its
+    plain version (the warm-up outputs held bit for bit); then each phase
+    4r call beside its one-shot call, PIPELINE_ROUNDS rotated rounds.
+    Returns ({form: (ms, f64 form ms, plain ms, moduli)}, {call: [ms]})."""
+    kerns = {}
+    for name, (L, kern, plain, f64_form) in rider_f32_setups(
+            a, b, a32, b32).items():
+        got = kern()
+        pms, ref = timed(plain, 1)
+        if name == "reconstruct_into[f32]":
+            rows = slice((N // PANEL_M - 1) * PANEL_M, N)
+            got, ref = (got[0][rows],), (ref[0][rows],)
+        hold_all(errs, name, got, ref, f"{name} at {N}^2, {L} moduli")
+        del got, ref
+        by_name, _ = timed_rounds({name: kern, "f64 form": f64_form},
+                                  PIPELINE_ROUNDS, 5)
+        kerns[name] = (float(np.median(by_name[name])),
+                       float(np.median(by_name["f64 form"])), pms, L)
+        log(f"  {name} == plain at {N}^2 operands, panels of {PANEL_M}, "
+            f"{L} moduli")
+    timings = {}
+    for name, args, _ in calls:
+        timings[f"{name}: one-shot"] = lambda args=args: f32_pipe_gemm(
+            args, "0")
+        timings[name] = lambda args=args: f32_pipe_gemm(args)
+    by_call, _ = timed_rounds(timings, PIPELINE_ROUNDS, 2)
+    return kerns, by_call
+
+
+def phase_batched_timed(a, b, a32, A64, B64):
+    """Phase 4b: gemm_batched on a batch of 2 N^3 products, f64 fast at 14
+    moduli ((A, B) and (B, A)) and complex64 at 8 ((A64, B64) and (B64,
+    A64)), each element bit-equal to gemm on it, with the launch counts;
+    gemm_timed at N^3, f64 fast at 14 moduli and f32 at 8: gemm's bits,
+    four phase times each >= 0, the mod phase under 1% of their sum.
+    Returns ({call: (batched fn, single fns)}, {call: times})."""
+    batches = {
+        f"f64 fast, {L_MAIN} moduli": (
+            torch.stack([a, b]), torch.stack([b, a]),
+            dict(num_moduli=L_MAIN),
+            {"fast_sft": 4, "encode_slices": 4, "matmul_mod_u8": 2,
+             "reconstruct": 2}),
+        f"complex64 fast, {L_F32} moduli": (
+            torch.stack([A64, B64]), torch.stack([B64, A64]),
+            dict(num_moduli=L_F32),
+            {"fast_stats[f32]": 8, "encode_slices[f32]": 8,
+             "matmul_complex_mod": 2, "reconstruct[f32]": 4})}
+    calls = {}
+    for name, (xs, ys, kw, want) in batches.items():
+        c, counts, peak = counted(lambda: gt.gemm_batched(xs, ys,
+                                                          device=DEVICE,
+                                                          **kw))
+        log(f"  launches in the batched {name} call (2 x {N}^3): {counts}")
+        assert counts == want, f"batched {name} launch counts {counts}"
+        assert c.shape == (2, N, N)
+        for i in range(2):
+            one = gt.gemm(xs[i], ys[i], device=DEVICE, **kw)
+            ok = c.dtype == one.dtype and torch.equal(
+                cwords(c[i]) if c.is_complex() else words(c[i]),
+                cwords(one) if one.is_complex() else words(one))
+            assert ok, f"batched {name}: element {i} is not gemm's bits"
+            del one
+        log(f"  gemm_batched {name}, 2 x {N}^3: each element == gemm on it "
+            f"(bits, {c.dtype}), peak {peak} bytes")
+        del c
+        calls[f"gemm_batched {name} (2 elements)"] = (
+            lambda xs=xs, ys=ys, kw=kw: gt.gemm_batched(xs, ys,
+                                                        device=DEVICE, **kw),
+            [lambda x=xs[i], y=ys[i], kw=kw: gt.gemm(x, y, device=DEVICE,
+                                                     **kw)
+             for i in range(2)])
+    times = {}
+    for name, x, y, L in ((f"f64 fast, {L_MAIN} moduli", a, b, L_MAIN),
+                          (f"f32 fast, {L_F32} moduli", a32, a32.t(),
+                           L_F32)):
+        y = y.contiguous()
+        c, t = gt.gemm_timed(x, y, num_moduli=L, iters=3)
+        assert len(t) == 4 and all(isinstance(v, float) and v >= 0.0
+                                   for v in t), f"gemm_timed {name}: {t}"
+        assert t[2] < 0.01 * sum(t), f"gemm_timed {name}: mod phase {t}"
+        assert_bits_equal(c, gt.gemm(x, y, num_moduli=L, device=DEVICE),
+                          f"gemm_timed {name} vs gemm")
+        c2, t2 = gt.gemm(x, y, num_moduli=L, return_times=True)
+        assert_bits_equal(c2, c, f"gemm(return_times=True) {name}")
+        times[name] = (t, (x, y, L))
+        log(f"  gemm_timed {name} at {N}^3 == gemm (bits); "
+            f"gemm(return_times=True) too")
+        del c, c2
+    return calls, times
+
+
+def phase_batched_timed_times(calls, times):
+    """Phase 5b: each batched call beside the single calls of its elements
+    (PIPELINE_ROUNDS rotated rounds); each timed call's phases (iters=5)
+    beside the fused call's median. Returns ({call: (ms per element,
+    single ms)}, {call: (phases s, fused ms)})."""
+    batched = {}
+    for name, (fn, singles) in calls.items():
+        by_name, _ = timed_rounds(
+            {name: fn, "the two single calls": lambda s=singles: [
+                f() for f in s]}, PIPELINE_ROUNDS, 1)
+        batched[name] = (float(np.median(by_name[name])) / 2,
+                         float(np.median(by_name["the two single calls"]))
+                         / 2)
+    phases = {}
+    for name, (_, (x, y, L)) in times.items():
+        _, t = gt.gemm_timed(x, y, num_moduli=L, iters=5)
+        assert all(v >= 0.0 for v in t) and t[2] < 0.01 * sum(t)
+        by_name, _ = timed_rounds({"fused": lambda: gt.gemm(
+            x, y, num_moduli=L, device=DEVICE)}, PIPELINE_ROUNDS, 2)
+        phases[name] = (t, float(np.median(by_name["fused"])))
+    return batched, phases
+
+
+def kernel_bounds_riders(L_of):
+    """bound() of each rider f32 form's phase-5r work, as kernel_bounds
+    counts the f64 forms, with each source word read as 8 or 4 bytes and
+    each output word written as 8 or 4; L_of: the form's moduli count."""
+    pm, k, n = PANEL_M, N, N
+    out = {}
+    for aw, ow in ((4, 4), (8, 4), (4, 8)):
+        name = build.form("matmul_rider_step", aw == 4, ow == 4)
+        L = L_of[name]
+        out[name] = bound(
+            L * (pm * k + k * n + pm * n) + L * pm * n + ow * pm * n
+            + aw * pm * k + L * pm * k + 4 * (3 * pm + n),
+            L * 2 * pm * n * k)
+    for aw, bw in ((4, 4), (8, 4), (4, 8)):
+        name = build.form("matmul_bsplit_pair", aw == 4, bw == 4)
+        L = L_of[name]
+        out[name] = bound(
+            L * pm * k + L * k * (n // 2) + bw * k * (n // 2) + L * pm * n
+            + L * k * n + aw * pm * k + L * pm * k + 4 * (2 * pm + n),
+            L * 2 * pm * n * k)
+    L = L_of["reconstruct_into[f32]"]
+    out["reconstruct_into[f32]"] = bound(L * pm * n + 4 * (pm + n)
+                                         + 4 * pm * n)
+    return out
+
+
 def kernel_bounds_c64(L):
     """bound() of each phase-5x measurement at N^2, L moduli, as
     kernel_bounds counts (each input read once, each output written once):
@@ -2977,6 +3407,7 @@ def kernel_bounds(a, b, L):
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false")
+    t_start = time.perf_counter()
     log(f"[1/5] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     card = card_line()
@@ -3003,6 +3434,7 @@ def main():
     phase_f32_kernels(errs)
     phase_rounding_f32(errs)
     phase_c64_kernels(errs)
+    phase_rider_f32_kernels(errs)
     phase_golden()
     log(f"[3/5] every kernel == its plain version "
         f"({time.perf_counter() - t0:.1f} s)")
@@ -3018,6 +3450,8 @@ def main():
     del refs
     a32, b32, f32_rels = phase_f32(a, b, launches)
     A64, B64, c64_rels = phase_complex64(A, a32, b32, launches)
+    rcalls, _ = phase_pipeline_f32(a, b, a32, b32, b_wide, launches)
+    bcalls, btimes = phase_batched_timed(a, b, a32, A64, B64)
     log(f"[4/5] main path checked ({time.perf_counter() - t0:.1f} s)")
 
     times, total, total_accu = phase_times(a, b, errs)
@@ -3170,7 +3604,35 @@ def main():
             f"{flop / (ms * 1e-3) / 1e12:.2f} TFLOP/s, gate relerr {rel!r}"
             f"{f'; one-shot peak {peak_wide} bytes' if wide else ''} "
             f"({card})")
+    rkerns, rcall_ms = phase_pipeline_f32_times(a, b, a32, b32, rcalls, errs)
+    bounds.update(kernel_bounds_riders({key: v[3]
+                                        for key, v in rkerns.items()}))
+    for key, (ms, ms64, pms, L) in rkerns.items():
+        times[key] = (ms, pms)
+        log(f"  {key}: median {ms:.3f} ms beside its f64 form {ms64:.3f} ms "
+            f"on the same panel (rotated rounds); plain {pms:.3f} ms; bound "
+            f"{bounds[key][0]:.3f} ms ({bounds[key][1]}) ({N}^2 operands, "
+            f"panels of {PANEL_M} rows, {L} moduli; {card})")
+    log(f"  f32, mixed and f32-output pipelined calls, {PIPELINE_ROUNDS} "
+        f"rounds in rotated order, 2 calls per timing ({card}):")
+    for name, mss in rcall_ms.items():
+        wide = "n_panel" in name
+        flop = 2 * N * N * (N_WIDE if wide else N)
+        ms = float(np.median(mss))
+        log(f"  {name}{'' if wide else f' {N}^3'}: median {ms:.3f} ms "
+            f"(rounds {', '.join(f'{t:.3f}' for t in mss)}), "
+            f"{flop / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+    batched, phases = phase_batched_timed_times(bcalls, btimes)
+    for name, (per, single) in batched.items():
+        log(f"  {name}, {N}^3 each: median {per:.3f} ms per element beside "
+            f"{single:.3f} ms per single call (rotated rounds; {card})")
+    for name, (t, fused) in phases.items():
+        log(f"  gemm_timed {name} {N}^3 (iters=5): encode {t[0] * 1e3:.3f}, "
+            f"int8 GEMMs {t[1] * 1e3:.3f}, mod {t[2] * 1e3:.4f}, reconstruct "
+            f"{t[3] * 1e3:.3f}, sum {sum(t) * 1e3:.3f} ms beside the fused "
+            f"call's median {fused:.3f} ms ({card})")
     log("[5/5] times taken")
+    log(f"wall time of the run: {time.perf_counter() - t_start:.1f} s")
 
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name],

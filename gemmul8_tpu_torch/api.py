@@ -1,20 +1,23 @@
 """Public front end: C = alpha * op(A) @ op(B) + beta * C emulated with
 Ozaki Scheme II.
 
-Counterpart of `gemmul8_tpu/api.py` `gemm` and `workspace_bytes`. Real
-operands: float64 and float32 in any combination (float16 and bfloat16
-widen to float32, exactly), f64 or f32 output (`out_dtype`; by default
-f64 if either operand is f64), op N/T/C (C is T on a real operand), alpha
-and beta, fast and accurate mode, the one-shot schedule (and under
-GEMMUL8_PIPELINE its panel/rider pipeline, f64 only), the moduli-chunked
-low-memory one (`moduli_chunk`, or `max_workspace_bytes` through the
-planner) and the column-panel one (`n_panel`). Complex: complex128 and
-complex64 operands, and real ones mixed into a complex call, in any
-combination, each encoded at its own word (`core.complexgemm`), under all
-three complex compute types, complex128 or complex64 output, op N/T/C (C
-conjugates by the Im words' sign bits), complex alpha and beta; the
-schedules and phase times are real-only. Argument values not ported raise
-NotImplementedError naming the ROADMAP item that adds them.
+Counterpart of `gemmul8_tpu/api.py` `gemm`, `gemm_batched`, `gemm_timed`
+and `workspace_bytes`. Real operands: float64 and float32 in any
+combination (float16 and bfloat16 widen to float32, exactly), f64 or f32
+output (`out_dtype`; by default f64 if either operand is f64), op N/T/C (C
+is T on a real operand), alpha and beta, fast and accurate mode, the
+one-shot schedule (and under GEMMUL8_PIPELINE its panel/rider pipeline),
+the moduli-chunked low-memory one (`moduli_chunk`, or `max_workspace_bytes`
+through the planner) and the column-panel one (`n_panel`), and the phase
+times of the one-shot call (`return_times`, `gemm_timed`). Complex:
+complex128 and complex64 operands, and real ones mixed into a complex
+call, in any combination, each encoded at its own word (`core.
+complexgemm`), under all three complex compute types, complex128 or
+complex64 output, op N/T/C (C conjugates by the Im words' sign bits),
+complex alpha and beta; the schedules and phase times are real-only, as
+in the JAX package (which drops `return_times` on a complex call without a
+word, ROADMAP C1; the port raises). `gemm_batched` runs a batch of real or
+complex products, one element after the other.
 
 The epilogue is separate multiplies and adds, each rounded once, as the
 JAX package's: for f64 output out * alpha, c * beta, then their sum, in
@@ -28,6 +31,7 @@ rounding of the exact product).
 
 from __future__ import annotations
 
+import time
 from typing import Optional, Union
 
 import numpy as np
@@ -254,7 +258,7 @@ def gemm(
     op_b: str = "N",
     return_times: bool = False,
     device=None,
-) -> torch.Tensor:
+) -> Union[torch.Tensor, tuple]:
     """Emulated GEMM: alpha * op_a(a) @ op_b(b) + beta * c, op(a) (m, k)
     and op(b) (k, n), on the operands' device.
 
@@ -288,7 +292,13 @@ def gemm(
     the output n_panel columns at a time (the one-shot call's bits in fast
     mode; accurate mode takes each panel's shifts from that panel, as the
     JAX package does); n_panel >= n is the one-shot call. numpy operands
-    need device=; a numpy c goes to the operands' device."""
+    need device=; a numpy c goes to the operands' device.
+
+    return_times=True (real operands, one-shot schedule) returns (C,
+    [encode, int8_gemms, mod_reduce, reconstruct] seconds), the phases of
+    `gemm_timed`; alpha is then applied in the epilogue, never folded. With
+    n_panel or a moduli chunk it raises NotImplementedError, as in the JAX
+    package."""
     if not 2 <= num_moduli <= tables.MAX_MODULI:
         raise ValueError(f"num_moduli must be in [2, {tables.MAX_MODULI}]")
     for op in (op_a, op_b):
@@ -316,14 +326,20 @@ def gemm(
     if moduli_chunk is None and max_workspace_bytes is not None:
         moduli_chunk = _planner.plan_schedule(m, n, k, num_moduli,
                                               max_workspace_bytes).chunk
-    if return_times:
-        raise NotImplementedError("phase times: ROADMAP A8")
+    if return_times and (n_panel is not None or moduli_chunk is not None):
+        raise NotImplementedError("return_times is for the one-shot "
+                                  "schedule")
     tc = None
     if beta != 0.0:
         if c is None:
             raise ValueError("beta != 0 requires c")
         tc = _as_tensor(c, device if device is not None else ta.device, "c")
         _check_c(tc, m, n, ta.device)
+    if return_times:
+        # as the JAX package: the timed phases, then alpha in the epilogue
+        # (a power-of-two alpha is not folded)
+        out, times = _timed_core(ta, tb, num_moduli, fastmode, kind, 1)
+        return _epilogue(out, float(alpha), float(beta), tc), times
     # a power-of-two alpha folds into the reconstruct's exponent: exact
     # (the product is rounded once at the folded scale) and free
     alpha_e = 0
@@ -357,7 +373,10 @@ def _gemm_complex(a, b, alpha, beta, c, num_moduli, fastmode, compute_type,
             "supported on the real path (the reference's low-memory "
             "mode is likewise real-only)")
     if return_times:
-        raise NotImplementedError("phase times: ROADMAP A8")
+        raise NotImplementedError(
+            "return_times on a complex call: complex calls have no phase "
+            "times in either package (the JAX package drops the argument "
+            "without a word, ROADMAP C1)")
     # a real numpy array of another dtype than float64 becomes float32
     # here, a tensor in `canon_complex`
     ta = _as_tensor(_canon_real(a) if isinstance(a, np.ndarray) else a,
@@ -391,6 +410,138 @@ def _gemm_complex(a, b, alpha, beta, c, num_moduli, fastmode, compute_type,
     if alpha != 1.0 or beta != 0.0:
         re, im = _complex_epilogue(re, im, alpha, beta, tc)
     return torch.complex(re, im)
+
+
+def gemm_batched(a: ArrayLike, b: ArrayLike, *, num_moduli: int = 14,
+                 fastmode: bool = True, out_dtype=None,
+                 compute_type: ComputeType = ComputeType.REAL_DEFAULT,
+                 device=None) -> torch.Tensor:
+    """Strided-batch emulated GEMM: a (B, m, k) x b (B, k, n) -> (B, m, n),
+    each element the bits of `gemm` on it (alpha 1, beta 0, op N). Real
+    operands take `gemm`'s dtypes and out_dtype; complex ones (either
+    operand complex) its complex dtypes, complex out_dtype spellings and
+    compute_type. The elements run one after the other (the JAX package's
+    `lax.map` on the TPU is sequential too) into one preallocated output.
+    numpy operands need device=."""
+    if not 2 <= num_moduli <= tables.MAX_MODULI:
+        raise ValueError(f"num_moduli must be in [2, {tables.MAX_MODULI}]")
+    if _is_complex_operand(a) or _is_complex_operand(b):
+        return _gemm_batched_complex(a, b, num_moduli, fastmode, out_dtype,
+                                     compute_type, device)
+    ta = _as_tensor(_canon_real(a), device, "a")
+    tb = _as_tensor(_canon_real(b), device, "b")
+    if ta.device != tb.device:
+        raise ValueError(f"a lies on {ta.device}, b on {tb.device}")
+    _check_batch(ta, tb)
+    kind = _out_kind(ta, tb, out_dtype)
+    out = torch.empty((ta.shape[0], ta.shape[1], tb.shape[2]),
+                      dtype=torch.float32 if kind == "f32" else
+                      torch.float64, device=ta.device)
+    for i in range(ta.shape[0]):
+        out[i] = _g.gemm_core(ta[i], tb[i], num_moduli, fastmode, kind)
+    return out
+
+
+def _check_batch(a: torch.Tensor, b: torch.Tensor) -> None:
+    """ValueError unless a (B, m, k) and b (B, k, n) have one batch and one
+    inner size within the int32-exactness bound."""
+    if a.dim() != 3 or b.dim() != 3:
+        raise ValueError("gemm_batched expects 3D (batch, rows, cols)")
+    if a.shape[0] != b.shape[0] or a.shape[2] != b.shape[1]:
+        raise ValueError(f"batch shapes mismatch: {tuple(a.shape)} x "
+                         f"{tuple(b.shape)}")
+    if a.shape[2] > tables.MAX_K:
+        raise ValueError("k exceeds the int32-exactness bound 2^17")
+
+
+def _gemm_batched_complex(a, b, num_moduli, fastmode, out_dtype,
+                          compute_type, device):
+    """The complex batch of `gemm_batched`: each element's parts at each
+    operand's own word (`canon_complex`), then `gemm_complex_core`. The
+    output kind is `_complex_out_kind`'s, so a real out_dtype spelling
+    raises (the JAX package reads it as complex64, ROADMAP C1)."""
+    ta = _as_tensor(_canon_real(a) if isinstance(a, np.ndarray) else a,
+                    device, "a")
+    tb = _as_tensor(_canon_real(b) if isinstance(b, np.ndarray) else b,
+                    device, "b")
+    if ta.device != tb.device:
+        raise ValueError(f"a lies on {ta.device}, b on {tb.device}")
+    kind = _complex_out_kind((_cg.complex_kind(ta), _cg.complex_kind(tb)),
+                             out_dtype)
+    _check_batch(ta, tb)
+    parts = "f64" if kind == "c128" else "f32"
+    out = torch.empty((ta.shape[0], ta.shape[1], tb.shape[2]),
+                      dtype=torch.complex128 if kind == "c128" else
+                      torch.complex64, device=ta.device)
+    for i in range(ta.shape[0]):
+        re, im = _cg.gemm_complex_core(*_cg.canon_complex(ta[i]),
+                                       *_cg.canon_complex(tb[i]), num_moduli,
+                                       fastmode, compute_type, parts)
+        out[i] = torch.complex(re, im)
+    return out
+
+
+def gemm_timed(a: ArrayLike, b: ArrayLike, *, num_moduli: int = 14,
+               fastmode: bool = True, out_dtype=None, iters: int = 1,
+               device=None):
+    """`gemm` of real operands on the default one-shot kernels, timed phase
+    by phase, the reference's four-part breakdown: returns (C, [encode,
+    int8_gemms, mod_reduce, reconstruct] seconds). One untimed warm-up
+    runs every phase; then each phase runs `iters` times and its time is
+    the mean. On the card each phase is timed with CUDA events on the
+    operands' stream; on the CPU with the host clock. The mod runs in the
+    GEMM's epilogue, so its phase is the identity and reads about 0. C has
+    the default call's bits. numpy operands need device=."""
+    if not 2 <= num_moduli <= tables.MAX_MODULI:
+        raise ValueError(f"num_moduli must be in [2, {tables.MAX_MODULI}]")
+    if iters < 1:
+        raise ValueError(f"iters={iters}: expected >= 1")
+    if _is_complex_operand(a) or _is_complex_operand(b):
+        raise TypeError("gemm_timed takes real operands")
+    ta = _as_tensor(_canon_real(a), device, "a")
+    tb = _as_tensor(_canon_real(b), device, "b")
+    if ta.device != tb.device:
+        raise ValueError(f"a lies on {ta.device}, b on {tb.device}")
+    kind = _out_kind(ta, tb, out_dtype)
+    return _timed_core(ta, tb, num_moduli, fastmode, kind, iters)
+
+
+def _timed_core(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
+                fastmode: bool, kind: str, iters: int):
+    """(C, the four phases' mean seconds over iters runs each) after one
+    untimed run of every phase, which also makes each phase's inputs."""
+    p_enc, p_mm, p_mod, p_rec = _g.gemm_phases(a, b, num_moduli, fastmode,
+                                               kind)
+    a8, sft_a, b8, sft_b = p_enc(a, b)
+    r8 = p_mm(a8, b8)
+    r = p_mod(r8)
+    out = p_rec(r, sft_a, sft_b)
+    phases = [(p_enc, (a, b)), (p_mm, (a8, b8)), (p_mod, (r8,)),
+              (p_rec, (r, sft_a, sft_b))]
+    return out, [_phase_seconds(fn, args, iters, a.device)
+                 for fn, args in phases]
+
+
+def _phase_seconds(fn, args, iters: int, device: torch.device) -> float:
+    """Mean seconds of fn(*args) over iters runs: CUDA events around them
+    on the device's current stream, or the host clock on the CPU (no
+    sync-cost estimate is taken off, so a time is never clamped to 0, the
+    JAX package's CPU defect, ROADMAP C1)."""
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn(*args)
+        return (time.perf_counter() - t0) / iters
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        for _ in range(iters):
+            fn(*args)
+        end.record(stream)
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3 / iters
 
 
 def workspace_bytes(m: int, n: int, k: int, num_moduli: int,

@@ -37,12 +37,13 @@ inside `encode_slices_pallas` that works around the TPU's slow integer
 division, with the same bits; the port's encode kernel has one form.
 GEMMUL8_RIDER_UNCOND is not read either: it drops the TPU riders' predicates,
 with the same bits (`gemmul8_tpu_torch.pipelined`).
-The kernels of FUSED_ENCODE, FUSED_MAG7 and FUSED_RECONSTRUCT have their
-f32 forms too, so those switches act on every call. The pipeline's kernels
-have their f64 forms only: a call with a float32 operand or f32 output
-raises NotImplementedError (ROADMAP B18) where the pipeline would act, and
-never runs another kernel in its place. MXU_CRT and MM_PIPELINE act on
-int8 data and run for every call.
+Every switch's kernels have their f32 forms too (the pipeline's riders
+read each operand's own word and write the output's), so every switch acts
+on f32, mixed and f32-output calls as on f64 ones. MXU_CRT and MM_PIPELINE
+act on int8 data.
+
+`gemm_phases` splits the default one-shot call into the four phases that
+`api.gemm_timed` times (the JAX package's `gemm_phases`).
 """
 
 from __future__ import annotations
@@ -88,24 +89,15 @@ def accurate_sfts(a: torch.Tensor, b: torch.Tensor, num_moduli: int):
                              mant_bits=enc.mant_bits_of(b)))
 
 
-def _check_call(a: torch.Tensor, b: torch.Tensor, out_dtype: str) -> bool:
-    """Check the operands and the output kind; whether the call has a
-    float32 operand or f32 output (an "f32 call")."""
+def _check_call(a: torch.Tensor, b: torch.Tensor, out_dtype: str) -> None:
+    """Check the operands (float64 or float32, on one device) and the
+    output kind."""
     if a.device != b.device:
         raise ValueError(f"operands on {a.device} and {b.device}")
     if out_dtype not in ("f64", "f32"):
         raise ValueError(f"out_dtype {out_dtype!r}: expected 'f64' or 'f32'")
-    return 24 in (enc.mant_bits_of(a), enc.mant_bits_of(b)) or \
-        out_dtype == "f32"
-
-
-def refuse_f32(f32_call: bool, switch: str) -> None:
-    """NotImplementedError for an f32 call where `switch` would run a
-    kernel whose f32 form is not ported yet (the pipeline's)."""
-    if f32_call:
-        raise NotImplementedError(
-            f"{switch} with a float32 operand or f32 output: its kernels "
-            "have their f64 forms only (ROADMAP B18)")
+    enc.mant_bits_of(a)
+    enc.mant_bits_of(b)
 
 
 def gemm_core(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
@@ -118,7 +110,7 @@ def gemm_core(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
     from `accurate_sfts`. moduli_chunk < num_moduli runs the
     moduli-chunked schedule, with the one-shot call's bits."""
     m, k, n = check_shapes(a, b)
-    f32_call = _check_call(a, b, out_dtype)
+    _check_call(a, b, out_dtype)
     if moduli_chunk is not None and moduli_chunk < 1:
         raise ValueError(f"moduli_chunk={moduli_chunk}: expected >= 1")
     a, b = a.contiguous(), b.contiguous()
@@ -143,11 +135,11 @@ def gemm_core(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
         cfg = (pl.choose_panels(m, n, k, num_moduli, encode_rider=pipe >= 2)
                if pipe else None)
         if cfg:
-            refuse_f32(f32_call, f"GEMMUL8_PIPELINE={pipe}")
             bsp = pipe == 3 and pl.bsplit_applicable(m, n, k, num_moduli,
                                                      *cfg)
-            return pl.gemm_pipelined(a, b, num_moduli, panel_m=cfg[0],
-                                     bn=cfg[1], sfts=(sft_a, sft_b),
+            return pl.gemm_pipelined(a, b, num_moduli, out_dtype,
+                                     panel_m=cfg[0], bn=cfg[1],
+                                     sfts=(sft_a, sft_b),
                                      encode_rider=pipe >= 2, b_rider=bsp)
         a8 = hk.encode_slices(a, sft_a, num_moduli, axis=1)
         b8 = hk.encode_slices(b, sft_b, num_moduli, axis=0)
@@ -208,7 +200,7 @@ def gemm_core_panels(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
     reconstruct rider) on A's slices. Operands and output as in
     `gemm_core`; the output is allocated once in its dtype."""
     m, k, n = check_shapes(a, b)
-    f32_call = _check_call(a, b, out_dtype)
+    _check_call(a, b, out_dtype)
     if n_panel is None or n_panel < 1:
         raise ValueError(f"n_panel={n_panel}: expected >= 1")
     a, b = a.contiguous(), b.contiguous()
@@ -228,9 +220,9 @@ def gemm_core_panels(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
         cfg = (pl.choose_panels(m, bp.shape[1], k, num_moduli)
                if pl.pipeline_mode() and alpha_e == 0 else None)
         if cfg:
-            refuse_f32(f32_call, f"GEMMUL8_PIPELINE={pl.pipeline_mode()}")
-            piece = pl.gemm_pipelined(a, bp, num_moduli, panel_m=cfg[0],
-                                      bn=cfg[1], sfts=(sft_a, sft_b), a8=a8)
+            piece = pl.gemm_pipelined(a, bp, num_moduli, out_dtype,
+                                      panel_m=cfg[0], bn=cfg[1],
+                                      sfts=(sft_a, sft_b), a8=a8)
         else:
             b8 = hk.encode_slices(bp, sft_b, num_moduli, axis=0)
             r8 = hm.matmul_mod_u8(a8, b8, num_moduli,
@@ -242,3 +234,39 @@ def gemm_core_panels(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
         out[:, j0:j0 + bp.shape[1]] = piece
         del bp, piece
     return out
+
+
+def gemm_phases(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
+                fastmode: bool = True, out_dtype: str = "f64"):
+    """The default one-shot call as four callables, for phase timing (the
+    JAX package's `gemm_phases`, the reference's four-part breakdown):
+    encode(a, b) -> (a8, sft_a, b8, sft_b), the shifts (fast_sft, or the
+    accurate pre-phase) and encode_slices of both operands; matmul(a8, b8)
+    -> the int8 GEMMs with the mod in their epilogue (matmul_mod_u8, int8
+    residues); mod(r) -> r, the identity, since the mod ran in the GEMM's
+    epilogue; reconstruct(r, sft_a, sft_b) -> the (m, n) result. They run
+    the default kernels whatever the switches say, and give the default
+    `gemm_core` call's bits."""
+    check_shapes(a, b)
+    _check_call(a, b, out_dtype)
+
+    def encode(a, b):
+        a, b = a.contiguous(), b.contiguous()
+        if fastmode:
+            sft_a = hk.fast_sft(a, num_moduli, axis=1)
+            sft_b = hk.fast_sft(b, num_moduli, axis=0)
+        else:
+            sft_a, sft_b = accurate_sfts(a, b, num_moduli)
+        return (hk.encode_slices(a, sft_a, num_moduli, axis=1), sft_a,
+                hk.encode_slices(b, sft_b, num_moduli, axis=0), sft_b)
+
+    def matmul(a8, b8):
+        return hm.matmul_mod_u8(a8, b8, num_moduli, centered=True)
+
+    def mod(r):
+        return r
+
+    def reconstruct(r, sft_a, sft_b):
+        return hk.reconstruct(r, sft_a, sft_b, num_moduli, out_dtype)
+
+    return encode, matmul, mod, reconstruct

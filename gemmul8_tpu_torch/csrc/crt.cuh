@@ -8,6 +8,7 @@
 //   crt_round_f64   RNE( +-magnitude * 2^e_fix ) as f64 bits
 //   crt_round_f32   RNE( +-magnitude * 2^e_fix ) as f32 bits, rounded once
 //                   from the integer (never through an f64)
+//   crt_round_word  either, by the output word's type (8 bytes: f64)
 // The whole integer of one output element lives in one thread's registers
 // (X < 255 * 20 * M < 2^170). The quotient X / M is estimated in f64
 // (biased one low, then at most two exact subtractions of M), and the
@@ -197,6 +198,16 @@ __device__ __forceinline__ unsigned long long crt_round_f64(
 __device__ __forceinline__ unsigned crt_round_f32(
     const unsigned (&mag)[kWords], bool neg, int e_fix) {
   return static_cast<unsigned>(crt_round<24, 127, 0xFF>(mag, neg, e_fix));
+}
+
+// the output word: f64 bits (unsigned long long) or f32 bits (unsigned)
+template <typename Word>
+__device__ __forceinline__ Word crt_round_word(
+    const unsigned (&mag)[kWords], bool neg, int e_fix) {
+  if constexpr (sizeof(Word) == 8)
+    return crt_round_f64(mag, neg, e_fix);
+  else
+    return crt_round_f32(mag, neg, e_fix);
 }
 
 }  // namespace

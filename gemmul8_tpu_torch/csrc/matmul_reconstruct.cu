@@ -56,13 +56,8 @@ matmul_reconstruct_kernel(const signed char* __restrict__ A,
         [&](int row, int col, unsigned (&x)[kWords]) {
           unsigned mag[kWords];
           const bool neg = gm8::crt_center(x, T, mag);
-          const int e_fix = -(sft_a[row] + sft_b[col]);
-          if constexpr (sizeof(Out) == 8)
-            out[static_cast<size_t>(row) * n + col] =
-                gm8::crt_round_f64(mag, neg, e_fix);
-          else
-            out[static_cast<size_t>(row) * n + col] =
-                gm8::crt_round_f32(mag, neg, e_fix);
+          out[static_cast<size_t>(row) * n + col] = gm8::crt_round_word<Out>(
+              mag, neg, -(sft_a[row] + sft_b[col]));
         });
   }
 }

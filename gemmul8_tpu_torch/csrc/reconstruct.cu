@@ -45,16 +45,6 @@ template <int kKind>
 using Plane = std::conditional_t<kKind == kProducts || kKind == kLimbs, int,
                                  unsigned char>;
 
-// the output word: f64 bits or f32 bits
-template <typename Out>
-__device__ __forceinline__ Out round_out(const unsigned (&mag)[kWords],
-                                         bool neg, int e_fix) {
-  if constexpr (sizeof(Out) == 8)
-    return gm8::crt_round_f64(mag, neg, e_fix);
-  else
-    return gm8::crt_round_f32(mag, neg, e_fix);
-}
-
 template <int kKind, typename Out>
 __global__ void __launch_bounds__(kThreads)
 reconstruct_kernel(const Plane<kKind>* __restrict__ r,
@@ -89,7 +79,8 @@ reconstruct_kernel(const Plane<kKind>* __restrict__ r,
     gm8::crt_words(acc, x);
     unsigned mag[kWords];
     const bool neg = gm8::crt_center(x, T, mag);
-    out[idx] = round_out<Out>(mag, neg, e_extra - (sft_a[row] + sft_b[col]));
+    out[idx] = gm8::crt_round_word<Out>(mag, neg,
+                                        e_extra - (sft_a[row] + sft_b[col]));
   }
 }
 

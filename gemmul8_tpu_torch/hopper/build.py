@@ -19,7 +19,9 @@ inside `torch.cuda.device(x.device)`, which restores the caller's device.
 Every C entry point returns `cudaGetLastError()` after its launch; `check`
 raises on a nonzero code. `LAUNCHES` counts kernel launches per wrapper;
 a kernel's f32 form (f32 operand, or f32 output for reconstruct and
-matmul_reconstruct) counts under its own key, the name with "[f32]" (`form`).
+matmul_reconstruct) counts under its own key, the name with "[f32]"; the
+pipeline's rider step and pair, which have two words each, count each
+combination under its own key (`form`).
 """
 
 from __future__ import annotations
@@ -90,11 +92,12 @@ _SIGNATURES = {
     # m, n, k, kp, nblocks, out_f32, stream
     "gm8_matmul_reconstruct": [_P] * 8 + [_I] * 7 + [_P],
     # a8, b8 (or null), bt, res, r_prev, r_sa, sb, r_out, a_src, a_sft,
-    # a_out, table (host), a_rows, a_row0, L, pm, n, k, q_max, stream
-    "gm8_matmul_rider_step": [_P] * 12 + [_I] * 7 + [_P],
+    # a_out, table (host), a_rows, a_row0, L, pm, n, k, a_q_max, a_f32,
+    # out_f32, stream
+    "gm8_matmul_rider_step": [_P] * 12 + [_I] * 9 + [_P],
     # a8, b8, bt, res, b_src, b_sft, a_src, a_sft, a_out, L, pm, n, k,
-    # q_max, stream
-    "gm8_matmul_bsplit_pair": [_P] * 9 + [_I] * 5 + [_P],
+    # a_q_max, b_q_max, a_f32, b_f32, stream
+    "gm8_matmul_bsplit_pair": [_P] * 9 + [_I] * 8 + [_P],
 }
 
 _lock = threading.Lock()
@@ -171,9 +174,17 @@ def lib() -> ctypes.CDLL:
         return _lib
 
 
-def form(name: str, f32: bool) -> str:
-    """The `LAUNCHES` key of a kernel's f64 or f32 form."""
-    return f"{name}[f32]" if f32 else name
+def form(name: str, *f32: bool) -> str:
+    """The `LAUNCHES` key of a kernel's form, from whether each of its words
+    is f32: the name alone when none is; "name[f32]" for a kernel with one
+    word; for one with several (the rider step's A source and output, the
+    pair's A and B sources) each word in order, e.g.
+    "matmul_rider_step[f32,f64]"."""
+    if not any(f32):
+        return name
+    if len(f32) == 1:
+        return f"{name}[f32]"
+    return f"{name}[{','.join('f32' if f else 'f64' for f in f32)}]"
 
 
 def check(code: int, name: str) -> None:

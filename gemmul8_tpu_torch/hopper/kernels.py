@@ -366,9 +366,9 @@ def reconstruct(r: torch.Tensor, sft_a: torch.Tensor, sft_b: torch.Tensor,
     canonical or with each limb nonnegative and below 2^29 (what
     `hopper.matmul.matmul_crt` and the chunked schedule's fold give).
     out_dtype "f64" writes float64, "f32" float32 (the integer rounded
-    once to 24 bits). out: a contiguous (m, n) float64 tensor (rows of a
-    larger output) to write into and return, instead of a new one; f64
-    output only."""
+    once to 24 bits). out: a contiguous (m, n) tensor in the output's
+    dtype (rows of a larger output) to write into and return, instead of a
+    new one."""
     return reconstruct_launch("reconstruct", r, sft_a, sft_b, num_moduli,
                               out_dtype, e_extra, input_kind, out)
 
@@ -391,12 +391,13 @@ def reconstruct_launch(name: str, r, sft_a, sft_b, num_moduli: int,
     _, m, n = r.shape
     if tuple(sft_a.shape) != (m, 1) or tuple(sft_b.shape) != (1, n):
         raise ValueError("shifts must be (m, 1) and (1, n)")
-    if out is not None and (f32 or tuple(out.shape) != (m, n)
-                            or out.device != r.device
-                            or out.dtype != torch.float64
+    dtype = torch.float32 if f32 else torch.float64
+    if out is not None and (tuple(out.shape) != (m, n)
+                            or out.device != r.device or out.dtype != dtype
                             or not out.is_contiguous()):
-        raise ValueError(f"out must be a contiguous ({m}, {n}) float64 "
-                         f"tensor on {r.device}, with f64 output")
+        raise ValueError(f"out must be a contiguous ({m}, {n}) tensor on "
+                         f"{r.device} in the output's dtype: float64 for f64 "
+                         "output, float32 for f32")
     if _on_cpu(r):
         c = reconstruct_plain(r, sft_a, sft_b, num_moduli, out_dtype,
                               e_extra, input_kind)
@@ -418,8 +419,7 @@ def reconstruct_launch(name: str, r, sft_a, sft_b, num_moduli: int,
         raise ValueError("e_extra out of range")
     _ensure_crt_tables(r.device)
     if out is None:
-        out = torch.empty((m, n), dtype=torch.float32 if f32
-                          else torch.float64, device=r.device)
+        out = torch.empty((m, n), dtype=dtype, device=r.device)
     with torch.cuda.device(r.device):
         code = build.lib().gm8_reconstruct(
             r.data_ptr(), kind, planes, sft_a.data_ptr(), sft_b.data_ptr(),

@@ -2,8 +2,10 @@
 panels, each panel's int8 GEMM carrying the CRT reconstruct of the panel
 before it (and optionally the encode of the panel after it) as riders.
 
-Counterpart of `gemmul8_tpu/pallas/pipelined.py`, for f64 operands and f64
-output, fast and accurate mode (the schedule takes the call's shifts). The
+Counterpart of `gemmul8_tpu/pallas/pipelined.py`, for f64 and f32
+operands in any combination and f64 or f32 output, fast and accurate mode
+(the schedule takes the call's shifts; the riders read each operand's own
+word and round into the output's, as the JAX package's kinds say). The
 launch that forms panel p's residues (`hopper.pipelined.matmul_rider_step`)
 also reconstructs panel p-1 into its rows of the one (m, n) output and,
 with the encode rider, encodes A-panel p+1; only the first panel's encode
@@ -30,6 +32,7 @@ import os
 
 import torch
 
+from .core import encode as enc
 from .core import riders
 from .core.encode import ENC_BLOCK
 from .hopper import kernels as hk
@@ -119,11 +122,15 @@ def bsplit_applicable(m: int, n: int, k: int, num_moduli: int,
 
 
 def gemm_pipelined(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
-                   panel_m: int = 1024, bn: int = 512, sfts=None,
-                   encode_rider: bool = False, a8=None, b_rider: bool = False,
+                   kind: str = "f64", panel_m: int = 1024, bn: int = 512,
+                   sfts=None, encode_rider: bool = False, a8=None,
+                   b_rider: bool = False,
                    acc_out: bool = True) -> torch.Tensor:
-    """C = A @ B, (m, k) x (k, n) float64, emulated with the panel/rider
-    pipeline: the one-shot call's bits.
+    """C = A @ B, (m, k) x (k, n), each operand float64 or float32,
+    emulated with the panel/rider pipeline: the one-shot call's bits.
+
+    kind: the output's, "f64" (float64) or "f32" (float32, rounded once).
+    The encode riders read each operand's own word.
 
     sfts: the call's (sft_a (m, 1), sft_b (1, n)) int32 shifts, fast or
     accurate (default: fast mode's). encode_rider: A is encoded panel by
@@ -136,6 +143,10 @@ def gemm_pipelined(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
     m, k = a.shape
     n = b.shape[1]
     L = num_moduli
+    a_kind = "f32" if enc.mant_bits_of(a) == 24 else "f64"
+    b_kind = "f32" if enc.mant_bits_of(b) == 24 else "f64"
+    if kind not in riders.KINDS:
+        raise ValueError(f"kind {kind!r}: expected 'f64' or 'f32'")
     P = m // panel_m if panel_m > 0 else 0
     if m % max(panel_m, 1) or P < 2:
         # the schedule needs >= 2 panels (panel p's matmul carries panel
@@ -168,12 +179,14 @@ def gemm_pipelined(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
         a8_p = hk.encode_slices(a[:panel_m], sft_a[:panel_m], L, axis=1)
     else:
         a8_p = hk.encode_slices(a, sft_a, L, axis=1)
-    out = (torch.empty((m, n), dtype=torch.float64, device=a.device)
+    out = (torch.empty((m, n), dtype=riders.KINDS[kind], device=a.device)
            if acc_out else None)
     pieces = []      # each panel's rows (acc_out=False)
     if b_rider:
         r_prev, bt, a8_p = hp.matmul_bsplit_pair(a8_p, b8, b, sft_a, sft_b,
-                                                 L, panel_m, a_src=a)
+                                                 L, panel_m, a_src=a,
+                                                 a_kind=a_kind,
+                                                 b_kind=b_kind)
         b8 = None
         p_start = 1
     else:
@@ -185,7 +198,8 @@ def gemm_pipelined(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
         src = a if (encode_rider and p < P - 1) else None
         r_p, rows, a8_next = hp.matmul_rider_step(
             a8_p, bt, p, r_prev, p - 1, sft_a, sft_b, L, panel_m, b8=b8,
-            a_src=src, next_panel=p + 1, out=out)
+            a_src=src, next_panel=p + 1, out=out, a_kind=a_kind,
+            out_kind=kind)
         b8 = None    # B is K-major from here on
         if rows is not None and out is None:
             pieces.append(rows)
@@ -194,7 +208,7 @@ def gemm_pipelined(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
             a8_p = a8_next
     if acc_out:
         return hp.reconstruct_into(r_prev, sft_a, sft_b, L, out, P - 1,
-                                   panel_m)
+                                   panel_m, kind)
     pieces.append(hk.reconstruct(
-        r_prev, riders.panel_rows(sft_a, P - 1, panel_m), sft_b, L))
+        r_prev, riders.panel_rows(sft_a, P - 1, panel_m), sft_b, L, kind))
     return torch.cat(pieces, dim=0)

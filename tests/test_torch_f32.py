@@ -505,45 +505,9 @@ def test_epilogue_arguments():
 
 # ---- the switches ----------------------------------------------------------
 
-# the switches whose kernels have their f64 forms only; FUSED_ENCODE,
-# FUSED_MAG7 and FUSED_RECONSTRUCT run f32 calls
-# (tests/test_torch_f32_variants.py)
-F32_REFUSALS = [
-    ("GEMMUL8_PIPELINE", "1", True, (512, 128, 1024)),
-    ("GEMMUL8_PIPELINE", "3", False, (512, 128, 1024)),
-]
-
-
-@pytest.mark.parametrize("f32_in", ["a", "b", "out"])
-@pytest.mark.parametrize("key,value,fastmode,mkn", F32_REFUSALS,
-                         ids=["GEMMUL8_PIPELINE-1-True-mkn3",
-                              "GEMMUL8_PIPELINE-3-False-mkn4"])
-def test_f32_under_unported_switch_names_roadmap(monkeypatch, key, value,
-                                                 fastmode, mkn, f32_in):
-    """A float32 operand or f32 output meets a switch whose kernel has only
-    its f64 form: NotImplementedError naming ROADMAP B18, before any
-    kernel runs in its place."""
-    m, k, n = mkn
-    a = torch.from_numpy(_mk((m, k), np.float64, 26))
-    b = torch.from_numpy(_mk((k, n), np.float64, 27))
-    kw = {}
-    if f32_in == "a":
-        a = a.float()
-    elif f32_in == "b":
-        b = b.float()
-    else:
-        kw["out_dtype"] = "f32"
-    monkeypatch.setenv(key, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP B18"):
-        gt.gemm(a, b, num_moduli=8, fastmode=fastmode, **kw)
-
-
-def test_f32_panels_under_pipeline_names_roadmap(monkeypatch):
-    monkeypatch.setenv("GEMMUL8_PIPELINE", "1")
-    a = torch.from_numpy(_mk((512, 128), np.float32, 28))
-    b = torch.from_numpy(_mk((128, 2048), np.float32, 29))
-    with pytest.raises(NotImplementedError, match="ROADMAP B18"):
-        gt.gemm(a, b, num_moduli=8, n_panel=1024)
+# f32 calls under GEMMUL8_PIPELINE run the riders' f32 forms
+# (tests/test_torch_pipelined_f32.py); FUSED_ENCODE, FUSED_MAG7 and
+# FUSED_RECONSTRUCT run f32 calls (tests/test_torch_f32_variants.py)
 
 
 @pytest.mark.parametrize("env", [

@@ -281,12 +281,3 @@ def test_f32_call_under_switch_gives_default_bits(monkeypatch, switch,
         scale = np.abs(a.astype(np.float64)) @ np.abs(b.astype(np.float64))
         tol = 2.0 ** -20 if got.dtype == np.float32 else 1e-6
         assert np.all(np.abs(got - exact) <= tol * scale)
-
-
-def test_f32_under_pipeline_still_refused(monkeypatch):
-    """The pipeline's kernels keep their f64 forms only (ROADMAP B18)."""
-    monkeypatch.setenv("GEMMUL8_PIPELINE", "1")
-    a = torch.ones((512, 128), dtype=torch.float32)
-    b = torch.ones((128, 1024), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP B18"):
-        gt.gemm(a, b, num_moduli=8)

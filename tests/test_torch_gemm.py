@@ -115,11 +115,11 @@ def test_gemm_numpy_needs_device():
         gt.gemm(torch.ones((4, 4), dtype=torch.float64), a, device="meta")
 
 
+# return_times on real calls: tests/test_torch_batched_timed.py
 @pytest.mark.parametrize("kwargs,exc,match", [
     # a complex output for real operands is refused (ROADMAP C1)
-    (dict(out_dtype=torch.complex128), ValueError, "out_dtype"),
-    (dict(return_times=True), NotImplementedError, "ROADMAP")],
-    ids=["kwargs0", "kwargs1"])
+    (dict(out_dtype=torch.complex128), ValueError, "out_dtype")],
+    ids=["kwargs0"])
 def test_gemm_unported_arguments_name_roadmap(kwargs, exc, match):
     a = torch.ones((4, 4), dtype=torch.float64)
     with pytest.raises(exc, match=match):

@@ -1,8 +1,9 @@
 """Golden bits of the JAX package, for the port on any device.
 
 `tests/data/torch_golden.npz` holds, for a few calls of ragged shapes (real
-fast and accurate, complex fast and accurate, one pipelined call; f32 and
-mixed operands, f32 output, alpha/beta and op T; complex64 fast and
+fast and accurate, complex fast and accurate, pipelined calls on f64, f32
+and mixed operands; f32 and mixed operands, f32 output, alpha/beta and op
+T; complex64 fast and
 accurate and a complex128 x complex64 call; f32 calls under
 GEMMUL8_FUSED_ENCODE, GEMMUL8_FUSED_MAG7 and GEMMUL8_FUSED_RECONSTRUCT,
 whose golden bits are the JAX package's default call's), how to make the
@@ -122,6 +123,10 @@ ENTRIES = {
                               (13, 14), None, "0",
                               _call(("f64", "f32"), "f32",
                                     env={"GEMMUL8_FUSED_RECONSTRUCT": "1"})),
+    "f32_pipelined_mode3": ("real", (512, 128, 1024), 8, True, 1.0,
+                            (41, 42), None, "3", F32),
+    "f64_f32_pipelined_mode2": ("real", (512, 128, 128), 14, True, 1.0,
+                                (43, 44), None, "2", _call(("f64", "f32"))),
 }
 
 
