@@ -250,8 +250,44 @@ GEMMUL8_PIPELINE and n_panel) and the batched and timed entry points add:
   5b. each batched call per element beside the single calls of its
       elements; each timed call's four phases (iters=5) and their sum
       beside the fused call's median.
-The new forms' `launches` sum the calls of phase 4r. The run's wall time
-is printed before the kernels line.
+The new forms' `launches` sum the calls of phase 4r. Phase 5 also times
+torch._int_mm on the same int8 slices, once per modulus (the product
+without the mod epilogue), as matmul_mod_u8's `library_ms`.
+
+The probes (scripts/probe_*.py, ROADMAP B16) add:
+  3q. each probe kernel against its plain version, bit for bit: clz on
+      edge words and 2^26 random words (the exponent form on as many
+      16-bit limbs); the nine op chains at STEPS 64; mxu_crt's four
+      variants at L = 2, 8, 14, 20, bm 8 and 16, m = 1024, n = 1024 and a
+      ragged 1000; deaddep's eight variants at n = 2048, 14 moduli (its
+      residues also equal to matmul_mod_u8's; hbmio's words; the rec
+      riders' f64 words, which the plain version takes from the port's
+      plain reconstruct with shifts 0);
+  4q. the probes' main path: `python -m gemmul8_tpu_torch.probes` clz,
+      vpu_ops, mxu_crt and deaddep (8192, 14 moduli, nops 0 16 32 -1 -2)
+      with each script's defaults, each with the launch counts reset just
+      before it and read just after: every variant it runs launched;
+  5q. times at the probes' own sizes, medians of three rotated rounds:
+      clz and the f32-exponent trick on 2^26 limb words; the nine chains
+      at STEPS 2048 with T op/s (JAX count), their SASS instruction
+      counts (cuobjdump -sass) and bounds at the SM clock sampled
+      meanwhile; mxu_crt's variants at 8192^2, 14 moduli, bm 16 beside
+      their bound, reconstruct on the same residues and torch._int_mm of
+      W' by the residues laid out (L bm, m/bm n); deaddep at 8192, 14
+      moduli, every chain variant (kloop too) at nops 0, 16 and 32, base
+      and the two rec riders: medians of nine rotated rounds, and each
+      config's differences to base (a chain's also to its own nops 0,
+      recmxu's to recbody) over 15 adjacent pairs of calls as median
+      [least, most], and its launch span in SM clock cycles (median of
+      five calls; each block stamps its SM and clock), beside the
+      injected multiply-adds' serial time; every
+      kernel's output at these sizes held to its plain version, every
+      deaddep config's too (residues, aux, hbmio's words, the rec riders'
+      f64 words).
+The probes' `launches` sum their variants' keys over phase 4q's calls;
+their line's ms is clz's __clz form, the nine chains' sum, mxu_crt's full
+variant and deaddep at nops 16. The run's wall time is printed before the
+kernels line.
 
 The line before the last is a JSON object of per-kernel results
 (`launches` sums the main-path calls of phase 4, real and complex, for the
@@ -260,14 +296,18 @@ matmul_reconstruct those of phase 4s at 8192^3, and for the pipeline's
 kernels those of phase 4p at 8192^3; the statistics mode of fast_sft
 counts as fast_sft); `bound_ms` is the least time the card could take for
 the phase-5 work, from the bytes the function must move at 3.35 TB/s or
-its int8 operations at 1,979 TOPS, whichever is larger; no single PyTorch
-call computes any of these functions, so `library_ms` is null. The last
-line is {"ok": true, "device": {...}}.
+its int8 operations at 1,979 TOPS, whichever is larger (the chains: their
+instructions at the table's rates, see VPU_RATE); `library_ms` is
+torch._int_mm's time for matmul_mod_u8 and mxu_crt and null elsewhere (no
+single PyTorch call computes those functions). The last line is
+{"ok": true, "device": {...}}.
 """
 
+import collections
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -292,6 +332,12 @@ from gemmul8_tpu_torch.hopper import build
 from gemmul8_tpu_torch.hopper import kernels as hk
 from gemmul8_tpu_torch.hopper import matmul as hm
 from gemmul8_tpu_torch.hopper import pipelined as hp
+from gemmul8_tpu_torch.hopper import probes as hq
+from gemmul8_tpu_torch.probes import clz as pclz
+from gemmul8_tpu_torch.probes import deaddep as pdd
+from gemmul8_tpu_torch.probes import mxu_crt as pmxu
+from gemmul8_tpu_torch.probes import vpu_ops as pvpu
+from gemmul8_tpu_torch.probes.__main__ import main as probes_main
 
 DEVICE = "cuda"
 N = 8192                 # the main path's m = n = k
@@ -448,6 +494,46 @@ RIDER_F32_FORMS = tuple(
     + ["reconstruct_into[f32]"])
 KERNELS.update({form: KERNELS[form.split("[")[0]]
                 for form in RIDER_F32_FORMS})
+# the probes (B16), phases 3q, 4q, 5q: their kernels' entries
+PROBE_KERNELS = {
+    "probe_clz": ("gemmul8_tpu_torch/csrc/probe_clz.cu",
+                  "scripts/probe_clz.py:20"),
+    "probe_vpu_ops": ("gemmul8_tpu_torch/csrc/probe_vpu_ops.cu",
+                      "scripts/probe_vpu_ops.py:26"),
+    "probe_mxu_crt": ("gemmul8_tpu_torch/csrc/probe_mxu_crt.cu",
+                      "scripts/probe_mxu_crt.py:38"),
+    "probe_deaddep": ("gemmul8_tpu_torch/csrc/probe_deaddep.cu",
+                      "scripts/probe_deaddep.py:30"),
+}
+KERNELS.update(PROBE_KERNELS)
+PROBE_CLZ_WORDS = 1 << 26   # phase 3q's random words
+PROBE_STEPS_CHECK = 64      # phase 3q's chain length (the probe's: 2048)
+PROBE_N_CHECK = 2048        # phase 3q's deaddep size (the probe's: 8192)
+PROBE_ROUNDS = 3
+PROBE_DEADDEP_ROUNDS = 9    # its effects are near the power cap's swing,
+PROBE_DEADDEP_PAIRS = 15    # so its differences come from adjacent pairs
+PROBE_DEADDEP_STAMPED = 5   # and from SM clock cycles
+SMS = 132
+# the chains' kernels (csrc/probe_vpu_ops.cu gm8_vpu_<name>), their
+# instructions a rep by class (i32 add: ptxas pairs two adds into one
+# IADD3), and the classes' rates a clock an SM: the CUDA C++ Programming
+# Guide's arithmetic-instruction table, compute capability 9.0 (integer
+# add, multiply-add, shift, logic 64; f32 add, multiply 128; "all other
+# type conversions" 16, taken for F2I and for FRND, floor); sm_90's
+# I2FP.F32.S32 is not in the table and runs faster than 16 on the card, so
+# it is counted at the integer rate, 64
+VPU_KERNEL = dict(zip(pvpu.CASES, (
+    "i32_mul", "i32_constmul", "i32_constmac", "i32_add", "i32_shrxor",
+    "f32_mul", "f32_constmac", "f32_floor", "f32_cvt")))
+VPU_MIX = {"i32 mul": {"imad": 1}, "i32 constmul": {"imad": 1},
+           "i32 constmac": {"imad": 1}, "i32 add": {"iadd": 0.5},
+           "i32 shr^": {"shift": 1, "logic": 1}, "f32 mul": {"fp32": 1},
+           "f32 constmac": {"fp32": 2}, "f32 floor": {"fp32": 3, "cvt": 1},
+           "f32->i32 cvt": {"i2fp": 1, "fp32": 1, "cvt": 1, "logic": 1}}
+VPU_RATE = {"imad": 64, "iadd": 64, "shift": 64, "logic": 64, "fp32": 128,
+            "cvt": 16, "i2fp": 64}
+VPU_OPCODES = {"IMAD", "IADD3", "SHF", "LOP3", "FMUL", "FADD", "FFMA",
+               "FRND", "F2I", "I2FP", "I2F"}
 # the card's published peaks (H100 SXM5 data sheet, dense): device-memory
 # bytes per second and int8 tensor-core operations per second
 HBM_BYTES_PER_S = 3.35e12
@@ -1451,10 +1537,25 @@ def phase_times(a, b, errs):
         log(f"  {name} == plain at the main path's shapes ({N}^2, {L} "
             "moduli)")
         del got, ref
+    # the library's int8 GEMM on the same slices, without the mod epilogue:
+    # L calls of torch._int_mm (the port never calls it)
+    lib = {}
+    b8t = b8.transpose(1, 2).contiguous()   # column-major B, untimed
+    by, _ = timed_rounds({
+        "matmul_mod_u8": lambda: hm.matmul_mod_u8(a8, b8, L, centered=True),
+        "int_mm": lambda: [torch._int_mm(a8[l], b8t[l].t())
+                           for l in range(L)]}, PROBE_ROUNDS, 2)
+    lib["matmul_mod_u8"] = float(np.median(by["int_mm"]))
+    log(f"  torch._int_mm x {L} on the same slices (the product without "
+        f"the mod epilogue; B column-major): median {lib['matmul_mod_u8']:.3f}"
+        f" ms (rounds {', '.join(f'{t:.3f}' for t in by['int_mm'])}) beside "
+        f"matmul_mod_u8 {float(np.median(by['matmul_mod_u8'])):.3f} ms in "
+        "the same rotation")
+    del b8t
     total, _ = timed(lambda: gt.gemm(a, b, num_moduli=L, device=DEVICE), 3)
     total_accu, _ = timed(lambda: gt.gemm(a, b, num_moduli=L, fastmode=False,
                                           device=DEVICE), 3)
-    return times, total, total_accu
+    return times, total, total_accu, lib
 
 
 def gate_lines(s, axis):
@@ -3286,6 +3387,333 @@ def phase_batched_timed_times(calls, times):
     return batched, phases
 
 
+# ---- the probes (B16): phases 3q, 4q, 5q ----------------------------------
+
+def phase_probe_kernels(errs):
+    """Phase 3q: each probe kernel against its plain version, bit for bit
+    (launches not counted)."""
+    x = torch.from_numpy(pclz.edge_words()).to(DEVICE)
+    hold(errs, "probe_clz", hq.clz(x), hq.clz_plain(x), "clz edge words")
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, PROBE_CLZ_WORDS,
+                                      dtype=np.int32)).to(DEVICE)
+    hold(errs, "probe_clz", hq.clz(x), hq.clz_plain(x), "clz random words")
+    x = torch.from_numpy(pclz.limb_words(PROBE_CLZ_WORDS)).to(DEVICE)
+    hold(errs, "probe_clz", hq.clz(x, "exp"), hq.clz_plain(x),
+         "clz exponent form on limbs")
+    log(f"  clz == plain: edge words, {PROBE_CLZ_WORDS} random words, the "
+        "exponent form on as many limbs")
+    for case, v in pvpu.inputs().items():
+        v = torch.from_numpy(v).to(DEVICE)
+        hold(errs, "probe_vpu_ops", hq.vpu_chain(v, case, PROBE_STEPS_CHECK),
+             hq.vpu_chain_plain(v, case, PROBE_STEPS_CHECK), f"chain {case}")
+    log(f"  the nine op chains == plain at STEPS {PROBE_STEPS_CHECK}")
+    for variant in pmxu.VARIANTS:
+        for L in (2, 8, 14, 20):
+            for bm in (8, 16):
+                for n in (1024, 1000):
+                    r = torch.from_numpy(pmxu.make_input(
+                        variant, L, bm, 1024, n, seed=L + bm)).to(DEVICE)
+                    hold(errs, "probe_mxu_crt", hq.mxu_crt(r, L, bm, variant),
+                         hq.mxu_crt_plain(r, L, bm, variant),
+                         f"mxu_crt {variant} L={L} bm={bm} n={n}")
+    log("  mxu_crt == plain: 4 variants x L 2, 8, 14, 20 x bm 8, 16, m = "
+        "1024, n = 1024 and 1000")
+    L, n = L_MAIN, PROBE_N_CHECK
+    rng = np.random.default_rng(12)
+    a8, b8 = (torch.from_numpy(rng.integers(-128, 128, (L, n, n),
+                                            dtype=np.int8)).to(DEVICE)
+              for _ in range(2))
+    res = hm.matmul_mod_u8(a8, b8, L)
+    for variant in pdd.VARIANTS:
+        r = pdd.make_rider(variant, n, L)
+        rin = None if r is None else torch.from_numpy(r).to(DEVICE)
+        nops = 16 if variant in pdd.CHAIN else 0
+        got = hq.deaddep(a8, b8, L, nops, variant, rin)
+        hold_all(errs, "probe_deaddep", got,
+                 hq.deaddep_plain(a8, b8, L, nops, variant, rin),
+                 f"deaddep {variant} at n={n}")
+        assert torch.equal(got[0], res), f"deaddep {variant}: residues"
+    log(f"  deaddep == plain, every variant at n={n}, {L} moduli: residues "
+        "== matmul_mod_u8's, hbmio's words, the rec riders' f64 words == "
+        "plain reconstruct with shifts 0")
+    build.LAUNCHES.clear()
+
+
+def probe_main_calls():
+    """Phase 4q's calls: the probes' entry point with each script's
+    defaults (deaddep with the -1 and -2 riders too)."""
+    return [["clz"], ["vpu_ops"], ["mxu_crt"],
+            ["deaddep", str(N), str(L_MAIN), "0", "16", "32", "-1", "-2"]]
+
+
+def phase_probes(launches):
+    """Phase 4q: the probes' main path, `python -m gemmul8_tpu_torch.probes`
+    with each script's defaults, each call with the launch counts reset
+    just before it and read just after: every variant it runs launched."""
+    for argv in probe_main_calls():
+        out, counts, _ = counted(lambda a=argv: probes_main(a))
+        log(f"  probes {' '.join(argv)}: launches {counts}")
+        name = f"probe_{argv[0]}"
+        want = {"clz": [f"clz[{f}]" for f in pclz.FORMS],
+                "vpu_ops": [f"vpu_ops[{c}]" for c in pvpu.CASES],
+                "mxu_crt": ["mxu_crt[full]"],
+                "deaddep": [f"deaddep[{v}]" for v in pdd.VARIANTS]}[argv[0]]
+        for key in want:
+            assert counts.get(f"probe_{key}", 0) > 0, f"{key} not launched"
+        assert set(counts) == {f"probe_{k}" for k in want}, counts
+        launches[name] = sum(counts.values())
+        if argv[0] == "clz":
+            assert out["correct"], "clz probe disagrees with its plain version"
+        assert all(np.isfinite(v) and v > 0 for v in out.values()
+                   if not isinstance(v, bool)), out
+
+
+def timed_pairs(fx, fy, pairs):
+    """ms of fx minus ms of fy over pairs of adjacent calls, the order
+    alternating from pair to pair (each call timed alone, after a
+    warm-up call of each)."""
+    fx(), fy()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    out = []
+    for i in range(pairs):
+        ms = {}
+        for which, f in ((("x", fx), ("y", fy)) if i % 2 == 0
+                         else (("y", fy), ("x", fx))):
+            start.record()
+            f()
+            stop.record()
+            torch.cuda.synchronize()
+            ms[which] = start.elapsed_time(stop)
+        out.append(ms["x"] - ms["y"])
+    return out
+
+
+def spread_ms(d):
+    """'median [least, most]' of differences d (ms)."""
+    return (f"{float(np.median(d)):+.3f} [{float(np.min(d)):+.3f}, "
+            f"{float(np.max(d)):+.3f}]")
+
+
+class ClockSampler:
+    """nvidia-smi's SM clock every 20 ms while the block runs."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm",
+             "--format=csv,noheader,nounits", "-lms", "20"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        self.mhz = [float(v) for v in out.split() if v.strip()]
+
+
+def sass_counts():
+    """{kernel name: Counter of opcodes} of the chain kernels
+    (gm8_vpu_<case>), from cuobjdump -sass of the built library."""
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(build.library_path())],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    out, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1) if m.group(1).startswith("gm8_vpu_") else None
+            if cur:
+                out[cur] = collections.Counter()
+            continue
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
+                      line)
+        if cur and m:
+            out[cur][m.group(1)] += 1
+    return out
+
+
+def chain_bound_ms(case, clock_mhz, steps=pvpu.STEPS):
+    """The least time of one chain call: its instructions a rep
+    (VPU_MIX) at the CUDA C++ Programming Guide's compute capability 9.0
+    rates a clock an SM (VPU_RATE), the slowest class or the issue of 128
+    a clock an SM, whichever is larger, x 132 SMs x the SM clock."""
+    mix = VPU_MIX[case]
+    per_rep = max(max(cnt / VPU_RATE[c] for c, cnt in mix.items()),
+                  sum(mix.values()) / 128)
+    clocks = pvpu.ops(steps) * per_rep / SMS
+    return clocks / (clock_mhz * 1e6) * 1e3
+
+
+def phase_probe_times(errs):
+    """Phase 5q: times at the probes' own sizes, medians of rotated
+    rounds; returns ({name: (ms, plain ms)}, {name: bound}, {name:
+    library ms})."""
+    times, bounds, library = {}, {}, {}
+    # clz: both forms on the timing words, beside the plain version
+    x = torch.from_numpy(pclz.limb_words(pclz.N_TIME)).to(DEVICE)
+    by, _ = timed_rounds({f: (lambda f=f: hq.clz(x, f)) for f in pclz.FORMS},
+                         PROBE_ROUNDS, 10)
+    pms, ref = timed(lambda: hq.clz_plain(x), 2)
+    for f in pclz.FORMS:
+        hold(errs, "probe_clz", hq.clz(x, f), ref, f"clz {f} at 2^26")
+    med = {f: float(np.median(v)) for f, v in by.items()}
+    b = bound(8 * pclz.N_TIME)
+    log(f"  clz on {pclz.N_TIME} limb words: __clz median {med['clz']:.4f} "
+        f"ms, f32-exponent trick {med['exp']:.4f} ms (rounds "
+        f"{', '.join(f'{t:.4f}' for t in by['clz'])} / "
+        f"{', '.join(f'{t:.4f}' for t in by['exp'])}); plain {pms:.3f} ms; "
+        f"bound {b[0]:.4f} ms ({b[1]})")
+    times["probe_clz"], bounds["probe_clz"] = (med["clz"], pms), b
+    # the nine chains at STEPS 2048, the SM clock sampled meanwhile
+    xs = {c: torch.from_numpy(v).to(DEVICE) for c, v in pvpu.inputs().items()}
+    with ClockSampler() as clock:
+        by, _ = timed_rounds({c: (lambda c=c: hq.vpu_chain(xs[c], c))
+                              for c in pvpu.CASES}, PROBE_ROUNDS, 40)
+    mhz = float(np.median(clock.mhz)) if clock.mhz else float("nan")
+    sass = sass_counts()
+    ms_sum = pms_sum = b_sum = 0.0
+    for c in pvpu.CASES:
+        ms = float(np.median(by[c]))
+        pms, ref = timed(lambda c=c: hq.vpu_chain_plain(xs[c], c), 1)
+        hold(errs, "probe_vpu_ops", hq.vpu_chain(xs[c], c), ref,
+             f"chain {c} at STEPS {pvpu.STEPS}")
+        name = "gm8_vpu_" + VPU_KERNEL[c]
+        ops = {op: n for op, n in sass[name].items() if op in VPU_OPCODES}
+        bms = chain_bound_ms(c, mhz)
+        log(f"  {c:14s}: median {ms:.3f} ms, {pvpu.ops() / ms / 1e9:.2f} T "
+            f"op/s (JAX count); SASS of {name} {ops} (16 reps a step); "
+            f"bound {bms:.3f} ms at {mhz:.0f} MHz ({VPU_MIX[c]} a rep); "
+            f"plain {pms:.1f} ms")
+        ms_sum, pms_sum, b_sum = ms_sum + ms, pms_sum + pms, b_sum + bms
+        del ref
+    log(f"  SM clock during the chains: median {mhz:.0f} MHz over "
+        f"{len(clock.mhz)} samples (min {min(clock.mhz, default=0):.0f}, "
+        f"max {max(clock.mhz, default=0):.0f})")
+    times["probe_vpu_ops"] = (ms_sum, pms_sum)
+    bounds["probe_vpu_ops"] = (b_sum, "operations")
+    del xs
+    # the CRT contraction: four variants at the script's defaults
+    variant, bm, _, L, m, n = pmxu.DEFAULTS
+    rs = {v: torch.from_numpy(pmxu.make_input(v, L, bm, m, n)).to(DEVICE)
+          for v in pmxu.VARIANTS}
+    calls = {v: (lambda v=v: hq.mxu_crt(rs[v], L, bm, v))
+             for v in pmxu.VARIANTS}
+    zeros_a = torch.zeros((m, 1), dtype=torch.int32, device=DEVICE)
+    zeros_b = torch.zeros((1, n), dtype=torch.int32, device=DEVICE)
+    calls["reconstruct (same residues)"] = lambda: hk.reconstruct(
+        rs["full"], zeros_a, zeros_b, L)
+    wp = torch.from_numpy(rec.crt_mxu_consts(L, bm)[0]).to(DEVICE)
+    rp = pmxu.centered_planes(rs["full"], L, 1, "full").reshape(
+        L, m // bm, bm, n).permute(0, 2, 1, 3).reshape(L * bm, -1)
+    # B column-major, made untimed: cuBLASLt's int8 kernels take B so, and
+    # row-major B ran 5x slower on the H100
+    rp = rp.t().contiguous().t()
+    calls["torch._int_mm W' x R"] = lambda: torch._int_mm(wp, rp)
+    by, _ = timed_rounds(calls, PROBE_ROUNDS, 5)
+    b = bound(pmxu.bytes_moved(L, m, n))
+    for v in pmxu.VARIANTS:
+        pms, ref = timed(lambda v=v: hq.mxu_crt_plain(rs[v], L, bm, v), 1)
+        hold(errs, "probe_mxu_crt", hq.mxu_crt(rs[v], L, bm, v), ref,
+             f"mxu_crt {v} at {m}x{n}")
+        del ref
+        ms = float(np.median(by[v]))
+        log(f"  mxu_crt {v} ({m}x{n}, L={L}, bm={bm}): median {ms:.3f} ms "
+            f"(rounds {', '.join(f'{t:.3f}' for t in by[v])}); plain "
+            f"{pms:.3f} ms; bound {b[0]:.3f} ms ({b[1]})")
+        if v == variant:
+            times["probe_mxu_crt"], bounds["probe_mxu_crt"] = (ms, pms), b
+    for label in list(calls)[len(pmxu.VARIANTS):]:
+        log(f"  {label}: median {float(np.median(by[label])):.3f} ms")
+    library["probe_mxu_crt"] = float(np.median(by["torch._int_mm W' x R"]))
+    del rs, rp, calls
+    # integer work inside the GEMM's block at the script's size
+    n, L = N, L_MAIN
+    rng = np.random.default_rng(0)
+    a8, b8 = (torch.from_numpy(rng.integers(-128, 128, (L, n, n),
+                                            dtype=np.int8)).to(DEVICE)
+              for _ in range(2))
+    riders = {v: pdd.make_rider(v, n, L) for v in pdd.VARIANTS}
+    riders = {v: None if r is None else torch.from_numpy(r).to(DEVICE)
+              for v, r in riders.items()}
+    configs = [("base", 0)] + [(v, k) for k in (0, 16, 32)
+                               for v in pdd.CHAIN] + [("recbody", 0),
+                                                      ("recmxu", 0)]
+    calls = {f"{v} nops={k}": (lambda v=v, k=k: hq.deaddep(
+        a8, b8, L, k, v, riders[v])) for v, k in configs}
+    # each config's median over rotated rounds; its differences to base,
+    # for a chain to the same variant at nops 0 (its scratch and aux
+    # without the chain), for recmxu to recbody, from adjacent pairs of
+    # calls: the card's clock
+    # drifts at its power cap, and a round of 18 calls spans 0.5 s. base
+    # against itself gives the pairs' own spread.
+    refs = {}
+    for label, (v, k) in zip(calls, configs):
+        refs[label] = [("base", "base nops=0")]
+        if k:
+            refs[label].append(("nops 0", f"{v} nops=0"))
+        if v == "recmxu":
+            refs[label].append(("recbody", "recbody nops=0"))
+    with ClockSampler() as clock:
+        by, _ = timed_rounds(calls, PROBE_DEADDEP_ROUNDS, 2)
+        diffs = {label: [(what, timed_pairs(calls[label], calls[ref],
+                                            PROBE_DEADDEP_PAIRS))
+                         for what, ref in refs[label]] for label in calls}
+    mhz = float(np.median(clock.mhz)) if clock.mhz else float("nan")
+    # the same work in SM clock cycles, which the clock's swings leave
+    # alone: each config's launch span (probes.deaddep.sm_cycles), median
+    # of PROBE_DEADDEP_STAMPED calls
+    stamps = torch.empty((pdd.tiles(n, L), 3), dtype=torch.int64,
+                         device=DEVICE)
+    cyc = {}
+    for label, (v, k) in zip(calls, configs):
+        spans = []
+        for _ in range(PROBE_DEADDEP_STAMPED):
+            hq.deaddep(a8, b8, L, k, v, riders[v], stamps=stamps)
+            spans.append(pdd.sm_cycles(stamps))
+        cyc[label] = np.array(spans) / 1e3
+    for label, (v, k) in zip(calls, configs):
+        spread = "; ".join(f"{spread_ms(d)} over {what}"
+                           for what, d in diffs[label])
+        imads = pdd.injected_ops(n, L, k, v) // 2
+        serial = imads / (64 * SMS * mhz * 1e6) * 1e3
+        kc = float(np.median(cyc[label]))
+        dk = "; ".join(f"{kc - float(np.median(cyc[ref])):+.1f} over {what}"
+                       for what, ref in refs[label])
+        log(f"  deaddep {label:17s}: median {float(np.median(by[label])):.3f}"
+            f" ms; {spread}; span {kc:.1f} [{cyc[label].min():.1f}, "
+            f"{cyc[label].max():.1f}] kcycles ({dk}); injected "
+            f"{imads} multiply-adds, serial {serial:.3f} ms at 64 a clock "
+            f"an SM, {mhz:.0f} MHz, {imads / (64 * SMS) / 1e3:.1f} "
+            "kcycles")
+    log(f"  (medians over {PROBE_DEADDEP_ROUNDS} rotated rounds; a "
+        f"difference: median [least, most] over {PROBE_DEADDEP_PAIRS} "
+        "adjacent pairs; a span: SM clock cycles of the launch, median "
+        f"[least, most] of {PROBE_DEADDEP_STAMPED} calls; rounds by config: "
+        + "; ".join(
+            f"{label} {', '.join(f'{t:.3f}' for t in by[label])}"
+            for label in calls) + ")")
+    for label, (v, k) in zip(calls, configs):
+        pms, ref = timed(lambda v=v, k=k: hq.deaddep_plain(
+            a8, b8, L, k, v, riders[v]), 1)
+        hold_all(errs, "probe_deaddep", hq.deaddep(a8, b8, L, k, v,
+                                                   riders[v]),
+                 ref, f"deaddep {label} at n={n}")
+        del ref
+        if label == "deaddep nops=16":
+            times["probe_deaddep"] = (float(np.median(by[label])), pms)
+    log(f"  deaddep == plain at n={n}, {L} moduli, every config above: "
+        "residues, aux, hbmio's words, the rec riders' f64 words")
+    bounds["probe_deaddep"] = bound(2 * L * n * n + L * n * n,
+                                    L * 2 * n ** 3)
+    log(f"  deaddep nops=16 plain {times['probe_deaddep'][1]:.1f} ms; bound "
+        f"{bounds['probe_deaddep'][0]:.3f} ms "
+        f"({bounds['probe_deaddep'][1]}); SM clock median {mhz:.0f} MHz")
+    return times, bounds, library
+
+
 def kernel_bounds_riders(L_of):
     """bound() of each rider f32 form's phase-5r work, as kernel_bounds
     counts the f64 forms, with each source word read as 8 or 4 bytes and
@@ -3436,6 +3864,7 @@ def main():
     phase_c64_kernels(errs)
     phase_rider_f32_kernels(errs)
     phase_golden()
+    phase_probe_kernels(errs)
     log(f"[3/5] every kernel == its plain version "
         f"({time.perf_counter() - t0:.1f} s)")
 
@@ -3452,9 +3881,10 @@ def main():
     A64, B64, c64_rels = phase_complex64(A, a32, b32, launches)
     rcalls, _ = phase_pipeline_f32(a, b, a32, b32, b_wide, launches)
     bcalls, btimes = phase_batched_timed(a, b, a32, A64, B64)
+    phase_probes(launches)
     log(f"[4/5] main path checked ({time.perf_counter() - t0:.1f} s)")
 
-    times, total, total_accu = phase_times(a, b, errs)
+    times, total, total_accu, library = phase_times(a, b, errs)
     for name, (ms, pms) in times.items():
         log(f"  {name}: kernel {ms:.3f} ms, plain {pms:.3f} ms "
             f"({N}^2 operands, {L_MAIN} moduli; {card})")
@@ -3631,6 +4061,12 @@ def main():
             f"int8 GEMMs {t[1] * 1e3:.3f}, mod {t[2] * 1e3:.4f}, reconstruct "
             f"{t[3] * 1e3:.3f}, sum {sum(t) * 1e3:.3f} ms beside the fused "
             f"call's median {fused:.3f} ms ({card})")
+    del a32, b32, b_wide, A, B, bcalls, btimes, rcalls
+    torch.cuda.empty_cache()
+    ptimes, pbounds, plib = phase_probe_times(errs)
+    times.update(ptimes)
+    bounds.update(pbounds)
+    library.update(plib)
     log("[5/5] times taken")
     log(f"wall time of the run: {time.perf_counter() - t_start:.1f} s")
 
@@ -3638,7 +4074,8 @@ def main():
                 "replaces": rep, "launches": launches[name],
                 "max_abs_err": errs[name], "ms": times[name][0],
                 "plain_ms": times[name][1], "bound_ms": bounds[name][0],
-                "bound_by": bounds[name][1], "library_ms": None}
+                "bound_by": bounds[name][1],
+                "library_ms": library.get(name)}
                for name, (src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

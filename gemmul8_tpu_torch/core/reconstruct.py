@@ -40,6 +40,71 @@ def accumulate_weighted(r, num_moduli: int, moduli_idx=None, acc=None):
     return lb.carry_propagate(out)
 
 
+def crt_mxu_weights(num_moduli: int):
+    """(wc ((nd+1), L) int64, CL limb-correction tuple[int]), nd = 2 *
+    num_limbs: the compact table of the CRT contraction. Row d < nd holds
+    byte-digit d of each weight minus 128 (d = 2l: the low byte of limb l,
+    2l+1: its high byte), row nd is all ones (it yields S = sum_j (r_j -
+    128)). On centered residues rc_j = r_j - 128, Y[d] = sum_j wc[d, j]
+    rc_j gives X[d] = sum_j r_j wbyte[j, d] = Y[d] + 128 S + C[d], and limb
+    l of the weighted sum is Y[2l] + (Y[2l+1] << 8) + 32896 S + CL[l]."""
+    w16 = np.asarray(tables.crt_weight_limbs(num_moduli), dtype=np.int64)
+    L, nl = w16.shape
+    nd = 2 * nl
+    wb = np.zeros((nd + 1, L), np.int64)
+    for l in range(nl):
+        wb[2 * l] = w16[:, l] & 0xFF
+        wb[2 * l + 1] = (w16[:, l] >> 8) & 0xFF
+    wc = wb - 128
+    wc[nd] = 1
+    c = 128 * wc[:nd].sum(axis=1) + 128 * 128 * L
+    cl = tuple(int(c[2 * l] + (c[2 * l + 1] << 8)) for l in range(nl))
+    return wc, cl
+
+
+def crt_mxu_consts(num_moduli: int, bm: int):
+    """(W' ((nd+1)*bm, L*bm) int8 ndarray, CL): the JAX package's
+    block-diagonal form of `crt_mxu_weights` (W' = wc kron I_bm), which
+    contracts a block of bm rows of every modulus at once."""
+    wc, cl = crt_mxu_weights(num_moduli)
+    return np.kron(wc, np.eye(bm, dtype=np.int64)).astype(np.int8), cl
+
+
+def crt_accumulate_mxu(rc2: torch.Tensor, w, num_moduli: int, cl, bm: int,
+                       bn: int):
+    """The 16-bit limbs of X = sum_j w_j r_j from the centered residues rc2
+    (L*bm, bn) int8 through the contraction Y = W' rc2, W' from
+    `crt_mxu_consts`: redundant (each nonnegative and below 2^29; one
+    `carry_propagate` gives `accumulate_weighted`'s limbs), as int64
+    tensors. The product runs in f64, exact: |Y| <= L * 128^2 < 2^53.
+
+    The JAX package's `_crt_accumulate_mxu`, kept as the reference of the
+    contraction (the mxu_crt probe's kernel is held to the same integers);
+    no path of the port calls it yet."""
+    nd = 2 * len(cl)
+    w = torch.as_tensor(np.asarray(w), device=rc2.device)
+    y = (w.double() @ rc2.double()).to(torch.int64).reshape(nd + 1, bm, bn)
+    t = y[nd] * 32896
+    return [y[2 * l] + (y[2 * l + 1] << 8) + t + cl[l]
+            for l in range(len(cl))]
+
+
+def centered_residue_block(c: torch.Tensor,
+                           num_moduli: int) -> torch.Tensor:
+    """(L*bm, bn) int8 centered canonical residues r_j - 128 from a (L, bm,
+    bn) block of int8 residues already centered, uint8 canonical residues,
+    or int32 raw slice products (reduced mod m_j first): the JAX package's
+    `_centered_residues`, the input of `crt_accumulate_mxu`. (Not the
+    switch `core.gemm.centered_residues`.)"""
+    L, bm, bn = c.shape
+    if c.dtype == torch.int8:
+        return c.reshape(L * bm, bn)
+    if c.dtype == torch.uint8:
+        return (c ^ 0x80).view(torch.int8).reshape(L * bm, bn)
+    r = mod_reduce(c.to(torch.int64), num_moduli)
+    return (r - 128).to(torch.int8).reshape(L * bm, bn)
+
+
 def fold_chunk_(limbs: torch.Tensor, r: torch.Tensor, num_moduli: int,
                 moduli_idx) -> torch.Tensor:
     """limbs[l] += sum_jj w[j, l] * r[jj], j = moduli_idx[jj], in place:

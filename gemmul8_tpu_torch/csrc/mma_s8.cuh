@@ -86,15 +86,21 @@ __device__ __forceinline__ void load_tile(int tid, unsigned sdst,
   }
 }
 
+// no work between k-tiles
+struct NoKHook {
+  __device__ __forceinline__ void operator()(int, int) const {}
+};
+
 // acc (zeroed here) = the (bm0, bn0) tile of A (m, k; stride lda) times
 // Bt (n, k; stride ldb) transposed. smem: kMmaSmemBytes of dynamic shared
-// memory. Every thread of the 256-thread block must call it.
-template <bool kRaggedK>
+// memory. Every thread of the 256-thread block must call it. hook(kt, nk)
+// runs in every thread after the MMAs of k-tile kt of nk are issued.
+template <bool kRaggedK, class KHook>
 __device__ __forceinline__ void mma_tile(const signed char* A, int lda,
                                          const signed char* Bt, int ldb,
                                          int m, int n, int k, int bm0,
                                          int bn0, unsigned char* smem,
-                                         int (&acc)[4][4][4]) {
+                                         int (&acc)[4][4][4], KHook& hook) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm = warp >> 2, wn = warp & 3;
   const unsigned s0 = smem_addr(smem);
@@ -159,8 +165,19 @@ __device__ __forceinline__ void mma_tile(const signed char* A, int lda,
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) mma_s8(acc[mt][nt], af[mt], bf[nt]);
     }
+    hook(kt, nk);
   }
   asm volatile("cp.async.wait_group 0;\n");
+}
+
+template <bool kRaggedK>
+__device__ __forceinline__ void mma_tile(const signed char* A, int lda,
+                                         const signed char* Bt, int ldb,
+                                         int m, int n, int k, int bm0,
+                                         int bn0, unsigned char* smem,
+                                         int (&acc)[4][4][4]) {
+  NoKHook none;
+  mma_tile<kRaggedK>(A, lda, Bt, ldb, m, n, k, bm0, bn0, smem, acc, none);
 }
 
 }  // namespace gm8

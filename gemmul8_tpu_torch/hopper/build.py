@@ -98,6 +98,15 @@ _SIGNATURES = {
     # a8, b8, bt, res, b_src, b_sft, a_src, a_sft, a_out, L, pm, n, k,
     # a_q_max, b_q_max, a_f32, b_f32, stream
     "gm8_matmul_bsplit_pair": [_P] * 9 + [_I] * 8 + [_P],
+    # the probes (hopper/probes.py). x, out, n, form, stream
+    "gm8_probe_clz": [_P, _P, _I, _I, _P],
+    # x, out, n, case, steps, stream
+    "gm8_probe_vpu_ops": [_P, _P, _I, _I, _I, _P],
+    # r, out, table (host), L, m, n, bm, variant, stream
+    "gm8_probe_mxu_crt": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # a8, b8, bt, out, rin, rout, aux, rec_out, crt_table (host),
+    # mma_table (host), L, n, variant, reps, stamps, stream
+    "gm8_probe_deaddep": [_P] * 10 + [_I] * 4 + [_P, _P],
 }
 
 _lock = threading.Lock()
@@ -158,6 +167,13 @@ def _wait(cmd: list, proc: subprocess.Popen) -> str:
         return ""
     return (f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
             f"{stdout}\n{stderr}")
+
+
+def library_path() -> Path:
+    """The built kernel library (built first if needed): what `cuobjdump
+    -sass` reads to count a kernel's instructions."""
+    with _lock:
+        return _build()
 
 
 def lib() -> ctypes.CDLL:

@@ -18,6 +18,10 @@ import gemmul8_tpu_torch.core.encode, gemmul8_tpu_torch.core.reconstruct
 import gemmul8_tpu_torch.core.slicegemm, gemmul8_tpu_torch.core.limbs
 import gemmul8_tpu_torch.hopper.kernels, gemmul8_tpu_torch.hopper.matmul
 import gemmul8_tpu_torch.bench.matrices, gemmul8_tpu_torch.bench.native
+import gemmul8_tpu_torch.bench.timing, gemmul8_tpu_torch.hopper.probes
+import gemmul8_tpu_torch.probes.clz, gemmul8_tpu_torch.probes.vpu_ops
+import gemmul8_tpu_torch.probes.mxu_crt, gemmul8_tpu_torch.probes.deaddep
+import gemmul8_tpu_torch.probes.__main__
 from gemmul8_tpu_torch.hopper import build
 assert "jax" not in sys.modules, "jax imported"
 assert not any(m.startswith("gemmul8_tpu.") or m == "gemmul8_tpu"
@@ -42,13 +46,16 @@ def test_sources_are_cuda_files():
     from gemmul8_tpu_torch.hopper import build
 
     names = sorted(p.name for p in build.sources())
-    assert names == ["common.cuh", "crt.cuh", "crt_gemm.cuh", "encode.cu",
+    assert names == ["common.cuh", "crt.cuh", "crt_gemm.cuh", "crt_mma.cuh",
+                     "encode.cu",
                      "fast_encode_fused.cu", "fast_sft.cu", "fast_stats.cuh",
                      "mag7.cu", "magmax.cu", "matmul_complex.cu",
                      "matmul_crt.cu", "matmul_mod.cu",
                      "matmul_mod_pipelined.cu", "matmul_reconstruct.cu",
                      "matmul_rider.cu",
-                     "mma_s8.cuh", "moduli.cuh", "reconstruct.cu",
+                     "mma_s8.cuh", "moduli.cuh", "probe_clz.cu",
+                     "probe_deaddep.cu", "probe_mxu_crt.cu",
+                     "probe_vpu_ops.cu", "reconstruct.cu",
                      "residue.cuh", "src_word.cuh", "transpose_b.cuh"]
 
 
