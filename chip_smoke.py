@@ -289,6 +289,29 @@ their line's ms is clz's __clz form, the nine chains' sum, mxu_crt's full
 variant and deaddep at nops 16. The run's wall time is printed before the
 kernels line.
 
+The wgmma tile of matmul_mod_u8 (csrc/matmul_mod.cu on csrc/wgmma_s8.cuh,
+its launch from gemmul8_tpu_torch/hopper/launch.py) adds:
+  2.  the ptxas report of csrc/matmul_mod.cu (registers, shared memory and
+      spills of each kernel, `-Xptxas -v`);
+  3w. matmul_mod_u8 against its plain version, centered and not, bit for
+      bit, at the tile's edge shapes (m, k, n) = (1, 16, 1), (65, 144,
+      257), (200, 4100, 129) and (1000, 4100, 1500) at L = 1, 14 and 20;
+      with moduli_idx = (3, 7, 11); at k = 2^17, m = n = 128, L = 20 with
+      the modulus-256 slice all -128 (its products exactly 2^31, which the
+      int32 accumulator wraps) and the odd slices at +-127 (their largest
+      products, 127^2 * 2^17), and with random slices at the same k; and
+      the epilogue's multiply-and-shift division against mod_canon on the
+      card for every int32 (a superset of the reachable
+      [-127^2 * 2^17, 127^2 * 2^17]), every modulus;
+  4c. (also) the peak device memory above the operands of every complex
+      strategy, fast and accurate, complex128 and complex64 (A and B
+      rounded), at 8192^3 and at the ragged (m, k, n) = (1000, 4100,
+      1500), 14 moduli: each complex128 peak at or under
+      planner.workspace_bytes and within 5% of it, each complex64 peak at
+      or under it (the planner counts 8-byte words);
+  5.  (also) matmul_mod_u8 beside torch._int_mm x L in one rotation: the
+      ratio of the two and the share of the bound each reaches.
+
 The line before the last is a JSON object of per-kernel results
 (`launches` sums the main-path calls of phase 4, real and complex, for the
 variant kernels those of phase 4v at 8192^3, for matmul_crt and
@@ -330,6 +353,7 @@ from gemmul8_tpu_torch.core import riders
 from gemmul8_tpu_torch.core import slicegemm as sg
 from gemmul8_tpu_torch.hopper import build
 from gemmul8_tpu_torch.hopper import kernels as hk
+from gemmul8_tpu_torch.hopper import launch as hl
 from gemmul8_tpu_torch.hopper import matmul as hm
 from gemmul8_tpu_torch.hopper import pipelined as hp
 from gemmul8_tpu_torch.hopper import probes as hq
@@ -436,7 +460,17 @@ CHUNK = 5                # phase 4s: moduli_chunk of the chunked calls
 BUDGET_CHUNK = 4         # and the chunk its max_workspace_bytes call plans
 SCHEDULE_KERNELS = ("matmul_crt", "matmul_reconstruct")
 SCHEDULE_ROUNDS = 3
+# phase 4c's ragged complex shape (m, k, n)
+PEAK_RAGGED = (1000, 4100, 1500)
 PLANNER_SLACK = 0.05     # phase 4s: a measured peak within 5% under the model
+# phase 3w: the wgmma tile's edge shapes (m, k, n) at these slice counts,
+# a moduli subset, and the int32 wrap at the largest k
+WGMMA_CASES = [(1, 16, 1), (65, 144, 257), (200, 4100, 129),
+               (1000, 4100, 1500)]
+WGMMA_LS = (1, 14, 20)
+WGMMA_SUBSET = (3, 7, 11)
+WRAP_K = tables.MAX_K    # 2^17
+WRAP_MN = 128
 # phase 3p: (m, k, n), moduli counts, panel_m; 2 or 3 panels, where the
 # pipeline's gates apply
 PIPELINE_CASES = [((2048, 2048, 2048), (L_MAIN,), 1024),
@@ -648,6 +682,71 @@ def phase_kernels(errs):
                      hk.reconstruct_plain(r, pa, pb, L),
                      f"reconstruct {tag} centered={centered}")
             log(f"  kernels == plain at {tag}")
+
+
+def slices8(L, m, k, n, seed):
+    """Random int8 slices (L, m, k) and (L, k, n) on the card."""
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.integers(-128, 128, (L, m, k), np.int8)
+                             ).to(DEVICE),
+            torch.from_numpy(rng.integers(-128, 128, (L, k, n), np.int8)
+                             ).to(DEVICE))
+
+
+def hold_mod(errs, a8, b8, L, tag, moduli_idx=None):
+    """matmul_mod_u8 == its plain version, centered and not."""
+    for centered in (True, False):
+        hold(errs, "matmul_mod_u8",
+             hm.matmul_mod_u8(a8, b8, L, centered=centered,
+                              moduli_idx=moduli_idx),
+             hm.matmul_mod_u8_plain(a8, b8, L, centered=centered,
+                                    moduli_idx=moduli_idx),
+             f"matmul_mod_u8 {tag} centered={centered}")
+
+
+def phase_wgmma_kernels(errs):
+    """Phase 3w: the wgmma tile of matmul_mod_u8 at its edge shapes, a
+    moduli subset and the int32 wrap at k = 2^17, bit-equal to the plain
+    version; the epilogue's division against mod_canon for every int32."""
+    cfg = hl.get("matmul_mod")
+    log(f"  matmul_mod_u8 launch (hopper/launch.py, capability "
+        f"{torch.cuda.get_device_capability()}): {cfg}, built with "
+        f"{' '.join(build.SOURCE_FLAGS['matmul_mod.cu'])}")
+    for i, (m, k, n) in enumerate(WGMMA_CASES):
+        for L in WGMMA_LS:
+            a8, b8 = slices8(L, m, k, n, 100 + i)
+            hold_mod(errs, a8, b8, L, f"m={m} k={k} n={n} L={L}")
+        log(f"  matmul_mod_u8 == plain at m={m} k={k} n={n}, L = "
+            f"{', '.join(map(str, WGMMA_LS))}")
+    a8, b8 = slices8(len(WGMMA_SUBSET), 300, 777, 200, 110)
+    hold_mod(errs, a8, b8, tables.MAX_MODULI, f"moduli_idx={WGMMA_SUBSET}",
+             WGMMA_SUBSET)
+    log(f"  matmul_mod_u8 == plain with moduli_idx={WGMMA_SUBSET}")
+    L = tables.MAX_MODULI
+    a8 = torch.full((L, WRAP_MN, WRAP_K), -127, dtype=torch.int8,
+                    device=DEVICE)
+    b8 = torch.full((L, WRAP_K, WRAP_MN), 127, dtype=torch.int8,
+                    device=DEVICE)
+    a8[0] = -128
+    b8[0] = -128
+    b8[1:, :, ::2] = -127
+    hold_mod(errs, a8, b8, L, f"wrap k={WRAP_K}")
+    wrapped = hm.matmul_mod_u8(a8[:1], b8[:1], L, moduli_idx=(0,))
+    assert bool((wrapped == 0).all()), "the 256 lane's 2^31 is not 0 mod 256"
+    del a8, b8, wrapped
+    a8, b8 = slices8(L, WRAP_MN, WRAP_K, WRAP_MN, 111)
+    hold_mod(errs, a8, b8, L, f"random k={WRAP_K}")
+    del a8, b8
+    log(f"  matmul_mod_u8 == plain at k = {WRAP_K}, m = n = {WRAP_MN}, L = "
+        f"{L}: the 256 slice's products exactly 2^31 (wrapped, residue 0), "
+        "the odd slices' 127^2 * 2^17; and random slices")
+    t0 = time.perf_counter()
+    bad = hm.mod_div_mismatches(-(1 << 31), (1 << 31) - 1, L,
+                                device=DEVICE)
+    torch.cuda.synchronize()
+    assert int(bad.sum()) == 0, f"mod_div differs from mod_canon: {bad}"
+    log(f"  mod_div == mod_canon for every int32, all {L} moduli "
+        f"({time.perf_counter() - t0:.2f} s)")
 
 
 # (x, e): reconstruct must give x * 2^e rounded to nearest even
@@ -1303,6 +1402,48 @@ def phase_complex(launches):
     return A, B, rels
 
 
+def phase_complex_peaks(A, B):
+    """Phase 4c (memory): every complex strategy, fast and accurate, on
+    complex128 (A, B) and on complex64 (A, B rounded) at N^3, then on
+    complex128 and complex64 operands of the ragged shape PEAK_RAGGED (its
+    buffers not multiples of 512 bytes, k not of 16), L_MAIN moduli: the
+    peak device memory above the operands against planner.workspace_bytes,
+    which must be at or above each peak, and within PLANNER_SLACK of each
+    complex128 peak (the planner counts 8-byte words, so it over-counts
+    complex64 calls)."""
+    m, k, n = PEAK_RAGGED
+    ragged = [torch.from_numpy(phi_matrix(r, c, 0.5, seed=s)
+                               + 1j * phi_matrix(r, c, 0.5, seed=s + 1))
+              .to(DEVICE) for r, c, s in ((m, k, 40), (k, n, 42))]
+    for x, y in ((A, B), ragged):
+        x64, y64 = x.to(torch.complex64), y.to(torch.complex64)
+        shape = (x.shape[0], x.shape[1], y.shape[1])
+        for word, pair in (("complex128", (x, y)), ("complex64", (x64, y64))):
+            for strat in (CT.COMPLEX_BIG_MATRIX_ENCODE,
+                          CT.COMPLEX_CLASSIC_MULT, CT.COMPLEX_KARATSUBA_MULT):
+                plan = planner.workspace_bytes(shape[0], shape[2], shape[1],
+                                               L_MAIN, strat)
+                for fastmode in (True, False):
+                    name = (f"{'x'.join(map(str, shape))} {word} "
+                            f"{strat.name} "
+                            f"{'fast' if fastmode else 'accurate'}")
+                    c, counts, peak = counted(lambda: gt.gemm(
+                        *pair, num_moduli=L_MAIN, fastmode=fastmode,
+                        compute_type=strat, device=DEVICE))
+                    assert c.shape == (shape[0], shape[2]) and bool(
+                        torch.isfinite(torch.view_as_real(c)).all()), name
+                    del c
+                    assert counts.get("matmul_complex_mod") == 1, name
+                    if word == "complex128":
+                        check_plan(name, peak, plan)
+                    else:
+                        assert peak <= plan, \
+                            f"{name}: peak {peak} over the planner's {plan}"
+                    log(f"  {name}: peak device memory above the operands "
+                        f"{peak} bytes, planner {plan} ({peak / plan:.4f})")
+        del x64, y64
+
+
 def phase_variants(a, b, refs, oracle, A, launches):
     """Phase 4v: one N^3 call per variant, each with the launch counts
     reset just before it and read just after, held to the default call's
@@ -1546,11 +1687,17 @@ def phase_times(a, b, errs):
         "int_mm": lambda: [torch._int_mm(a8[l], b8t[l].t())
                            for l in range(L)]}, PROBE_ROUNDS, 2)
     lib["matmul_mod_u8"] = float(np.median(by["int_mm"]))
+    mod_ms = float(np.median(by["matmul_mod_u8"]))
+    bound_ms = 2 * L * N ** 3 / INT8_OPS_PER_S * 1e3
     log(f"  torch._int_mm x {L} on the same slices (the product without "
         f"the mod epilogue; B column-major): median {lib['matmul_mod_u8']:.3f}"
         f" ms (rounds {', '.join(f'{t:.3f}' for t in by['int_mm'])}) beside "
-        f"matmul_mod_u8 {float(np.median(by['matmul_mod_u8'])):.3f} ms in "
-        "the same rotation")
+        f"matmul_mod_u8 {mod_ms:.3f} ms (rounds "
+        f"{', '.join(f'{t:.3f}' for t in by['matmul_mod_u8'])}) in the same "
+        f"rotation: matmul_mod_u8 / library "
+        f"{mod_ms / lib['matmul_mod_u8']:.3f}; share of the {bound_ms:.3f} "
+        f"ms bound (int8 ops) matmul_mod_u8 {bound_ms / mod_ms:.3f}, library "
+        f"{bound_ms / lib['matmul_mod_u8']:.3f} ({hl.get('matmul_mod')})")
     del b8t
     total, _ = timed(lambda: gt.gemm(a, b, num_moduli=L, device=DEVICE), 3)
     total_accu, _ = timed(lambda: gt.gemm(a, b, num_moduli=L, fastmode=False,
@@ -3849,9 +3996,17 @@ def main():
         f"{time.perf_counter() - t0:.1f} s from {len(build.sources())} "
         "sources")
 
+    ptxas = [line.strip() for line in
+             build.PTXAS_REPORT.get("matmul_mod.cu", "").splitlines()
+             if "entry function" in line or "Used" in line
+             or "spill" in line]
+    assert ptxas, "no ptxas report of matmul_mod.cu"
+    for line in ptxas:
+        log(f"  ptxas matmul_mod.cu: {line}")
     errs = dict.fromkeys(KERNELS, 0.0)
     t0 = time.perf_counter()
     phase_kernels(errs)
+    phase_wgmma_kernels(errs)
     phase_rounding(errs)
     phase_accurate_kernels(errs)
     phase_log2()
@@ -3872,6 +4027,7 @@ def main():
     t0 = time.perf_counter()
     a, b, rel_fast, rel_accu, refs, oracle = phase_slice(launches)
     A, B, rels = phase_complex(launches)
+    phase_complex_peaks(A, B)
     variant_rels = phase_variants(a, b, refs, oracle, A, launches)
     schedule_rels = phase_schedules(a, b, refs, oracle, launches)
     pipe_rels, b_wide, peak_wide = phase_pipeline(a, b, refs, oracle,

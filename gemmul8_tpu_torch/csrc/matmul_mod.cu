@@ -4,94 +4,304 @@
 //
 // Replaces: matmul_mod_u8_pallas, gemmul8_tpu/pallas/matmul.py:95.
 // Bound on the H100: tensor-core operations. At 8192^3 with 14 moduli the
-// call is 15.4 T integer multiply-adds x 2; the int8 operands (1.9 GB) and
-// residues (0.9 GB) are small next to that.
-// Design: the warp-level tensor-core instruction mma.sync.m16n8k32
-// (s8 x s8 -> s32) wants both operands K-major. A (L, m, k) is; B
+// call is 15.4 T integer multiply-adds x 2 (7.78 ms at 1,979 TOPS); the
+// int8 operands (1.9 GB) and residues (0.9 GB) are small next to that.
+// Design: wgmma reads 8-bit operands K-major only. A (L, m, k) is; B
 // (L, k, n) is not, so a first kernel copies B into a K-major workspace
 // (L, n, kp), kp = k rounded up to 16 with zeros (one 1-byte-per-element
 // pass, small next to the product; transpose_b.cuh). The GEMM kernel then
-// computes a 128 x 128 tile of one modulus with the tile of mma_s8.cuh (8
-// warps of mma.sync, a 3-stage cp.async ring, swizzled ldmatrix loads). The
-// accumulator is the hardware's wrapping int32: the modulus-256 lane can
-// reach 128 * 128 * 2^17 = 2^31, which wraps to a multiple of 256, so its
-// residue stays right; the odd lanes stay below 2^31. The epilogue reduces
-// mod m_l in registers and writes one byte per residue. Slot l of a call
-// holds modulus MODULI[moduli_idx[l]] (all the moduli in order, or the
-// chunk of a moduli-chunked call): the moduli come by value (moduli.cuh).
-// wgmma and TMA are for later work.
+// runs the tile of wgmma_s8.cuh on a persistent grid, one block per SM:
+// TMA fills a ring of stages from 3-D tensor maps (which zero-fill ragged
+// rows and k), a producer warp keeps the loads in flight, and two consumer
+// warpgroups each accumulate a 64 x 256 half of a 128 x 256 tile with
+// wgmma, so one tile's epilogue runs while the producer loads the next.
+// The accumulator is the hardware's wrapping int32: the modulus-256 lane
+// can reach 128 * 128 * 2^17 = 2^31, which wraps to a multiple of 256, so
+// its residue stays right; the odd lanes stay below 127^2 * 2^17 < 2^31.
+// The epilogue reduces mod m_l with a per-slot multiplier and shift
+// (moduli.cuh mod_div, exact for every int32; the 256 lane as x & 255),
+// writes the residue bytes into a swizzled staging tile in shared memory
+// and stores it in 16-byte pieces. Slot l of a call holds modulus
+// MODULI[moduli_idx[l]] (all the moduli in order, or the chunk of a
+// moduli-chunked call). The tile width, the ring's depth and the raster
+// group are compile-time constants from the launch table (hopper/launch.py
+// `MatmulModLaunch.defines`, passed to nvcc by hopper/build.py).
 #include "common.cuh"
-#include "mma_s8.cuh"
 #include "moduli.cuh"
 #include "transpose_b.cuh"
+#include "wgmma_s8.cuh"
+
+#if !defined(GM8_MM_TILE_N) || !defined(GM8_MM_STAGES) || \
+    !defined(GM8_MM_GROUP)
+#error "matmul_mod.cu takes its launch from hopper/launch.py (nvcc -D)"
+#endif
 
 namespace {
 
-using gm8::kBM;
-using gm8::kBN;
-constexpr int kThreads = gm8::kMmaThreads;
-constexpr int kSmemBytes = gm8::kMmaSmemBytes;
+using gm8::wg::kBK;
+using gm8::wg::kBM;
 
-// ---- the GEMM ------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads, 2)
-matmul_mod_kernel(const signed char* __restrict__ A,
-                  const signed char* __restrict__ Bt,
-                  unsigned char* __restrict__ out, int m, int n, int kp,
-                  int centered,
-                  const __grid_constant__ gm8::SlotModuli mods) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int l = blockIdx.z;
-  const int bm0 = blockIdx.y * kBM, bn0 = blockIdx.x * kBN;
-  const signed char* Al = A + static_cast<size_t>(l) * m * kp;
-  const signed char* Bl = Bt + static_cast<size_t>(l) * n * kp;
-  int acc[4][4][4];
-  gm8::mma_tile<false>(Al, kp, Bl, kp, m, n, kp, bm0, bn0, smem, acc);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;
+constexpr int kBN = GM8_MM_TILE_N;      // output columns of a tile
+constexpr int kStages = GM8_MM_STAGES;  // stages of the TMA ring
+constexpr int kGroup = GM8_MM_GROUP;    // m-tiles of a raster group
+constexpr int kSmem = gm8::wg::smem_bytes(kBN, kStages);
+static_assert(kBN == 256, "wgmma_s8.cuh issues wgmma.m64n256k32 only");
+static_assert(kStages >= 2 && kGroup >= 1,
+              "a ring of two stages or more, groups of one m-tile or more");
+static_assert(kSmem <= 232448,
+              "over the shared memory a block may opt into on sm_90");
 
-  const int mod = mods.m[l];
+// staging tile: row r's 16-byte piece c sits at piece c ^ (r & 7), so the
+// fragment's 2-byte writes (8 rows x 4 lanes a warp) and the 16-byte reads
+// are free of bank conflicts
+__device__ __forceinline__ int stg_off(int r, int c) {
+  return r * kBN + ((((c >> 4) ^ (r & 7))) << 4) + (c & 15);
+}
+
+// one consumer warpgroup's 64-row half of a finished tile: residues into
+// the staging tile, then out to out[l] in 16-byte pieces (bytes where n is
+// not a multiple of 16); rows and columns past m and n are not stored
+template <bool kPow2>
+__device__ __forceinline__ void store_tile(const int (&acc)[kBN / 2],
+                                           unsigned char* stg,
+                                           unsigned char* __restrict__ out,
+                                           int l, int m, int n, int tm,
+                                           int tn, int half,
+                                           const gm8::ModDivisor& dv,
+                                           unsigned flip) {
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31;
+  gm8::wg::warpgroup_sync(1 + half);  // the last tile's reads are done
+  const int r0 = half * 64 + warp * 16 + (lane >> 2);
+  const int c0 = 2 * (lane & 3);
+#pragma unroll
+  for (int v2 = 0; v2 < kBN / 8; ++v2)
+#pragma unroll
+    for (int v1 = 0; v1 < 2; ++v1) {
+      const int x0 = acc[4 * v2 + 2 * v1], x1 = acc[4 * v2 + 2 * v1 + 1];
+      unsigned r0b, r1b;
+      if constexpr (kPow2) {
+        r0b = static_cast<unsigned>(x0) & 255u;
+        r1b = static_cast<unsigned>(x1) & 255u;
+      } else {
+        r0b = gm8::mod_div(x0, dv);
+        r1b = gm8::mod_div(x1, dv);
+      }
+      const unsigned short pair =
+          static_cast<unsigned short>((r0b | (r1b << 8)) ^ flip);
+      *reinterpret_cast<unsigned short*>(
+          stg + stg_off(r0 + 8 * v1, 8 * v2 + c0)) = pair;
+    }
+  gm8::wg::warpgroup_sync(1 + half);  // the half tile is staged
+  constexpr int kPieces = kBN / 16;    // 16-byte pieces a row
+  const bool vec = (n & 15) == 0;
   unsigned char* ol = out + static_cast<size_t>(l) * m * n;
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+  for (int j = 0; j < 64 * kPieces / 128; ++j) {
+    const int p = tid + 128 * j;
+    const int r = half * 64 + p / kPieces, c = 16 * (p % kPieces);
+    const int row = tm * kBM + r, col = tn * kBN + c;
+    if (row >= m || col >= n) continue;
+    const uint4 v = *reinterpret_cast<const uint4*>(stg + stg_off(r, c));
+    unsigned char* dst = ol + static_cast<size_t>(row) * n + col;
+    if (vec) {
+      *reinterpret_cast<uint4*>(dst) = v;
+    } else {
+      const unsigned w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+      for (int b = 0; b < 16; ++b)
+        if (col + b < n)
+          dst[b] = static_cast<unsigned char>(w[b >> 2] >> (8 * (b & 3)));
+    }
+  }
+}
+
+__global__ void __launch_bounds__(gm8::wg::kThreads, 1)
+matmul_mod_kernel(const __grid_constant__ CUtensorMap map_a,
+                  const __grid_constant__ CUtensorMap map_b,
+                  unsigned char* __restrict__ out, int L, int m, int n,
+                  int kp, int centered,
+                  const __grid_constant__ gm8::SlotDivisors divs) {
+  extern __shared__ unsigned char smem_raw[];
+  const unsigned raw = gm8::wg::smem_u32(smem_raw);
+  unsigned char* smem = smem_raw + ((1024 - (raw & 1023)) & 1023);
+  gm8::wg::Ring ring;
+  ring.base = gm8::wg::smem_u32(smem);
+  ring.stages = kStages;
+  ring.bn = kBN;
+  unsigned char* stg = smem + kStages * gm8::wg::stage_bytes(kBN);
+  ring.full = gm8::wg::smem_u32(stg + kBM * kBN);
+  ring.empty = ring.full + 8 * kStages;
+  const gm8::wg::TileWalk walk(L, m, n, kBN, kGroup);
+  const int nk = (kp + kBK - 1) / kBK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      gm8::wg::mbar_init(ring.full + 8 * s, 1);
+      gm8::wg::mbar_init(ring.empty + 8 * s, gm8::wg::kConsumerWarps);
+    }
+    gm8::wg::mbar_init_fence();
+  }
+  __syncthreads();
+  const int role = threadIdx.x / 128;
+  if (role == 2) {  // producer warpgroup: one thread issues the loads
+    gm8::wg::setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      gm8::wg::tma_prefetch(map_a);
+      gm8::wg::tma_prefetch(map_b);
+      gm8::wg::produce(map_a, map_b, ring, walk, nk);
+    }
+  } else {  // consumer warpgroups 0 and 1: rows 64 * role .. + 63
+    gm8::wg::setmaxnreg_inc<232>();
+    const unsigned flip = centered ? 0x8080u : 0u;
+    int acc[kBN / 2];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int row = bm0 + wm * 64 + mt * 16 + g + (r >= 2 ? 8 : 0);
-        const int col = bn0 + wn * 32 + nt * 8 + t * 2 + (r & 1);
-        if (row < m && col < n) {
-          const int res = gm8::mod_canon(acc[mt][nt][r], mod);
-          ol[static_cast<size_t>(row) * n + col] =
-              static_cast<unsigned char>(centered ? res - 128 : res);
-        }
-      }
+    for (int i = 0; i < kBN / 2; ++i) acc[i] = 0;
+    int stage = 0;
+    unsigned phase = 0;
+    for (int t = blockIdx.x; t < walk.total; t += gridDim.x) {
+      int l, tm, tn;
+      walk.at(t, l, tm, tn);
+      gm8::wg::consume<kBN>(acc, ring, role, nk, stage, phase);
+      const gm8::ModDivisor dv = divs.v[l];
+      if (dv.d == 256)
+        store_tile<true>(acc, stg, out, l, m, n, tm, tn, role, dv, flip);
+      else
+        store_tile<false>(acc, stg, out, l, m, n, tm, tn, role, dv, flip);
+    }
+  }
+}
+
+// every x in [lo, lo + count) of slot blockIdx.y: mod_div against
+// mod_canon, the mismatches counted into bad[slot]
+__global__ void __launch_bounds__(256)
+mod_div_check_kernel(long long lo, long long count,
+                     const __grid_constant__ gm8::SlotDivisors divs,
+                     unsigned long long* __restrict__ bad) {
+  const gm8::ModDivisor dv = divs.v[blockIdx.y];
+  unsigned long long miss = 0;
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < count; i += step) {
+    const int x = static_cast<int>(lo + i);
+    miss += gm8::mod_div(x, dv) != static_cast<unsigned>(
+                                       gm8::mod_canon(x, dv.d));
+  }
+  if (miss) atomicAdd(bad + blockIdx.y, miss);
+}
+
+// ---- host ------------------------------------------------------------------
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, reached through the runtime's entry
+// point query (the library links no libcuda of its own)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &q);
+#endif
+    return q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// (L, rows, kp) int8 at ptr (16-byte aligned, kp % 16 == 0) as a 3-D map
+// (kp, rows, L) with a 128-byte x box_rows box and the 128-byte swizzle;
+// out-of-range elements read as zeros
+bool make_tensor_map(CUtensorMap* map, const void* ptr, int L, int rows,
+                     int kp, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(kp),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(L)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(kp),
+                                 static_cast<cuuint64_t>(rows) * kp};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kBK),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch_gemm(const signed char* a8, const signed char* bt,
+                unsigned char* out, int L, int m, int n, int kp,
+                int centered, const gm8::SlotModuli& mods, cudaStream_t s) {
+  CUtensorMap map_a, map_b;
+  if (!make_tensor_map(&map_a, a8, L, m, kp, kBM) ||
+      !make_tensor_map(&map_b, bt, L, n, kp, kBN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long tiles = static_cast<long long>(L) * ((m + kBM - 1) / kBM) *
+                          ((n + kBN - 1) / kBN);
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  cudaFuncSetAttribute(matmul_mod_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  matmul_mod_kernel<<<grid, gm8::wg::kThreads, kSmem, s>>>(
+      map_a, map_b, out, L, m, n, kp, centered, gm8::slot_divisors(mods));
+  return gm8::launch_status();
 }
 
 }  // namespace
 
 // a8: (L, m, kp) int8 with kp % 16 == 0 (zero-padded past k by the caller
-// when k % 16 != 0); b8: (L, k, n) int8; bt: (L, n, kp) int8 workspace;
-// out: (L, m, n) uint8 or int8. Slice l uses modulus MODULI[moduli_idx[l]]
-// (moduli_idx: L ints on the host, or null for 0..L-1); k <= 2^17 (checked
-// by the caller).
+// when k % 16 != 0) and a 16-byte aligned start; b8: (L, k, n) int8; bt:
+// (L, n, kp) int8 workspace; out: (L, m, n) uint8 or int8. Slice l uses
+// modulus MODULI[moduli_idx[l]] (moduli_idx: L ints on the host, or null
+// for 0..L-1); k <= 2^17 (checked by the caller).
 GM8_EXPORT int gm8_matmul_mod_u8(const void* a8, const void* b8, void* bt,
                                  void* out, const void* moduli_idx, int L,
                                  int m, int n, int k, int kp, int centered,
                                  void* stream) {
   gm8::SlotModuli mods;
-  if (kp % 16 != 0 || kp < k ||
+  if (kp % 16 != 0 || kp < k || m < 0 || n < 0 ||
+      reinterpret_cast<uintptr_t>(a8) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(bt) % 16 != 0 ||
       !gm8::slot_moduli(static_cast<const int*>(moduli_idx), L, &mods))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (m == 0 || n == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
+  auto outp = static_cast<unsigned char*>(out);
+  if (kp == 0)  // empty products: residue 0 everywhere
+    return static_cast<int>(cudaMemsetAsync(
+        outp, centered ? 0x80 : 0, static_cast<size_t>(L) * m * n, s));
   auto btp = static_cast<signed char*>(bt);
   gm8::transpose_b(static_cast<const signed char*>(b8), btp, L, k, n, kp, s);
-  cudaFuncSetAttribute(matmul_mod_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       kSmemBytes);
-  dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM, L);
-  matmul_mod_kernel<<<grid, kThreads, kSmemBytes, s>>>(
-      static_cast<const signed char*>(a8), btp,
-      static_cast<unsigned char*>(out), m, n, kp, centered, mods);
+  return launch_gemm(static_cast<const signed char*>(a8), btp, outp, L, m,
+                     n, kp, centered, mods, s);
+}
+
+// bad[l] (device, L uint64, zeroed by the caller) += the x in [lo, hi] for
+// which the GEMM epilogue's mod_div differs from mod_canon, for slot l's
+// modulus (moduli_idx as for gm8_matmul_mod_u8)
+GM8_EXPORT int gm8_mod_div_check(const void* moduli_idx, int L, long long lo,
+                                 long long hi, void* bad, void* stream) {
+  gm8::SlotModuli mods;
+  if (lo < INT32_MIN || hi > INT32_MAX || lo > hi ||
+      !gm8::slot_moduli(static_cast<const int*>(moduli_idx), L, &mods))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  dim3 grid(8 * sms, L);
+  mod_div_check_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      lo, hi - lo + 1, gm8::slot_divisors(mods),
+      static_cast<unsigned long long*>(bad));
   return gm8::launch_status();
 }

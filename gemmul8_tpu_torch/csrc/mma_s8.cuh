@@ -1,6 +1,7 @@
-// The int8 tensor-core tile shared by the GEMM kernels (matmul_mod.cu,
-// magmax.cu, matmul_complex.cu; matmul_mod_pipelined.cu takes its copies
-// and fragment loads): one 128 x 128 output tile of
+// The mma.sync int8 tensor-core tile shared by the GEMM kernels (magmax.cu,
+// matmul_complex.cu; matmul_mod_pipelined.cu takes its copies and fragment
+// loads; matmul_mod.cu runs the wgmma tile of wgmma_s8.cuh): one 128 x 128
+// output tile of
 // A (rows, k) x Bt (cols, k)^T, both operands K-major, accumulated in int32.
 //
 // 8 warps, each 64 x 32, run mma.sync.m16n8k32 (s8 x s8 -> s32). 16-byte

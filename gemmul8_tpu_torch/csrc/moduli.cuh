@@ -40,4 +40,56 @@ __device__ __forceinline__ int mod_canon(int x, int mod) {
   return r < 0 ? r + mod : r;
 }
 
+// Exact residue by multiply and shift (Granlund and Montgomery, "Division
+// by invariant integers using multiplication", 1994, Fig. 4.1): for a
+// uint32 u and a divisor d in [2, 2^31] with l = ceil(log2 d),
+//   mul = floor(2^32 (2^l - d) / d) + 1,  t = mulhi(mul, u),
+//   q = (t + ((u - t) >> 1)) >> (l - 1) = floor(u / d),
+// for every u. An int32 x enters as u = x + 2^31 (its sign bit flipped),
+// so its canonical residue is (u - q d + off) reduced once more, with
+// off = (-2^31) mod d. For d = 256: mul = 1 and q = u >> 8, the residue
+// x & 255. Built on the host per slot and passed by value beside the
+// slot's modulus; gemmul8_tpu_torch/hopper/matmul.py mod_divisor is the
+// same arithmetic, held to Python's % by the tests.
+struct ModDivisor {
+  int d;          // the modulus
+  unsigned mul;   // the multiplier
+  int sh;         // l - 1
+  unsigned off;   // (-2^31) mod d
+};
+
+struct SlotDivisors {
+  ModDivisor v[kMaxModuli];  // slot l's; d = 0 past the call's slots
+};
+
+inline ModDivisor mod_divisor(int d) {
+  int l = 0;
+  while ((1ull << l) < static_cast<unsigned long long>(d)) ++l;
+  ModDivisor r;
+  r.d = d;
+  r.mul = static_cast<unsigned>(((1ull << 32) * ((1ull << l) - d)) / d + 1);
+  r.sh = l - 1;
+  r.off = static_cast<unsigned>((d - (1ull << 31) % d) % d);
+  return r;
+}
+
+inline SlotDivisors slot_divisors(const SlotModuli& mods) {
+  SlotDivisors out;
+  for (int l = 0; l < kMaxModuli; ++l) {
+    out.v[l] = mods.m[l] ? mod_divisor(mods.m[l]) : ModDivisor{0, 0, 0, 0};
+  }
+  return out;
+}
+
+// canonical residue in [0, d) of any int32 x: the value of mod_canon(x, d)
+// in a short fixed sequence (mulhi, two adds, two shifts, a multiply-add
+// and an unsigned min) in place of a division by a runtime divisor
+__device__ __forceinline__ unsigned mod_div(int x, const ModDivisor& v) {
+  const unsigned u = static_cast<unsigned>(x) ^ 0x80000000u;
+  const unsigned t = __umulhi(v.mul, u);
+  const unsigned q = (t + ((u - t) >> 1)) >> v.sh;
+  const unsigned r = u - q * static_cast<unsigned>(v.d) + v.off;  // < 2 d
+  return min(r, r - static_cast<unsigned>(v.d));
+}
+
 }  // namespace gm8

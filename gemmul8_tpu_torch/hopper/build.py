@@ -10,9 +10,13 @@ interface:
 
 `-fmad=false` keeps every f32 multiply and add a separate rounding, as in
 the plain versions (the Barrett and quotient-estimate budgets assume it).
-The library lands in `build/kernels/` under the checkout, named by a hash
-of the sources, so an edited source never loads a stale build. Nothing
-runs at import: the first kernel launch builds and loads.
+A source may take flags of its own (`SOURCE_FLAGS`): matmul_mod.cu gets
+the launch table's constants (`-DGM8_MM_TILE_N=256 ...`, hopper/launch.py)
+and `-Xptxas -v`, whose report is kept in `PTXAS_REPORT`. The library
+lands in `build/kernels/` under the checkout, named by a hash of the
+sources and flags, so an edited source or launch entry never loads a
+stale build; the ptxas report is saved beside it and read back with it.
+Nothing runs at import: the first kernel launch builds and loads.
 
 The C entry points act on the current CUDA device: a wrapper calls them
 inside `torch.cuda.device(x.device)`, which restores the caller's device.
@@ -29,6 +33,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -38,14 +43,24 @@ from pathlib import Path
 
 import torch
 
+from . import launch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+ARCH_CAPABILITY = (9, 0)  # the compute capability ARCH_FLAGS builds for
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
               "-fPIC")
 
 # launches of each kernel wrapper; reset by the caller that reads them
 LAUNCHES: collections.Counter = collections.Counter()
+# flags of single sources: matmul_mod.cu takes its launch constants from
+# the launch table, and its ptxas report (`-Xptxas -v`: each kernel's
+# registers, shared memory and spills) is kept by source name in
+# PTXAS_REPORT, saved beside the library and read back with it
+SOURCE_FLAGS = {"matmul_mod.cu": (
+    "-Xptxas", "-v", *launch.get("matmul_mod", ARCH_CAPABILITY).defines())}
+PTXAS_REPORT: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -62,6 +77,9 @@ _SIGNATURES = {
     # a8, b8, bt (workspace), out, moduli_idx (host), L, m, n, k, kp,
     # centered, stream
     "gm8_matmul_mod_u8": [_P] * 5 + [_I] * 6 + [_P],
+    # moduli_idx (host), L, lo, hi, bad, stream
+    "gm8_mod_div_check": [_P, _I, ctypes.c_longlong, ctypes.c_longlong, _P,
+                          _P],
     # table (host), nbytes
     "gm8_set_crt_tables": [_P, _I],
     # r, kind, planes, sft_a, sft_b, out, L, m, n, e_extra, out_f32, stream
@@ -125,14 +143,22 @@ def _nvcc() -> str:
     return nvcc
 
 
-def _build() -> Path:
-    srcs = sources()
+def _library(srcs: list) -> Path:
+    """Where the library of srcs under the current flags lands."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in srcs:
         h.update(s.name.encode())
+        h.update(" ".join(SOURCE_FLAGS.get(s.name, ())).encode())
         h.update(s.read_bytes())
-    out = BUILD_DIR / f"libgemmul8_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libgemmul8_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _build() -> Path:
+    srcs = sources()
+    out = _library(srcs)
+    report = out.with_suffix(".ptxas.json")
     if out.exists():
+        PTXAS_REPORT.update(json.loads(report.read_text()))
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -140,33 +166,45 @@ def _build() -> Path:
         objs, procs = [], []
         for src in (s for s in srcs if s.suffix == ".cu"):
             obj = os.path.join(tmpdir, src.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o",
-                   obj]
+            cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src.name, ()), "-I",
+                   str(CSRC), "-c", str(src), "-o", obj]
             objs.append(obj)
-            procs.append((cmd, subprocess.Popen(
+            procs.append((src.name, cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True)))
         # wait for every compile before raising, so none is left running
-        errors = [e for e in (_wait(cmd, proc) for cmd, proc in procs) if e]
+        errors, ptxas = [], {}
+        for name, cmd, proc in procs:
+            error, output = _wait(cmd, proc)
+            if error:
+                errors.append(error)
+            elif "-v" in SOURCE_FLAGS.get(name, ()):
+                ptxas[name] = output
         if errors:
             raise RuntimeError("\n".join(errors))
         lib_tmp = os.path.join(tmpdir, out.name)
         link = [nvcc, *ARCH_FLAGS, "-shared", "-o", lib_tmp, *objs]
-        error = _wait(link, subprocess.Popen(
+        error, _ = _wait(link, subprocess.Popen(
             link, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
         if error:
             raise RuntimeError(error)
+        # the report first: a library in place always has its report
+        report_tmp = os.path.join(tmpdir, report.name)
+        Path(report_tmp).write_text(json.dumps(ptxas))
+        os.replace(report_tmp, report)
         os.replace(lib_tmp, out)
+    PTXAS_REPORT.update(ptxas)
     return out
 
 
-def _wait(cmd: list, proc: subprocess.Popen) -> str:
-    """'' once proc has exited with 0, else its command and output."""
+def _wait(cmd: list, proc: subprocess.Popen) -> tuple:
+    """(error, output): ('', stdout + stderr) once proc has exited with 0,
+    else its command and output as the error."""
     stdout, stderr = proc.communicate()
     if proc.returncode == 0:
-        return ""
+        return "", stdout + stderr
     return (f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{stdout}\n{stderr}")
+            f"{stdout}\n{stderr}"), ""
 
 
 def library_path() -> Path:

@@ -1,0 +1,70 @@
+"""Device-keyed launch table of the Hopper kernels.
+
+Counterpart of the JAX package's `pallas/launch.py` (`get`), keyed by the
+card's compute capability (`torch.cuda.get_device_capability()`) instead
+of the TPU's device kind. A capability without an entry raises: there is
+no generic profile to fall back on, since a tile that does not fit a
+card's shared memory would not launch, and one that fits but was never
+measured there has no claim to run.
+
+Only what is pure tuning lives here. The statistics kernels' reduction
+chunk, `STATS_CHUNK` (2048 along the contraction axis), is part of the
+fast shift's bits (the block-wise online norm merge) and stays fixed on
+every card, as in the JAX package.
+
+Entries:
+    "matmul_mod"  `MatmulModLaunch` of csrc/matmul_mod.cu (the wgmma tile
+                  of csrc/wgmma_s8.cuh): the output tile's width, the TMA
+                  ring's depth and the raster group of the persistent grid.
+                  They are compile-time constants of the kernel:
+                  hopper/build.py passes `defines()` of the entry for the
+                  capability it builds for to nvcc, and the source checks
+                  them (`static_assert`).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from .. import tables
+
+STATS_CHUNK = tables.STATS_CHUNK
+
+
+@dataclass(frozen=True)
+class MatmulModLaunch:
+    tile_n: int        # output columns of a tile (wgmma's n)
+    stages: int        # stages of the TMA ring
+    raster_group: int  # m-tiles walked together by the persistent grid
+
+    def defines(self) -> tuple:
+        """The nvcc flags that compile this launch into matmul_mod.cu."""
+        return (f"-DGM8_MM_TILE_N={self.tile_n}",
+                f"-DGM8_MM_STAGES={self.stages}",
+                f"-DGM8_MM_GROUP={self.raster_group}")
+
+
+# H100 and H200 (sm_90): a 128 x 256 tile (64 x 256 s32 accumulator, 128
+# registers a consumer thread), four 48 KB stages (230,464 bytes of shared
+# memory a block with the epilogue's staging tile, of the 232,448 a block
+# may opt into), groups of 16 m-tiles (132 tiles in flight read 16 A panels
+# and 8-9 B panels).
+TABLE = {(9, 0): {"matmul_mod": MatmulModLaunch(tile_n=256, stages=4,
+                                                raster_group=16)}}
+
+
+def get(name: str, capability=None):
+    """Launch entry `name` for the given compute capability (major, minor),
+    or the current CUDA device's. Raises RuntimeError for a capability the
+    table has no entry for, KeyError for an unknown name."""
+    if capability is None:
+        capability = torch.cuda.get_device_capability()
+    capability = tuple(int(c) for c in capability)
+    profile = TABLE.get(capability)
+    if profile is None:
+        raise RuntimeError(
+            f"no launch entry for compute capability {capability}: the "
+            f"Hopper kernels are built and tuned for {sorted(TABLE)}")
+    return profile[name]

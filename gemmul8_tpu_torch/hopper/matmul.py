@@ -1,6 +1,7 @@
 """Wrappers of the int8 tensor-core GEMM kernels.
 
-    matmul_mod_u8       csrc/matmul_mod.cu
+    matmul_mod_u8       csrc/matmul_mod.cu (the wgmma tile of
+                        csrc/wgmma_s8.cuh; launch from hopper/launch.py)
         <- pallas/matmul.py matmul_mod_u8_pallas
     matmul_mod_u8_pipelined  csrc/matmul_mod_pipelined.cu
         <- pallas/matmul.py matmul_mod_u8_pipelined
@@ -25,6 +26,10 @@ flight (csrc/crt_gemm.cuh). `matmul_crt` has no switch, as in the JAX
 package: it is called directly, and its limbs go to
 `hopper.kernels.reconstruct(..., input_kind="limbs")`.
 
+matmul_mod_u8's epilogue divides by each slot's modulus with a multiplier
+and a shift (`mod_divisor`, `mod_div`: the host arithmetic, exact for every
+int32); `mod_div_mismatches` holds the card's division to its remainder.
+
 Two dispatchers read the JAX package's switches at call time:
 `matmul_mod_u8` sends uncentered calls to `matmul_mod_u8_pipelined` under
 GEMMUL8_MM_PIPELINE=1, and `magmax_matmul` goes to `magmax_matmul_scratch`
@@ -36,6 +41,8 @@ from __future__ import annotations
 import functools
 import os
 
+import numpy as np
+
 import torch
 import torch.nn.functional as F
 
@@ -43,6 +50,7 @@ from .. import tables
 from ..core import slicegemm as sg
 from . import build
 from . import kernels as hk
+from . import launch
 
 matmul_mod_u8_plain = sg.matmul_mod
 matmul_mod_u8_pipelined_plain = functools.partial(sg.matmul_mod,
@@ -53,7 +61,7 @@ matmul_complex_mod_plain = sg.matmul_complex_mod
 matmul_crt_plain = sg.matmul_crt
 matmul_reconstruct_plain = sg.matmul_reconstruct
 
-_TILE = 128  # kBM = kBN of csrc/mma_s8.cuh, the GEMM kernels' tile
+_TILE = 128  # kBM = kBN of csrc/mma_s8.cuh, the CRT-fused GEMMs' tile
 _BLOCKS_PER_SM = 2  # __launch_bounds__(256, 2) of the CRT-fused GEMMs
 
 
@@ -79,6 +87,9 @@ def matmul_mod_u8(a8: torch.Tensor, b8: torch.Tensor, num_moduli: int,
     idx = sg._check_matmul_args(a8, b8, num_moduli, moduli_idx)
     if a8.device.type == "cpu" and b8.device.type == "cpu":
         return matmul_mod_u8_plain(a8, b8, num_moduli, centered, idx)
+    build.require_cuda(a8, b8)
+    # the kernel is built with the table's sm_90 entry; any other card raises
+    launch.get("matmul_mod", torch.cuda.get_device_capability(a8.device))
     return _launch_mod("matmul_mod_u8", a8, b8, idx, centered, int(centered))
 
 
@@ -92,6 +103,63 @@ def matmul_mod_u8_pipelined(a8: torch.Tensor, b8: torch.Tensor,
         return matmul_mod_u8_pipelined_plain(a8, b8, num_moduli,
                                              moduli_idx=idx)
     return _launch_mod("matmul_mod_u8_pipelined", a8, b8, idx, False)
+
+
+def mod_divisor(d: int) -> tuple:
+    """(mul, sh, off) of csrc/moduli.cuh `mod_divisor`, the per-slot
+    constants of matmul_mod_u8's epilogue: Granlund and Montgomery's
+    multiplier for dividing a uint32 by d (l = ceil(log2 d), mul =
+    floor(2^32 (2^l - d) / d) + 1, sh = l - 1) and off = (-2^31) mod d,
+    which turns the residue of x + 2^31 into that of the int32 x."""
+    if not 2 <= d <= 1 << 31:
+        raise ValueError(f"divisor {d}: expected 2 <= d <= 2^31")
+    l = (d - 1).bit_length()
+    return (((1 << 32) * ((1 << l) - d)) // d + 1, l - 1, -(1 << 31) % d)
+
+
+def mod_div(x, d: int) -> np.ndarray:
+    """Canonical residues mod d of int32 values x, in numpy int64 by the
+    arithmetic of csrc/moduli.cuh `mod_div`: u = x + 2^31, t = mulhi(mul,
+    u) (the 64-bit product taken in 16-bit halves of u, so every step
+    stays below 2^63), q = (t + ((u - t) >> 1)) >> sh = floor(u / d), then
+    u - q d + off reduced once."""
+    x = np.asarray(x, dtype=np.int64)
+    if x.size and (x.min() < -(1 << 31) or x.max() >= 1 << 31):
+        raise ValueError("mod_div takes int32 values")
+    mul, sh, off = mod_divisor(d)
+    u = x + (1 << 31)
+    t = (mul * (u >> 16) + ((mul * (u & 0xFFFF)) >> 16)) >> 16
+    q = (t + ((u - t) >> 1)) >> sh
+    r = u - q * d + off
+    return np.where(r >= d, r - d, r)
+
+
+def mod_div_mismatches(lo: int, hi: int, num_moduli: int = tables.MAX_MODULI,
+                       moduli_idx=None, device=None) -> torch.Tensor:
+    """(L,) int64: per modulus MODULI[moduli_idx[l]], the x in [lo, hi]
+    (int32) whose residue by matmul_mod_u8's multiply-and-shift division
+    differs from the remainder. On a CUDA device the card's `mod_div`
+    against its `mod_canon` (csrc/matmul_mod.cu mod_div_check_kernel;
+    all 2^32 int32 values of 20 moduli in 0.12 s on an H100); on the CPU
+    `mod_div` against numpy's remainder, for small ranges."""
+    idx = sg.check_moduli_idx(moduli_idx, num_moduli)
+    if not -(1 << 31) <= lo <= hi < 1 << 31:
+        raise ValueError(f"[{lo}, {hi}]: expected -2^31 <= lo <= hi < 2^31")
+    device = torch.device("cpu" if device is None else device)
+    if device.type == "cpu":
+        x = np.arange(lo, hi + 1, dtype=np.int64)
+        return torch.tensor([int((mod_div(x, tables.MODULI[j])
+                                  != x % tables.MODULI[j]).sum())
+                             for j in idx], dtype=torch.int64)
+    bad = torch.zeros(len(idx), dtype=torch.int64, device=device)
+    idx_host = hk.host_idx(idx)
+    with torch.cuda.device(device):
+        code = build.lib().gm8_mod_div_check(
+            idx_host.ctypes.data, len(idx), lo, hi, bad.data_ptr(),
+            build.stream_ptr(device))
+    build.check(code, "mod_div_check")
+    build.LAUNCHES["mod_div_check"] += 1
+    return bad
 
 
 def _k_workspace(a8: torch.Tensor, n: int):

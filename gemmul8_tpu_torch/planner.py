@@ -21,8 +21,25 @@ only. The int32 shifts are live throughout. The operands themselves are
 the caller's and are not counted. Not counted either: the transient the
 chunk fold makes (one int32 plane, 4mn, below a chunk's slices and copy of
 B beside the limbs), and accurate mode's two int8 magnitude buffers, freed
-before the first slice is made. A complex call is counted with its
-slices, copies, residues and outputs all live at once.
+before the first slice is made.
+
+A complex call is counted tensor by tensor, each at the most PyTorch's
+CUDA caching allocator may count for it in
+`torch.cuda.max_memory_allocated`: its bytes rounded up to 512, and for a
+tensor above 1 MiB another 1 MiB, since the allocator hands out a cached
+block whole when splitting it would leave 1 MiB or less. The figure is
+thus an upper bound of the complex128 peak; where every large tensor
+fills its block exactly (8192^3) the peak is the figure less 1 MiB a
+large tensor. The call holds the contiguous Re and Im parts of both
+operands (`complexgemm.canon_complex`), which it makes itself, throughout.
+Its peak is the largest of these moments: the residue GEMM (every slice
+set; where k is not a multiple of 16, each A set's copy padded to kp
+beside it; the K-major copy of the B sets; the Re and Im residues); for
+the Karatsuba strategy the sum of A's and of B's slices (the four slice
+sets, A's sum once B's is made, three int16 temporaries of the summed
+operand's size and two (L, 1, 1) int16 constants); the reconstruct (the
+residues and the two output parts); and the complex output made from the
+two parts. The alpha/beta epilogue's temporaries are not counted.
 """
 
 from __future__ import annotations
@@ -48,6 +65,40 @@ def _output(m: int, n: int, outputs: int = 1) -> int:
     return outputs * m * n * 8
 
 
+_BLOCK = 512          # the CUDA caching allocator rounds every tensor up
+_UNSPLIT = 1 << 20    # and leaves a large block's remainder up to this
+
+
+def _blk(nbytes: int) -> int:
+    """The most bytes the caching allocator counts for a tensor of
+    nbytes: 512-byte rounding, plus an unsplit remainder above 1 MiB."""
+    b = _ceil_to(max(nbytes, 1), _BLOCK)
+    return b + _UNSPLIT if b > _UNSPLIT else b
+
+
+def _complex_bytes(m: int, n: int, k: int, L: int, kara: bool) -> int:
+    """The complex peak of `workspace_bytes`, 8 bytes a part's word."""
+    kp = _ceil_to(k, 16)
+    a, b = L * m * k, L * k * n          # one slice set of A, of B
+    sets = 3 if kara else 2
+    parts = 2 * _blk(8 * m * k) + 2 * _blk(8 * k * n)
+    live = parts + _blk(4 * m) + _blk(4 * n)   # and the shifts
+    residues = 2 * _blk(L * m * n)
+    out = 2 * _blk(8 * m * n)
+    pad = _blk(L * m * kp) if kp != k else 0
+    moments = [
+        live + sets * (_blk(a) + pad + _blk(b)) + _blk(sets * L * n * kp)
+        + residues,
+        live + residues + out,
+        parts + out + _blk(16 * m * n)]
+    if kara:  # slicegemm.recenter_add_int8: t, t + h, its remainder
+        consts = 2 * _blk(2 * L)
+        slices = 2 * _blk(a) + 2 * _blk(b)
+        moments += [live + slices + 3 * _blk(2 * a) + consts,
+                    live + slices + _blk(a) + 3 * _blk(2 * b) + consts]
+    return max(moments)
+
+
 def _shifts(m: int, n: int) -> int:
     return (m + n) * 4
 
@@ -65,11 +116,18 @@ def workspace_bytes(m: int, n: int, k: int, num_moduli: int,
     Real: the larger of num_moduli (or, chunked, moduli_chunk) times the
     per-modulus buffers and the residues plus the output; chunked, the
     limbs beside either (the chunk's residues are folded into them before
-    the output is made); plus the shifts. A complex call holds two slice
-    sets a side (Re, Im; three with the Karatsuba sums), each B set's
-    K-major copy, two residue sets and two outputs; the big-matrix strategy
-    runs the classic 4-product kernel here, so it counts as CLASSIC.
-    Complex calls have no chunked schedule."""
+    the output is made); plus the shifts. Complex: the largest of the
+    moments in the module docstring, each tensor at the most the caching
+    allocator counts for it: the operands' Re and Im parts and the shifts beside the
+    residue GEMM's buffers (two slice sets a side, three with the
+    Karatsuba sums, A's copies padded to kp, B's K-major copy, two residue
+    sets), the Karatsuba sums of A's and of B's slices (their int16
+    temporaries), the reconstruct's residues and two outputs, or the
+    complex output beside its parts. The big-matrix strategy runs the
+    classic 4-product kernel here, so it counts as CLASSIC. The signature
+    has no operand or output word, so parts and outputs count 8 bytes a
+    word: the complex128 figure, an over-count for complex64 and mixed
+    calls. Complex calls have no chunked schedule."""
     L = num_moduli
     if compute_type in (ComputeType.REAL_DEFAULT, None):
         if moduli_chunk is not None and moduli_chunk < L:
@@ -80,9 +138,8 @@ def workspace_bytes(m: int, n: int, k: int, num_moduli: int,
                 + _shifts(m, n))
     if moduli_chunk is not None and moduli_chunk < L:
         raise ValueError("complex calls have no moduli-chunked schedule")
-    sets = 3 if compute_type == ComputeType.COMPLEX_KARATSUBA_MULT else 2
-    return (L * _per_modulus(m, n, k, sets, 2) + _output(m, n, 2)
-            + _shifts(m, n))
+    return _complex_bytes(m, n, k, L,
+                          compute_type == ComputeType.COMPLEX_KARATSUBA_MULT)
 
 
 @dataclass(frozen=True)

@@ -340,9 +340,17 @@ def test_workspace_bytes_counts_what_the_port_holds():
     classic = gt.workspace_bytes(n, n, n, L, CT.COMPLEX_CLASSIC_MULT)
     assert classic == gt.workspace_bytes(n, n, n, L,
                                          CT.COMPLEX_BIG_MATRIX_ENCODE)
-    assert classic == L * (2 * 3 + 2) * plane + 2 * 8 * plane + 8 * n
+    # complex: the operands' four f64 parts beside the residue GEMM's
+    # buffers (Karatsuba: a third slice set a side), 1 MiB more for each
+    # large tensor (an allocator block it may leave unsplit): the
+    # complex128 peaks measured on the card at 8192^3, 14 moduli
+    # (9,663,741,952 and 12,482,315,264 bytes, PERF.md), plus 11 and 13 MiB
+    parts = 4 * 8 * plane
+    assert classic == parts + L * (2 * 3 + 2) * plane + 8 * n + 11 * 2**20 \
+        == 9_663_741_952 + 11 * 2**20
     assert gt.workspace_bytes(n, n, n, L, CT.COMPLEX_KARATSUBA_MULT) == \
-        classic + L * 3 * plane
+        classic + L * 3 * plane + 2 * 2**20 \
+        == 12_482_315_264 - 1024 + 13 * 2**20
     with pytest.raises(ValueError, match="complex"):
         gt.workspace_bytes(n, n, n, L, CT.COMPLEX_CLASSIC_MULT, 5)
     assert planner.plan_workspace([(64, 64, 64, 8), (n, n, n, L),

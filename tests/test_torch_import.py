@@ -56,7 +56,8 @@ def test_sources_are_cuda_files():
                      "mma_s8.cuh", "moduli.cuh", "probe_clz.cu",
                      "probe_deaddep.cu", "probe_mxu_crt.cu",
                      "probe_vpu_ops.cu", "reconstruct.cu",
-                     "residue.cuh", "src_word.cuh", "transpose_b.cuh"]
+                     "residue.cuh", "src_word.cuh", "transpose_b.cuh",
+                     "wgmma_s8.cuh"]
 
 
 def test_every_entry_point_has_a_signature():
