@@ -312,6 +312,29 @@ its launch from gemmul8_tpu_torch/hopper/launch.py) adds:
   5.  (also) matmul_mod_u8 beside torch._int_mm x L in one rotation: the
       ratio of the two and the share of the bound each reaches.
 
+The encode and reconstruct kernels on the int8 tensor cores
+(csrc/encode_mma.cuh, csrc/crt_mma.cuh, csrc/crt_tail.cuh) and the real
+planner at a ragged k add:
+  2.  (also) the ptxas reports of csrc/encode.cu and csrc/reconstruct.cu;
+  3m. encode_slices and reconstruct against their plain versions, bit for
+      bit, at every moduli count 2..20, on 301 x 203 (ragged: byte loads
+      and stores) and 64 x 1100: encode in f64 and f32, both axes, all
+      moduli, a range, a tuple out of order and a column range;
+      reconstruct from int8, uint8, int32 products and limbs, to f64 and
+      f32, and into the rows of a larger output;
+  4s. (also) the fast call at the ragged (m, k, n) = (1000, 4100, 1500),
+      14 moduli, one-shot and moduli_chunk=5: each peak at or under
+      planner.workspace_bytes and within 5% of it;
+  5.  (also) each kernel's time beside its time before the redesign
+      (EARLIER_MS, from PERF.md), the two kernels' SASS loops by
+      instruction class (cuobjdump -sass), and the fast, accurate and f32
+      fast-8 calls at 8192^3 in one rotation; beside matmul_mod_u8_pipelined,
+      magmax_matmul(_scratch), matmul_complex_mod (4-dot, Karatsuba),
+      matmul_crt, matmul_reconstruct and one panel of the rider step and
+      the pair, torch._int_mm over the same int8 products (x L, x 1, x 4L
+      or x 3L) in the kernel's rotation, as their `library_ms`; and the
+      kernels slower than their library call, slowest first.
+
 The line before the last is a JSON object of per-kernel results
 (`launches` sums the main-path calls of phase 4, real and complex, for the
 variant kernels those of phase 4v at 8192^3, for matmul_crt and
@@ -321,8 +344,11 @@ counts as fast_sft); `bound_ms` is the least time the card could take for
 the phase-5 work, from the bytes the function must move at 3.35 TB/s or
 its int8 operations at 1,979 TOPS, whichever is larger (the chains: their
 instructions at the table's rates, see VPU_RATE); `library_ms` is
-torch._int_mm's time for matmul_mod_u8 and mxu_crt and null elsewhere (no
-single PyTorch call computes those functions). The last line is
+torch._int_mm's time over the kernel's int8 products for the GEMMs
+(matmul_mod_u8 and its pipelined variant, magmax_matmul and its scratch
+variant, matmul_complex_mod, matmul_crt, matmul_reconstruct, the rider
+step and the pair) and for mxu_crt, and null elsewhere (no single PyTorch
+call computes those functions). The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -372,6 +398,11 @@ CASES = [((2048, 2048, 2048), (L_MAIN,), False),
          ((1000, 777, 1500), (2, 8, 14, 20), True),
          ((300, 5, 200), (8, 20), True)]
 SHIFT_RULE_FRAC = 1e-4
+# phase 3m: the kernels redesigned on the tensor cores (encode_slices,
+# reconstruct) at every moduli count, on a ragged shape (m n odd: byte
+# loads, byte stores at the rows' ends) and a wide one (a column range)
+MMA_SHAPES = ((301, 203), (64, 1100))
+MMA_LS = tuple(range(2, tables.MAX_MODULI + 1))
 KERNELS = {
     "fast_sft": ("gemmul8_tpu_torch/csrc/fast_sft.cu",
                  "gemmul8_tpu/pallas/kernels.py:54"),
@@ -463,6 +494,10 @@ SCHEDULE_ROUNDS = 3
 # phase 4c's ragged complex shape (m, k, n)
 PEAK_RAGGED = (1000, 4100, 1500)
 PLANNER_SLACK = 0.05     # phase 4s: a measured peak within 5% under the model
+# phase 5: the CUDA-core bodies' times before encode_slices and reconstruct
+# took the tensor cores (PERF.md, same card and power limit), beside theirs
+EARLIER_MS = {"encode_slices": 2.521, "reconstruct": 1.975}
+MAIN_ROUNDS = 5          # phase 5: the fast, accurate and f32-8 calls
 # phase 3w: the wgmma tile's edge shapes (m, k, n) at these slice counts,
 # a moduli subset, and the int32 wrap at the largest k
 WGMMA_CASES = [(1, 16, 1), (65, 144, 257), (200, 4100, 129),
@@ -682,6 +717,73 @@ def phase_kernels(errs):
                      hk.reconstruct_plain(r, pa, pb, L),
                      f"reconstruct {tag} centered={centered}")
             log(f"  kernels == plain at {tag}")
+
+
+def phase_mma_kernels(errs):
+    """Phase 3m: the two kernels redesigned on the tensor cores, each
+    against its plain version at every moduli count of MMA_LS: encode in
+    f64 and f32, both axes, every moduli set (all in order, a range, a
+    tuple out of order) and a column range; reconstruct from int8, uint8,
+    int32 products and 16-bit limbs, to f64 and f32, and into the rows of
+    a larger output (out=)."""
+    rng = np.random.default_rng(12)
+    for m, n in MMA_SHAPES:
+        x64, _ = operands(m, n, 8, 12, True)
+        sa = torch.from_numpy(rng.integers(-60, 60, (m, 1), np.int32)).to(
+            DEVICE)
+        sb = torch.from_numpy(rng.integers(-60, 60, (1, n), np.int32)).to(
+            DEVICE)
+        for L in MMA_LS:
+            forms = [None, tuple(range(1, L)),
+                     tuple(range(L - 1, -1, -3))]
+            for x in (x64, x64.float()):
+                key = build.form("encode_slices", x.dtype == torch.float32)
+                for axis in (0, 1):
+                    s = hk.fast_sft(x, L, axis)
+                    for idx in forms:
+                        hold(errs, key, hk.encode_slices(x, s, L, axis, idx),
+                             hk.encode_slices_plain(x, s, L, axis, idx),
+                             f"{key} {m}x{n} L={L} axis={axis} idx={idx}")
+                    if n > 2 * enc.ENC_BLOCK[1]:
+                        c0, c1 = enc.col_range((1, 3), n)
+                        got = hk.encode_slices(x, s, L, axis,
+                                               col_tiles=(1, 3))
+                        ref = hk.encode_slices_plain(x, s, L, axis,
+                                                     col_tiles=(1, 3))
+                        hold(errs, key, got[:, :, c0:c1], ref[:, :, c0:c1],
+                             f"{key} {m}x{n} L={L} axis={axis} columns "
+                             f"{c0}..{c1}")
+            mods = torch.tensor(tables.MODULI[:L], device=DEVICE).view(-1, 1,
+                                                                       1)
+            r = torch.from_numpy(rng.integers(0, 1 << 20, (L, m, n))).to(
+                DEVICE) % mods
+            r[:, 0, 0] = 0
+            r[:, 0, 1] = mods.view(-1) - 1
+            k = torch.from_numpy(rng.integers(-8000, 8000, (L, m, n))).to(
+                DEVICE)
+            inputs = {"uint8": (r.to(torch.uint8), "residues"),
+                      "int8": ((r - 128).to(torch.int8), "residues"),
+                      "int32 products": ((r + mods * k).to(torch.int32),
+                                         "residues"),
+                      "limbs": (torch.stack(rec.accumulate_weighted(r, L)).to(
+                          torch.int32), "limbs")}
+            for out in ("f64", "f32"):
+                key = build.form("reconstruct", out == "f32")
+                for what, (x, kind) in inputs.items():
+                    hold(errs, key, hk.reconstruct(x, sa, sb, L, out,
+                                                   input_kind=kind),
+                         hk.reconstruct_plain(x, sa, sb, L, out, 0, kind),
+                         f"{key} {m}x{n} L={L} from {what}")
+                big = torch.zeros((2 * m, n), device=DEVICE, dtype=(
+                    torch.float32 if out == "f32" else torch.float64))
+                hk.reconstruct(inputs["int8"][0], sa, sb, L, out, out=big[m:])
+                hold(errs, key, big[m:],
+                     hk.reconstruct_plain(inputs["int8"][0], sa, sb, L, out),
+                     f"{key} {m}x{n} L={L} out= rows {m}..{2 * m}")
+        log(f"  encode_slices (f64, f32; axes; all, range, tuple"
+            f"{', column range' if n > 2 * enc.ENC_BLOCK[1] else ''}) and "
+            f"reconstruct (int8, uint8, int32, limbs; f64, f32; out=) == "
+            f"plain at {m} x {n}, L = {MMA_LS[0]}..{MMA_LS[-1]}")
 
 
 def slices8(L, m, k, n, seed):
@@ -1580,6 +1682,20 @@ def phase_schedules(a, b, refs, oracle, launches):
     log(f"  one-shot {N}^3 calls: peak device memory above the operands "
         f"fast {one_shot[True]} bytes, accurate {one_shot[False]}; planner "
         f"{plan}")
+    # a ragged k: the GEMM holds A's slices padded to kp beside them (C11)
+    m, k, n = PEAK_RAGGED
+    ar, br = operands(m, k, n, 21, False)
+    for chunk in (None, CHUNK):
+        kw = {} if chunk is None else {"moduli_chunk": chunk}
+        _, _, peak = counted(lambda: gt.gemm(ar, br, num_moduli=L,
+                                             device=DEVICE, **kw))
+        plan = planner.workspace_bytes(m, n, k, L, moduli_chunk=chunk)
+        name = (f"{m} x {k} x {n} fast "
+                f"{'one-shot' if chunk is None else f'moduli_chunk={chunk}'}")
+        check_plan(name, peak, plan)
+        log(f"  {name}: peak device memory above the operands {peak} bytes, "
+            f"planner {plan} ({peak / plan:.4f} of it)")
+    del ar, br
     rels = {}
     for name, fastmode, fn, want, chunk in schedule_calls():
         c, counts, peak = counted(lambda: fn(a, b))
@@ -1723,6 +1839,22 @@ def shifts_moved(fast, accurate, axis):
             f"{g.numel()} on the gate tiles' lines")
 
 
+# the label of the library call timed in a kernel's rotation: one
+# torch._int_mm per int8 product the kernel forms, without its epilogue
+LIBRARY = "torch._int_mm, the same products"
+
+
+def int_mm(a8, b8t, pairs=None):
+    """A call of torch._int_mm for each int8 product: a8[l] (rows, k) times
+    b8t[l] (cols, k, so column-major B) transposed, for every slice l, or
+    for the (A, B) slice pairs given (the complex GEMM's four or three
+    products a modulus). The port never calls it."""
+    if pairs is None:
+        return lambda: [torch._int_mm(x, y.t()) for x, y in zip(a8, b8t)]
+    return lambda: [torch._int_mm(x[l], y[l].t()) for x, y in pairs
+                    for l in range(x.shape[0])]
+
+
 def timed_rounds(calls, rounds, reps):
     """ms per call of each entry of calls (name -> fn), over rounds in
     which the order rotates by one, so each call takes each place; no
@@ -1810,7 +1942,17 @@ def phase_complex_times(A, B, errs):
         del got, ref
     log(f"  matmul_complex_mod == plain at the main path's shapes ({N}^2, "
         f"{L} moduli, both forms)")
-    del a8, b8, kara
+    bt = [x.transpose(1, 2).contiguous() for x in b8]   # untimed
+    by, _ = timed_rounds({
+        "4-dot": lambda: hm.matmul_complex_mod(*a8, *b8, L, True, None),
+        "4-dot " + LIBRARY: int_mm(None, None, [
+            (a8[0], bt[0]), (a8[1], bt[1]), (a8[0], bt[1]), (a8[1], bt[0])]),
+        "Karatsuba": lambda: hm.matmul_complex_mod(*a8, *b8, L, True, kara),
+        "Karatsuba " + LIBRARY: int_mm(None, None, [
+            (a8[0], bt[0]), (a8[1], bt[1]), (a8[0], bt[1])]),
+    }, PROBE_ROUNDS, 1)
+    times["library"] = {label: float(np.median(v)) for label, v in by.items()}
+    del a8, b8, kara, bt
     calls, by_place = timed_rounds(
         {(strat, fastmode): (
             lambda s=strat, f=fastmode: gt.gemm(A, B, num_moduli=L,
@@ -1839,8 +1981,9 @@ def phase_variant_times(a, b, errs):
     L = L_MAIN
     sa, sb = hk.fast_sft(a, L, 1), hk.fast_sft(b, L, 0)
     a8, b8 = hk.encode_slices(a, sa, L, 1), hk.encode_slices(b, sb, L, 0)
+    b8t = b8.transpose(1, 2).contiguous()   # column-major B, untimed
     ma, _ = hk.mag7_fused(a, 1)
-    mb, _ = hk.mag7_fused(b, 0)
+    mb, _ = hk.mag7_fused(b, 0)          # (k, n), column-major
 
     def emax_mag7(x, axis):
         e = hk.emax(x, axis)
@@ -1872,13 +2015,15 @@ def phase_variant_times(a, b, errs):
             lambda: (hk.mag7_fused_plain(a, 1), hk.mag7_fused_plain(b, 0))),
         "magmax_matmul_scratch": (
             {"magmax_matmul_scratch": lambda: hm.magmax_matmul_scratch(ma, mb),
-             "magmax_matmul": lambda: hm.magmax_matmul(ma, mb)},
+             "magmax_matmul": lambda: hm.magmax_matmul(ma, mb),
+             LIBRARY: lambda: torch._int_mm(ma, mb)},
             lambda: hm.magmax_scratch_plain(ma, mb)),
         "matmul_mod_u8_pipelined": (
             {"matmul_mod_u8_pipelined":
                  lambda: hm.matmul_mod_u8_pipelined(a8, b8, L),
              "matmul_mod_u8 (uncentered)":
-                 lambda: hm.matmul_mod_u8(a8, b8, L, centered=False)},
+                 lambda: hm.matmul_mod_u8(a8, b8, L, centered=False),
+             LIBRARY: int_mm(a8, b8t)},
             lambda: hm.matmul_mod_u8_pipelined_plain(a8, b8, L)),
     }
     times = {}
@@ -1902,7 +2047,7 @@ def phase_variant_times(a, b, errs):
             "moduli)")
         by_name, _ = timed_rounds(kerns, VARIANT_ROUNDS, 5)
         times[name] = (by_name, pms)
-    del a8, b8, ma, mb
+    del a8, b8, b8t, ma, mb
     calls = {"fast default": (True, {}), "accurate default": (False, {})}
     for name, fastmode, env, _ in VARIANT_CALLS:
         calls[name] = (fastmode, env)
@@ -1926,6 +2071,7 @@ def phase_schedule_times(a, b, errs):
     a8, b8 = hk.encode_slices(a, sa, L, 1), hk.encode_slices(b, sb, L, 0)
     r8 = hm.matmul_mod_u8(a8, b8, L, centered=True)
     limbs = hm.matmul_crt(a8, b8, L)
+    b8t = b8.transpose(1, 2).contiguous()   # column-major B, untimed
     plain_ms = {}
     for name, got, plain in (
             ("matmul_crt", limbs, lambda: hm.matmul_crt_plain(a8, b8, L)),
@@ -1948,8 +2094,9 @@ def phase_schedule_times(a, b, errs):
         "reconstruct (limbs)": lambda: hk.reconstruct(limbs, sa, sb, L,
                                                       input_kind="limbs"),
         "reconstruct": lambda: hk.reconstruct(r8, sa, sb, L),
+        LIBRARY: int_mm(a8, b8t),
     }, SCHEDULE_ROUNDS, 3)
-    del limbs, r8
+    del limbs, r8, b8t
     # the fused kernel against the pair it replaces, resolved finer
     pair, _ = timed_rounds({
         "matmul_reconstruct, 10 rounds":
@@ -2237,6 +2384,7 @@ def phase_pipeline_times(a, b, b_wide, errs):
     bt = torch.empty((L, N, N), dtype=torch.int8, device=DEVICE)
     r0, _, _ = hp.matmul_rider_step(a8, bt, 0, None, -1, sa, sb, L, pm,
                                     b8=b8)
+    b8t = b8.transpose(1, 2).contiguous()   # column-major B, untimed
     a8p = riders.panel_rows(a8, 1, pm).contiguous()
     a8_0 = riders.panel_rows(a8, 0, pm).contiguous()
     b8l = hk.encode_slices(b, sb, L, 0, col_tiles=(0, N // 2 // 512))
@@ -2300,8 +2448,9 @@ def phase_pipeline_times(a, b, b_wide, errs):
                              riders.panel_rows(sa, 1, pm), L, 1)),
         "reconstruct_into": lambda: hp.reconstruct_into(
             r0, sa, sb, L, out, N // pm - 1, pm),
+        LIBRARY + ", one panel": int_mm(a8p, b8t),
     }, PIPELINE_ROUNDS, 5)
-    del a8, b8, bt, r0, a8p, a8_0, b8l, out
+    del a8, b8, bt, r0, a8p, a8_0, b8l, out, b8t
     calls = {"fast default": (True, "0")}
     calls.update({name: (f, pipe) for name, f, pipe, _ in pipeline_calls()
                   if f})
@@ -3682,6 +3831,57 @@ def sass_counts():
     return out
 
 
+# the main-path instances of the two kernels redesigned on the tensor cores
+# (f64 words, up to 16 moduli; int8 residues, f64 output, 4-word tail), by
+# a part of their mangled names
+MMA_SASS = {"encode_slices": "encode_kernelIyLi1E",
+            "reconstruct": "reconstruct_kernelILi1EyLi4E"}
+SASS_CLASSES = {"IMMA": ("IMMA",), "LDSM/LDS": ("LDSM", "LDS"),
+                "STS": ("STS",), "LDG": ("LDG",), "STG": ("STG",),
+                "IMAD": ("IMAD",), "f64 and conversions": (
+                    "DADD", "DMUL", "DFMA", "DSETP", "I2F", "F2I", "FRND"),
+                "BRA/BSSY/BSYNC": ("BRA", "BSSY", "BSYNC")}
+
+
+def mma_loop_sass():
+    """{kernel: [(instructions, {class: count}), ...]} of the loops (a
+    backward branch and what it spans) of the MMA_SASS instances, from
+    cuobjdump -sass of the built library, outermost first. Static counts:
+    a branch's both sides are counted, rare paths (ragged edges, the
+    tail's near-tie fix) included."""
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(build.library_path())],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    code, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = next((k for k, part in MMA_SASS.items()
+                        if part in m.group(1)), None)
+            if cur:
+                code[cur] = []
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_]*)\S*(.*)", line)
+        if cur and m:
+            code[cur].append((int(m.group(1), 16), m.group(2), m.group(3)))
+    out = {}
+    for name, ins in code.items():
+        loops = []
+        for addr, op, rest in ins:
+            t = (re.search(r"0x([0-9a-f]+)", rest.split(";")[0])
+                 if op == "BRA" else None)
+            if t and int(t.group(1), 16) < addr:
+                body = [o for a, o, _ in ins if int(t.group(1), 16) <= a
+                        <= addr]
+                loops.append((len(body), {
+                    cls: sum(o in ops for o in body)
+                    for cls, ops in SASS_CLASSES.items()}))
+        out[name] = sorted(loops, key=lambda x: -x[0])
+    return out
+
+
 def chain_bound_ms(case, clock_mhz, steps=pvpu.STEPS):
     """The least time of one chain call: its instructions a rep
     (VPU_MIX) at the CUDA C++ Programming Guide's compute capability 9.0
@@ -3996,16 +4196,18 @@ def main():
         f"{time.perf_counter() - t0:.1f} s from {len(build.sources())} "
         "sources")
 
-    ptxas = [line.strip() for line in
-             build.PTXAS_REPORT.get("matmul_mod.cu", "").splitlines()
-             if "entry function" in line or "Used" in line
-             or "spill" in line]
-    assert ptxas, "no ptxas report of matmul_mod.cu"
-    for line in ptxas:
-        log(f"  ptxas matmul_mod.cu: {line}")
+    for src in ("matmul_mod.cu", "encode.cu", "reconstruct.cu"):
+        ptxas = [line.strip() for line in
+                 build.PTXAS_REPORT.get(src, "").splitlines()
+                 if "entry function" in line or "Used" in line
+                 or "spill" in line]
+        assert ptxas, f"no ptxas report of {src}"
+        for line in ptxas:
+            log(f"  ptxas {src}: {line}")
     errs = dict.fromkeys(KERNELS, 0.0)
     t0 = time.perf_counter()
     phase_kernels(errs)
+    phase_mma_kernels(errs)
     phase_wgmma_kernels(errs)
     phase_rounding(errs)
     phase_accurate_kernels(errs)
@@ -4042,8 +4244,16 @@ def main():
 
     times, total, total_accu, library = phase_times(a, b, errs)
     for name, (ms, pms) in times.items():
-        log(f"  {name}: kernel {ms:.3f} ms, plain {pms:.3f} ms "
+        earlier = (f"; before the tensor-core redesign {EARLIER_MS[name]} ms "
+                   "(PERF.md)" if name in EARLIER_MS else "")
+        log(f"  {name}: kernel {ms:.3f} ms, plain {pms:.3f} ms{earlier} "
             f"({N}^2 operands, {L_MAIN} moduli; {card})")
+    for name, loops in mma_loop_sass().items():
+        log(f"  {name} ({MMA_SASS[name]}) SASS loops, outermost first: "
+            + "; ".join(
+                f"{n} instructions ("
+                + ", ".join(f"{cls} {k}" for cls, k in by.items()) + ")"
+                for n, by in loops))
     for mode, ms, rel in (("fast", total, rel_fast),
                           ("accurate", total_accu, rel_accu)):
         tflops = 2 * N ** 3 / (ms * 1e-3) / 1e12
@@ -4075,6 +4285,13 @@ def main():
     log("  median ms by place in the round (1st..5th): "
         + ", ".join(f"{float(np.median(v)):.3f}" for v in by_place.values()))
     times["matmul_complex_mod"] = ctimes["4-dot"]
+    clib = ctimes["library"]
+    library["matmul_complex_mod"] = clib["4-dot " + LIBRARY]
+    for form, n_mm in (("4-dot", 4), ("Karatsuba", 3)):
+        log(f"  matmul_complex_mod {form}: median {clib[form]:.3f} ms beside "
+            f"{LIBRARY} ({n_mm} x {L_MAIN} torch._int_mm) "
+            f"{clib[form + ' ' + LIBRARY]:.3f} ms in one rotation: ratio "
+            f"{clib[form] / clib[form + ' ' + LIBRARY]:.3f} ({card})")
     vtimes, vcalls = phase_variant_times(a, b, errs)
     for name, (by_label, pms) in vtimes.items():
         meds = {label: float(np.median(v)) for label, v in by_label.items()}
@@ -4095,8 +4312,14 @@ def main():
         log(f"  gemm {N}^3 {L_MAIN} moduli f64 {name}: median {ms:.3f} ms "
             f"(rounds {', '.join(f'{t:.3f}' for t in mss)}), "
             f"{tflops:.2f} TFLOP/s, gate relerr {rel!r} ({card})")
+    library["matmul_mod_u8_pipelined"] = float(np.median(
+        vtimes["matmul_mod_u8_pipelined"][0][LIBRARY]))
+    library["magmax_matmul_scratch"] = library["magmax_matmul"] = float(
+        np.median(vtimes["magmax_matmul_scratch"][0][LIBRARY]))
     bounds = kernel_bounds(a, b, L_MAIN)
     skerns, splain, scalls = phase_schedule_times(a, b, errs)
+    library["matmul_crt"] = library["matmul_reconstruct"] = float(
+        np.median(skerns[LIBRARY]))
     for label, mss in skerns.items():
         line = (f"  {label}: median {float(np.median(mss)):.3f} ms (rounds "
                 f"{', '.join(f'{t:.3f}' for t in mss)})")
@@ -4127,6 +4350,8 @@ def main():
             f"moduli; {card})")
     for name in PIPELINE_KERNELS:
         times[name] = (float(np.median(pkerns[name])), pplain[name])
+    library["matmul_rider_step"] = library["matmul_bsplit_pair"] = float(
+        np.median(pkerns[LIBRARY + ", one panel"]))
     fkerns, fcalls = phase_f32_times(a, b, a32, b32, errs)
     bounds.update(kernel_bounds_f32(a32, b32, L_F32))
     for key, (ms, ms64, pms) in fkerns.items():
@@ -4151,6 +4376,19 @@ def main():
             f"{', '.join(f'{t:.3f}' for t in mss)}), "
             f"{2 * N ** 3 / (ms * 1e-3) / 1e12:.2f} TFLOP/s (2mnk/t)"
             f"{gate_note} ({card})")
+    by, _ = timed_rounds({
+        "fast": lambda: gt.gemm(a, b, num_moduli=L_MAIN, device=DEVICE),
+        "accurate": lambda: gt.gemm(a, b, num_moduli=L_MAIN, fastmode=False,
+                                    device=DEVICE),
+        "f32 fast-8": lambda: gt.gemm(a32, b32, num_moduli=L_F32,
+                                      device=DEVICE)}, MAIN_ROUNDS, 2)
+    log(f"  the main calls at {N}^3 in one rotation, {MAIN_ROUNDS} rounds, 2 "
+        f"calls per timing ({card}):")
+    for name, mss in by.items():
+        ms = float(np.median(mss))
+        log(f"  gemm {N}^3 {name}: median {ms:.3f} ms (rounds "
+            f"{', '.join(f'{t:.3f}' for t in mss)}), "
+            f"{2 * N ** 3 / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
     ckerns, ccalls = phase_complex64_times(A, A64, B64, a, b, a32, b32,
                                            errs)
     bounds.update(kernel_bounds_c64(L_F32))
@@ -4223,6 +4461,13 @@ def main():
     times.update(ptimes)
     bounds.update(pbounds)
     library.update(plib)
+    slower = sorted((times[name][0] / lib_ms, name, times[name][0], lib_ms)
+                    for name, lib_ms in library.items()
+                    if name in times and times[name][0] > lib_ms)
+    log("  kernels slower than a library call computing their products: "
+        + ("; ".join(f"{name} {ms:.3f} ms, {ratio:.3f} x {lib_ms:.3f} ms"
+                     for ratio, name, ms, lib_ms in reversed(slower))
+           or "none"))
     log("[5/5] times taken")
     log(f"wall time of the run: {time.perf_counter() - t_start:.1f} s")
 

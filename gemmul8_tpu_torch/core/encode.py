@@ -346,6 +346,113 @@ def encode_slices(x: torch.Tensor, sft: torch.Tensor, num_moduli: int,
                             num_moduli, idx)
 
 
+# The byte-plane contraction of the encode kernel (csrc/encode_mma.cuh): the
+# shifted value |v| < 2^77 of an element is written as the 10 bytes of its
+# 80-bit two's complement where it is negative (and not truncated to 0),
+# plus a sign plane holding 0 or 1: v == sum_i b_i 2^(8i) - s 2^80. Each
+# modulus's residue is one dot of these 11 unsigned planes with signed
+# weights (the centred representatives of 2^(8i) and of -2^80 mod m), then
+# one round-to-nearest reduction in integer multiply-and-shift.
+ENC_PLANES = 11
+ENC_BYTES = 10
+_ENC_RAW_BITS = 19   # |raw| <= 10 * 255 * 127 + 127 < 2^19
+
+
+_ENC_CHUNK = 1 << 22   # elements a contraction of encode_slices_mxu takes
+
+
+def encode_mxu_weights(moduli_idx) -> dict:
+    """The contraction's constants for the slots of moduli_idx (slot l for
+    modulus MODULI[moduli_idx[l]]), each an int64 ndarray over the slots:
+    "w" (L, ENC_PLANES) the signed plane weights; "m"; "off" = ceil(2^19 /
+    m) m, which makes raw + off positive; "h" = (m - 1) // 2; "mul" =
+    ceil(2^32 / m). With t = raw + off, q = ((t + h) mul) >> 32 is floor((t
+    + h) / m) for every t + h < 2^24, so t - q m is the centred residue of
+    raw (odd m), or a value with raw's low byte (m = 256)."""
+    L = len(moduli_idx)
+    w = np.zeros((L, ENC_PLANES), np.int64)
+    m = np.array([tables.MODULI[j] for j in moduli_idx], np.int64)
+    for jj, mj in enumerate(m.tolist()):
+        def centred(r, mj=mj):
+            return r - mj if r > mj // 2 else r
+        for i in range(ENC_BYTES):
+            w[jj, i] = centred(pow(2, 8 * i, mj))
+        w[jj, ENC_BYTES] = centred(-(1 << (8 * ENC_BYTES)) % mj)
+    off = -(-(1 << _ENC_RAW_BITS) // m) * m
+    return {"w": w, "m": m, "off": off, "h": (m - 1) // 2,
+            "mul": -(-(1 << 32) // m)}
+
+
+def _byte_planes(chunks, q, sign, q_max_static: int) -> torch.Tensor:
+    """(ENC_PLANES, ...) int64: the 10 bytes of trunc(mant * 2^q), in 80-bit
+    two's complement where sign is set and the value is not 0, and the sign
+    plane (that condition as 0 or 1)."""
+    words = _shifted_value_words(chunks, q, q_max_static)
+    c16 = []
+    for k in range(ENC_BYTES // 2):
+        w = words[k // 2] if k // 2 < len(words) else torch.zeros_like(
+            words[0])
+        c16.append((w >> (16 * (k % 2))) & 0xFFFF)
+    nonzero = torch.zeros_like(c16[0], dtype=torch.bool)
+    for c in c16:
+        nonzero = nonzero | (c != 0)
+    neg = (sign == 1) & nonzero
+    carry = torch.ones_like(c16[0])
+    planes = []
+    for c in c16:
+        s = (c ^ 0xFFFF) + carry
+        carry = s >> 16
+        c = torch.where(neg, s & 0xFFFF, c)
+        planes += [c & 0xFF, c >> 8]
+    return torch.stack(planes + [neg.to(torch.int64)])
+
+
+def encode_slices_mxu(x: torch.Tensor, sft: torch.Tensor, num_moduli: int,
+                      axis: int, moduli_idx=None,
+                      col_tiles=None) -> torch.Tensor:
+    """`encode_slices` (the same arguments and bits) by the encode kernel's
+    arithmetic: byte planes, their dot with each row of
+    `encode_mxu_weights`' table (an f64 product, exact), and the
+    multiply-and-shift reduction. The
+    plain version of csrc/encode.cu; the JAX package's
+    `encode_slices_pallas(..., mxu=True)` takes the same route with
+    centred planes."""
+    mant_bits_of(x)
+    want = (x.shape[0], 1) if axis == 1 else (1, x.shape[1])
+    if tuple(sft.shape) != want:
+        raise ValueError(f"sft shape {tuple(sft.shape)}, expected {want}")
+    idx = check_moduli_idx(moduli_idx, num_moduli)
+    if col_tiles is not None:
+        c0, c1 = col_range(col_tiles, x.shape[1])
+        out = torch.zeros((len(idx), *x.shape), dtype=torch.int8,
+                          device=x.device)
+        out[:, :, c0:c1] = encode_slices_mxu(
+            x[:, c0:c1], sft if axis == 1 else sft[:, c0:c1], num_moduli,
+            axis, idx)
+        return out
+    chunks, exp, sign, _ = _fields(x)
+    mbits = 53 if len(chunks) == 4 else 24
+    q = exp - _MANT_SHIFT[mbits] + sft.to(torch.int64)
+    planes = _byte_planes(chunks, q, sign, q_max(num_moduli, mbits))
+    k = encode_mxu_weights(idx)
+
+    def col(a):
+        return torch.as_tensor(a, device=x.device).reshape(-1, 1)
+
+    w = torch.as_tensor(k["w"], device=x.device).double()
+    flat = planes.reshape(ENC_PLANES, -1)
+    out = []
+    for e0 in range(0, flat.shape[1], _ENC_CHUNK):  # bounds the f64 copies
+        # the contraction in f64, exact: |raw| < 2^19
+        t = (w @ flat[:, e0:e0 + _ENC_CHUNK].double()).to(torch.int64)
+        t += col(k["off"])
+        quo = (t + col(k["h"])).mul_(col(k["mul"])).bitwise_right_shift_(32)
+        out.append(t.sub_(quo.mul_(col(k["m"]))).bitwise_and_(0xFF).to(
+            torch.uint8))
+    return torch.cat(out, dim=1).view(torch.int8).reshape(len(idx),
+                                                           *x.shape)
+
+
 def fast_encode_fused(x: torch.Tensor, num_moduli: int, axis: int):
     """(slices (L, *x.shape) int8, sft int32): the fast-mode shift and the
     residues encoded with it, the function of the JAX package's

@@ -78,9 +78,8 @@ def crt_accumulate_mxu(rc2: torch.Tensor, w, num_moduli: int, cl, bm: int,
     `carry_propagate` gives `accumulate_weighted`'s limbs), as int64
     tensors. The product runs in f64, exact: |Y| <= L * 128^2 < 2^53.
 
-    The JAX package's `_crt_accumulate_mxu`, kept as the reference of the
-    contraction (the mxu_crt probe's kernel is held to the same integers);
-    no path of the port calls it yet."""
+    The JAX package's `_crt_accumulate_mxu`; with bm = 1 (W' = wc) the sum
+    of `reconstruct_mxu`, the reconstruct kernel's plain version."""
     nd = 2 * len(cl)
     w = torch.as_tensor(np.asarray(w), device=rc2.device)
     y = (w.double() @ rc2.double()).to(torch.int64).reshape(nd + 1, bm, bn)
@@ -103,6 +102,26 @@ def centered_residue_block(c: torch.Tensor,
         return (c ^ 0x80).view(torch.int8).reshape(L * bm, bn)
     r = mod_reduce(c.to(torch.int64), num_moduli)
     return (r - 128).to(torch.int8).reshape(L * bm, bn)
+
+
+_MXU_CHUNK = 1 << 22   # elements a contraction of accumulate_mxu takes
+
+
+def accumulate_mxu(r: torch.Tensor, num_moduli: int):
+    """The redundant 16-bit limbs (int64, each in [0, 2^29)) of X = sum_j
+    w_j r_j from (L, m, n) residues (int8 holding r - 128, uint8, or raw
+    int32 products), through the compact contraction of
+    `crt_mxu_weights` on the centred residues, as the reconstruct kernel
+    forms it on the tensor cores."""
+    L = num_moduli
+    wc, cl = crt_mxu_weights(L)
+    flat = r.reshape(L, 1, -1)
+    parts = []
+    for e0 in range(0, flat.shape[2], _MXU_CHUNK):  # bounds the f64 copies
+        rc = centered_residue_block(flat[:, :, e0:e0 + _MXU_CHUNK], L)
+        parts.append(crt_accumulate_mxu(rc, wc, L, cl, 1, rc.shape[1]))
+    return [torch.cat([p[l] for p in parts], dim=1).reshape(r.shape[1:])
+            for l in range(len(cl))]
 
 
 def fold_chunk_(limbs: torch.Tensor, r: torch.Tensor, num_moduli: int,
@@ -255,3 +274,18 @@ def reconstruct(r: torch.Tensor, sft_a: torch.Tensor, sft_b: torch.Tensor,
         x = accumulate_weighted(canonical_residues(r), num_moduli)
     return finalize(x, sft_a, sft_b, num_moduli, out_dtype, e_extra)
 
+
+def reconstruct_mxu(r: torch.Tensor, sft_a: torch.Tensor,
+                    sft_b: torch.Tensor, num_moduli: int,
+                    out_dtype: str = "f64", e_extra: int = 0,
+                    input_kind: str = "residues") -> torch.Tensor:
+    """`reconstruct` (the same arguments and bits) with the weighted sum
+    of residues formed by `accumulate_mxu`, the reconstruct kernel's route;
+    limb input skips the sum. Its plain version."""
+    if input_kind == "limbs":
+        return reconstruct(r, sft_a, sft_b, num_moduli, out_dtype, e_extra,
+                           input_kind)
+    if input_kind != "residues":
+        raise ValueError(f"input_kind {input_kind!r}")
+    return finalize(accumulate_mxu(r, num_moduli), sft_a, sft_b, num_moduli,
+                    out_dtype, e_extra)

@@ -26,4 +26,11 @@ constexpr int kMaxModuli = 20;
 
 inline int launch_status() { return static_cast<int>(cudaGetLastError()); }
 
+// four bytes into one word, byte i from the low byte of ri
+__device__ __forceinline__ unsigned pack4(unsigned r0, unsigned r1,
+                                          unsigned r2, unsigned r3) {
+  return __byte_perm(__byte_perm(r0, r1, 0x0040), __byte_perm(r2, r3, 0x0040),
+                     0x5410);
+}
+
 }  // namespace gm8

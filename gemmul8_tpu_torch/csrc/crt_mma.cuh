@@ -1,6 +1,6 @@
-// The CRT contraction on the int8 tensor cores, shared by the mxu_crt probe
-// (probe_mxu_crt.cu) and the deaddep probe's recmxu rider
-// (probe_deaddep.cu).
+// The CRT contraction on the int8 tensor cores, shared by the reconstruct
+// kernel (reconstruct.cu), the mxu_crt probe (probe_mxu_crt.cu) and the
+// deaddep probe's recmxu rider (probe_deaddep.cu).
 //
 // For centred residues rc_j = r_j - 128 of one element, Y[d] = sum_j
 // wc[d][j] rc_j over the compact table wc ((nd+1) x L, nd = 2 * num_limbs;
@@ -71,23 +71,32 @@ __device__ __forceinline__ void crt_b_frags(const CrtMmaTable& W,
           &W.w[8 * q + g][16 * h + 4 * t]);
 }
 
-// c[p][q] = D of MMA p, n-tile q, from the transposed words lo (moduli
+// c[p][q] += D of MMA p, n-tile q, from the transposed words lo (moduli
 // 4t..4t+3) and hi (16+4t..) of this thread's 4 elements
-__device__ __forceinline__ void crt_mma(const unsigned (&lo)[4],
-                                        const unsigned (&hi)[4],
-                                        const unsigned (&bf)[kCrtTiles][2],
-                                        int (&c)[2][kCrtTiles][4]) {
+__device__ __forceinline__ void crt_mma_acc(
+    const unsigned (&lo)[4], const unsigned (&hi)[4],
+    const unsigned (&bf)[kCrtTiles][2], int (&c)[2][kCrtTiles][4]) {
 #pragma unroll
   for (int p = 0; p < 2; ++p) {
     const unsigned a[4] = {lo[2 * p], lo[2 * p + 1], hi[2 * p],
                            hi[2 * p + 1]};
 #pragma unroll
-    for (int q = 0; q < kCrtTiles; ++q) {
+    for (int q = 0; q < kCrtTiles; ++q) mma_s8(c[p][q], a, bf[q]);
+  }
+}
+
+// c[p][q] = D of MMA p, n-tile q (crt_mma_acc from zero)
+__device__ __forceinline__ void crt_mma(const unsigned (&lo)[4],
+                                        const unsigned (&hi)[4],
+                                        const unsigned (&bf)[kCrtTiles][2],
+                                        int (&c)[2][kCrtTiles][4]) {
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int q = 0; q < kCrtTiles; ++q)
 #pragma unroll
       for (int r = 0; r < 4; ++r) c[p][q][r] = 0;
-      mma_s8(c[p][q], a, bf[q]);
-    }
-  }
+  crt_mma_acc(lo, hi, bf, c);
 }
 
 }  // namespace

@@ -1,101 +1,255 @@
 // Residue slices of an f64 or f32 operand: out[l] = centered residue of
-// trunc(x * 2^sft) mod m_j as int8, j = moduli_idx[l]: every modulus of the
-// call in order, or the chunk of a moduli-chunked call; all of x's columns,
-// or a range of them (the panel pipeline's B split: the left half of B is
-// encoded up front, the right half by a rider, matmul_rider.cu).
+// trunc(x * 2^sft) mod m_l as int8, for the call's slots l (every modulus in
+// order, a chunk of a moduli-chunked call, or any tuple: the slots are rows
+// of the per-call weight table, so every form is one kernel); all of x's
+// columns, or a range of them (the panel pipeline's B split: the left half
+// of B is encoded up front, the right half by a rider, matmul_rider.cu).
 //
 // Replaces: encode_slices_pallas, gemmul8_tpu/pallas/kernels.py:691 (its
-// F64Bits and f32 forms).
+// F64Bits and f32 forms; its default MXU body _encode_tile_mxu, :612).
 // Bound on the H100: device-memory bytes. Per element it reads 8 bytes (4
 // for f32) and writes num_moduli bytes (22 bytes at 14 moduli: 1.4 GB per
-// f64 operand at 8192^2, about 0.4 ms at 3.35 TB/s; 18 bytes f32); the
-// arithmetic is a few 32-bit remainders by constants per modulus.
-// Design: elementwise, one thread per element, neighbouring threads on
-// neighbouring elements, so every read and each slice's writes coalesce.
-// The TPU kernel's byte-plane MXU contraction worked around the TPU's lack
-// of fast integer division; here each element is reduced by residue.cuh's
-// remainders by compile-time moduli (shared with fast_encode_fused.cu).
-// The source word is a template parameter (src_word.cuh): the f32 form
-// reads 4-byte words into the same 24 + 53-bit shifted value.
+// f64 operand at 8192^2, about 0.44 ms at 3.35 TB/s; 18 bytes f32).
+// Design: the residue dots run on the int8 tensor cores (encode_mma.cuh):
+// a warp takes 64 consecutive columns of one row, each thread reads two
+// elements with one 16-byte load (8 for f32), writes their byte planes to
+// shared memory, ldmatrix hands out the B fragments, 8 mma.sync a slot tile
+// form every residue, and each thread reduces its accumulators with one
+// multiply-and-shift each and writes 16 consecutive residues of a slot with
+// one 16-byte store. The next tile's words are loaded before this tile's
+// contraction. No remainder of the 77-bit value is taken per modulus and
+// no residue is stored alone, except at a ragged edge (a column range or
+// row that ends inside a thread's 16 elements, or a misaligned start),
+// which takes byte stores. The source word is a template parameter
+// (src_word.cuh): the f32 form reads 4-byte words into the same shifted
+// value.
+#include <cstring>
+
 #include "common.cuh"
-#include "residue.cuh"
+#include "encode_mma.cuh"
 
 namespace {
 
+using gm8::EncMmaTable;
+using gm8::kEncTile;
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 
-// which moduli a call encodes: the first j1 in order (the one-shot call;
-// encode_element), j0 .. j1 - 1 in order (a later chunk), or those slots
-// gives a slice (any tuple)
-enum Mode { kPrefix, kRange, kSlots };
+// two neighbouring elements of a row (zero past c1) and their shifts
+template <typename Word>
+struct Pair {
+  Word x0, x1;
+  int s0, s1;
+};
 
-template <int kMode, typename Word>
+template <typename Word>
+__device__ __forceinline__ Pair<Word> load_pair(const Word* __restrict__ x,
+                                                const int* __restrict__ sft,
+                                                size_t rbase, int row,
+                                                int col, int c1, int axis) {
+  Pair<Word> p{0, 0, 0, 0};
+  const Word* src = x + rbase + col;
+  if (col + 1 < c1 &&
+      (reinterpret_cast<uintptr_t>(src) & (2 * sizeof(Word) - 1)) == 0) {
+    if constexpr (sizeof(Word) == 8) {
+      const ulonglong2 v = __ldg(reinterpret_cast<const ulonglong2*>(src));
+      p.x0 = v.x;
+      p.x1 = v.y;
+    } else {
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(src));
+      p.x0 = v.x;
+      p.x1 = v.y;
+    }
+  } else {
+    if (col < c1) p.x0 = __ldg(src);
+    if (col + 1 < c1) p.x1 = __ldg(src + 1);
+  }
+  if (axis == 1) {
+    p.s0 = p.s1 = __ldg(sft + row);
+  } else {
+    if (col < c1) p.s0 = __ldg(sft + col);
+    if (col + 1 < c1) p.s1 = __ldg(sft + col + 1);
+  }
+  return p;
+}
+
+// 16 residues of one slot at columns col.. of a row (p: the slot's row
+// start); one 16-byte store where they are all inside [.., c1) and aligned
+__device__ __forceinline__ void store16(signed char* p, int col, int c1,
+                                        const unsigned (&w)[4]) {
+  signed char* q = p + col;
+  if (col + 16 <= c1 && (reinterpret_cast<uintptr_t>(q) & 15) == 0) {
+    *reinterpret_cast<uint4*>(q) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      if (col + i < c1)
+        q[i] = static_cast<signed char>(w[i >> 2] >> (8 * (i & 3)));
+  }
+}
+
+// kMT slot tiles of 16 (1: up to 16 moduli, 2: up to 32)
+template <typename Word, int kMT>
 __global__ void __launch_bounds__(kThreads)
-encode_kernel(const Word* __restrict__ x,
-              const int* __restrict__ sft, signed char* __restrict__ out,
-              int d0, int d1, int axis, int q_max, int j0, int j1,
-              int c0, int c1, const __grid_constant__ gm8::ModSlots slots) {
-  const int col = c0 + blockIdx.x * kThreads + threadIdx.x;
-  if (col >= c1) return;
+encode_kernel(const Word* __restrict__ x, const int* __restrict__ sft,
+              signed char* __restrict__ out, int d0, int d1, int axis,
+              int q_max, int c0, int c1, int L,
+              const __grid_constant__ EncMmaTable T) {
+  __shared__ __align__(16) uint4 rows[kWarps][kEncTile];
+  // the table in shared memory: each thread reads the entries of its own
+  // slots, which the compiler may reload where they are used; from the
+  // kernel parameter those reloads would serialise on the lanes' distinct
+  // addresses (a per-thread constant-bank index), from shared memory they
+  // are conflict-free
+  __shared__ EncMmaTable S;
+  for (int i = threadIdx.x; i < static_cast<int>(sizeof(S) / 16);
+       i += kThreads)
+    reinterpret_cast<uint4*>(&S)[i] = reinterpret_cast<const uint4*>(&T)[i];
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  // the weights of slots g + 8h + 16mt at planes 4tq..4tq+3, and the
+  // reduction's constants of those slots
+  unsigned a[kMT][2], mul[kMT][2], hmul[kMT][2];
+  int off[kMT][2], mod[kMT][2];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int l = 16 * mt + 8 * h + g;
+      a[mt][h] = S.w[l][tq];
+      mul[mt][h] = S.mul[l];
+      hmul[mt][h] = S.hmul[l];
+      off[mt][h] = S.off[l];
+      mod[mt][h] = S.m[l];
+    }
+  const unsigned sbase =
+      static_cast<unsigned>(__cvta_generic_to_shared(rows[warp]));
+  // ldmatrix: lane gives row n = lane % 8 of matrix lane / 8, i.e. column n
+  // of MMA p = 4c + lane / 8, which holds element 16 (n / 2) + 2p + n % 2
+  unsigned ld_addr[2];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int p = 4 * c + (lane >> 3), n = lane & 7;
+    ld_addr[c] =
+        sbase + 16 * gm8::enc_row(16 * (n >> 1) + 2 * p + (n & 1));
+  }
+  uint4* const st0 = &rows[warp][gm8::enc_row(2 * lane)];
+  uint4* const st1 = &rows[warp][gm8::enc_row(2 * lane + 1)];
+
+  // tiles in row-major order, (row, column tile) advanced by the grid
+  // stride without a division in the loop
+  const int ntc = (c1 - c0 + kEncTile - 1) / kEncTile;
+  const long long tiles = static_cast<long long>(d0) * ntc;
+  const long long stride = static_cast<long long>(gridDim.x) * kWarps;
   const size_t total = static_cast<size_t>(d0) * d1;
-  for (int row = blockIdx.y; row < d0; row += gridDim.y) {
-    const size_t idx = static_cast<size_t>(row) * d1 + col;
-    const int s = sft[axis == 1 ? row : col];
-    if constexpr (kMode == kPrefix)
-      gm8::encode_element(x[idx], s, out, total, idx, j1, q_max);
-    else if constexpr (kMode == kRange)
-      gm8::encode_element_range(x[idx], s, out, total, idx, j0, j1, q_max);
-    else
-      gm8::encode_element_slots(x[idx], s, out, total, idx, slots, q_max);
+  long long t = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  if (t >= tiles) return;
+  const int drow = static_cast<int>(stride / ntc);
+  const int dct =
+      static_cast<int>(stride - static_cast<long long>(drow) * ntc);
+  int row = static_cast<int>(t / ntc);
+  int ct = static_cast<int>(t - static_cast<long long>(row) * ntc);
+  Pair<Word> cur = load_pair(x, sft, static_cast<size_t>(row) * d1, row,
+                             c0 + ct * kEncTile + 2 * lane, c1, axis);
+  for (;;) {
+    *st0 = gm8::enc_planes(cur.x0, cur.s0, q_max);
+    *st1 = gm8::enc_planes(cur.x1, cur.s1, q_max);
+    __syncwarp();
+    unsigned b[8];
+    gm8::enc_ldmatrix_x4(b, ld_addr[0]);
+    gm8::enc_ldmatrix_x4(b + 4, ld_addr[1]);
+    __syncwarp();  // the next tile's planes overwrite these rows
+    // the next tile's words, in flight during this tile's contraction
+    const long long tn = t + stride;
+    int nrow = row + drow, nct = ct + dct;
+    if (nct >= ntc) {
+      nct -= ntc;
+      ++nrow;
+    }
+    if (tn < tiles)
+      cur = load_pair(x, sft, static_cast<size_t>(nrow) * d1, nrow,
+                      c0 + nct * kEncTile + 2 * lane, c1, axis);
+    const int cs = c0 + ct * kEncTile;
+    signed char* const obase = out + static_cast<size_t>(row) * d1;
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      int d[8][4];
+#pragma unroll
+      for (int p = 0; p < 8; ++p) {
+        d[p][0] = d[p][1] = off[mt][0];
+        d[p][2] = d[p][3] = off[mt][1];
+        gm8::mma_s8u8_k16(d[p], a[mt], b[p]);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int l = 16 * mt + 8 * h + g;
+        if (l >= L) continue;
+        unsigned w[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          unsigned r[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            r[j] = gm8::enc_reduce(d[2 * i + (j >> 1)][2 * h + (j & 1)],
+                                   mul[mt][h], hmul[mt][h], mod[mt][h]);
+          w[i] = gm8::pack4(r[0], r[1], r[2], r[3]);
+        }
+        store16(obase + l * total, cs + 16 * tq, c1, w);
+      }
+    }
+    if (tn >= tiles) break;
+    t = tn;
+    row = nrow;
+    ct = nct;
   }
 }
 
 template <typename Word>
 void launch(const void* x, const int* sp, signed char* op, int d0, int d1,
-            int axis, int q_max, int j0, int j1, int c0, int c1, bool range,
-            const gm8::ModSlots& slots, cudaStream_t s) {
-  dim3 grid((c1 - c0 + kThreads - 1) / kThreads, d0 < 65535 ? d0 : 65535);
+            int axis, int q_max, int c0, int c1, int L,
+            const EncMmaTable& T, cudaStream_t s) {
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long tiles =
+      static_cast<long long>(d0) * ((c1 - c0 + kEncTile - 1) / kEncTile);
+  const long long want = (tiles + kWarps - 1) / kWarps;
+  const int blocks = static_cast<int>(want < 8LL * sms ? want : 8LL * sms);
   auto xp = static_cast<const Word*>(x);
-  if (range && j0 == 0)
-    encode_kernel<kPrefix, Word><<<grid, kThreads, 0, s>>>(
-        xp, sp, op, d0, d1, axis, q_max, j0, j1, c0, c1, slots);
-  else if (range)
-    encode_kernel<kRange, Word><<<grid, kThreads, 0, s>>>(
-        xp, sp, op, d0, d1, axis, q_max, j0, j1, c0, c1, slots);
+  if (L <= 16)
+    encode_kernel<Word, 1><<<blocks, kThreads, 0, s>>>(
+        xp, sp, op, d0, d1, axis, q_max, c0, c1, L, T);
   else
-    encode_kernel<kSlots, Word><<<grid, kThreads, 0, s>>>(
-        xp, sp, op, d0, d1, axis, q_max, j0, j1, c0, c1, slots);
+    encode_kernel<Word, 2><<<blocks, kThreads, 0, s>>>(
+        xp, sp, op, d0, d1, axis, q_max, c0, c1, L, T);
 }
 
 }  // namespace
 
 // x: (d0, d1) f64 bits (f32 = 0) or f32 bits (f32 = 1); sft: d0 shifts
-// (axis=1) or d1 shifts (axis=0); moduli_idx: n_idx distinct indices into
-// the moduli table, on the host; out: (n_idx, d0, d1) int8, slice l for
-// modulus moduli_idx[l], written in columns [c0, c1) only. q_max: the
-// static left-shift cap max(threshold_accurate - mant_bits, 0) of the
+// (axis=1) or d1 shifts (axis=0); table: the EncMmaTable of the call's n_idx
+// slots, on the host (hopper/kernels.py encode_mma_table); out: (n_idx, d0,
+// d1) int8, slice l for slot l, written in columns [c0, c1) only. q_max:
+// the static left-shift cap max(threshold_accurate - mant_bits, 0) of the
 // call's moduli count (mant_bits 53 for f64, 24 for f32).
 GM8_EXPORT int gm8_encode_slices(const void* x, const void* sft, void* out,
-                                 int d0, int d1, int axis,
-                                 const void* moduli_idx, int n_idx,
-                                 int q_max, int c0, int c1, int f32,
-                                 void* stream) {
-  auto idx = static_cast<const int*>(moduli_idx);
-  gm8::ModSlots slots;
-  if (!gm8::mod_slots(idx, n_idx, &slots) || c0 < 0 || c1 > d1 || c0 >= c1 ||
-      q_max < 0 || q_max > (f32 ? 53 : 24))
+                                 int d0, int d1, int axis, const void* table,
+                                 int n_idx, int q_max, int c0, int c1,
+                                 int f32, void* stream) {
+  if (n_idx < 1 || n_idx > gm8::kMaxModuli || d0 < 1 || c0 < 0 ||
+      c1 > d1 || c0 >= c1 || (axis != 0 && axis != 1) || q_max < 0 ||
+      q_max > (f32 ? 53 : 24))
     return static_cast<int>(cudaErrorInvalidValue);
-  bool range = true;
-  for (int l = 1; l < n_idx; ++l) range = range && idx[l] == idx[0] + l;
+  EncMmaTable T;
+  std::memcpy(&T, table, sizeof(T));
   auto s = static_cast<cudaStream_t>(stream);
   auto sp = static_cast<const int*>(sft);
   auto op = static_cast<signed char*>(out);
-  const int j0 = idx[0], j1 = idx[0] + n_idx;
   if (f32)
-    launch<unsigned>(x, sp, op, d0, d1, axis, q_max, j0, j1, c0, c1, range,
-                     slots, s);
+    launch<unsigned>(x, sp, op, d0, d1, axis, q_max, c0, c1, n_idx, T, s);
   else
-    launch<unsigned long long>(x, sp, op, d0, d1, axis, q_max, j0, j1, c0,
-                               c1, range, slots, s);
+    launch<unsigned long long>(x, sp, op, d0, d1, axis, q_max, c0, c1,
+                               n_idx, T, s);
   return gm8::launch_status();
 }

@@ -23,10 +23,11 @@
 // spread evenly among them, so that an SM runs a rider block beside a GEMM
 // block through most of the launch. A kernel has one dynamic shared-memory
 // size, so a rider block takes a GEMM block's slot (two per SM) and leaves
-// its 96 KB unused. The rider bodies are those of the stand-alone kernels:
-// crt.cuh's sum, centering and rounding as reconstruct.cu uses them on
-// uint8 residues (a 32-row x 256-column tile, one column a thread), and
-// residue.cuh's encode_element as encode.cu uses it (the same tile). The
+// its 96 KB unused. The rider bodies are CUDA-core forms of the stand-alone
+// kernels: crt.cuh's sum, centering and rounding on uint8 residues (a
+// 32-row x 256-column tile, one column a thread), and residue.cuh's
+// encode_element, one remainder chain per modulus (the same tile); the
+// stand-alone encode.cu and reconstruct.cu contract on the tensor cores. The
 // TPU kernel ran riders on grid steps of one core in order, under
 // predicates; here blocks run in no order, and the riders' buffers are
 // disjoint from what the GEMM reads and writes in the same launch, so no

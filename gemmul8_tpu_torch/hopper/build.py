@@ -55,11 +55,15 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
 # launches of each kernel wrapper; reset by the caller that reads them
 LAUNCHES: collections.Counter = collections.Counter()
 # flags of single sources: matmul_mod.cu takes its launch constants from
-# the launch table, and its ptxas report (`-Xptxas -v`: each kernel's
-# registers, shared memory and spills) is kept by source name in
+# the launch table; its ptxas report and those of the two main-path
+# kernels redesigned on the tensor cores (`-Xptxas -v`: each kernel's
+# registers, shared memory and spills) are kept by source name in
 # PTXAS_REPORT, saved beside the library and read back with it
-SOURCE_FLAGS = {"matmul_mod.cu": (
-    "-Xptxas", "-v", *launch.get("matmul_mod", ARCH_CAPABILITY).defines())}
+SOURCE_FLAGS = {
+    "matmul_mod.cu": ("-Xptxas", "-v",
+                      *launch.get("matmul_mod", ARCH_CAPABILITY).defines()),
+    "encode.cu": ("-Xptxas", "-v"),
+    "reconstruct.cu": ("-Xptxas", "-v")}
 PTXAS_REPORT: dict = {}
 
 _P = ctypes.c_void_p
@@ -70,8 +74,8 @@ _SIGNATURES = {
     "gm8_fast_sft": [_P, _P, _I, _I, _I, _I, _F, _I, _P],
     # x, out_emax, out_nrm2, out_any, rows, kdim, axis, f32, stream
     "gm8_fast_stats": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, sft, out, d0, d1, axis, moduli_idx (host), n_idx, q_max, c0, c1,
-    # f32, stream
+    # x, sft, out, d0, d1, axis, table (host), n_idx, q_max, c0, c1, f32,
+    # stream
     "gm8_encode_slices": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I,
                           _P],
     # a8, b8, bt (workspace), out, moduli_idx (host), L, m, n, k, kp,
@@ -82,8 +86,9 @@ _SIGNATURES = {
                           _P],
     # table (host), nbytes
     "gm8_set_crt_tables": [_P, _I],
-    # r, kind, planes, sft_a, sft_b, out, L, m, n, e_extra, out_f32, stream
-    "gm8_reconstruct": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # r, kind, planes, sft_a, sft_b, out, mma_table (host), L, m, n,
+    # e_extra, out_f32, stream
+    "gm8_reconstruct": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, out_emax, rows, kdim, axis, f32, stream
     "gm8_emax": [_P, _P, _I, _I, _I, _I, _P],
     # x, emax, out, rows, kdim, axis, ld, mag_shift, f32, stream

@@ -3,7 +3,10 @@
 Each wrapper takes the plain PyTorch version for a CPU tensor and launches
 its CUDA kernel for a CUDA tensor; it never moves data between devices and
 never falls back. The plain versions (`*_plain`) are the functions of
-`gemmul8_tpu_torch.core` the kernels are held to.
+`gemmul8_tpu_torch.core` the kernels are held to; those of encode_slices
+and reconstruct take the kernels' route (`encode_slices_mxu`,
+`reconstruct_mxu`: the byte-plane and CRT contractions as int64 and f64
+products) and give the bits of `encode_slices` and `reconstruct`.
 
     fast_sft       csrc/fast_sft.cu     <- pallas/kernels.py fast_sft_pallas
     fast_stats     csrc/fast_sft.cu     <- the same, with return_stats=True
@@ -11,9 +14,12 @@ never falls back. The plain versions (`*_plain`) are the functions of
     mag7           csrc/mag7.cu         <- pallas/kernels.py mag7_pallas
     mag7_fused     csrc/mag7.cu         <- pallas/kernels.py mag7_fused_pallas
     encode_slices  csrc/encode.cu       <- pallas/kernels.py encode_slices_pallas
+                   (its residue dots on the int8 tensor cores, encode_mma.cuh)
     fast_encode_fused  csrc/fast_encode_fused.cu
                    <- pallas/kernels.py fast_encode_fused_pallas
     reconstruct    csrc/reconstruct.cu  <- pallas/kernels.py reconstruct_pallas
+                   (the CRT sum on the int8 tensor cores, crt_mma.cuh; the
+                   tail of crt_tail.cuh)
 
 `encode_slices` takes a subset of the moduli (`moduli_idx`, the chunks of
 the moduli-chunked schedule) and a range of columns (`col_tiles`, the panel
@@ -51,9 +57,9 @@ fast_stats_plain = enc.fast_stats
 emax_plain = enc.emax
 mag7_plain = enc.mag7
 mag7_fused_plain = enc.mag7_fused
-encode_slices_plain = enc.encode_slices
+encode_slices_plain = enc.encode_slices_mxu
 fast_encode_fused_plain = enc.fast_encode_fused
-reconstruct_plain = rec.reconstruct
+reconstruct_plain = rec.reconstruct_mxu
 
 
 def _on_cpu(x: torch.Tensor) -> bool:
@@ -250,6 +256,28 @@ def host_idx(idx) -> np.ndarray:
     return np.asarray(idx, dtype=np.int32)
 
 
+ENC_SLOTS = 32  # kEncSlots of csrc/encode_mma.cuh
+
+
+@functools.lru_cache(maxsize=None)
+def encode_mma_table(moduli_idx: tuple) -> np.ndarray:
+    """The `EncMmaTable` of csrc/encode_mma.cuh for the slots of moduli_idx
+    (bytes on the host): each slot's 16 plane weights (int8; the last 5
+    zero), mul = ceil(2^32 / m), h mul, off and m, from
+    `core.encode.encode_mxu_weights`; zeros past the call's slots."""
+    k = enc.encode_mxu_weights(moduli_idx)
+    L = len(moduli_idx)
+    w = np.zeros((ENC_SLOTS, 16), np.int8)
+    w[:L, :enc.ENC_PLANES] = k["w"]
+    cols = np.zeros((4, ENC_SLOTS), np.uint32)
+    cols[0, :L] = k["mul"]
+    cols[1, :L] = k["h"] * k["mul"]
+    cols[2, :L] = k["off"]
+    cols[3, :L] = k["m"]
+    return np.concatenate([w.view(np.uint8).ravel(),
+                           cols.view(np.uint8).ravel()])
+
+
 def encode_slices(x: torch.Tensor, sft: torch.Tensor, num_moduli: int,
                   axis: int, moduli_idx=None, col_tiles=None) -> torch.Tensor:
     """(L', *x.shape) int8 centered residues of trunc(x * 2^sft) of a
@@ -271,11 +299,11 @@ def encode_slices(x: torch.Tensor, sft: torch.Tensor, num_moduli: int,
         raise TypeError("sft must be int32")
     build.require_cuda(x, sft)
     out = torch.empty((len(idx), d0, d1), dtype=torch.int8, device=x.device)
-    idx_host = host_idx(idx)
+    table = encode_mma_table(idx)
     with torch.cuda.device(x.device):
         code = build.lib().gm8_encode_slices(
             x.data_ptr(), sft.data_ptr(), out.data_ptr(), d0, d1, axis,
-            idx_host.ctypes.data, len(idx),
+            table.ctypes.data, len(idx),
             enc.q_max(num_moduli, enc.mant_bits_of(x)), c0, c1, int(f32),
             build.stream_ptr(x.device))
     build.check(code, "encode_slices")
@@ -335,6 +363,26 @@ def crt_table_entry(num_moduli: int) -> np.ndarray:
     blob = np.frombuffer(crt_table_bytes(), dtype=np.uint8)
     size = len(blob) // (tables.MAX_MODULI + 1)
     return blob[num_moduli * size:(num_moduli + 1) * size]
+
+
+# CrtMmaTable of csrc/crt_mma.cuh: w[24][32] int8, cl[12], nd, pad[3]
+CRT_DIGITS, CRT_K, CRT_LIMBS = 24, 32, 12
+
+
+@functools.lru_cache(maxsize=None)
+def crt_mma_table(num_moduli: int) -> np.ndarray:
+    """The CRT contraction's constants as the kernels read them (bytes on
+    the host): the compact table wc[d][j] of `core.reconstruct.
+    crt_mxu_weights` zero-padded to 24 x 32, the limb corrections CL and
+    nd."""
+    wc, cl = rec.crt_mxu_weights(num_moduli)
+    w = np.zeros((CRT_DIGITS, CRT_K), np.int8)
+    w[:wc.shape[0], :wc.shape[1]] = wc
+    tail = np.zeros(CRT_LIMBS + 4, np.int32)
+    tail[:len(cl)] = cl
+    tail[CRT_LIMBS] = wc.shape[0] - 1
+    return np.concatenate([w.view(np.uint8).ravel(),
+                           tail.view(np.uint8)])
 
 
 _tables_on = set()
@@ -423,8 +471,8 @@ def reconstruct_launch(name: str, r, sft_a, sft_b, num_moduli: int,
     with torch.cuda.device(r.device):
         code = build.lib().gm8_reconstruct(
             r.data_ptr(), kind, planes, sft_a.data_ptr(), sft_b.data_ptr(),
-            out.data_ptr(), num_moduli, m, n, e_extra, int(f32),
-            build.stream_ptr(r.device))
+            out.data_ptr(), crt_mma_table(num_moduli).ctypes.data,
+            num_moduli, m, n, e_extra, int(f32), build.stream_ptr(r.device))
     build.check(code, name)
     build.LAUNCHES[build.form(name, f32)] += 1
     return out

@@ -16,36 +16,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.reconstruct import crt_mxu_weights
 from ..probes import clz as pclz
 from ..probes import deaddep as pdd
 from ..probes import mxu_crt as pmxu
 from ..probes import vpu_ops as pvpu
 from . import build
-from .kernels import _on_cpu, crt_table_entry
+from .kernels import _on_cpu, crt_mma_table, crt_table_entry
 
 clz_plain = pclz.clz_plain
 vpu_chain_plain = pvpu.chain_plain
 mxu_crt_plain = pmxu.mxu_crt_plain
 deaddep_plain = pdd.deaddep_plain
-
-# CrtMmaTable of csrc/crt_mma.cuh: w[24][32] int8, cl[12], nd, pad[3]
-CRT_DIGITS, CRT_K, CRT_LIMBS = 24, 32, 12
-
-
-def crt_mma_table(num_moduli: int) -> np.ndarray:
-    """The contraction's constants as the kernels read them (bytes on the
-    host): the compact table wc[d][j] zero-padded to 24 x 32, the limb
-    corrections CL and nd."""
-    wc, cl = crt_mxu_weights(num_moduli)
-    w = np.zeros((CRT_DIGITS, CRT_K), np.int8)
-    w[:wc.shape[0], :wc.shape[1]] = wc
-    tail = np.zeros(CRT_LIMBS + 4, np.int32)
-    tail[:len(cl)] = cl
-    tail[CRT_LIMBS] = wc.shape[0] - 1
-    return np.concatenate([w.view(np.uint8).ravel(),
-                           tail.view(np.uint8)])
-
 
 def _launch(name: str, key: str, device: torch.device, *args) -> None:
     with torch.cuda.device(device):

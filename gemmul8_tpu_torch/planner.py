@@ -9,28 +9,30 @@ schedule: when the slice buffers exceed a budget, the moduli loop is split
 into chunks whose slices are encoded, multiplied, reduced and folded into
 the CRT limbs before the next chunk is made.
 
-What is counted is what is live at the call's peak, which is the larger
-of two moments. During the residue GEMM: per modulus held at one time
-(`_per_modulus`) the int8 slices of A (m x kp) and B (k x n), the K-major
-copy of B the GEMM makes (n x kp) and the one-byte residues (m x n); kp is
-k rounded up to 16, as the GEMM wrapper pads it. During the reconstruct:
-the residues and the f64 output (8 bytes an element), the slices being
-freed by then. A chunked call holds the int32 CRT limbs (num_limbs x m x n
-x 4) across both moments, and at its reconstruct the limbs and the output
-only. The int32 shifts are live throughout. The operands themselves are
-the caller's and are not counted. Not counted either: the transient the
-chunk fold makes (one int32 plane, 4mn, below a chunk's slices and copy of
-B beside the limbs), and accurate mode's two int8 magnitude buffers, freed
-before the first slice is made.
-
-A complex call is counted tensor by tensor, each at the most PyTorch's
-CUDA caching allocator may count for it in
+What is counted is what is live at the call's peak, tensor by tensor,
+each at the most PyTorch's CUDA caching allocator may count for it in
 `torch.cuda.max_memory_allocated`: its bytes rounded up to 512, and for a
 tensor above 1 MiB another 1 MiB, since the allocator hands out a cached
 block whole when splitting it would leave 1 MiB or less. The figure is
-thus an upper bound of the complex128 peak; where every large tensor
-fills its block exactly (8192^3) the peak is the figure less 1 MiB a
-large tensor. The call holds the contiguous Re and Im parts of both
+thus an upper bound; where every large tensor fills its block exactly
+(8192^3) the peak is the figure less 1 MiB a large tensor.
+
+A real call's peak is the larger of two moments. During the residue GEMM:
+for the moduli held at one time (all of them, or a chunk's) the int8
+slices of A (m x k) and B (k x n), A's copy padded to kp where k is not a
+multiple of 16 (the GEMM wrapper pads k to kp beside the unpadded slices),
+the K-major copy of B the GEMM makes (n x kp) and the one-byte residues
+(m x n). During the reconstruct: the residues and the f64 output (8 bytes
+an element), the slices being freed by then. A chunked call holds the
+int32 CRT limbs (num_limbs x m x n x 4) across both moments, and at its
+reconstruct the limbs and the output only. The int32 shifts are live
+throughout. The operands themselves are the caller's and are not counted.
+Not counted either: the transient the chunk fold makes (one int32 plane,
+4mn, below a chunk's slices and copy of B beside the limbs), and accurate
+mode's two int8 magnitude buffers, freed before the first slice is made.
+
+A complex call is counted the same way (an upper bound of the complex128
+peak). The call holds the contiguous Re and Im parts of both
 operands (`complexgemm.canon_complex`), which it makes itself, throughout.
 Its peak is the largest of these moments: the residue GEMM (every slice
 set; where k is not a multiple of 16, each A set's copy padded to kp
@@ -55,16 +57,6 @@ def _ceil_to(x: int, a: int) -> int:
     return (x + a - 1) // a * a
 
 
-def _per_modulus(m: int, n: int, k: int, slice_sets: int = 1,
-                 residue_sets: int = 1) -> int:
-    kp = _ceil_to(k, 16)
-    return slice_sets * (m * kp + k * n + n * kp) + residue_sets * m * n
-
-
-def _output(m: int, n: int, outputs: int = 1) -> int:
-    return outputs * m * n * 8
-
-
 _BLOCK = 512          # the CUDA caching allocator rounds every tensor up
 _UNSPLIT = 1 << 20    # and leaves a large block's remainder up to this
 
@@ -74,6 +66,21 @@ def _blk(nbytes: int) -> int:
     nbytes: 512-byte rounding, plus an unsplit remainder above 1 MiB."""
     b = _ceil_to(max(nbytes, 1), _BLOCK)
     return b + _UNSPLIT if b > _UNSPLIT else b
+
+
+def _real_bytes(m: int, n: int, k: int, L: int, chunk: int | None) -> int:
+    """The real peak of `workspace_bytes`: all L moduli at once, or chunk
+    of them with the limbs held throughout."""
+    kp = _ceil_to(k, 16)
+    c = L if chunk is None else chunk
+    pad = _blk(c * m * kp) if kp != k else 0
+    gemm = (_blk(c * m * k) + pad + _blk(c * k * n) + _blk(c * n * kp)
+            + _blk(c * m * n))
+    out = _blk(8 * m * n)
+    shifts = _blk(4 * m) + _blk(4 * n)
+    if chunk is None:
+        return shifts + max(gemm, _blk(L * m * n) + out)
+    return shifts + _blk(_limbs(m, n, L)) + max(gemm, out)
 
 
 def _complex_bytes(m: int, n: int, k: int, L: int, kara: bool) -> int:
@@ -99,10 +106,6 @@ def _complex_bytes(m: int, n: int, k: int, L: int, kara: bool) -> int:
     return max(moments)
 
 
-def _shifts(m: int, n: int) -> int:
-    return (m + n) * 4
-
-
 def _limbs(m: int, n: int, num_moduli: int) -> int:
     return tables.num_limbs(num_moduli) * m * n * 4
 
@@ -113,13 +116,15 @@ def workspace_bytes(m: int, n: int, k: int, num_moduli: int,
     """Expected peak auxiliary bytes on the device for one emulated GEMM
     call (see the module docstring for what is counted).
 
-    Real: the larger of num_moduli (or, chunked, moduli_chunk) times the
-    per-modulus buffers and the residues plus the output; chunked, the
-    limbs beside either (the chunk's residues are folded into them before
-    the output is made); plus the shifts. Complex: the largest of the
-    moments in the module docstring, each tensor at the most the caching
-    allocator counts for it: the operands' Re and Im parts and the shifts beside the
-    residue GEMM's buffers (two slice sets a side, three with the
+    Real: the larger of the residue GEMM's buffers for num_moduli (or,
+    chunked, moduli_chunk) moduli (A's slices and, at a ragged k, its
+    padded copy, B's slices and K-major copy, the residues) and the
+    residues plus the output; chunked, the limbs beside either (the
+    chunk's residues are folded into them before the output is made);
+    plus the shifts; each tensor at the most the caching allocator counts
+    for it. Complex: the largest of the moments in the module docstring,
+    each tensor counted the same way: the operands' Re and Im parts and
+    the shifts beside the residue GEMM's buffers (two slice sets a side, three with the
     Karatsuba sums, A's copies padded to kp, B's K-major copy, two residue
     sets), the Karatsuba sums of A's and of B's slices (their int16
     temporaries), the reconstruct's residues and two outputs, or the
@@ -131,11 +136,8 @@ def workspace_bytes(m: int, n: int, k: int, num_moduli: int,
     L = num_moduli
     if compute_type in (ComputeType.REAL_DEFAULT, None):
         if moduli_chunk is not None and moduli_chunk < L:
-            return (_limbs(m, n, L) + max(
-                max(moduli_chunk, 1) * _per_modulus(m, n, k), _output(m, n))
-                + _shifts(m, n))
-        return (max(L * _per_modulus(m, n, k), L * m * n + _output(m, n))
-                + _shifts(m, n))
+            return _real_bytes(m, n, k, L, max(moduli_chunk, 1))
+        return _real_bytes(m, n, k, L, None)
     if moduli_chunk is not None and moduli_chunk < L:
         raise ValueError("complex calls have no moduli-chunked schedule")
     return _complex_bytes(m, n, k, L,
@@ -168,9 +170,11 @@ def plan_schedule(m: int, n: int, k: int, num_moduli: int,
     if budget_bytes is None or budget_bytes >= workspace_bytes(
             m, n, k, num_moduli):
         return ModuliSchedule(num_moduli, num_moduli)
-    room = budget_bytes - _limbs(m, n, num_moduli) - _shifts(m, n)
-    chunk = max(1, room // max(_per_modulus(m, n, k), 1))
-    return ModuliSchedule(num_moduli, min(int(chunk), num_moduli))
+    chunk = 1
+    while chunk < num_moduli and workspace_bytes(
+            m, n, k, num_moduli, moduli_chunk=chunk + 1) <= budget_bytes:
+        chunk += 1
+    return ModuliSchedule(num_moduli, chunk)
 
 
 def plan_workspace(gemm_list) -> int:

@@ -316,26 +316,33 @@ def test_workspace_bytes_counts_what_the_port_holds():
     where per modulus the A and B slices, B's K-major copy and the residues
     are live, one byte an element each, and not in the reconstruct (the
     residues and the f64 output); chunked, the int32 limbs beside either;
-    the shifts throughout. These are the peaks measured on the card at
-    8192^3, 14 moduli (one-shot, chunk 5, chunk 4: PERF.md)."""
+    the shifts throughout. Each tensor counts at the most the caching
+    allocator counts for it: 512-byte rounding and 1 MiB more above 1 MiB.
+    The figures are the peaks measured on the card at 8192^3, 14 moduli
+    (one-shot, chunk 5, chunk 4: PERF.md) plus 1 MiB a large tensor."""
     n, L = 8192, 14
     plane = n * n
     shifts = 4 * 2 * n
     limbs = tables.num_limbs(L) * 4 * plane
-    assert gt.workspace_bytes(n, n, n, L) == L * 4 * plane + shifts \
-        == 3_758_161_920
+    MiB = 2 ** 20
+    assert gt.workspace_bytes(n, n, n, L) == L * 4 * plane + shifts + 4 * MiB \
+        == 3_758_161_920 + 4 * MiB
     assert gt.workspace_bytes(n, n, n, L, moduli_chunk=5) == (
-        5 * 4 * plane + limbs + shifts) == 3_489_726_464
-    assert gt.workspace_bytes(n, n, n, L, moduli_chunk=4) == 3_221_291_008
+        5 * 4 * plane + limbs + shifts + 5 * MiB) == 3_489_726_464 + 5 * MiB
+    assert gt.workspace_bytes(n, n, n, L, moduli_chunk=4) == \
+        3_221_291_008 + 5 * MiB
     assert gt.workspace_bytes(n, n, n, L, moduli_chunk=L) == \
         gt.workspace_bytes(n, n, n, L)
     # where the output outweighs the GEMM's buffers: residues + output
-    assert gt.workspace_bytes(n, n, 16, 2) == 2 * plane + 8 * plane + shifts
+    assert gt.workspace_bytes(n, n, 16, 2) == (
+        2 * plane + 8 * plane + shifts + 2 * MiB)
     assert gt.workspace_bytes(n, n, 16, 14, moduli_chunk=1) == (
-        limbs + 8 * plane + shifts)
-    # k is padded to a multiple of 16 where the GEMM reads it K-major
-    assert planner.workspace_bytes(8, 8, 5, 2) == 2 * (8 * 16 + 5 * 8
-                                                       + 8 * 16 + 64) + 64
+        limbs + 8 * plane + shifts + 2 * MiB)
+    # k is padded to a multiple of 16 where the GEMM reads it K-major: A's
+    # slices (8 x 5), their padded copy (8 x 16), B's slices (5 x 8), B's
+    # K-major copy (8 x 16) and the residues (8 x 8) of 2 moduli, each
+    # rounded to 512 bytes, beside the two shifts (each 32 bytes -> 512)
+    assert planner.workspace_bytes(8, 8, 5, 2) == 5 * 512 + 2 * 512
     CT = gt.ComputeType
     classic = gt.workspace_bytes(n, n, n, L, CT.COMPLEX_CLASSIC_MULT)
     assert classic == gt.workspace_bytes(n, n, n, L,
@@ -356,6 +363,40 @@ def test_workspace_bytes_counts_what_the_port_holds():
     assert planner.plan_workspace([(64, 64, 64, 8), (n, n, n, L),
                                    (64, 64, 64, 20, CT.COMPLEX_CLASSIC_MULT)
                                    ]) == gt.workspace_bytes(n, n, n, L)
+
+
+def _alloc(nbytes):
+    """The most bytes the caching allocator counts for one tensor."""
+    b = -(-max(nbytes, 1) // 512) * 512
+    return b + 2 ** 20 if b > 2 ** 20 else b
+
+
+@pytest.mark.parametrize("mnkl", [(1000, 1500, 4100, 14), (3, 7, 5, 2),
+                                  (65, 129, 4100, 20), (300, 200, 260, 8)])
+@pytest.mark.parametrize("chunk", [None, 5, 1])
+def test_workspace_bytes_at_a_ragged_k(mnkl, chunk):
+    """C11: where k % 16 != 0 the residue GEMM holds A's slices padded to
+    kp beside the unpadded ones; the figure counts both, tensor by tensor
+    at the allocator's most, against an independent count of what the
+    call holds at each moment."""
+    m, n, k, L = mnkl
+    kp = -(-k // 16) * 16
+    c = L if chunk is None or chunk >= L else chunk
+    held = [c * m * k, c * k * n, c * n * kp, c * m * n]
+    if kp != k:
+        held.append(c * m * kp)
+    gemm = sum(_alloc(b) for b in held)
+    shifts = _alloc(4 * m) + _alloc(4 * n)
+    if c == L:
+        want = shifts + max(gemm, _alloc(L * m * n) + _alloc(8 * m * n))
+    else:
+        want = (shifts + _alloc(tables.num_limbs(L) * 4 * m * n)
+                + max(gemm, _alloc(8 * m * n)))
+    got = planner.workspace_bytes(m, n, k, L, moduli_chunk=chunk)
+    assert got == want
+    if kp != k and c == L:
+        # the padded copy is counted: above the figure without it
+        assert got >= shifts + gemm - _alloc(c * m * kp) + c * m * kp
 
 
 # ---- on the card ----------------------------------------------------------

@@ -47,7 +47,7 @@ def test_sources_are_cuda_files():
 
     names = sorted(p.name for p in build.sources())
     assert names == ["common.cuh", "crt.cuh", "crt_gemm.cuh", "crt_mma.cuh",
-                     "encode.cu",
+                     "crt_tail.cuh", "encode.cu", "encode_mma.cuh",
                      "fast_encode_fused.cu", "fast_sft.cu", "fast_stats.cuh",
                      "mag7.cu", "magmax.cu", "matmul_complex.cu",
                      "matmul_crt.cu", "matmul_mod.cu",
