@@ -121,7 +121,11 @@ schedule (n_panel) add:
       (3 panels of 512); the B-split pair with and without the A-panel-1
       rider; encode_slices(col_tiles=), also at phase 3's ragged 1000 x
       1500; reconstruct(out=) and reconstruct_into into rows of a larger
-      output;
+      output; the rider kernel's edges in every word form of both entry
+      points: a pair whose column half (640) is not a multiple of the
+      256-wide tile (launch 0a's last tile straddles the columns its riders
+      write), run three times with every run bit-equal, and ragged panels
+      of 200 rows with k = 272 and n = 1000 at 2, 14 and 20 moduli;
   3g. every entry of tests/data/torch_golden.npz (the JAX package's shifts
       and output digests for ragged real, complex and pipelined calls)
       recomputed with the kernels: the same shifts and bits;
@@ -138,10 +142,12 @@ schedule (n_panel) add:
       what it replaces on one panel (matmul_mod_u8, reconstruct and
       encode_slices of one panel), the pair beside panel 0's matmul_mod_u8
       and the encode of B's right half and A's panel 1, reconstruct_into
-      beside reconstruct of one panel, and each beside its plain version
-      (warm-up outputs held bit for bit); then each pipelined call against
-      the default call of its mode, and the n_panel calls against the
-      one-shot 16384-column call.
+      beside reconstruct of one panel, the step and the pair beside
+      torch._int_mm over the panel's products (ratios printed), and each
+      beside its plain version (warm-up outputs held bit for bit); then
+      each pipelined call against the default call of its mode, and the
+      n_panel calls against the one-shot 16384-column call, each with its
+      ratio to that call.
 Phase 4s also holds each measured peak of the one-shot and chunked calls
 to the planner's figure: at or under it, and within 5%.
 
@@ -245,8 +251,9 @@ GEMMUL8_PIPELINE and n_panel) and the batched and timed entry points add:
   5r. at 8192^2 operands, panels of 1024 rows: each new form beside its
       f64 form on the same residues (medians of five rotated rounds) and
       its plain version (warm-up outputs held bit for bit), at the moduli
-      its main-path call takes; then each phase 4r call beside its
-      one-shot call, five rotated rounds;
+      its main-path call takes, the step's and the pair's forms also
+      beside torch._int_mm over their own products; then each phase 4r
+      call beside its one-shot call, five rotated rounds;
   5b. each batched call per element beside the single calls of its
       elements; each timed call's four phases (iters=5) and their sum
       beside the fused call's median.
@@ -513,6 +520,14 @@ PIPELINE_CASES = [((2048, 2048, 2048), (L_MAIN,), 1024),
                   ((1536, 1024, 1024), (L_MAIN,), 512)]
 PIPELINE_KERNELS = ("matmul_rider_step", "matmul_bsplit_pair",
                     "reconstruct_into")
+# phases 3p/3r, the wgmma rider kernel's edges: (m, k, n), moduli counts,
+# panel_m. A pair whose column half (640) is not a multiple of the 256-wide
+# tile, so launch 0a's last GEMM tile straddles c1 while its rider writes
+# the columns past it; ragged panels (200 rows, not a multiple of 128) with
+# a part k-tile (k = 272) and n = 1000 (byte stores, a column half of 500)
+RIDER_EDGE_CASES = [((512, 384, 1280), (14, 20), 256),
+                    ((600, 272, 1000), (2, 14, 20), 200)]
+RIDER_REPEATS = 3
 PANEL_M = 1024           # choose_panels at 8192^3: (1024, 512), 8 panels
 N_WIDE = 16384           # phase 4p's column-panel call: B is N x N_WIDE
 N_PANEL = 4096
@@ -3266,7 +3281,9 @@ def phase_complex64_times(A, A64, B64, a, b, a32, b32, errs):
     hold(errs, key, hm.matmul_reconstruct(a8, b8, sa, sb, L, "f32"),
          hm.matmul_reconstruct_plain(a8, b8, sa, sb, L, "f32"),
          f"{key} at {N}^2, {L} moduli")
+    b8t = b8.transpose(1, 2).contiguous()   # column-major B, untimed
     record(key, timed_rounds({
+        LIBRARY: int_mm(a8, b8t),
         key: lambda: hm.matmul_reconstruct(a8, b8, sa, sb, L, "f32"),
         "matmul_reconstruct (f64 output)": lambda: hm.matmul_reconstruct(
             a8, b8, sa, sb, L),
@@ -3274,7 +3291,7 @@ def phase_complex64_times(A, A64, B64, a, b, a32, b32, errs):
             hm.matmul_mod_u8(a8, b8, L, centered=True), sa, sb, L, "f32"),
     }, F32_ROUNDS, 2)[0], lambda: hm.matmul_reconstruct_plain(
         a8, b8, sa, sb, L, "f32"))
-    del a8, b8
+    del a8, b8, b8t
     log(f"  the new f32 forms == plain at the main path's shapes ({N}^2, "
         f"{L} moduli)")
     prev = (torch.backends.cuda.matmul.allow_tf32,
@@ -3409,6 +3426,65 @@ def phase_rider_f32_kernels(errs):
             del enc_ops
         log(f"  riders' f32 forms == plain at m={m} k={k} n={n} L={Ls} "
             f"panel_m={pm} (f32 special lines in every panel)")
+
+
+def phase_rider_edges(errs):
+    """Phases 3p/3r, the wgmma rider kernel's edges: at RIDER_EDGE_CASES,
+    every (A word, output word) form of the rider step with both riders
+    (out= given) and every (A word, B word) form of the pair against their
+    plain versions, bit-equal, f64 and f32 special lines in every panel and
+    in B's right half; the pair RIDER_REPEATS times, every run's outputs
+    bit-equal to the first's."""
+    words2 = (("f64", "f64"), ("f64", "f32"), ("f32", "f64"), ("f32", "f32"))
+    for (m, k, n), Ls, pm in RIDER_EDGE_CASES:
+        ops = rider_operands(m, k, n, pm, 11)
+        last = m // pm - 1
+        for L in Ls:
+            tag = f"m={m} k={k} n={n} L={L} panel_m={pm}"
+            for aw, bw in words2:
+                a, b = ops[aw][0], ops[bw][1]
+                sa = hk.fast_sft_plain(a, L, axis=1)
+                sb = hk.fast_sft_plain(b, L, axis=0)
+                a8 = hk.encode_slices(a, sa, L, axis=1)
+                b8 = hk.encode_slices(b, sb, L, axis=0)
+                a8_0 = riders.panel_rows(a8, 0, pm).contiguous()
+                name = build.form("matmul_bsplit_pair", aw == "f32",
+                                  bw == "f32")
+                kw = dict(a_src=a, a_kind=aw, b_kind=bw)
+                ref = hp.matmul_bsplit_pair_plain(a8_0, b8, b, sa, sb, L, pm,
+                                                  **kw)
+                first = None
+                for run in range(RIDER_REPEATS):
+                    got = hp.matmul_bsplit_pair(a8_0, b8, b, sa, sb, L, pm,
+                                                **kw)
+                    hold_all(errs, name, got, ref,
+                             f"{name} run {run} {tag}")
+                    if first is None:
+                        first = got
+                    else:
+                        for x, y in zip(got, first):
+                            assert torch.equal(x, y), \
+                                f"{name} {tag}: run {run} differs"
+                # the step on the B this pair wrote, its words (aw, ow)
+                ow = bw
+                name = build.form("matmul_rider_step", aw == "f32",
+                                  ow == "f32")
+                bt, r0 = first[1], first[0]
+                out = torch.zeros((m, n), device=DEVICE,
+                                  dtype=riders.KINDS[ow])
+                skw = dict(a_src=a, next_panel=min(2, last), a_kind=aw,
+                           out_kind=ow)
+                args = (bt, 1, r0, 0, sa, sb, L, pm)
+                for slices in (a8, riders.panel_rows(a8, 1, pm).contiguous()):
+                    hold_all(errs, name,
+                             hp.matmul_rider_step(slices, *args, out=out,
+                                                  **skw),
+                             hp.matmul_rider_step_plain(
+                                 slices, *args, out=out.clone(), **skw),
+                             f"{name} {tag}")
+        log(f"  rider step and pair == plain at m={m} k={k} n={n} L={Ls} "
+            f"panel_m={pm}, every word form (pair x{RIDER_REPEATS}, "
+            "bit-equal runs)")
 
 
 def pipeline_f32_calls(a, b, a32, b32, b32_wide):
@@ -3551,19 +3627,25 @@ def rider_f32_setups(a, b, a32, b32):
         return lambda: (fn(d["r0"], d["sa"], d["sb"], L_F32, out,
                            N // pm - 1, pm, kind),)
 
+    def library(aw, bw, L):
+        # torch._int_mm x L over one panel's products (the step's and the
+        # pair's both), on the form's own slices; bt is (L, n, k)
+        d = prep(aw, bw, L)
+        return int_mm(d["a8p"], d["bt"])
+
     setups = {}
     for aw, ow, L in (("f32", "f32", L_F32), ("f64", "f32", L_F32),
                       ("f32", "f64", L_MAIN)):
         setups[build.form("matmul_rider_step", aw == "f32", ow == "f32")] = (
             L, step(aw, ow, L), step(aw, ow, L, plain=True),
-            step(aw, ow, L, as_f64=True))
+            step(aw, ow, L, as_f64=True), library(aw, "f64", L))
     for aw, bw, L in (("f32", "f32", L_F32), ("f64", "f32", L_MAIN),
                       ("f32", "f64", L_MAIN)):
         setups[build.form("matmul_bsplit_pair", aw == "f32", bw == "f32")] = (
             L, pair(aw, bw, L), pair(aw, bw, L, plain=True),
-            pair(aw, bw, L, as_f64=True))
+            pair(aw, bw, L, as_f64=True), library(aw, bw, L))
     setups["reconstruct_into[f32]"] = (L_F32, into(), into(plain=True),
-                                       into(as_f64=True))
+                                       into(as_f64=True), None)
     return setups
 
 
@@ -3572,9 +3654,11 @@ def phase_pipeline_f32_times(a, b, a32, b32, calls, errs):
     f64 form on the same residues (PIPELINE_ROUNDS rotated rounds) and its
     plain version (the warm-up outputs held bit for bit); then each phase
     4r call beside its one-shot call, PIPELINE_ROUNDS rotated rounds.
-    Returns ({form: (ms, f64 form ms, plain ms, moduli)}, {call: [ms]})."""
+    The GEMM forms are timed beside torch._int_mm over their own int8
+    products in the same rotation. Returns ({form: (ms, f64 form ms, plain
+    ms, moduli, library ms or None)}, {call: [ms]})."""
     kerns = {}
-    for name, (L, kern, plain, f64_form) in rider_f32_setups(
+    for name, (L, kern, plain, f64_form, lib) in rider_f32_setups(
             a, b, a32, b32).items():
         got = kern()
         pms, ref = timed(plain, 1)
@@ -3583,10 +3667,14 @@ def phase_pipeline_f32_times(a, b, a32, b32, calls, errs):
             got, ref = (got[0][rows],), (ref[0][rows],)
         hold_all(errs, name, got, ref, f"{name} at {N}^2, {L} moduli")
         del got, ref
-        by_name, _ = timed_rounds({name: kern, "f64 form": f64_form},
-                                  PIPELINE_ROUNDS, 5)
+        rotation = {name: kern, "f64 form": f64_form}
+        if lib is not None:
+            rotation[LIBRARY] = lib
+        by_name, _ = timed_rounds(rotation, PIPELINE_ROUNDS, 5)
         kerns[name] = (float(np.median(by_name[name])),
-                       float(np.median(by_name["f64 form"])), pms, L)
+                       float(np.median(by_name["f64 form"])), pms, L,
+                       None if lib is None
+                       else float(np.median(by_name[LIBRARY])))
         log(f"  {name} == plain at {N}^2 operands, panels of {PANEL_M}, "
             f"{L} moduli")
     timings = {}
@@ -4003,8 +4091,12 @@ def phase_probe_times(errs):
             refs[label].append(("nops 0", f"{v} nops=0"))
         if v == "recmxu":
             refs[label].append(("recbody", "recbody nops=0"))
+    # the library call over the same int8 products (torch._int_mm x L),
+    # in the configs' rotation (not among the configs)
+    b8t = b8.transpose(1, 2).contiguous()   # column-major B, untimed
     with ClockSampler() as clock:
-        by, _ = timed_rounds(calls, PROBE_DEADDEP_ROUNDS, 2)
+        by, _ = timed_rounds({**calls, LIBRARY: int_mm(a8, b8t)},
+                             PROBE_DEADDEP_ROUNDS, 2)
         diffs = {label: [(what, timed_pairs(calls[label], calls[ref],
                                             PROBE_DEADDEP_PAIRS))
                          for what, ref in refs[label]] for label in calls}
@@ -4053,6 +4145,13 @@ def phase_probe_times(errs):
             times["probe_deaddep"] = (float(np.median(by[label])), pms)
     log(f"  deaddep == plain at n={n}, {L} moduli, every config above: "
         "residues, aux, hbmio's words, the rec riders' f64 words")
+    del b8t
+    library["probe_deaddep"] = float(np.median(by[LIBRARY]))
+    log(f"  deaddep beside {LIBRARY} (x {L} torch._int_mm, in the configs' "
+        f"rotation) median {library['probe_deaddep']:.3f} ms: base nops=0 "
+        f"ratio {float(np.median(by['base nops=0'])) / library['probe_deaddep']:.3f}"
+        f", deaddep nops=16 ratio "
+        f"{times['probe_deaddep'][0] / library['probe_deaddep']:.3f}")
     bounds["probe_deaddep"] = bound(2 * L * n * n + L * n * n,
                                     L * 2 * n ** 3)
     log(f"  deaddep nops=16 plain {times['probe_deaddep'][1]:.1f} ms; bound "
@@ -4196,7 +4295,8 @@ def main():
         f"{time.perf_counter() - t0:.1f} s from {len(build.sources())} "
         "sources")
 
-    for src in ("matmul_mod.cu", "encode.cu", "reconstruct.cu"):
+    for src in ("matmul_mod.cu", "matmul_rider.cu", "encode.cu",
+                "reconstruct.cu"):
         ptxas = [line.strip() for line in
                  build.PTXAS_REPORT.get(src, "").splitlines()
                  if "entry function" in line or "Used" in line
@@ -4220,6 +4320,7 @@ def main():
     phase_rounding_f32(errs)
     phase_c64_kernels(errs)
     phase_rider_f32_kernels(errs)
+    phase_rider_edges(errs)
     phase_golden()
     phase_probe_kernels(errs)
     log(f"[3/5] every kernel == its plain version "
@@ -4352,6 +4453,18 @@ def main():
         times[name] = (float(np.median(pkerns[name])), pplain[name])
     library["matmul_rider_step"] = library["matmul_bsplit_pair"] = float(
         np.median(pkerns[LIBRARY + ", one panel"]))
+    for name, what in (("matmul_rider_step",
+                        "matmul_mod_u8 + reconstruct + encode_slices, one "
+                        "panel"),
+                       ("matmul_bsplit_pair",
+                        "matmul_mod_u8 panel 0 + encode_slices of B's right "
+                        "half and of A panel 1")):
+        ms = times[name][0]
+        log(f"  {name}: median {ms:.3f} ms beside {LIBRARY} (x {L_MAIN} "
+            f"torch._int_mm, one panel) {library[name]:.3f} ms, ratio "
+            f"{ms / library[name]:.3f}; beside {what} "
+            f"{float(np.median(pkerns[what])):.3f} ms, ratio "
+            f"{ms / float(np.median(pkerns[what])):.3f} ({card})")
     fkerns, fcalls = phase_f32_times(a, b, a32, b32, errs)
     bounds.update(kernel_bounds_f32(a32, b32, L_F32))
     for key, (ms, ms64, pms) in fkerns.items():
@@ -4392,6 +4505,8 @@ def main():
     ckerns, ccalls = phase_complex64_times(A, A64, B64, a, b, a32, b32,
                                            errs)
     bounds.update(kernel_bounds_c64(L_F32))
+    library["matmul_reconstruct[f32]"] = \
+        ckerns["matmul_reconstruct[f32]"][1][LIBRARY]
     for key, (ms, meds, pms) in ckerns.items():
         times[key] = (ms, pms)
         log(f"  {key}: " + "; ".join(f"{label} median {v:.3f} ms"
@@ -4422,21 +4537,32 @@ def main():
         flop = 2 * N * N * (N_WIDE if wide else N)
         rel = pipe_rels.get(name, rel_fast if name.startswith("fast")
                             else rel_accu)
+        # each schedule's ratio to the one-shot call of its mode and shape
+        base = (f"{N_WIDE} columns one-shot" if wide
+                else f"{name.split()[0]} default")
+        ratio = ("" if base == name else
+                 f", ratio {ms / float(np.median(pcalls[base])):.3f} to "
+                 f"{base}")
         log(f"  gemm {N} x {N} x {N_WIDE if wide else N} {L_MAIN} moduli "
             f"f64 {name}: median {ms:.3f} ms (rounds "
             f"{', '.join(f'{t:.3f}' for t in mss)}), "
-            f"{flop / (ms * 1e-3) / 1e12:.2f} TFLOP/s, gate relerr {rel!r}"
-            f"{f'; one-shot peak {peak_wide} bytes' if wide else ''} "
+            f"{flop / (ms * 1e-3) / 1e12:.2f} TFLOP/s{ratio}, gate relerr "
+            f"{rel!r}{f'; one-shot peak {peak_wide} bytes' if wide else ''} "
             f"({card})")
     rkerns, rcall_ms = phase_pipeline_f32_times(a, b, a32, b32, rcalls, errs)
     bounds.update(kernel_bounds_riders({key: v[3]
                                         for key, v in rkerns.items()}))
-    for key, (ms, ms64, pms, L) in rkerns.items():
+    for key, (ms, ms64, pms, L, lib_ms) in rkerns.items():
         times[key] = (ms, pms)
+        lib_note = ""
+        if lib_ms is not None:
+            library[key] = lib_ms
+            lib_note = (f"; {LIBRARY} (x {L} torch._int_mm, one panel) "
+                        f"{lib_ms:.3f} ms, ratio {ms / lib_ms:.3f}")
         log(f"  {key}: median {ms:.3f} ms beside its f64 form {ms64:.3f} ms "
-            f"on the same panel (rotated rounds); plain {pms:.3f} ms; bound "
-            f"{bounds[key][0]:.3f} ms ({bounds[key][1]}) ({N}^2 operands, "
-            f"panels of {PANEL_M} rows, {L} moduli; {card})")
+            f"on the same panel (rotated rounds){lib_note}; plain {pms:.3f} "
+            f"ms; bound {bounds[key][0]:.3f} ms ({bounds[key][1]}) ({N}^2 "
+            f"operands, panels of {PANEL_M} rows, {L} moduli; {card})")
     log(f"  f32, mixed and f32-output pipelined calls, {PIPELINE_ROUNDS} "
         f"rounds in rotated order, 2 calls per timing ({card}):")
     for name, mss in rcall_ms.items():

@@ -33,4 +33,15 @@ __device__ __forceinline__ unsigned pack4(unsigned r0, unsigned r1,
                      0x5410);
 }
 
+// c += a (16 x 32, row) x b (32 x 8, col), s8 x s8 -> s32: the mma.sync
+// tile of mma_s8.cuh and the CRT contraction of crt_mma.cuh
+__device__ __forceinline__ void mma_s8(int* c, const unsigned* a,
+                                       const unsigned* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 }  // namespace gm8

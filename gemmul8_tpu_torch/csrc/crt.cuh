@@ -17,7 +17,7 @@
 // of the plain version.
 //
 // The constants of one moduli count (weight words, M, floor(M/2) + 1, 1/M)
-// are a CrtTable, built by the Python wrapper. __constant__ memory is per
+// are a CrtTable (moduli.cuh), built by the Python wrapper. __constant__ memory is per
 // translation unit: reconstruct.cu keeps a table of every moduli count
 // there (set once per device); the GEMM kernels take their one entry by
 // value as a __grid_constant__ kernel parameter, so they have no table to
@@ -25,19 +25,9 @@
 #pragma once
 
 #include "common.cuh"
+#include "moduli.cuh"
 
 namespace gm8 {
-
-constexpr int kWords = 6;
-
-struct CrtTable {
-  unsigned w[kMaxModuli][kWords];  // CRT weights, 32-bit words
-  unsigned big_m[kWords];          // M
-  unsigned half1[kWords];          // floor(M / 2) + 1
-  double rinv;                     // 1 / M, rounded
-  int pad[2];
-};
-
 namespace {
 
 __device__ __forceinline__ unsigned word_at(const unsigned* x, int i) {

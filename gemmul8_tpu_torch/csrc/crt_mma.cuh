@@ -1,6 +1,7 @@
 // The CRT contraction on the int8 tensor cores, shared by the reconstruct
-// kernel (reconstruct.cu), the mxu_crt probe (probe_mxu_crt.cu) and the
-// deaddep probe's recmxu rider (probe_deaddep.cu).
+// kernel (reconstruct.cu), the pipeline's reconstruct rider
+// (matmul_rider.cu), the mxu_crt probe (probe_mxu_crt.cu) and the deaddep
+// probe's recmxu rider (probe_deaddep.cu).
 //
 // For centred residues rc_j = r_j - 128 of one element, Y[d] = sum_j
 // wc[d][j] rc_j over the compact table wc ((nd+1) x L, nd = 2 * num_limbs;
@@ -28,7 +29,6 @@
 #pragma once
 
 #include "common.cuh"
-#include "mma_s8.cuh"
 
 namespace gm8 {
 
@@ -97,6 +97,36 @@ __device__ __forceinline__ void crt_mma(const unsigned (&lo)[4],
 #pragma unroll
       for (int r = 0; r < 4; ++r) c[p][q][r] = 0;
   crt_mma_acc(lo, hi, bf, c);
+}
+
+// the bytes of elements e0..e0+15 of plane j of (L, mn) residues at r,
+// four to a word, ^ 0x80 in every byte when `centre` (canonical uint8 in,
+// centred out); 0 past L and past mn; vec: one 16-byte load (mn % 16 == 0
+// and r 16-byte aligned)
+__device__ __forceinline__ void crt_load16(unsigned (&w)[4],
+                                           const unsigned char* __restrict__ r,
+                                           int j, size_t e0, int L, size_t mn,
+                                           bool vec, bool centre) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) w[k] = 0u;
+  if (j >= L || e0 >= mn) return;
+  const unsigned char* q = r + static_cast<size_t>(j) * mn + e0;
+  if (vec) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(q));
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+  } else {
+#pragma unroll
+    for (int b = 0; b < 16; ++b)
+      if (e0 + b < mn)
+        w[b >> 2] |= static_cast<unsigned>(__ldg(q + b)) << (8 * (b & 3));
+  }
+  if (centre) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) w[k] ^= 0x80808080u;
+  }
 }
 
 }  // namespace

@@ -4,8 +4,8 @@
 //                   or not), the carries propagated once
 //   center_rn       X -> |centered(X mod M)| and its sign
 //   round_rn        RNE( +-magnitude * 2^e_fix ) as f64 or f32 bits
-// crt.cuh keeps the tail the CRT-fused GEMMs and the riders share; both
-// give the plain version's bits (every step is exact).
+// crt.cuh keeps the older tail the CRT-fused GEMMs share; both give the
+// plain version's bits (every step is exact).
 //
 // The quotient is estimated ROUNDED TO NEAREST: q = fl(fl(X) / M) in f64,
 // t = rint(q), Y = X - t M in one multiply-subtract pass (two's complement
@@ -29,7 +29,7 @@
 #pragma once
 
 #include "common.cuh"
-#include "crt.cuh"
+#include "moduli.cuh"
 
 namespace gm8 {
 namespace {

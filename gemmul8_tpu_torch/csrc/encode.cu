@@ -35,59 +35,6 @@ using gm8::kEncTile;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-// two neighbouring elements of a row (zero past c1) and their shifts
-template <typename Word>
-struct Pair {
-  Word x0, x1;
-  int s0, s1;
-};
-
-template <typename Word>
-__device__ __forceinline__ Pair<Word> load_pair(const Word* __restrict__ x,
-                                                const int* __restrict__ sft,
-                                                size_t rbase, int row,
-                                                int col, int c1, int axis) {
-  Pair<Word> p{0, 0, 0, 0};
-  const Word* src = x + rbase + col;
-  if (col + 1 < c1 &&
-      (reinterpret_cast<uintptr_t>(src) & (2 * sizeof(Word) - 1)) == 0) {
-    if constexpr (sizeof(Word) == 8) {
-      const ulonglong2 v = __ldg(reinterpret_cast<const ulonglong2*>(src));
-      p.x0 = v.x;
-      p.x1 = v.y;
-    } else {
-      const uint2 v = __ldg(reinterpret_cast<const uint2*>(src));
-      p.x0 = v.x;
-      p.x1 = v.y;
-    }
-  } else {
-    if (col < c1) p.x0 = __ldg(src);
-    if (col + 1 < c1) p.x1 = __ldg(src + 1);
-  }
-  if (axis == 1) {
-    p.s0 = p.s1 = __ldg(sft + row);
-  } else {
-    if (col < c1) p.s0 = __ldg(sft + col);
-    if (col + 1 < c1) p.s1 = __ldg(sft + col + 1);
-  }
-  return p;
-}
-
-// 16 residues of one slot at columns col.. of a row (p: the slot's row
-// start); one 16-byte store where they are all inside [.., c1) and aligned
-__device__ __forceinline__ void store16(signed char* p, int col, int c1,
-                                        const unsigned (&w)[4]) {
-  signed char* q = p + col;
-  if (col + 16 <= c1 && (reinterpret_cast<uintptr_t>(q) & 15) == 0) {
-    *reinterpret_cast<uint4*>(q) = make_uint4(w[0], w[1], w[2], w[3]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 16; ++i)
-      if (col + i < c1)
-        q[i] = static_cast<signed char>(w[i >> 2] >> (8 * (i & 3)));
-  }
-}
-
 // kMT slot tiles of 16 (1: up to 16 moduli, 2: up to 32)
 template <typename Word, int kMT>
 __global__ void __launch_bounds__(kThreads)
@@ -108,32 +55,11 @@ encode_kernel(const Word* __restrict__ x, const int* __restrict__ sft,
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
-  // the weights of slots g + 8h + 16mt at planes 4tq..4tq+3, and the
-  // reduction's constants of those slots
-  unsigned a[kMT][2], mul[kMT][2], hmul[kMT][2];
-  int off[kMT][2], mod[kMT][2];
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int l = 16 * mt + 8 * h + g;
-      a[mt][h] = S.w[l][tq];
-      mul[mt][h] = S.mul[l];
-      hmul[mt][h] = S.hmul[l];
-      off[mt][h] = S.off[l];
-      mod[mt][h] = S.m[l];
-    }
+  const gm8::EncSlots<kMT> slots(S);
   const unsigned sbase =
       static_cast<unsigned>(__cvta_generic_to_shared(rows[warp]));
-  // ldmatrix: lane gives row n = lane % 8 of matrix lane / 8, i.e. column n
-  // of MMA p = 4c + lane / 8, which holds element 16 (n / 2) + 2p + n % 2
-  unsigned ld_addr[2];
-#pragma unroll
-  for (int c = 0; c < 2; ++c) {
-    const int p = 4 * c + (lane >> 3), n = lane & 7;
-    ld_addr[c] =
-        sbase + 16 * gm8::enc_row(16 * (n >> 1) + 2 * p + (n & 1));
-  }
+  const unsigned ld_addr[2] = {gm8::enc_ld_addr(sbase, 0),
+                               gm8::enc_ld_addr(sbase, 1)};
   uint4* const st0 = &rows[warp][gm8::enc_row(2 * lane)];
   uint4* const st1 = &rows[warp][gm8::enc_row(2 * lane + 1)];
 
@@ -150,15 +76,15 @@ encode_kernel(const Word* __restrict__ x, const int* __restrict__ sft,
       static_cast<int>(stride - static_cast<long long>(drow) * ntc);
   int row = static_cast<int>(t / ntc);
   int ct = static_cast<int>(t - static_cast<long long>(row) * ntc);
-  Pair<Word> cur = load_pair(x, sft, static_cast<size_t>(row) * d1, row,
-                             c0 + ct * kEncTile + 2 * lane, c1, axis);
+  gm8::EncPair<Word> cur =
+      gm8::enc_load_pair(x, sft, static_cast<size_t>(row) * d1, row,
+                         c0 + ct * kEncTile + 2 * lane, c1, axis);
   for (;;) {
     *st0 = gm8::enc_planes(cur.x0, cur.s0, q_max);
     *st1 = gm8::enc_planes(cur.x1, cur.s1, q_max);
     __syncwarp();
     unsigned b[8];
-    gm8::enc_ldmatrix_x4(b, ld_addr[0]);
-    gm8::enc_ldmatrix_x4(b + 4, ld_addr[1]);
+    gm8::enc_frags(ld_addr, b);
     __syncwarp();  // the next tile's planes overwrite these rows
     // the next tile's words, in flight during this tile's contraction
     const long long tn = t + stride;
@@ -168,34 +94,21 @@ encode_kernel(const Word* __restrict__ x, const int* __restrict__ sft,
       ++nrow;
     }
     if (tn < tiles)
-      cur = load_pair(x, sft, static_cast<size_t>(nrow) * d1, nrow,
-                      c0 + nct * kEncTile + 2 * lane, c1, axis);
+      cur = gm8::enc_load_pair(x, sft, static_cast<size_t>(nrow) * d1, nrow,
+                               c0 + nct * kEncTile + 2 * lane, c1, axis);
     const int cs = c0 + ct * kEncTile;
     signed char* const obase = out + static_cast<size_t>(row) * d1;
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt) {
       int d[8][4];
-#pragma unroll
-      for (int p = 0; p < 8; ++p) {
-        d[p][0] = d[p][1] = off[mt][0];
-        d[p][2] = d[p][3] = off[mt][1];
-        gm8::mma_s8u8_k16(d[p], a[mt], b[p]);
-      }
+      slots.contract(mt, b, d);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int l = 16 * mt + 8 * h + g;
         if (l >= L) continue;
         unsigned w[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          unsigned r[4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            r[j] = gm8::enc_reduce(d[2 * i + (j >> 1)][2 * h + (j & 1)],
-                                   mul[mt][h], hmul[mt][h], mod[mt][h]);
-          w[i] = gm8::pack4(r[0], r[1], r[2], r[3]);
-        }
-        store16(obase + l * total, cs + 16 * tq, c1, w);
+        slots.reduce(mt, h, d, w);
+        gm8::enc_store16(obase + l * total, cs + 16 * tq, c1, w);
       }
     }
     if (tn >= tiles) break;

@@ -18,10 +18,10 @@
 // The accumulator is the hardware's wrapping int32: the modulus-256 lane
 // can reach 128 * 128 * 2^17 = 2^31, which wraps to a multiple of 256, so
 // its residue stays right; the odd lanes stay below 127^2 * 2^17 < 2^31.
-// The epilogue reduces mod m_l with a per-slot multiplier and shift
-// (moduli.cuh mod_div, exact for every int32; the 256 lane as x & 255),
-// writes the residue bytes into a swizzled staging tile in shared memory
-// and stores it in 16-byte pieces. Slot l of a call holds modulus
+// The epilogue (wgmma_s8.cuh store_tile) reduces mod m_l with a per-slot
+// multiplier and shift (moduli.cuh mod_div, exact for every int32; the 256
+// lane as x & 255), writes the residue bytes into a swizzled staging tile
+// in shared memory and stores it in 16-byte pieces. Slot l of a call holds modulus
 // MODULI[moduli_idx[l]] (all the moduli in order, or the chunk of a
 // moduli-chunked call). The tile width, the ring's depth and the raster
 // group are compile-time constants from the launch table (hopper/launch.py
@@ -50,71 +50,6 @@ static_assert(kStages >= 2 && kGroup >= 1,
               "a ring of two stages or more, groups of one m-tile or more");
 static_assert(kSmem <= 232448,
               "over the shared memory a block may opt into on sm_90");
-
-// staging tile: row r's 16-byte piece c sits at piece c ^ (r & 7), so the
-// fragment's 2-byte writes (8 rows x 4 lanes a warp) and the 16-byte reads
-// are free of bank conflicts
-__device__ __forceinline__ int stg_off(int r, int c) {
-  return r * kBN + ((((c >> 4) ^ (r & 7))) << 4) + (c & 15);
-}
-
-// one consumer warpgroup's 64-row half of a finished tile: residues into
-// the staging tile, then out to out[l] in 16-byte pieces (bytes where n is
-// not a multiple of 16); rows and columns past m and n are not stored
-template <bool kPow2>
-__device__ __forceinline__ void store_tile(const int (&acc)[kBN / 2],
-                                           unsigned char* stg,
-                                           unsigned char* __restrict__ out,
-                                           int l, int m, int n, int tm,
-                                           int tn, int half,
-                                           const gm8::ModDivisor& dv,
-                                           unsigned flip) {
-  const int tid = threadIdx.x & 127;
-  const int warp = tid >> 5, lane = tid & 31;
-  gm8::wg::warpgroup_sync(1 + half);  // the last tile's reads are done
-  const int r0 = half * 64 + warp * 16 + (lane >> 2);
-  const int c0 = 2 * (lane & 3);
-#pragma unroll
-  for (int v2 = 0; v2 < kBN / 8; ++v2)
-#pragma unroll
-    for (int v1 = 0; v1 < 2; ++v1) {
-      const int x0 = acc[4 * v2 + 2 * v1], x1 = acc[4 * v2 + 2 * v1 + 1];
-      unsigned r0b, r1b;
-      if constexpr (kPow2) {
-        r0b = static_cast<unsigned>(x0) & 255u;
-        r1b = static_cast<unsigned>(x1) & 255u;
-      } else {
-        r0b = gm8::mod_div(x0, dv);
-        r1b = gm8::mod_div(x1, dv);
-      }
-      const unsigned short pair =
-          static_cast<unsigned short>((r0b | (r1b << 8)) ^ flip);
-      *reinterpret_cast<unsigned short*>(
-          stg + stg_off(r0 + 8 * v1, 8 * v2 + c0)) = pair;
-    }
-  gm8::wg::warpgroup_sync(1 + half);  // the half tile is staged
-  constexpr int kPieces = kBN / 16;    // 16-byte pieces a row
-  const bool vec = (n & 15) == 0;
-  unsigned char* ol = out + static_cast<size_t>(l) * m * n;
-#pragma unroll
-  for (int j = 0; j < 64 * kPieces / 128; ++j) {
-    const int p = tid + 128 * j;
-    const int r = half * 64 + p / kPieces, c = 16 * (p % kPieces);
-    const int row = tm * kBM + r, col = tn * kBN + c;
-    if (row >= m || col >= n) continue;
-    const uint4 v = *reinterpret_cast<const uint4*>(stg + stg_off(r, c));
-    unsigned char* dst = ol + static_cast<size_t>(row) * n + col;
-    if (vec) {
-      *reinterpret_cast<uint4*>(dst) = v;
-    } else {
-      const unsigned w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int b = 0; b < 16; ++b)
-        if (col + b < n)
-          dst[b] = static_cast<unsigned char>(w[b >> 2] >> (8 * (b & 3)));
-    }
-  }
-}
 
 __global__ void __launch_bounds__(gm8::wg::kThreads, 1)
 matmul_mod_kernel(const __grid_constant__ CUtensorMap map_a,
@@ -163,10 +98,13 @@ matmul_mod_kernel(const __grid_constant__ CUtensorMap map_a,
       walk.at(t, l, tm, tn);
       gm8::wg::consume<kBN>(acc, ring, role, nk, stage, phase);
       const gm8::ModDivisor dv = divs.v[l];
+      unsigned char* ol = out + static_cast<size_t>(l) * m * n;
       if (dv.d == 256)
-        store_tile<true>(acc, stg, out, l, m, n, tm, tn, role, dv, flip);
+        gm8::wg::store_tile<kBN, true>(acc, stg, ol, n, m, tm * kBM,
+                                       tn * kBN, n, role, dv, flip);
       else
-        store_tile<false>(acc, stg, out, l, m, n, tm, tn, role, dv, flip);
+        gm8::wg::store_tile<kBN, false>(acc, stg, ol, n, m, tm * kBM,
+                                        tn * kBN, n, role, dv, flip);
     }
   }
 }
@@ -191,66 +129,16 @@ mod_div_check_kernel(long long lo, long long count,
 }
 
 // ---- host ------------------------------------------------------------------
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, reached through the runtime's entry
-// point query (the library links no libcuda of its own)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &q);
-#endif
-    return q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// (L, rows, kp) int8 at ptr (16-byte aligned, kp % 16 == 0) as a 3-D map
-// (kp, rows, L) with a 128-byte x box_rows box and the 128-byte swizzle;
-// out-of-range elements read as zeros
-bool make_tensor_map(CUtensorMap* map, const void* ptr, int L, int rows,
-                     int kp, int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(kp),
-                              static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(L)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(kp),
-                                 static_cast<cuuint64_t>(rows) * kp};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kBK),
-                             static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 int launch_gemm(const signed char* a8, const signed char* bt,
                 unsigned char* out, int L, int m, int n, int kp,
                 int centered, const gm8::SlotModuli& mods, cudaStream_t s) {
   CUtensorMap map_a, map_b;
-  if (!make_tensor_map(&map_a, a8, L, m, kp, kBM) ||
-      !make_tensor_map(&map_b, bt, L, n, kp, kBN))
+  if (!gm8::wg::make_tensor_map(&map_a, a8, L, m, kp, kBM) ||
+      !gm8::wg::make_tensor_map(&map_b, bt, L, n, kp, kBN))
     return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long tiles = static_cast<long long>(L) * ((m + kBM - 1) / kBM) *
-                          ((n + kBN - 1) / kBN);
-  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  const int grid = gm8::wg::persistent_grid(
+      static_cast<long long>(L) * ((m + kBM - 1) / kBM) *
+      ((n + kBN - 1) / kBN));
   cudaFuncSetAttribute(matmul_mod_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   matmul_mod_kernel<<<grid, gm8::wg::kThreads, kSmem, s>>>(

@@ -1,7 +1,9 @@
-// The mma.sync int8 tensor-core tile shared by the GEMM kernels (magmax.cu,
-// matmul_complex.cu; matmul_mod_pipelined.cu takes its copies and fragment
-// loads; matmul_mod.cu runs the wgmma tile of wgmma_s8.cuh): one 128 x 128
-// output tile of
+// The mma.sync int8 tensor-core tile of the GEMM kernels not yet on the
+// wgmma tile (wgmma_s8.cuh, which runs matmul_mod.cu and matmul_rider.cu):
+// magmax.cu, matmul_complex.cu, the CRT-fused GEMMs of crt_gemm.cuh
+// (matmul_crt.cu, matmul_reconstruct.cu) and the deaddep probe
+// (probe_deaddep.cu); matmul_mod_pipelined.cu takes its copies and
+// fragment loads. One 128 x 128 output tile of
 // A (rows, k) x Bt (cols, k)^T, both operands K-major, accumulated in int32.
 //
 // 8 warps, each 64 x 32, run mma.sync.m16n8k32 (s8 x s8 -> s32). 16-byte
@@ -47,15 +49,6 @@ __device__ __forceinline__ void ldmatrix_x4(unsigned* r, unsigned addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_s8(int* c, const unsigned* a,
-                                       const unsigned* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // byte offset of 16-byte chunk c of row r in a 128-byte-row tile

@@ -32,6 +32,19 @@ inline bool slot_moduli(const int* idx, int n, SlotModuli* out) {
   return true;
 }
 
+// The CRT constants of the first L moduli (crt.cuh, crt_tail.cuh), built
+// on the host (hopper/kernels.py crt_table_bytes): the weights and M as
+// kWords 32-bit words, X < 255 * 20 * M < 2^170 fitting six.
+constexpr int kWords = 6;
+
+struct CrtTable {
+  unsigned w[kMaxModuli][kWords];  // CRT weights, 32-bit words
+  unsigned big_m[kWords];          // M
+  unsigned half1[kWords];          // floor(M / 2) + 1
+  double rinv;                     // 1 / M, rounded
+  int pad[2];
+};
+
 // canonical residue in [0, mod) of an int32 product; the 256 lane's
 // accumulator may have wrapped at 2^31, a multiple of 256
 __device__ __forceinline__ int mod_canon(int x, int mod) {

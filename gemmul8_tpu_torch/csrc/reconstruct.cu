@@ -88,23 +88,8 @@ __device__ __forceinline__ void load_row(unsigned (&w)[4],
       w[k] = gm8::pack4(c[0], c[1], c[2], c[3]) ^ 0x80808080u;
     }
   } else {
-    const unsigned char* r = static_cast<const unsigned char*>(rv) + off;
-    if (vec) {
-      const uint4 q = __ldg(reinterpret_cast<const uint4*>(r));
-      w[0] = q.x;
-      w[1] = q.y;
-      w[2] = q.z;
-      w[3] = q.w;
-    } else {
-#pragma unroll
-      for (int b = 0; b < 16; ++b)
-        if (e0 + b < mn)
-          w[b >> 2] |= static_cast<unsigned>(__ldg(r + b)) << (8 * (b & 3));
-    }
-    if (kKind == kU8) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) w[k] ^= 0x80808080u;
-    }
+    gm8::crt_load16(w, static_cast<const unsigned char*>(rv), j, e0, L, mn,
+                    vec, kKind == kU8);
   }
 }
 

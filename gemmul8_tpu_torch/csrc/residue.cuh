@@ -1,10 +1,11 @@
 // Centered residues of one f64 or f32 element (the source word a template
 // parameter, src_word.cuh), one remainder chain per modulus:
 // out[j * total + idx] = the centered residue of trunc(x * 2^sft) mod m_j as
-// int8, for j < num_moduli (encode_element: the fused stats + encode kernels
-// of fast_encode_fused.cu and the encode riders of matmul_rider.cu). The
-// encode kernel of encode.cu takes shifted_value and runs the residue dots
-// on the tensor cores instead (encode_mma.cuh).
+// int8, for j < num_moduli (encode_element: the fused stats + encode kernel
+// of fast_encode_fused.cu). encode.cu and the encode riders of
+// matmul_rider.cu run the residue dots on the tensor cores instead
+// (encode_mma.cuh). Both start from the element's shifted value
+// (src_word.cuh shifted_value).
 #pragma once
 
 #include "common.cuh"
@@ -31,33 +32,6 @@ __device__ __forceinline__ int centered_residue(unsigned long long lo,
     int c = static_cast<int>(r) - (r >= (M + 1) / 2 ? M : 0);
     return neg ? -c : c;
   }
-}
-
-// |trunc(x * 2^sft)| = hi * 2^64 + lo and its sign, from x's f64 or f32
-// bits; q_max: the static left-shift cap max(threshold_accurate -
-// mant_bits, 0), at most 24 for f64 and 53 for f32 (20 moduli), so the
-// value has at most 77 bits
-struct Shifted {
-  unsigned long long lo;
-  unsigned hi;
-  bool neg;
-};
-
-template <typename Word>
-__device__ __forceinline__ Shifted shifted_value(Word bits, int sft,
-                                                 int q_max) {
-  using S = Src<Word>;
-  const unsigned long long mant = S::mant(bits);
-  const int q = max(S::biased_exp(bits), 1) - S::kMantShift + sft;
-  Shifted v{0, 0, S::neg(bits)};
-  if (q < 0) {
-    v.lo = mant >> min(-q, 63);
-  } else {
-    const int ql = min(q, q_max);
-    v.lo = mant << ql;
-    if (ql > 0) v.hi = static_cast<unsigned>(mant >> (64 - ql));
-  }
-  return v;
 }
 
 template <typename Word>

@@ -6,6 +6,9 @@
 // with one body; the value of a word is (-1)^sign * mant * 2^(max(e, 1) -
 // kMantShift), mant with the implicit bit where e > 0, as the JAX
 // package's _f64_fields / _f32_fields define it (subnormal-exact).
+// shifted_value is the encode's integer trunc(x * 2^sft) of a word, which
+// the residue chains (residue.cuh) and the tensor-core contraction
+// (encode_mma.cuh) reduce.
 #pragma once
 
 #include "common.cuh"
@@ -53,5 +56,32 @@ struct Src<unsigned> {
     return (b >> 31) != 0;
   }
 };
+
+// |trunc(x * 2^sft)| = hi * 2^64 + lo and its sign, from x's f64 or f32
+// bits; q_max: the static left-shift cap max(threshold_accurate -
+// mant_bits, 0), at most 24 for f64 and 53 for f32 (20 moduli), so the
+// value has at most 77 bits
+struct Shifted {
+  unsigned long long lo;
+  unsigned hi;
+  bool neg;
+};
+
+template <typename Word>
+__device__ __forceinline__ Shifted shifted_value(Word bits, int sft,
+                                                 int q_max) {
+  using S = Src<Word>;
+  const unsigned long long mant = S::mant(bits);
+  const int q = max(S::biased_exp(bits), 1) - S::kMantShift + sft;
+  Shifted v{0, 0, S::neg(bits)};
+  if (q < 0) {
+    v.lo = mant >> min(-q, 63);
+  } else {
+    const int ql = min(q, q_max);
+    v.lo = mant << ql;
+    if (ql > 0) v.hi = static_cast<unsigned>(mant >> (64 - ql));
+  }
+  return v;
+}
 
 }  // namespace gm8

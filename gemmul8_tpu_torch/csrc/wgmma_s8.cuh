@@ -1,14 +1,19 @@
-// The Hopper int8 GEMM tile (sm_90a), for matmul_mod.cu: TMA loads into a
-// ring of shared-memory stages, one producer warp, two consumer warpgroups
-// running wgmma s8 x s8 -> s32, walked by a persistent grid. The older
-// mma.sync tile (mma_s8.cuh) still carries the other int8 GEMM kernels.
+// The Hopper int8 GEMM tile (sm_90a): TMA loads into a ring of
+// shared-memory stages, one producer warp, two consumer warpgroups running
+// wgmma s8 x s8 -> s32, walked by a persistent grid; the residue epilogue
+// (store_tile) and the host's tensor maps (make_tensor_map). Its callers:
+// matmul_mod.cu (the one-shot GEMM) and matmul_rider.cu (the panel
+// pipeline's GEMM, with rider work between tiles). The older mma.sync tile
+// (mma_s8.cuh) still carries magmax.cu, matmul_complex.cu, the CRT-fused
+// GEMMs (crt_gemm.cuh), matmul_mod_pipelined.cu and the deaddep probe.
 //
 // Operands: A (L, m, kp) and Bt (L, n, kp) int8, both K-major (wgmma takes
 // 8-bit operands K-major only), kp % 16 == 0, each read through a 3-D
 // tensor map (kp, rows, L) with a 128-byte box along k and the 128-byte
-// swizzle (make_tensor_map). Rows past m or n and bytes past kp land in
-// shared memory as zeros, so no load is masked and a tile never reads the
-// next slice's rows. A stage holds a 128 x 128-byte A tile and a BN x
+// swizzle (make_tensor_map; a map may cover a window of rows of a larger
+// operand, with its own row and slice strides). Rows past the map's rows
+// and bytes past kp land in shared memory as zeros, so no load is masked
+// and a tile never reads the next slice's rows or past its window. A stage holds a 128 x 128-byte A tile and a BN x
 // 128-byte B tile, each at a 1024-byte boundary, as the swizzle and the
 // wgmma descriptors (base offset 0) want.
 //
@@ -35,6 +40,7 @@
 #include <cuda.h>
 
 #include "common.cuh"
+#include "moduli.cuh"
 
 namespace gm8 {
 namespace wg {
@@ -309,6 +315,137 @@ __device__ __forceinline__ void consume(int (&acc)[BN / 2], const Ring& ring,
   wgmma_wait<0>();
   if (leader) mbar_arrive(ring.empty + 8 * prev);
   fence_regs(acc);
+}
+
+// ---- the residue epilogue ----------------------------------------------
+// staging tile (kBM x BN bytes): row r's 16-byte piece c sits at piece
+// c ^ (r & 7), so the fragment's 2-byte writes (8 rows x 4 lanes a warp)
+// and the 16-byte reads are free of bank conflicts
+template <int BN>
+__device__ __forceinline__ int stg_off(int r, int c) {
+  return r * BN + ((((c >> 4) ^ (r & 7))) << 4) + (c & 15);
+}
+
+// One consumer warpgroup's 64-row half of a finished tile as residues mod
+// dv.d (canonical uint8, or ^ 0x80 with flip 0x8080: int8 r - 128): into
+// the staging tile, then out in 16-byte pieces. out: the tile's slice,
+// element (row, col) at out[row * ld + col]; the tile's origin (row0,
+// col0); rows at or past `rows` and columns at or past col_end are not
+// stored. A piece is stored whole where ld and col0 are multiples of 16
+// and it ends by col_end, else bytewise.
+template <int BN, bool kPow2>
+__device__ __forceinline__ void store_tile(const int (&acc)[BN / 2],
+                                           unsigned char* stg,
+                                           unsigned char* __restrict__ out,
+                                           size_t ld, int rows, int row0,
+                                           int col0, int col_end, int half,
+                                           const ModDivisor& dv,
+                                           unsigned flip) {
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31;
+  warpgroup_sync(1 + half);  // the last tile's reads are done
+  const int r0 = half * 64 + warp * 16 + (lane >> 2);
+  const int c0 = 2 * (lane & 3);
+#pragma unroll
+  for (int v2 = 0; v2 < BN / 8; ++v2)
+#pragma unroll
+    for (int v1 = 0; v1 < 2; ++v1) {
+      const int x0 = acc[4 * v2 + 2 * v1], x1 = acc[4 * v2 + 2 * v1 + 1];
+      unsigned r0b, r1b;
+      if constexpr (kPow2) {
+        r0b = static_cast<unsigned>(x0) & 255u;
+        r1b = static_cast<unsigned>(x1) & 255u;
+      } else {
+        r0b = mod_div(x0, dv);
+        r1b = mod_div(x1, dv);
+      }
+      const unsigned short pair =
+          static_cast<unsigned short>((r0b | (r1b << 8)) ^ flip);
+      *reinterpret_cast<unsigned short*>(
+          stg + stg_off<BN>(r0 + 8 * v1, 8 * v2 + c0)) = pair;
+    }
+  warpgroup_sync(1 + half);  // the half tile is staged
+  constexpr int kPieces = BN / 16;    // 16-byte pieces a row
+  const bool vec = ((ld | static_cast<size_t>(col0)) & 15) == 0;
+#pragma unroll
+  for (int j = 0; j < 64 * kPieces / 128; ++j) {
+    const int p = tid + 128 * j;
+    const int r = half * 64 + p / kPieces, c = 16 * (p % kPieces);
+    const int row = row0 + r, col = col0 + c;
+    if (row >= rows || col >= col_end) continue;
+    const uint4 v = *reinterpret_cast<const uint4*>(stg + stg_off<BN>(r, c));
+    unsigned char* dst = out + static_cast<size_t>(row) * ld + col;
+    if (vec && col + 16 <= col_end) {
+      *reinterpret_cast<uint4*>(dst) = v;
+    } else {
+      const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int b = 0; b < 16; ++b)
+        if (col + b < col_end)
+          dst[b] = static_cast<unsigned char>(w[b >> 2] >> (8 * (b & 3)));
+    }
+  }
+}
+
+// ---- host: tensor maps ---------------------------------------------------
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, reached through the runtime's entry
+// point query (the library links no libcuda of its own)
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &q);
+#endif
+    return q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// rows [0, rows) of each of L K-major int8 slices at ptr (16-byte aligned,
+// kp % 16 == 0), row r of slice l at ptr + l * slice + r * ld (ld and slice
+// multiples of 16; 0: kp and rows * kp), as a 3-D map (kp, rows, L) with a
+// 128-byte x box_rows box and the 128-byte swizzle; elements outside it
+// read as zeros
+inline bool make_tensor_map(CUtensorMap* map, const void* ptr, int L,
+                            int rows, int kp, int box_rows, size_t ld = 0,
+                            size_t slice = 0) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  if (ld == 0) ld = kp;
+  if (slice == 0) slice = static_cast<size_t>(rows) * kp;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(kp),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(L)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld),
+                                 static_cast<cuuint64_t>(slice)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kBK),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the persistent grid: one block per SM, no more than there is work for
+inline int persistent_grid(long long items) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return static_cast<int>(items < sms ? items : sms);
 }
 
 }  // namespace wg

@@ -10,9 +10,10 @@ interface:
 
 `-fmad=false` keeps every f32 multiply and add a separate rounding, as in
 the plain versions (the Barrett and quotient-estimate budgets assume it).
-A source may take flags of its own (`SOURCE_FLAGS`): matmul_mod.cu gets
-the launch table's constants (`-DGM8_MM_TILE_N=256 ...`, hopper/launch.py)
-and `-Xptxas -v`, whose report is kept in `PTXAS_REPORT`. The library
+A source may take flags of its own (`SOURCE_FLAGS`): matmul_mod.cu and
+matmul_rider.cu get the launch table's constants (`-DGM8_MM_TILE_N=256
+...`, hopper/launch.py) and `-Xptxas -v`, whose report is kept in
+`PTXAS_REPORT`. The library
 lands in `build/kernels/` under the checkout, named by a hash of the
 sources and flags, so an edited source or launch entry never loads a
 stale build; the ptxas report is saved beside it and read back with it.
@@ -54,14 +55,18 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
 
 # launches of each kernel wrapper; reset by the caller that reads them
 LAUNCHES: collections.Counter = collections.Counter()
-# flags of single sources: matmul_mod.cu takes its launch constants from
-# the launch table; its ptxas report and those of the two main-path
+# flags of single sources: matmul_mod.cu and matmul_rider.cu (the same
+# wgmma tile) take their launch constants from the launch table's entry
+# of their name; their ptxas reports and those of the two main-path
 # kernels redesigned on the tensor cores (`-Xptxas -v`: each kernel's
 # registers, shared memory and spills) are kept by source name in
 # PTXAS_REPORT, saved beside the library and read back with it
 SOURCE_FLAGS = {
     "matmul_mod.cu": ("-Xptxas", "-v",
                       *launch.get("matmul_mod", ARCH_CAPABILITY).defines()),
+    "matmul_rider.cu": ("-Xptxas", "-v",
+                        *launch.get("matmul_rider",
+                                    ARCH_CAPABILITY).defines()),
     "encode.cu": ("-Xptxas", "-v"),
     "reconstruct.cu": ("-Xptxas", "-v")}
 PTXAS_REPORT: dict = {}
@@ -121,6 +126,8 @@ _SIGNATURES = {
     # a8, b8, bt, res, b_src, b_sft, a_src, a_sft, a_out, L, pm, n, k,
     # a_q_max, b_q_max, a_f32, b_f32, stream
     "gm8_matmul_bsplit_pair": [_P] * 9 + [_I] * 8 + [_P],
+    # blob (host), nbytes
+    "gm8_set_rider_tables": [_P, _I],
     # the probes (hopper/probes.py). x, out, n, form, stream
     "gm8_probe_clz": [_P, _P, _I, _I, _P],
     # x, out, n, case, steps, stream

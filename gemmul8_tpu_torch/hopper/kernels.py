@@ -337,10 +337,11 @@ def fast_encode_fused(x: torch.Tensor, num_moduli: int, axis: int):
 
 @functools.lru_cache(maxsize=None)
 def crt_table_bytes() -> bytes:
-    """The CRT constants (`CrtTable` in csrc/crt.cuh), one entry per moduli
-    count 0..20: the CRT weights, M and floor(M/2) + 1 as 32-bit words, and
-    1/M. The reconstruct kernel keeps the whole table in __constant__
-    memory; the CRT-fused GEMMs take one entry by value."""
+    """The CRT constants (`CrtTable` in csrc/moduli.cuh), one entry per
+    moduli count 0..20: the CRT weights, M and floor(M/2) + 1 as 32-bit
+    words, and 1/M. The reconstruct kernel keeps the whole table in
+    __constant__ memory; the CRT-fused GEMMs and the rider step take one
+    entry by value."""
     dt = np.dtype([("w", "<u4", (tables.MAX_MODULI, 6)), ("m", "<u4", 6),
                    ("half1", "<u4", 6), ("rinv", "<f8"), ("pad", "<i4", 2)])
     tab = np.zeros(tables.MAX_MODULI + 1, dtype=dt)

@@ -20,6 +20,9 @@ Entries:
                   hopper/build.py passes `defines()` of the entry for the
                   capability it builds for to nvcc, and the source checks
                   them (`static_assert`).
+    "matmul_rider" `MatmulModLaunch` of csrc/matmul_rider.cu, the same
+                  tile with encode warps beside its producer: their plane
+                  rows take the shared memory of a fourth stage.
 """
 
 from __future__ import annotations
@@ -50,9 +53,12 @@ class MatmulModLaunch:
 # registers a consumer thread), four 48 KB stages (230,464 bytes of shared
 # memory a block with the epilogue's staging tile, of the 232,448 a block
 # may opt into), groups of 16 m-tiles (132 tiles in flight read 16 A panels
-# and 8-9 B panels).
+# and 8-9 B panels). The rider kernel's encode warps and tables take 4,944
+# bytes more, which leave three stages.
 TABLE = {(9, 0): {"matmul_mod": MatmulModLaunch(tile_n=256, stages=4,
-                                                raster_group=16)}}
+                                                raster_group=16),
+                  "matmul_rider": MatmulModLaunch(tile_n=256, stages=3,
+                                                  raster_group=16)}}
 
 
 def get(name: str, capability=None):

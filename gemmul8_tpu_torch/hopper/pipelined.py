@@ -15,13 +15,22 @@ or f32 (`out_kind`, `kind`). A CPU tensor takes the plain version
 `build.LAUNCHES` counts each kernel launch under the wrapper's name and its
 words (`build.form`; the pair adds two). The panel GEMMs read B
 K-major, (L, n, k); k must be a multiple of 16 (the pipeline's gates ask
-128), so A's slices need no padding.
+128), so A's slices need no padding. The kernel's GEMM is matmul_mod.cu's
+wgmma tile, whose tensor maps want A's slices and the K-major B 16-byte
+aligned and k >= 16; a CUDA call that breaks one of its limits raises
+(`_check_kernel_args`), it never falls back. The riders' tables
+(`rider_tables`) go to the library once per process.
 """
 
 from __future__ import annotations
 
+import functools
+import threading
+
+import numpy as np
 import torch
 
+from .. import tables
 from ..core import encode as enc
 from ..core import riders
 from . import build
@@ -53,6 +62,51 @@ def _check_shifts(sft_a, sft_b, m: int, n: int):
     if sft_a.dim() != 2 or sft_a.shape[1] != 1 or sft_a.shape[0] < m \
             or tuple(sft_b.shape) != (1, n):
         raise ValueError("shifts must be (m, 1) and (1, n)")
+
+
+def _check_kernel_args(k: int, n: int, pair: bool, **slices) -> None:
+    """The rider kernel's own limits on a CUDA call, each a ValueError:
+    each named tensor's start 16-byte aligned (its tensor maps), k >= 16
+    (k % 16 is checked for every call), and the GEMM's column window not
+    empty: [0, n) for the step, both halves [0, n/2) and [n/2, n) for the
+    pair."""
+    for name, x in slices.items():
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must start 16-byte aligned for the "
+                             "kernel's tensor maps")
+    if k < 16:
+        raise ValueError(f"k={k}: the kernel takes k >= 16")
+    if n < (2 if pair else 1):
+        raise ValueError(f"n={n}: the GEMM's column window is empty")
+
+
+@functools.lru_cache(maxsize=None)
+def rider_tables() -> np.ndarray:
+    """The riders' tables as csrc/matmul_rider.cu's gm8_set_rider_tables
+    takes them (bytes on the host): the EncMmaTable of moduli 0..19
+    (`hk.encode_mma_table`; slot l for modulus l, so one table serves every
+    moduli count), then the CrtMmaTable of each moduli count 0..20
+    (`hk.crt_mma_table`; zeros below 2)."""
+    crt = [np.zeros_like(hk.crt_mma_table(2))] * 2 + [
+        hk.crt_mma_table(L) for L in range(2, tables.MAX_MODULI + 1)]
+    return np.concatenate(
+        [hk.encode_mma_table(tuple(range(tables.MAX_MODULI)))] + crt)
+
+
+_tables_lock = threading.Lock()
+_tables_set = False
+
+
+def _ensure_rider_tables() -> None:
+    """Hands the library the riders' tables, once per process (host
+    memory: every device's launches read them)."""
+    global _tables_set
+    with _tables_lock:
+        if not _tables_set:
+            blob = rider_tables()
+            build.check(build.lib().gm8_set_rider_tables(
+                blob.ctypes.data, blob.nbytes), "set_rider_tables")
+            _tables_set = True
 
 
 def _new(shape, dtype, like):
@@ -111,6 +165,8 @@ def matmul_rider_step(a8, bt, panel: int, r_prev, prev_panel: int, sft_a,
     if sft_a.dtype != torch.int32 or sft_b.dtype != torch.int32:
         raise TypeError("shifts must be int32")
     build.require_cuda(*operands)
+    _check_kernel_args(k, n, False, a8=a8, bt=bt)
+    _ensure_rider_tables()
     res = _new((L, panel_m, n), torch.uint8, a8)
     # the riders' pointers, null for a rider that is off
     rec = [None] * 4      # residues, row shifts, rows out, CRT table
@@ -178,6 +234,8 @@ def matmul_bsplit_pair(a8_p0, b8_left, b_src, sft_a, sft_b, num_moduli: int,
     if sft_a.dtype != torch.int32 or sft_b.dtype != torch.int32:
         raise TypeError("shifts must be int32")
     build.require_cuda(*operands)
+    _check_kernel_args(k, n, True, a8_p0=a8_p0)
+    _ensure_rider_tables()
     res = _new((L, panel_m, n), torch.uint8, a8_p0)
     bt = _new((L, n, k), torch.int8, a8_p0)
     a8_next = None
