@@ -319,6 +319,24 @@ its launch from gemmul8_tpu_torch/hopper/launch.py) adds:
   5.  (also) matmul_mod_u8 beside torch._int_mm x L in one rotation: the
       ratio of the two and the share of the bound each reaches.
 
+The ping-pong matmul_mod_u8_pipelined (csrc/matmul_mod_pipelined.cu) and
+the chained matmul_complex_mod (csrc/matmul_complex.cu), both on the wgmma
+tile, add:
+  2.  (also) both sources' ptxas reports, each asserted free of spill
+      stores and loads (`build.spill_bytes`);
+  3e. (also) matmul_complex_mod at its k limit, 2^16, on extreme slices
+      at 65 x 130, L = 20: all -128 (IR + RI exactly 2^31), all 127, mixed
+      signs (Karatsuba's G - E - F past 2^31), -128 in the odd lanes only;
+      both forms, centered and not, bit-equal to the plain version;
+  3v. (also) matmul_mod_u8_pipelined at (m, k, n) = (300, 2^17, 520), L =
+      20 (the 256 lane all -128, its products wrapping, the odd lanes at
+      +-127; then random slices) and at a ragged (777, 1000, 1333), L =
+      14: three runs each, bit-equal to each other, to the plain version
+      and to matmul_mod_u8(centered=False);
+  5c, 5v. (as before) each beside torch._int_mm over its own products in
+      one rotation, the pipelined kernel also beside
+      matmul_mod_u8(centered=False).
+
 The encode and reconstruct kernels on the int8 tensor cores
 (csrc/encode_mma.cuh, csrc/crt_mma.cuh, csrc/crt_tail.cuh) and the real
 planner at a ragged k add:
@@ -470,10 +488,23 @@ COMPLEX_CALLS = [(CT.COMPLEX_BIG_MATRIX_ENCODE, True),
 # 4100 spans three of fast_sft's 2048-wide norm chunks, the last ragged
 COMPLEX_CASES = CASES + [((600, 600, 328), (14,), False),
                          ((1000, 4100, 1500), (2, 14), True)]
+# phase 3e: the complex GEMM at its k limit, 2^16, on extreme slices at a
+# ragged m x n (every lane): all -128 (IR + RI exactly 2^31, past int32
+# but for the Im chain's bias), all 127, mixed signs (Karatsuba's G - E - F
+# past 2^31: its residues carried), -128 in the odd lanes only
+COMPLEX_EDGE_K = tables.MAX_K // 2
+COMPLEX_EDGE_MN = (65, 130)
+COMPLEX_EDGE_PATTERNS = ("neg", "pos", "mixed", "odd")
 # rounds of phase 5c's complex call times, each in a rotated call order
 COMPLEX_ROUNDS = 5
 # phase 3v: phase 3's shapes and k over three 2048-wide norm chunks
 VARIANT_CASES = CASES + [((1000, 4100, 1500), (2, 14), True)]
+# phase 3v: the ping-pong matmul_mod_u8_pipelined at k = 2^17 (the 256
+# lane's products wrapping) and at a ragged shape, (m, k, n, L), several
+# tiles a block; each run PIPE_REPEATS times, bit-equal
+PIPE_EDGES = [(300, tables.MAX_K, 520, tables.MAX_MODULI),
+              (777, 1000, 1333, L_MAIN)]
+PIPE_REPEATS = 3
 # phase 4v: (name, fastmode, switches, launch counts of the 8192^3 call)
 VARIANT_CALLS = [
     ("fast FUSED_ENCODE", True, {"GEMMUL8_FUSED_ENCODE": "1"},
@@ -505,6 +536,8 @@ PLANNER_SLACK = 0.05     # phase 4s: a measured peak within 5% under the model
 # took the tensor cores (PERF.md, same card and power limit), beside theirs
 EARLIER_MS = {"encode_slices": 2.521, "reconstruct": 1.975}
 MAIN_ROUNDS = 5          # phase 5: the fast, accurate and f32-8 calls
+# phase 2: sources whose ptxas report must show no spill store or load
+NO_SPILL_SOURCES = ("matmul_mod_pipelined.cu", "matmul_complex.cu")
 # phase 3w: the wgmma tile's edge shapes (m, k, n) at these slice counts,
 # a moduli subset, and the int32 wrap at the largest k
 WGMMA_CASES = [(1, 16, 1), (65, 144, 257), (200, 4100, 129),
@@ -1128,6 +1161,100 @@ def phase_complex_kernels(errs):
                          f"matmul_complex_mod {form} {tag} L={L} "
                          f"centered={centered}")
         log(f"  complex kernels == plain at {tag} L={Ls}")
+
+
+def complex_edge_slices(pattern, L, m, k, n, seed):
+    """(A parts, B parts), three each (Re, Im, the Karatsuba sum, taken
+    as given: the kernel takes any int8), on the card, in one of
+    COMPLEX_EDGE_PATTERNS."""
+    a = [torch.empty((L, m, k), dtype=torch.int8, device=DEVICE)
+         for _ in range(3)]
+    b = [torch.empty((L, k, n), dtype=torch.int8, device=DEVICE)
+         for _ in range(3)]
+    if pattern in ("neg", "odd"):
+        for x in a + b:
+            x.fill_(-128)
+        if pattern == "odd":       # random in the 256 lane
+            gen = torch.Generator(device=DEVICE).manual_seed(seed)
+            for x in a + b:
+                x[0] = torch.randint(-128, 128, x.shape[1:], generator=gen,
+                                     dtype=torch.int8, device=DEVICE)
+    elif pattern == "pos":
+        for x in a + b:
+            x.fill_(127)
+    else:                          # mixed signs
+        for x in a:
+            x.fill_(-128)
+        for x in b:
+            x.fill_(127)
+        b[2].fill_(-128)
+        a[1][:, ::2] = 127
+        b[1][:, :, 1::2] = -128
+    return a, b
+
+
+def phase_complex_edge(errs):
+    """Phase 3e (also): matmul_complex_mod at k = 2^16 on extreme slices,
+    both forms, centered and not, bit-equal to its plain version."""
+    L, k = tables.MAX_MODULI, COMPLEX_EDGE_K
+    m, n = COMPLEX_EDGE_MN
+    for i, pattern in enumerate(COMPLEX_EDGE_PATTERNS):
+        a, b = complex_edge_slices(pattern, L, m, k, n, 300 + i)
+        for kara in (None, (a[2], b[2])):
+            for centered in (True, False):
+                form = "4-dot" if kara is None else "Karatsuba"
+                hold(errs, "matmul_complex_mod",
+                     hm.matmul_complex_mod(a[0], a[1], b[0], b[1], L,
+                                           centered, kara),
+                     hm.matmul_complex_mod_plain(a[0], a[1], b[0], b[1], L,
+                                                 centered, kara),
+                     f"matmul_complex_mod {form} k={k} {pattern} "
+                     f"centered={centered}")
+        del a, b
+    log(f"  matmul_complex_mod == plain at k = {k}, m x n = {m} x {n}, L = "
+        f"{L}, slices {', '.join(COMPLEX_EDGE_PATTERNS)}: both forms, "
+        "centered and not")
+
+
+def phase_pipelined_edges(errs):
+    """Phase 3v (also): the ping-pong matmul_mod_u8_pipelined at PIPE_EDGES
+    (k = 2^17 with the 256 lane all -128 and the odd lanes at +-127, then
+    random; a ragged shape), PIPE_REPEATS runs each, bit-equal to each
+    other, to the plain version and to matmul_mod_u8(centered=False)."""
+    for i, (m, k, n, L) in enumerate(PIPE_EDGES):
+        gen = torch.Generator(device=DEVICE).manual_seed(400 + i)
+        a8, b8 = (torch.randint(-128, 128, shape, generator=gen,
+                                dtype=torch.int8, device=DEVICE)
+                  for shape in ((L, m, k), (L, k, n)))
+        cases = [("random", a8, b8)]
+        if k == tables.MAX_K:
+            w8 = torch.full_like(a8, -127)
+            v8 = torch.full_like(b8, 127)
+            w8[0] = -128
+            v8[0] = -128
+            v8[1:, :, ::2] = -127
+            cases.insert(0, ("wrap", w8, v8))
+        for tag, x, y in cases:
+            runs = [hm.matmul_mod_u8_pipelined(x, y, L)
+                    for _ in range(PIPE_REPEATS)]
+            for r in runs[1:]:
+                assert torch.equal(r, runs[0]), \
+                    f"matmul_mod_u8_pipelined {tag} m={m} k={k} n={n}: " \
+                    "runs differ"
+            hold(errs, "matmul_mod_u8_pipelined", runs[0],
+                 hm.matmul_mod_u8_pipelined_plain(x, y, L),
+                 f"matmul_mod_u8_pipelined {tag} m={m} k={k} n={n} L={L}")
+            assert torch.equal(runs[0], hm.matmul_mod_u8(x, y, L)), \
+                f"matmul_mod_u8_pipelined {tag} m={m} k={k} n={n}: not " \
+                "matmul_mod_u8's"
+            if tag == "wrap":
+                assert bool((runs[0][0] == 0).all()), \
+                    "the 256 lane's 2^31 is not 0 mod 256"
+            del runs
+        del a8, b8, cases
+        log(f"  matmul_mod_u8_pipelined == plain == matmul_mod_u8 at m={m} "
+            f"k={k} n={n} L={L}, {PIPE_REPEATS} runs bit-equal"
+            + (" (and the wrapping 256 lane)" if k == tables.MAX_K else ""))
 
 
 @contextlib.contextmanager
@@ -4296,7 +4423,7 @@ def main():
         "sources")
 
     for src in ("matmul_mod.cu", "matmul_rider.cu", "encode.cu",
-                "reconstruct.cu"):
+                "reconstruct.cu", *NO_SPILL_SOURCES):
         ptxas = [line.strip() for line in
                  build.PTXAS_REPORT.get(src, "").splitlines()
                  if "entry function" in line or "Used" in line
@@ -4304,6 +4431,11 @@ def main():
         assert ptxas, f"no ptxas report of {src}"
         for line in ptxas:
             log(f"  ptxas {src}: {line}")
+    for src in NO_SPILL_SOURCES:
+        spills = build.spill_bytes(src)
+        assert spills and not any(spills), f"{src} spills: {spills}"
+        log(f"  ptxas {src}: 0 spill bytes in all "
+            f"{len(spills) // 2} functions")
     errs = dict.fromkeys(KERNELS, 0.0)
     t0 = time.perf_counter()
     phase_kernels(errs)
@@ -4313,7 +4445,9 @@ def main():
     phase_accurate_kernels(errs)
     phase_log2()
     phase_complex_kernels(errs)
+    phase_complex_edge(errs)
     phase_variant_kernels(errs)
+    phase_pipelined_edges(errs)
     phase_schedule_kernels(errs)
     phase_pipeline_kernels(errs)
     phase_f32_kernels(errs)

@@ -75,21 +75,27 @@ struct SlotDivisors {
   ModDivisor v[kMaxModuli];  // slot l's; d = 0 past the call's slots
 };
 
-inline ModDivisor mod_divisor(int d) {
+// With a bias c, off = (-2^31 - c) mod d: mod_div then gives the residue
+// of x - c, for an accumulator that started at c (matmul_complex.cu's Im
+// chain).
+inline ModDivisor mod_divisor(int d, long long bias = 0) {
   int l = 0;
   while ((1ull << l) < static_cast<unsigned long long>(d)) ++l;
   ModDivisor r;
   r.d = d;
   r.mul = static_cast<unsigned>(((1ull << 32) * ((1ull << l) - d)) / d + 1);
   r.sh = l - 1;
-  r.off = static_cast<unsigned>((d - (1ull << 31) % d) % d);
+  const long long off = (-(1ll << 31) - bias) % d;
+  r.off = static_cast<unsigned>(off < 0 ? off + d : off);
   return r;
 }
 
-inline SlotDivisors slot_divisors(const SlotModuli& mods) {
+inline SlotDivisors slot_divisors(const SlotModuli& mods,
+                                  long long bias = 0) {
   SlotDivisors out;
   for (int l = 0; l < kMaxModuli; ++l) {
-    out.v[l] = mods.m[l] ? mod_divisor(mods.m[l]) : ModDivisor{0, 0, 0, 0};
+    out.v[l] = mods.m[l] ? mod_divisor(mods.m[l], bias)
+                         : ModDivisor{0, 0, 0, 0};
   }
   return out;
 }

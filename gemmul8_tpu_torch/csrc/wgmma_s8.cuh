@@ -1,11 +1,14 @@
 // The Hopper int8 GEMM tile (sm_90a): TMA loads into a ring of
 // shared-memory stages, one producer warp, two consumer warpgroups running
 // wgmma s8 x s8 -> s32, walked by a persistent grid; the residue epilogue
-// (store_tile) and the host's tensor maps (make_tensor_map). Its callers:
-// matmul_mod.cu (the one-shot GEMM) and matmul_rider.cu (the panel
-// pipeline's GEMM, with rider work between tiles). The older mma.sync tile
-// (mma_s8.cuh) still carries magmax.cu, matmul_complex.cu, the CRT-fused
-// GEMMs (crt_gemm.cuh), matmul_mod_pipelined.cu and the deaddep probe.
+// (store_tile, built from stage_frag and write_rows) and the host's tensor
+// maps (make_tensor_map). Its callers: matmul_mod.cu (the one-shot GEMM),
+// matmul_rider.cu (the panel pipeline's GEMM, with rider work between
+// tiles), matmul_complex.cu (the complex GEMM, products chained in one
+// accumulator) and matmul_mod_pipelined.cu (a ping-pong schedule: each
+// consumer warpgroup owns whole 128 x 128 tiles, wgmma.m64n128k32). The
+// older mma.sync tile (mma_s8.cuh) still carries magmax.cu, the CRT-fused
+// GEMMs (crt_gemm.cuh) and the deaddep probe.
 //
 // Operands: A (L, m, kp) and Bt (L, n, kp) int8, both K-major (wgmma takes
 // 8-bit operands K-major only), kp % 16 == 0, each read through a 3-D
@@ -117,6 +120,45 @@ __device__ __forceinline__ void tma_load(unsigned dst, const CUtensorMap& map,
       : "memory");
 }
 
+// the box at (k0, row0, l) into shared memory at dst in every CTA of the
+// cluster named in cta_mask, each signalling its own barrier at `bar`
+// (dst and bar: this CTA's addresses, the same offsets in every CTA)
+__device__ __forceinline__ void tma_load_multicast(unsigned dst,
+                                                   const CUtensorMap& map,
+                                                   unsigned bar, int k0,
+                                                   int row0, int l,
+                                                   unsigned short cta_mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(&map)), "r"(bar),
+         "r"(k0), "r"(row0), "r"(l), "h"(cta_mask)
+      : "memory");
+}
+
+// ---- clusters ------------------------------------------------------------
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// one arrival on the barrier at this CTA's address `bar` in CTA `cta` of
+// the cluster
+__device__ __forceinline__ void mbar_arrive_cluster(unsigned bar,
+                                                    unsigned cta) {
+  asm volatile(
+      "{\n.reg .b32 ra;\nmapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n"
+      :: "r"(bar), "r"(cta) : "memory");
+}
+
+// every thread of every CTA of the cluster
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\n"
+               "barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
 // ---- wgmma ---------------------------------------------------------------
 // K-major operand tile with the 128-byte swizzle at shared address `addr`
 // (1024-byte aligned): start address >> 4 in bits 0-13, leading byte
@@ -153,10 +195,41 @@ __device__ __forceinline__ void fence_regs(int (&r)[R]) {
 }
 
 // d = (scale_d ? d : 0) + A (64 x 32, K-major) x B (N x 32, K-major)^T;
-// N = 256 alone
+// N = 256 (one warpgroup's half of the cooperative tile) or 128 (one of
+// the two 64-row halves of a ping-pong warpgroup's 128 x 128 tile)
 template <int N>
 __device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t da,
                                          uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_s8<128>(int (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      :
+      "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+      "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+      "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+      "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+      "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+      "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+      "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+      "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+      "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+      "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+      "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+      "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+      "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_s8<256>(int (&d)[128], uint64_t da,
@@ -285,8 +358,10 @@ __device__ __forceinline__ void produce(const CUtensorMap& ma,
 }
 
 // a consumer warpgroup's product of one tile: acc = its 64-row half of
-// A (tile rows) x Bt (tile columns)^T over all nk k-tiles
-template <int BN>
+// A (tile rows) x Bt (tile columns)^T over all nk k-tiles, or with kAccIn
+// acc += that product (the complex GEMM chains products in one
+// accumulator)
+template <int BN, bool kAccIn = false>
 __device__ __forceinline__ void consume(int (&acc)[BN / 2], const Ring& ring,
                                         int half, int nk, int& stage,
                                         unsigned& phase) {
@@ -300,7 +375,8 @@ __device__ __forceinline__ void consume(int (&acc)[BN / 2], const Ring& ring,
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < kBK / 32; ++ks)
-      wgmma_s8<BN>(acc, da + 2 * ks, db + 2 * ks, (kt | ks) != 0);
+      wgmma_s8<BN>(acc, da + 2 * ks, db + 2 * ks,
+                   kAccIn || (kt | ks) != 0);
     wgmma_commit();
     if (kt > 0) {  // the previous k-tile's wgmmas are done with its stage
       wgmma_wait<1>();
@@ -326,13 +402,119 @@ __device__ __forceinline__ int stg_off(int r, int c) {
   return r * BN + ((((c >> 4) ^ (r & 7))) << 4) + (c & 15);
 }
 
-// One consumer warpgroup's 64-row half of a finished tile as residues mod
-// dv.d (canonical uint8, or ^ 0x80 with flip 0x8080: int8 r - 128): into
-// the staging tile, then out in 16-byte pieces. out: the tile's slice,
+// The residue byte of an int32 product: x & 255 for the modulus-256 lane
+// (kPow2), else mod_div.
+template <bool kPow2>
+__device__ __forceinline__ unsigned residue_byte(int x,
+                                                 const ModDivisor& dv) {
+  if constexpr (kPow2)
+    return static_cast<unsigned>(x) & 255u;
+  else
+    return mod_div(x, dv);
+}
+
+// f(r, c, i) for each pair i = 2 v2 + v1 of a 64 x BN accumulator
+// fragment (its registers 2 i and 2 i + 1): the row r (from row_base) and
+// the columns c, c + 1 (c even) of the tile they hold.
+template <int BN, typename F>
+__device__ __forceinline__ void for_slots(int row_base, F f) {
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int r0 = row_base + warp * 16 + (lane >> 2);
+  const int c0 = 2 * (lane & 3);
+#pragma unroll
+  for (int v2 = 0; v2 < BN / 8; ++v2)
+#pragma unroll
+    for (int v1 = 0; v1 < 2; ++v1) f(r0 + 8 * v1, 8 * v2 + c0, 2 * v2 + v1);
+}
+
+// f(x0, x1, r, c, i): for_slots with the pair's two accumulator values
+template <int BN, typename F>
+__device__ __forceinline__ void for_pairs(const int (&acc)[BN / 2],
+                                          int row_base, F f) {
+  for_slots<BN>(row_base, [&](int r, int c, int i) {
+    f(acc[2 * i], acc[2 * i + 1], r, c, i);
+  });
+}
+
+// the two bytes of a fragment pair in a staging tile BN bytes wide
+template <int BN>
+__device__ __forceinline__ unsigned short* stg_pair(unsigned char* stg,
+                                                    int r, int c) {
+  return reinterpret_cast<unsigned short*>(stg + stg_off<BN>(r, c));
+}
+
+// One 64 x BN accumulator fragment into rows row_base .. row_base + 63 of
+// a staging tile BN bytes wide: pair(x0, x1) gives the two bytes of each
+// fragment pair (two neighbouring columns of one row), low byte first.
+template <int BN, typename Pair>
+__device__ __forceinline__ void stage_frag(const int (&acc)[BN / 2],
+                                           unsigned char* stg, int row_base,
+                                           Pair pair) {
+  for_pairs<BN>(acc, row_base, [&](int x0, int x1, int r, int c, int) {
+    *stg_pair<BN>(stg, r, c) = static_cast<unsigned short>(pair(x0, x1));
+  });
+}
+
+// Rows row_base .. row_base + ROWS - 1 of a staging tile out by the 128
+// threads of a warpgroup, in 16-byte pieces: out is the tile's slice,
 // element (row, col) at out[row * ld + col]; the tile's origin (row0,
 // col0); rows at or past `rows` and columns at or past col_end are not
 // stored. A piece is stored whole where ld and col0 are multiples of 16
 // and it ends by col_end, else bytewise.
+template <int BN, int ROWS>
+__device__ __forceinline__ void write_rows(const unsigned char* stg,
+                                           unsigned char* __restrict__ out,
+                                           size_t ld, int rows, int row0,
+                                           int col0, int col_end,
+                                           int row_base) {
+  const int tid = threadIdx.x & 127;
+  constexpr int kPieces = BN / 16;    // 16-byte pieces a row
+  const bool vec = ((ld | static_cast<size_t>(col0)) & 15) == 0;
+#pragma unroll
+  for (int j = 0; j < ROWS * kPieces / 128; ++j) {
+    const int p = tid + 128 * j;
+    const int r = row_base + p / kPieces, c = 16 * (p % kPieces);
+    const int row = row0 + r, col = col0 + c;
+    if (row >= rows || col >= col_end) continue;
+    const uint4 v = *reinterpret_cast<const uint4*>(stg + stg_off<BN>(r, c));
+    unsigned char* dst = out + static_cast<size_t>(row) * ld + col;
+    if (vec && col + 16 <= col_end) {
+      *reinterpret_cast<uint4*>(dst) = v;
+    } else {
+      const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int b = 0; b < 16; ++b)
+        if (col + b < col_end)
+          dst[b] = static_cast<unsigned char>(w[b >> 2] >> (8 * (b & 3)));
+    }
+  }
+}
+
+// One consumer warpgroup's 64-row half of a finished tile of the
+// cooperative walk as the bytes pair(x0, x1) gives (stage_frag): into
+// its rows of the staging tile, then out (write_rows). The warpgroup's
+// named barrier 1 + half orders the staging tile's reuse.
+template <int BN, typename Pair>
+__device__ __forceinline__ void store_half(const int (&acc)[BN / 2],
+                                           unsigned char* stg,
+                                           unsigned char* __restrict__ out,
+                                           size_t ld, int rows, int row0,
+                                           int col0, int col_end, int half,
+                                           Pair pair) {
+  warpgroup_sync(1 + half);  // the last tile's reads are done
+  stage_frag<BN>(acc, stg, half * 64, pair);
+  warpgroup_sync(1 + half);  // the half tile is staged
+  write_rows<BN, 64>(stg, out, ld, rows, row0, col0, col_end, half * 64);
+}
+
+// One consumer warpgroup's 64-row half of a finished tile as residues mod
+// dv.d (canonical uint8, or ^ 0x80 with flip 0x8080: int8 r - 128): into
+// the staging tile, then out in 16-byte pieces, as store_half with
+// residue_byte's bytes would. It is written out rather than built on
+// store_half: built on it, matmul_mod.cu's kernel compiles to other
+// SASS (the same instructions, other registers and block order), and
+// the default path's kernels stay the code PERF.md measured.
 template <int BN, bool kPow2>
 __device__ __forceinline__ void store_tile(const int (&acc)[BN / 2],
                                            unsigned char* stg,

@@ -10,10 +10,11 @@ interface:
 
 `-fmad=false` keeps every f32 multiply and add a separate rounding, as in
 the plain versions (the Barrett and quotient-estimate budgets assume it).
-A source may take flags of its own (`SOURCE_FLAGS`): matmul_mod.cu and
-matmul_rider.cu get the launch table's constants (`-DGM8_MM_TILE_N=256
-...`, hopper/launch.py) and `-Xptxas -v`, whose report is kept in
-`PTXAS_REPORT`. The library
+A source may take flags of its own (`SOURCE_FLAGS`): the four sources on
+the wgmma tile (matmul_mod.cu, matmul_rider.cu, matmul_mod_pipelined.cu,
+matmul_complex.cu) get the launch table's constants of their entry
+(`-DGM8_MM_TILE_N=256 ...`, hopper/launch.py) and `-Xptxas -v`, whose
+report is kept in `PTXAS_REPORT`. The library
 lands in `build/kernels/` under the checkout, named by a hash of the
 sources and flags, so an edited source or launch entry never loads a
 stale build; the ptxas report is saved beside it and read back with it.
@@ -36,6 +37,7 @@ import ctypes
 import hashlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -55,18 +57,19 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
 
 # launches of each kernel wrapper; reset by the caller that reads them
 LAUNCHES: collections.Counter = collections.Counter()
-# flags of single sources: matmul_mod.cu and matmul_rider.cu (the same
-# wgmma tile) take their launch constants from the launch table's entry
-# of their name; their ptxas reports and those of the two main-path
+# flags of single sources: the sources on the wgmma tile take their
+# launch constants from the launch table's entry of their name (source ->
+# entry below); their ptxas reports and those of the two main-path
 # kernels redesigned on the tensor cores (`-Xptxas -v`: each kernel's
 # registers, shared memory and spills) are kept by source name in
 # PTXAS_REPORT, saved beside the library and read back with it
+WGMMA_SOURCES = {"matmul_mod.cu": "matmul_mod",
+                 "matmul_rider.cu": "matmul_rider",
+                 "matmul_mod_pipelined.cu": "matmul_mod_pipelined",
+                 "matmul_complex.cu": "matmul_complex"}
 SOURCE_FLAGS = {
-    "matmul_mod.cu": ("-Xptxas", "-v",
-                      *launch.get("matmul_mod", ARCH_CAPABILITY).defines()),
-    "matmul_rider.cu": ("-Xptxas", "-v",
-                        *launch.get("matmul_rider",
-                                    ARCH_CAPABILITY).defines()),
+    **{src: ("-Xptxas", "-v", *launch.get(entry, ARCH_CAPABILITY).defines())
+       for src, entry in WGMMA_SOURCES.items()},
     "encode.cu": ("-Xptxas", "-v"),
     "reconstruct.cu": ("-Xptxas", "-v")}
 PTXAS_REPORT: dict = {}
@@ -207,6 +210,14 @@ def _build() -> Path:
         os.replace(lib_tmp, out)
     PTXAS_REPORT.update(ptxas)
     return out
+
+
+def spill_bytes(src: str) -> list:
+    """The spill store and spill load byte counts of every function of
+    source `src` in its ptxas report (`-Xptxas -v`), in the report's
+    order; KeyError when the source has no report."""
+    return [int(x) for x in re.findall(r"(\d+) bytes spill",
+                                       PTXAS_REPORT[src])]
 
 
 def _wait(cmd: list, proc: subprocess.Popen) -> tuple:

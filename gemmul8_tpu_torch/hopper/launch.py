@@ -23,6 +23,11 @@ Entries:
     "matmul_rider" `MatmulModLaunch` of csrc/matmul_rider.cu, the same
                   tile with encode warps beside its producer: their plane
                   rows take the shared memory of a fourth stage.
+    "matmul_mod_pipelined" `MatmulModLaunch` of
+                  csrc/matmul_mod_pipelined.cu, the ping-pong schedule:
+                  each consumer warpgroup owns whole 128 x `tile_n` tiles.
+    "matmul_complex" `MatmulModLaunch` of csrc/matmul_complex.cu, the
+                  cooperative tile with the complex products chained.
 """
 
 from __future__ import annotations
@@ -43,7 +48,7 @@ class MatmulModLaunch:
     raster_group: int  # m-tiles walked together by the persistent grid
 
     def defines(self) -> tuple:
-        """The nvcc flags that compile this launch into matmul_mod.cu."""
+        """The nvcc flags that compile this launch into its source."""
         return (f"-DGM8_MM_TILE_N={self.tile_n}",
                 f"-DGM8_MM_STAGES={self.stages}",
                 f"-DGM8_MM_GROUP={self.raster_group}")
@@ -54,11 +59,19 @@ class MatmulModLaunch:
 # memory a block with the epilogue's staging tile, of the 232,448 a block
 # may opt into), groups of 16 m-tiles (132 tiles in flight read 16 A panels
 # and 8-9 B panels). The rider kernel's encode warps and tables take 4,944
-# bytes more, which leave three stages.
+# bytes more, which leave three stages. The ping-pong kernel's warpgroup
+# tiles are 128 x 128 (two wgmma.m64n128k32 chains, 128 registers a
+# thread): 32 KB stages, six of them beside its two 16 KB staging tiles
+# (230,496 bytes). The complex kernel runs matmul_mod's tile and ring; its
+# Karatsuba carry stays in registers, so no stage gives way.
 TABLE = {(9, 0): {"matmul_mod": MatmulModLaunch(tile_n=256, stages=4,
                                                 raster_group=16),
                   "matmul_rider": MatmulModLaunch(tile_n=256, stages=3,
-                                                  raster_group=16)}}
+                                                  raster_group=16),
+                  "matmul_mod_pipelined": MatmulModLaunch(
+                      tile_n=128, stages=6, raster_group=16),
+                  "matmul_complex": MatmulModLaunch(tile_n=256, stages=4,
+                                                    raster_group=16)}}
 
 
 def get(name: str, capability=None):

@@ -3,13 +3,15 @@
     matmul_mod_u8       csrc/matmul_mod.cu (the wgmma tile of
                         csrc/wgmma_s8.cuh; launch from hopper/launch.py)
         <- pallas/matmul.py matmul_mod_u8_pallas
-    matmul_mod_u8_pipelined  csrc/matmul_mod_pipelined.cu
+    matmul_mod_u8_pipelined  csrc/matmul_mod_pipelined.cu (the wgmma tile
+                        in a ping-pong schedule)
         <- pallas/matmul.py matmul_mod_u8_pipelined
     magmax_matmul       csrc/magmax.cu
         <- pallas/matmul.py magmax_matmul_pallas
     magmax_matmul_scratch    csrc/magmax.cu (deferred fold)
         <- pallas/matmul.py magmax_matmul_scratch
-    matmul_complex_mod  csrc/matmul_complex.cu
+    matmul_complex_mod  csrc/matmul_complex.cu (the wgmma tile, products
+                        chained)
         <- pallas/matmul.py matmul_complex_mod_pallas
     matmul_crt          csrc/matmul_crt.cu
         <- pallas/matmul.py matmul_crt_pallas
@@ -26,9 +28,13 @@ flight (csrc/crt_gemm.cuh). `matmul_crt` has no switch, as in the JAX
 package: it is called directly, and its limbs go to
 `hopper.kernels.reconstruct(..., input_kind="limbs")`.
 
-matmul_mod_u8's epilogue divides by each slot's modulus with a multiplier
-and a shift (`mod_divisor`, `mod_div`: the host arithmetic, exact for every
-int32); `mod_div_mismatches` holds the card's division to its remainder.
+The wgmma epilogues divide by each slot's modulus with a multiplier and a
+shift (`mod_divisor`, `mod_div`: the host arithmetic, exact for every
+int32; with a bias, the residue of x - bias, for the complex kernel's Im
+chain, which starts at `COMPLEX_IM_BIAS`); `mod_div_mismatches` holds the
+card's division to its remainder. Each wgmma kernel is built with its
+launch table entry (hopper/launch.py) for sm_90; its wrapper raises on
+any other card.
 
 Two dispatchers read the JAX package's switches at call time:
 `matmul_mod_u8` sends uncentered calls to `matmul_mod_u8_pipelined` under
@@ -62,6 +68,9 @@ matmul_crt_plain = sg.matmul_crt
 matmul_reconstruct_plain = sg.matmul_reconstruct
 
 _TILE = 128  # kBM = kBN of csrc/mma_s8.cuh, the CRT-fused GEMMs' tile
+# csrc/matmul_complex.cu kImBias: the Im chain's accumulator starts here, so
+# that IR + RI (up to 2^31 at k = 2^16) stays inside int32
+COMPLEX_IM_BIAS = -(1 << 24)
 _BLOCKS_PER_SM = 2  # __launch_bounds__(256, 2) of the CRT-fused GEMMs
 
 
@@ -97,36 +106,41 @@ def matmul_mod_u8_pipelined(a8: torch.Tensor, b8: torch.Tensor,
                             num_moduli: int, moduli_idx=None) -> torch.Tensor:
     """(L', m, k) int8 x (L', k, n) int8 -> (L', m, n) canonical uint8
     residues, the bits of `matmul_mod_u8(..., centered=False)`, with each
-    n-tile's mod run while the next tile's product is formed."""
+    tile's mod run while the next tile's product is formed (the kernel's
+    two consumer warpgroups take alternate tiles)."""
     idx = sg._check_matmul_args(a8, b8, num_moduli, moduli_idx)
     if a8.device.type == "cpu" and b8.device.type == "cpu":
         return matmul_mod_u8_pipelined_plain(a8, b8, num_moduli,
                                              moduli_idx=idx)
+    build.require_cuda(a8, b8)
+    launch.get("matmul_mod_pipelined",
+               torch.cuda.get_device_capability(a8.device))
     return _launch_mod("matmul_mod_u8_pipelined", a8, b8, idx, False)
 
 
-def mod_divisor(d: int) -> tuple:
+def mod_divisor(d: int, bias: int = 0) -> tuple:
     """(mul, sh, off) of csrc/moduli.cuh `mod_divisor`, the per-slot
-    constants of matmul_mod_u8's epilogue: Granlund and Montgomery's
-    multiplier for dividing a uint32 by d (l = ceil(log2 d), mul =
-    floor(2^32 (2^l - d) / d) + 1, sh = l - 1) and off = (-2^31) mod d,
-    which turns the residue of x + 2^31 into that of the int32 x."""
+    constants of the wgmma epilogues: Granlund and Montgomery's multiplier
+    for dividing a uint32 by d (l = ceil(log2 d), mul = floor(2^32 (2^l -
+    d) / d) + 1, sh = l - 1) and off = (-2^31 - bias) mod d, which turns
+    the residue of x + 2^31 into that of the int32 x - bias."""
     if not 2 <= d <= 1 << 31:
         raise ValueError(f"divisor {d}: expected 2 <= d <= 2^31")
     l = (d - 1).bit_length()
-    return (((1 << 32) * ((1 << l) - d)) // d + 1, l - 1, -(1 << 31) % d)
+    return (((1 << 32) * ((1 << l) - d)) // d + 1, l - 1,
+            (-(1 << 31) - bias) % d)
 
 
-def mod_div(x, d: int) -> np.ndarray:
-    """Canonical residues mod d of int32 values x, in numpy int64 by the
-    arithmetic of csrc/moduli.cuh `mod_div`: u = x + 2^31, t = mulhi(mul,
-    u) (the 64-bit product taken in 16-bit halves of u, so every step
-    stays below 2^63), q = (t + ((u - t) >> 1)) >> sh = floor(u / d), then
-    u - q d + off reduced once."""
+def mod_div(x, d: int, bias: int = 0) -> np.ndarray:
+    """Canonical residues mod d of int32 values x - bias, in numpy int64 by
+    the arithmetic of csrc/moduli.cuh `mod_div`: u = x + 2^31, t =
+    mulhi(mul, u) (the 64-bit product taken in 16-bit halves of u, so every
+    step stays below 2^63), q = (t + ((u - t) >> 1)) >> sh = floor(u / d),
+    then u - q d + off reduced once."""
     x = np.asarray(x, dtype=np.int64)
     if x.size and (x.min() < -(1 << 31) or x.max() >= 1 << 31):
         raise ValueError("mod_div takes int32 values")
-    mul, sh, off = mod_divisor(d)
+    mul, sh, off = mod_divisor(d, bias)
     u = x + (1 << 31)
     t = (mul * (u >> 16) + ((mul * (u & 0xFFFF)) >> 16)) >> 16
     q = (t + ((u - t) >> 1)) >> sh
@@ -297,6 +311,7 @@ def matmul_complex_mod(a8r: torch.Tensor, a8i: torch.Tensor,
         return matmul_complex_mod_plain(a8r, a8i, b8r, b8i, num_moduli,
                                         centered, kara)
     build.require_cuda(*a_ops, *b_ops)
+    launch.get("matmul_complex", torch.cuda.get_device_capability(a8r.device))
     L, m, k = a8r.shape
     n = b8r.shape[2]
     kp = -(-k // 16) * 16
