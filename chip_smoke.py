@@ -360,6 +360,31 @@ planner at a ragged k add:
       or x 3L) in the kernel's rotation, as their `library_ms`; and the
       kernels slower than their library call, slowest first.
 
+matmul_reconstruct and the deaddep probe on the wgmma tile
+(csrc/matmul_reconstruct.cu: the products on matmul_mod's tile, each
+tile's CRT on the tensor-core bodies after its products;
+csrc/probe_deaddep.cu: matmul_mod's kernel with the injected work) add:
+  2.  (also) both sources' ptxas reports, each asserted free of spill
+      stores and loads;
+  3w. (also) matmul_reconstruct in both output words against its plain
+      version and against matmul_mod_u8 + reconstruct, bit for bit, at the
+      tile's edge shapes (m, k, n) = (1, 16, 1), (65, 144, 257), (200,
+      4100, 129), (1000, 4100, 1500) at 2, 14 and 20 moduli, at every
+      moduli count 2..20 on (65, 144, 257), at k = 2^17, m = n = 128, 20
+      moduli with the 256 slice's products exactly 2^31 (wrapped) and the
+      odd slices at +-127, and with random slices; (1000, 4100, 1500) at
+      14 moduli run three times, every run bit-equal;
+  3q. (also) every deaddep variant at n = 1024 too (kloop's chain two
+      batches a k-tile);
+  4s. (also) the FUSED_RECONSTRUCT calls' peaks beside the one-shot
+      call's;
+  5q. (also) deaddep's base beside matmul_mod_u8 in the configs'
+      rotation with torch._int_mm x 14, and each chain config's span over
+      its nops 0 span as a share of its injected multiply-adds' serial
+      time;
+  5s. (also) torch._int_mm x 14 in the ten-round rotation of
+      matmul_reconstruct and matmul_mod_u8 + reconstruct.
+
 The line before the last is a JSON object of per-kernel results
 (`launches` sums the main-path calls of phase 4, real and complex, for the
 variant kernels those of phase 4v at 8192^3, for matmul_crt and
@@ -537,7 +562,8 @@ PLANNER_SLACK = 0.05     # phase 4s: a measured peak within 5% under the model
 EARLIER_MS = {"encode_slices": 2.521, "reconstruct": 1.975}
 MAIN_ROUNDS = 5          # phase 5: the fast, accurate and f32-8 calls
 # phase 2: sources whose ptxas report must show no spill store or load
-NO_SPILL_SOURCES = ("matmul_mod_pipelined.cu", "matmul_complex.cu")
+NO_SPILL_SOURCES = ("matmul_mod_pipelined.cu", "matmul_complex.cu",
+                    "matmul_reconstruct.cu", "probe_deaddep.cu")
 # phase 3w: the wgmma tile's edge shapes (m, k, n) at these slice counts,
 # a moduli subset, and the int32 wrap at the largest k
 WGMMA_CASES = [(1, 16, 1), (65, 144, 257), (200, 4100, 129),
@@ -546,6 +572,12 @@ WGMMA_LS = (1, 14, 20)
 WGMMA_SUBSET = (3, 7, 11)
 WRAP_K = tables.MAX_K    # 2^17
 WRAP_MN = 128
+# phase 3w: matmul_reconstruct at the edge shapes' moduli counts, every
+# count on one ragged shape, and the shape run RECON_REPEATS times
+RECON_EDGE_LS = (2, 14, 20)
+RECON_ALL_LS = (65, 144, 257)
+RECON_REPEAT_CASE = ((1000, 4100, 1500), L_MAIN)
+RECON_REPEATS = 3
 # phase 3p: (m, k, n), moduli counts, panel_m; 2 or 3 panels, where the
 # pipeline's gates apply
 PIPELINE_CASES = [((2048, 2048, 2048), (L_MAIN,), 1024),
@@ -626,6 +658,7 @@ KERNELS.update(PROBE_KERNELS)
 PROBE_CLZ_WORDS = 1 << 26   # phase 3q's random words
 PROBE_STEPS_CHECK = 64      # phase 3q's chain length (the probe's: 2048)
 PROBE_N_CHECK = 2048        # phase 3q's deaddep size (the probe's: 8192)
+PROBE_N_SMALL = 1024        # and its least: kloop's two batches a k-tile
 PROBE_ROUNDS = 3
 PROBE_DEADDEP_ROUNDS = 9    # its effects are near the power cap's swing,
 PROBE_DEADDEP_PAIRS = 15    # so its differences come from adjacent pairs
@@ -897,6 +930,72 @@ def phase_wgmma_kernels(errs):
     assert int(bad.sum()) == 0, f"mod_div differs from mod_canon: {bad}"
     log(f"  mod_div == mod_canon for every int32, all {L} moduli "
         f"({time.perf_counter() - t0:.2f} s)")
+
+
+def hold_reconstruct(errs, a8, b8, L, tag, seed, repeats=1):
+    """matmul_reconstruct in both output words == its plain version ==
+    matmul_mod_u8 + reconstruct, bit for bit, on random shifts; repeats
+    runs of each, bit-equal."""
+    m, n = a8.shape[1], b8.shape[2]
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    sa = torch.randint(-30, 30, (m, 1), generator=gen, dtype=torch.int32,
+                       device=DEVICE)
+    sb = torch.randint(-30, 30, (1, n), generator=gen, dtype=torch.int32,
+                       device=DEVICE)
+    r8 = hm.matmul_mod_u8(a8, b8, L, centered=True)
+    for out in ("f64", "f32"):
+        name = build.form("matmul_reconstruct", out == "f32")
+        runs = [hm.matmul_reconstruct(a8, b8, sa, sb, L, out)
+                for _ in range(repeats)]
+        for r in runs[1:]:
+            assert_bits_equal(r, runs[0], f"{name} {tag}: runs differ")
+        hold(errs, name, runs[0],
+             hm.matmul_reconstruct_plain(a8, b8, sa, sb, L, out),
+             f"{name} {tag}")
+        assert_bits_equal(runs[0], hk.reconstruct(r8, sa, sb, L, out),
+                          f"{name} {tag} vs matmul_mod_u8 + reconstruct")
+
+
+def phase_reconstruct_wgmma(errs):
+    """Phase 3w (also): matmul_reconstruct on the wgmma tile, f64 and f32
+    output, at the tile's edge shapes, every moduli count, the int32 wrap
+    at k = 2^17 and three runs of one shape."""
+    cfg = hl.get("matmul_reconstruct")
+    log(f"  matmul_reconstruct launch: {cfg}, built with "
+        f"{' '.join(build.SOURCE_FLAGS['matmul_reconstruct.cu'])}")
+    for i, (m, k, n) in enumerate(WGMMA_CASES):
+        Ls = sorted(set(RECON_EDGE_LS) | (
+            set(range(2, tables.MAX_MODULI + 1))
+            if (m, k, n) == RECON_ALL_LS else set()))
+        for L in Ls:
+            a8, b8 = slices8(L, m, k, n, 120 + i)
+            hold_reconstruct(errs, a8, b8, L, f"m={m} k={k} n={n} L={L}",
+                             130 + L)
+        log(f"  matmul_reconstruct (f64, f32) == plain == matmul_mod_u8 + "
+            f"reconstruct at m={m} k={k} n={n}, L = "
+            f"{', '.join(map(str, Ls))}")
+    L = tables.MAX_MODULI
+    a8 = torch.full((L, WRAP_MN, WRAP_K), -127, dtype=torch.int8,
+                    device=DEVICE)
+    b8 = torch.full((L, WRAP_K, WRAP_MN), 127, dtype=torch.int8,
+                    device=DEVICE)
+    a8[0] = -128
+    b8[0] = -128
+    b8[1:, :, ::2] = -127
+    hold_reconstruct(errs, a8, b8, L, f"wrap k={WRAP_K}", 140)
+    del a8, b8
+    a8, b8 = slices8(L, WRAP_MN, WRAP_K, WRAP_MN, 141)
+    hold_reconstruct(errs, a8, b8, L, f"random k={WRAP_K}", 142)
+    del a8, b8
+    log(f"  matmul_reconstruct == plain at k = {WRAP_K}, m = n = {WRAP_MN}, "
+        f"L = {L}: the 256 slice's products exactly 2^31, the odd slices' "
+        "127^2 * 2^17; and random slices")
+    (m, k, n), L = RECON_REPEAT_CASE
+    a8, b8 = slices8(L, m, k, n, 143)
+    hold_reconstruct(errs, a8, b8, L, f"m={m} k={k} n={n} L={L}", 144,
+                     RECON_REPEATS)
+    log(f"  matmul_reconstruct at m={m} k={k} n={n} L={L}: "
+        f"{RECON_REPEATS} runs bit-equal in each word")
 
 
 # (x, e): reconstruct must give x * 2^e rounded to nearest even
@@ -1850,6 +1949,9 @@ def phase_schedules(a, b, refs, oracle, launches):
         del c
         line = (f"  {N}^3 {name} == default call (bits), gate relerr "
                 f"{rels[name]!r}, peak {peak} bytes")
+        if "FUSED_RECONSTRUCT" in name:
+            line += (f" (one-shot {one_shot[fastmode]}: "
+                     f"{peak / one_shot[fastmode]:.4f} of it)")
         if chunk is not None:
             plan = planner.workspace_bytes(N, N, N, L, moduli_chunk=chunk)
             assert peak < one_shot[fastmode], \
@@ -2238,15 +2340,18 @@ def phase_schedule_times(a, b, errs):
         "reconstruct": lambda: hk.reconstruct(r8, sa, sb, L),
         LIBRARY: int_mm(a8, b8t),
     }, SCHEDULE_ROUNDS, 3)
-    del limbs, r8, b8t
-    # the fused kernel against the pair it replaces, resolved finer
+    del limbs, r8
+    # the fused kernel against the pair it replaces and the library call,
+    # resolved finer
     pair, _ = timed_rounds({
         "matmul_reconstruct, 10 rounds":
             lambda: hm.matmul_reconstruct(a8, b8, sa, sb, L),
         "matmul_mod_u8 + reconstruct, 10 rounds": lambda: hk.reconstruct(
             hm.matmul_mod_u8(a8, b8, L, centered=True), sa, sb, L),
+        f"{LIBRARY}, 10 rounds": int_mm(a8, b8t),
     }, 10, 2)
     kerns.update(pair)
+    del b8t
     ru = hm.matmul_mod_u8(a8, b8, L, centered=False)
     del a8, b8
     acc = torch.zeros((tables.num_limbs(L), N, N), dtype=torch.int32,
@@ -3930,24 +4035,26 @@ def phase_probe_kernels(errs):
                          f"mxu_crt {variant} L={L} bm={bm} n={n}")
     log("  mxu_crt == plain: 4 variants x L 2, 8, 14, 20 x bm 8, 16, m = "
         "1024, n = 1024 and 1000")
-    L, n = L_MAIN, PROBE_N_CHECK
-    rng = np.random.default_rng(12)
-    a8, b8 = (torch.from_numpy(rng.integers(-128, 128, (L, n, n),
-                                            dtype=np.int8)).to(DEVICE)
-              for _ in range(2))
-    res = hm.matmul_mod_u8(a8, b8, L)
-    for variant in pdd.VARIANTS:
-        r = pdd.make_rider(variant, n, L)
-        rin = None if r is None else torch.from_numpy(r).to(DEVICE)
-        nops = 16 if variant in pdd.CHAIN else 0
-        got = hq.deaddep(a8, b8, L, nops, variant, rin)
-        hold_all(errs, "probe_deaddep", got,
-                 hq.deaddep_plain(a8, b8, L, nops, variant, rin),
-                 f"deaddep {variant} at n={n}")
-        assert torch.equal(got[0], res), f"deaddep {variant}: residues"
-    log(f"  deaddep == plain, every variant at n={n}, {L} moduli: residues "
-        "== matmul_mod_u8's, hbmio's words, the rec riders' f64 words == "
-        "plain reconstruct with shifts 0")
+    L = L_MAIN
+    for n in (PROBE_N_SMALL, PROBE_N_CHECK):
+        rng = np.random.default_rng(12)
+        a8, b8 = (torch.from_numpy(rng.integers(-128, 128, (L, n, n),
+                                                dtype=np.int8)).to(DEVICE)
+                  for _ in range(2))
+        res = hm.matmul_mod_u8(a8, b8, L)
+        for variant in pdd.VARIANTS:
+            r = pdd.make_rider(variant, n, L)
+            rin = None if r is None else torch.from_numpy(r).to(DEVICE)
+            nops = 16 if variant in pdd.CHAIN else 0
+            got = hq.deaddep(a8, b8, L, nops, variant, rin)
+            hold_all(errs, "probe_deaddep", got,
+                     hq.deaddep_plain(a8, b8, L, nops, variant, rin),
+                     f"deaddep {variant} at n={n}")
+            assert torch.equal(got[0], res), f"deaddep {variant}: residues"
+        log(f"  deaddep == plain, every variant at n={n}, {L} moduli: "
+            "residues == matmul_mod_u8's, hbmio's words, the rec riders' "
+            "f64 words == plain reconstruct with shifts 0")
+        del a8, b8, res
     build.LAUNCHES.clear()
 
 
@@ -4218,11 +4325,15 @@ def phase_probe_times(errs):
             refs[label].append(("nops 0", f"{v} nops=0"))
         if v == "recmxu":
             refs[label].append(("recbody", "recbody nops=0"))
-    # the library call over the same int8 products (torch._int_mm x L),
-    # in the configs' rotation (not among the configs)
+    # the library call over the same int8 products (torch._int_mm x L)
+    # and matmul_mod_u8 (base's GEMM alone), in the configs' rotation (not
+    # among the configs)
     b8t = b8.transpose(1, 2).contiguous()   # column-major B, untimed
     with ClockSampler() as clock:
-        by, _ = timed_rounds({**calls, LIBRARY: int_mm(a8, b8t)},
+        by, _ = timed_rounds({**calls,
+                              "matmul_mod_u8": lambda: hm.matmul_mod_u8(
+                                  a8, b8, L),
+                              LIBRARY: int_mm(a8, b8t)},
                              PROBE_DEADDEP_ROUNDS, 2)
         diffs = {label: [(what, timed_pairs(calls[label], calls[ref],
                                             PROBE_DEADDEP_PAIRS))
@@ -4248,12 +4359,16 @@ def phase_probe_times(errs):
         kc = float(np.median(cyc[label]))
         dk = "; ".join(f"{kc - float(np.median(cyc[ref])):+.1f} over {what}"
                        for what, ref in refs[label])
+        serial_kc = imads / (64 * SMS) / 1e3
+        share = ""
+        if k:   # the span over the same variant's nops 0, of serial time
+            over = kc - float(np.median(cyc[f"{v} nops=0"]))
+            share = f"; {over / serial_kc:.3f} of its serial time"
         log(f"  deaddep {label:17s}: median {float(np.median(by[label])):.3f}"
             f" ms; {spread}; span {kc:.1f} [{cyc[label].min():.1f}, "
             f"{cyc[label].max():.1f}] kcycles ({dk}); injected "
             f"{imads} multiply-adds, serial {serial:.3f} ms at 64 a clock "
-            f"an SM, {mhz:.0f} MHz, {imads / (64 * SMS) / 1e3:.1f} "
-            "kcycles")
+            f"an SM, {mhz:.0f} MHz, {serial_kc:.1f} kcycles{share}")
     log(f"  (medians over {PROBE_DEADDEP_ROUNDS} rotated rounds; a "
         f"difference: median [least, most] over {PROBE_DEADDEP_PAIRS} "
         "adjacent pairs; a span: SM clock cycles of the launch, median "
@@ -4274,11 +4389,17 @@ def phase_probe_times(errs):
         "residues, aux, hbmio's words, the rec riders' f64 words")
     del b8t
     library["probe_deaddep"] = float(np.median(by[LIBRARY]))
+    base_ms = float(np.median(by["base nops=0"]))
+    mm_ms = float(np.median(by["matmul_mod_u8"]))
     log(f"  deaddep beside {LIBRARY} (x {L} torch._int_mm, in the configs' "
         f"rotation) median {library['probe_deaddep']:.3f} ms: base nops=0 "
-        f"ratio {float(np.median(by['base nops=0'])) / library['probe_deaddep']:.3f}"
+        f"ratio {base_ms / library['probe_deaddep']:.3f}"
         f", deaddep nops=16 ratio "
-        f"{times['probe_deaddep'][0] / library['probe_deaddep']:.3f}")
+        f"{times['probe_deaddep'][0] / library['probe_deaddep']:.3f}; base "
+        f"{base_ms:.3f} ms beside matmul_mod_u8 {mm_ms:.3f} ms in the same "
+        f"rotation (rounds "
+        f"{', '.join(f'{t:.3f}' for t in by['matmul_mod_u8'])}): ratio "
+        f"{base_ms / mm_ms:.3f}")
     bounds["probe_deaddep"] = bound(2 * L * n * n + L * n * n,
                                     L * 2 * n ** 3)
     log(f"  deaddep nops=16 plain {times['probe_deaddep'][1]:.1f} ms; bound "
@@ -4441,6 +4562,7 @@ def main():
     phase_kernels(errs)
     phase_mma_kernels(errs)
     phase_wgmma_kernels(errs)
+    phase_reconstruct_wgmma(errs)
     phase_rounding(errs)
     phase_accurate_kernels(errs)
     phase_log2()

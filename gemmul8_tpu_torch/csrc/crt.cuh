@@ -1,14 +1,12 @@
-// The CRT sum and the rounding tail shared by the reconstruct kernel
-// (reconstruct.cu) and the two CRT-fused GEMMs (matmul_crt.cu,
-// matmul_reconstruct.cu), so the three cannot drift apart:
+// The CRT sum and the rounding tail of matmul_crt.cu (crt_gemm.cuh) and
+// the deaddep probe's rec riders (probe_deaddep.cu); the reconstruct
+// kernel, the pipeline's rider and matmul_reconstruct.cu run the
+// tensor-core form (crt_mma.cuh, crt_tail.cuh), which gives the same bits:
 //   crt_add     acc += w_j * r_j           (64-bit column sums of six words)
 //   crt_words   column sums -> the integer X as six 32-bit words
 //   crt_add_limb  acc += a 16-bit limb (>= 0, < 2^29) at its place
 //   crt_center  X -> |centered(X mod M)| and its sign
 //   crt_round_f64   RNE( +-magnitude * 2^e_fix ) as f64 bits
-//   crt_round_f32   RNE( +-magnitude * 2^e_fix ) as f32 bits, rounded once
-//                   from the integer (never through an f64)
-//   crt_round_word  either, by the output word's type (8 bytes: f64)
 // The whole integer of one output element lives in one thread's registers
 // (X < 255 * 20 * M < 2^170). The quotient X / M is estimated in f64
 // (biased one low, then at most two exact subtractions of M), and the
@@ -183,21 +181,6 @@ __device__ __forceinline__ unsigned long long crt_round(
 __device__ __forceinline__ unsigned long long crt_round_f64(
     const unsigned (&mag)[kWords], bool neg, int e_fix) {
   return crt_round<53, 1023, 0x7FF>(mag, neg, e_fix);
-}
-
-__device__ __forceinline__ unsigned crt_round_f32(
-    const unsigned (&mag)[kWords], bool neg, int e_fix) {
-  return static_cast<unsigned>(crt_round<24, 127, 0xFF>(mag, neg, e_fix));
-}
-
-// the output word: f64 bits (unsigned long long) or f32 bits (unsigned)
-template <typename Word>
-__device__ __forceinline__ Word crt_round_word(
-    const unsigned (&mag)[kWords], bool neg, int e_fix) {
-  if constexpr (sizeof(Word) == 8)
-    return crt_round_f64(mag, neg, e_fix);
-  else
-    return crt_round_f32(mag, neg, e_fix);
 }
 
 }  // namespace

@@ -1,6 +1,6 @@
-// The body shared by the two CRT-fused GEMMs (matmul_crt.cu,
-// matmul_reconstruct.cu): one block owns one 128 x 128 output tile at a
-// time (the tile of mma_s8.cuh, unchanged), loops over the L moduli, and
+// The body of matmul_crt.cu's CRT-fused GEMM (matmul_reconstruct.cu runs
+// its own on the wgmma tile): one block owns one 128 x 128 output tile at
+// a time (the tile of mma_s8.cuh, unchanged), loops over the L moduli, and
 // after the last one forms each element's CRT sum X = sum_l w_l * r_l.
 //
 // Where the sum lives. A thread holds the tile's 64 int32 accumulators of

@@ -1,7 +1,8 @@
 // The CRT contraction on the int8 tensor cores, shared by the reconstruct
 // kernel (reconstruct.cu), the pipeline's reconstruct rider
-// (matmul_rider.cu), the mxu_crt probe (probe_mxu_crt.cu) and the deaddep
-// probe's recmxu rider (probe_deaddep.cu).
+// (matmul_rider.cu), the CRT-fused GEMM (matmul_reconstruct.cu), the
+// mxu_crt probe (probe_mxu_crt.cu) and the deaddep probe's recmxu rider
+// (probe_deaddep.cu).
 //
 // For centred residues rc_j = r_j - 128 of one element, Y[d] = sum_j
 // wc[d][j] rc_j over the compact table wc ((nd+1) x L, nd = 2 * num_limbs;

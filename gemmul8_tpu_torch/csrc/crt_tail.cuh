@@ -1,10 +1,11 @@
-// The reconstruct kernel's tail (reconstruct.cu), from the CRT sum X to the
+// The reconstruct kernel's tail (reconstruct.cu; also the pipeline's rider,
+// matmul_rider.cu, and matmul_reconstruct.cu), from the CRT sum X to the
 // rounded output word, on kW 32-bit words (4 where X < 2^128, else 6):
 //   limbs_to_words  X from 16-bit limbs (each >= 0 and < 2^29, canonical
 //                   or not), the carries propagated once
 //   center_rn       X -> |centered(X mod M)| and its sign
 //   round_rn        RNE( +-magnitude * 2^e_fix ) as f64 or f32 bits
-// crt.cuh keeps the older tail the CRT-fused GEMMs share; both give the
+// crt.cuh keeps the older tail matmul_crt.cu runs; both give the
 // plain version's bits (every step is exact).
 //
 // The quotient is estimated ROUNDED TO NEAREST: q = fl(fl(X) / M) in f64,

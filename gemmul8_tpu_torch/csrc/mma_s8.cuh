@@ -1,8 +1,8 @@
 // The mma.sync int8 tensor-core tile of the GEMM kernels not yet on the
 // wgmma tile (wgmma_s8.cuh, which runs matmul_mod.cu, matmul_rider.cu,
-// matmul_complex.cu and matmul_mod_pipelined.cu): magmax.cu, the CRT-fused
-// GEMMs of crt_gemm.cuh (matmul_crt.cu, matmul_reconstruct.cu) and the
-// deaddep probe (probe_deaddep.cu). One 128 x 128 output tile of
+// matmul_complex.cu, matmul_mod_pipelined.cu, matmul_reconstruct.cu and
+// probe_deaddep.cu): magmax.cu and the CRT-fused GEMM of crt_gemm.cuh
+// (matmul_crt.cu). One 128 x 128 output tile of
 // A (rows, k) x Bt (cols, k)^T, both operands K-major, accumulated in int32.
 //
 // 8 warps, each 64 x 32, run mma.sync.m16n8k32 (s8 x s8 -> s32). 16-byte

@@ -5,10 +5,14 @@
 // maps (make_tensor_map). Its callers: matmul_mod.cu (the one-shot GEMM),
 // matmul_rider.cu (the panel pipeline's GEMM, with rider work between
 // tiles), matmul_complex.cu (the complex GEMM, products chained in one
-// accumulator) and matmul_mod_pipelined.cu (a ping-pong schedule: each
-// consumer warpgroup owns whole 128 x 128 tiles, wgmma.m64n128k32). The
-// older mma.sync tile (mma_s8.cuh) still carries magmax.cu, the CRT-fused
-// GEMMs (crt_gemm.cuh) and the deaddep probe.
+// accumulator), matmul_mod_pipelined.cu (a ping-pong schedule: each
+// consumer warpgroup owns whole 128 x 128 tiles, wgmma.m64n128k32),
+// matmul_reconstruct.cu (the L products of a tile, their residues parked
+// in device memory and reconstructed after its last product) and
+// probe_deaddep.cu (matmul_mod.cu's kernel with integer work injected,
+// its kloop variant through consume's k-tile hook). The older mma.sync
+// tile (mma_s8.cuh) still carries magmax.cu and matmul_crt.cu
+// (crt_gemm.cuh).
 //
 // Operands: A (L, m, kp) and Bt (L, n, kp) int8, both K-major (wgmma takes
 // 8-bit operands K-major only), kp % 16 == 0, each read through a 3-D
@@ -357,14 +361,22 @@ __device__ __forceinline__ void produce(const CUtensorMap& ma,
   }
 }
 
+// consume's default k-tile hook: nothing
+struct NoHook {
+  __device__ __forceinline__ void operator()(int, int) const {}
+};
+
 // a consumer warpgroup's product of one tile: acc = its 64-row half of
 // A (tile rows) x Bt (tile columns)^T over all nk k-tiles, or with kAccIn
 // acc += that product (the complex GEMM chains products in one
-// accumulator)
-template <int BN, bool kAccIn = false>
+// accumulator). hook(kt, nk) runs after k-tile kt's wgmmas are committed
+// and before they are waited for, inside their asynchronous window (the
+// deaddep probe's kloop chain; a no-op for every other caller).
+template <int BN, bool kAccIn = false, typename Hook = NoHook>
 __device__ __forceinline__ void consume(int (&acc)[BN / 2], const Ring& ring,
                                         int half, int nk, int& stage,
-                                        unsigned& phase) {
+                                        unsigned& phase,
+                                        Hook&& hook = Hook{}) {
   const bool leader = (threadIdx.x & 31) == 0;
   int prev = 0;
   fence_regs(acc);
@@ -378,6 +390,7 @@ __device__ __forceinline__ void consume(int (&acc)[BN / 2], const Ring& ring,
       wgmma_s8<BN>(acc, da + 2 * ks, db + 2 * ks,
                    kAccIn || (kt | ks) != 0);
     wgmma_commit();
+    hook(kt, nk);
     if (kt > 0) {  // the previous k-tile's wgmmas are done with its stage
       wgmma_wait<1>();
       if (leader) mbar_arrive(ring.empty + 8 * prev);

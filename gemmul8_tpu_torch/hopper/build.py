@@ -10,9 +10,10 @@ interface:
 
 `-fmad=false` keeps every f32 multiply and add a separate rounding, as in
 the plain versions (the Barrett and quotient-estimate budgets assume it).
-A source may take flags of its own (`SOURCE_FLAGS`): the four sources on
+A source may take flags of its own (`SOURCE_FLAGS`): the six sources on
 the wgmma tile (matmul_mod.cu, matmul_rider.cu, matmul_mod_pipelined.cu,
-matmul_complex.cu) get the launch table's constants of their entry
+matmul_complex.cu, matmul_reconstruct.cu, and probe_deaddep.cu on
+matmul_mod's entry) get the launch table's constants of their entry
 (`-DGM8_MM_TILE_N=256 ...`, hopper/launch.py) and `-Xptxas -v`, whose
 report is kept in `PTXAS_REPORT`. The library
 lands in `build/kernels/` under the checkout, named by a hash of the
@@ -66,7 +67,9 @@ LAUNCHES: collections.Counter = collections.Counter()
 WGMMA_SOURCES = {"matmul_mod.cu": "matmul_mod",
                  "matmul_rider.cu": "matmul_rider",
                  "matmul_mod_pipelined.cu": "matmul_mod_pipelined",
-                 "matmul_complex.cu": "matmul_complex"}
+                 "matmul_complex.cu": "matmul_complex",
+                 "matmul_reconstruct.cu": "matmul_reconstruct",
+                 "probe_deaddep.cu": "matmul_mod"}
 SOURCE_FLAGS = {
     **{src: ("-Xptxas", "-v", *launch.get(entry, ARCH_CAPABILITY).defines())
        for src, entry in WGMMA_SOURCES.items()},

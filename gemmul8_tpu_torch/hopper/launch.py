@@ -28,6 +28,13 @@ Entries:
                   each consumer warpgroup owns whole 128 x `tile_n` tiles.
     "matmul_complex" `MatmulModLaunch` of csrc/matmul_complex.cu, the
                   cooperative tile with the complex products chained.
+    "matmul_reconstruct" `MatmulModLaunch` of csrc/matmul_reconstruct.cu,
+                  the cooperative tile walking (tile, modulus, k-tile),
+                  the consumers reconstructing each tile after its last
+                  modulus. The wrapper sizes the kernel's scratch of
+                  residues by its `tile_n` (hopper/matmul.py).
+csrc/probe_deaddep.cu is built with the "matmul_mod" entry: its GEMM is
+matmul_mod's kernel.
 """
 
 from __future__ import annotations
@@ -63,7 +70,9 @@ class MatmulModLaunch:
 # tiles are 128 x 128 (two wgmma.m64n128k32 chains, 128 registers a
 # thread): 32 KB stages, six of them beside its two 16 KB staging tiles
 # (230,496 bytes). The complex kernel runs matmul_mod's tile and ring; its
-# Karatsuba carry stays in registers, so no stage gives way.
+# Karatsuba carry stays in registers, so no stage gives way, nor for the
+# CRT-fused GEMM, whose digit table and chunk counter take 848 bytes and
+# whose limb rows sit in the staging tile.
 TABLE = {(9, 0): {"matmul_mod": MatmulModLaunch(tile_n=256, stages=4,
                                                 raster_group=16),
                   "matmul_rider": MatmulModLaunch(tile_n=256, stages=3,
@@ -71,7 +80,9 @@ TABLE = {(9, 0): {"matmul_mod": MatmulModLaunch(tile_n=256, stages=4,
                   "matmul_mod_pipelined": MatmulModLaunch(
                       tile_n=128, stages=6, raster_group=16),
                   "matmul_complex": MatmulModLaunch(tile_n=256, stages=4,
-                                                    raster_group=16)}}
+                                                    raster_group=16),
+                  "matmul_reconstruct": MatmulModLaunch(
+                      tile_n=256, stages=4, raster_group=16)}}
 
 
 def get(name: str, capability=None):

@@ -15,7 +15,9 @@
         <- pallas/matmul.py matmul_complex_mod_pallas
     matmul_crt          csrc/matmul_crt.cu
         <- pallas/matmul.py matmul_crt_pallas
-    matmul_reconstruct  csrc/matmul_reconstruct.cu
+    matmul_reconstruct  csrc/matmul_reconstruct.cu (the wgmma tile, each
+                        tile's CRT on the tensor-core bodies after its
+                        products)
         <- pallas/megakernel.py matmul_reconstruct_pallas
 
 A CPU tensor takes the plain version (exact f64 products, then the mod or
@@ -24,9 +26,11 @@ a mod first copy each B operand into a K-major workspace the wrapper
 allocates; the magnitude GEMMs read both operands K-major in place where
 their layout allows (as `hopper.kernels.mag7` writes them). The two
 CRT-fused GEMMs also get a scratch of residues sized by the blocks in
-flight (csrc/crt_gemm.cuh). `matmul_crt` has no switch, as in the JAX
-package: it is called directly, and its limbs go to
-`hopper.kernels.reconstruct(..., input_kind="limbs")`.
+flight: `matmul_crt` one 128 x 128 tile's for each of two blocks an SM
+(csrc/crt_gemm.cuh), `matmul_reconstruct` one 128 x tile_n tile's for
+each block of its persistent grid (its launch entry). `matmul_crt` has
+no switch, as in the JAX package: it is called directly, and its limbs
+go to `hopper.kernels.reconstruct(..., input_kind="limbs")`.
 
 The wgmma epilogues divide by each slot's modulus with a multiplier and a
 shift (`mod_divisor`, `mod_div`: the host arithmetic, exact for every
@@ -67,11 +71,12 @@ matmul_complex_mod_plain = sg.matmul_complex_mod
 matmul_crt_plain = sg.matmul_crt
 matmul_reconstruct_plain = sg.matmul_reconstruct
 
-_TILE = 128  # kBM = kBN of csrc/mma_s8.cuh, the CRT-fused GEMMs' tile
+_TILE = 128  # kBM = kBN of csrc/mma_s8.cuh (matmul_crt, magmax)
 # csrc/matmul_complex.cu kImBias: the Im chain's accumulator starts here, so
 # that IR + RI (up to 2^31 at k = 2^16) stays inside int32
 COMPLEX_IM_BIAS = -(1 << 24)
-_BLOCKS_PER_SM = 2  # __launch_bounds__(256, 2) of the CRT-fused GEMMs
+_BLOCKS_PER_SM = 2  # __launch_bounds__(256, 2) of matmul_crt
+_TILE_M = 128  # kBM of csrc/wgmma_s8.cuh: a wgmma tile's rows
 
 
 def _pad_k(a8: torch.Tensor, kp: int) -> torch.Tensor:
@@ -210,14 +215,24 @@ def _launch_mod(name: str, a8: torch.Tensor, b8: torch.Tensor, idx: tuple,
 
 
 def _crt_scratch(device: torch.device, L: int, m: int, n: int):
-    """(nblocks, scratch): the persistent grid of a CRT-fused GEMM, two
-    blocks per SM or one per tile if fewer, and each block's (L, 128 * 128)
-    bytes of residues."""
+    """(nblocks, scratch): matmul_crt's persistent grid, two blocks per SM
+    or one per tile if fewer, and each block's (L, 128 * 128) bytes of
+    residues."""
     tiles = -(-m // _TILE) * -(-n // _TILE)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     nblocks = min(tiles, _BLOCKS_PER_SM * sms)
     return nblocks, torch.empty((nblocks, L, _TILE * _TILE),
                                 dtype=torch.uint8, device=device)
+
+
+def reconstruct_scratch_shape(L: int, m: int, n: int, tile_n: int,
+                              sms: int) -> tuple:
+    """(nblocks, the scratch's shape) of `matmul_reconstruct`: its
+    persistent grid, one block per SM or one per 128 x tile_n tile if
+    fewer, and each block's L residue planes of its tile."""
+    tiles = -(-m // _TILE_M) * -(-n // tile_n)
+    nblocks = min(tiles, sms)
+    return nblocks, (nblocks, L, _TILE_M * tile_n)
 
 
 def matmul_crt(a8: torch.Tensor, b8: torch.Tensor,
@@ -280,8 +295,14 @@ def matmul_reconstruct(a8: torch.Tensor, b8: torch.Tensor,
     if sft_a.dtype != torch.int32 or sft_b.dtype != torch.int32:
         raise TypeError("shifts must be int32")
     build.require_cuda(a8, b8, sft_a, sft_b)
+    # the kernel is built with the table's sm_90 entry; any other card raises
+    cfg = launch.get("matmul_reconstruct",
+                     torch.cuda.get_device_capability(a8.device))
     a8, kp, bt = _k_workspace(a8, n)
-    nblocks, scratch = _crt_scratch(a8.device, L, m, n)
+    nblocks, shape = reconstruct_scratch_shape(
+        L, m, n, cfg.tile_n,
+        torch.cuda.get_device_properties(a8.device).multi_processor_count)
+    scratch = torch.empty(shape, dtype=torch.uint8, device=a8.device)
     out = torch.empty((m, n), dtype=torch.float32 if f32 else torch.float64,
                       device=a8.device)
     table = hk.crt_table_entry(L)

@@ -4,6 +4,7 @@
     vpu_chain  csrc/probe_vpu_ops.cu  <- scripts/probe_vpu_ops.py main
     mxu_crt    csrc/probe_mxu_crt.cu  <- scripts/probe_mxu_crt.py _build
     deaddep    csrc/probe_deaddep.cu  <- scripts/probe_deaddep.py build
+               (matmul_mod's wgmma kernel with the injected work)
 
 As in `hopper/kernels.py`: a CPU tensor takes the plain version (in
 `gemmul8_tpu_torch/probes/`), a CUDA tensor launches the kernel or raises;
@@ -21,6 +22,7 @@ from ..probes import deaddep as pdd
 from ..probes import mxu_crt as pmxu
 from ..probes import vpu_ops as pvpu
 from . import build
+from . import launch
 from .kernels import _on_cpu, crt_mma_table, crt_table_entry
 
 clz_plain = pclz.clz_plain
@@ -123,6 +125,9 @@ def deaddep(a8: torch.Tensor, b8: torch.Tensor, num_moduli: int, nops: int,
         return deaddep_plain(a8, b8, num_moduli, nops, variant, rin)
     tensors = [a8, b8] + [t for t in (rin, stamps) if t is not None]
     build.require_cuda(*tensors)
+    # the GEMM is matmul_mod's kernel, built with the table's sm_90 entry;
+    # any other card raises
+    launch.get("matmul_mod", torch.cuda.get_device_capability(a8.device))
     if a8.data_ptr() % 16 or b8.data_ptr() % 16:
         raise ValueError("a8 and b8 must start on a 16-byte boundary")
     L, n = num_moduli, a8.shape[-1]

@@ -1,12 +1,14 @@
 """Integer work inside the residue GEMM's block: counterpart of
 `scripts/probe_deaddep.py` (`build`, its two Pallas kernels).
 
-The GEMM is the port's matmul_mod tile (`csrc/mma_s8.cuh`: 128 x 128
-tiles, a 3-stage cp.async ring) computing the canonical residues
-(A8[l] @ B8[l]) mod m_l, uint8 (L, n, n). After each tile's mod epilogue
-the block runs an injected chain, v = v * 3 + 1 repeated nops / 2 times
-per element (one multiply-add on the card, the script's two ops), in one
-of the script's variants:
+The GEMM is the port's matmul_mod kernel (`csrc/wgmma_s8.cuh`: a TMA
+ring, wgmma on 128 x 256 tiles, a persistent grid of one block an SM)
+computing the canonical residues (A8[l] @ B8[l]) mod m_l, uint8 (L, n,
+n). The injected work is counted per 128 x 128 tile (a 128 x 256 tile
+does that of its two): after the tile's mod epilogue the consumers run
+an injected chain, v = v * 3 + 1 repeated nops / 2 times per element
+(one multiply-add on the card, the script's two ops), in one of the
+script's variants:
 
     base     nops = 0: the GEMM alone
     indep    over a tile-sized scratch in shared memory that starts at 0
@@ -19,12 +21,14 @@ of the script's variants:
     recmxu   the same through the CRT contraction on the tensor cores
              (csrc/crt_mma.cuh, the mxu_crt probe's device code)
     kloop    indep's chain run in registers between the mainloop's
-             k-tiles, from the GEMM's own warps (the port's own variant;
-             the script has none like it)
+             k-tiles, from the GEMM's own warps, after a k-tile's wgmmas
+             are issued and before they are waited for (the port's own
+             variant; the script has none like it)
 
-Every variant but kloop runs its work after the tile's mainloop, so on the
-card only the SM's other block can overlap it with MMAs; kloop asks whether
-the tensor-core pipeline hides integer work inside the block.
+Every variant but kloop runs its work after the tile's epilogue, where
+only the ring's prefetch of the next tile can overlap it with MMAs; kloop
+asks whether the asynchronous tensor cores hide integer work issued
+beside them.
 
 The rider totals are the script's (L (n/1024)(n/512) steps of (128, 512)
 words, or of (64, 512) and (8, 4096) residue blocks), spread over the

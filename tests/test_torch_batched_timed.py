@@ -29,6 +29,8 @@ from gemmul8_tpu_torch.core import complexgemm as cg
 from gemmul8_tpu_torch.core import encode as enc
 from gemmul8_tpu_torch.core import gemm as tg
 
+from test_torch_threads import one_torch_thread  # noqa: E402, F401
+
 CT = gt.ComputeType
 STRATS = [CT.COMPLEX_BIG_MATRIX_ENCODE, CT.COMPLEX_CLASSIC_MULT,
           CT.COMPLEX_KARATSUBA_MULT]

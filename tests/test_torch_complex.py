@@ -27,6 +27,8 @@ from gemmul8_tpu_torch.core import complexgemm as cg
 from gemmul8_tpu_torch.core import encode as enc
 from gemmul8_tpu_torch.types import c128_to_words, words_to_c128
 
+from test_torch_threads import one_torch_thread  # noqa: E402, F401
+
 CT = gt.ComputeType
 STRATS = [CT.COMPLEX_BIG_MATRIX_ENCODE, CT.COMPLEX_CLASSIC_MULT,
           CT.COMPLEX_KARATSUBA_MULT]

@@ -24,6 +24,8 @@ from gemmul8_tpu_torch.hopper import kernels as hk
 from gemmul8_tpu_torch.hopper import matmul as hm
 from gemmul8_tpu_torch.types import f64_to_words, words_to_f64
 
+from test_torch_threads import one_torch_thread  # noqa: E402, F401
+
 
 def _slices(L, m, k, n, seed):
     rng = np.random.default_rng(seed)

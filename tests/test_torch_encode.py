@@ -23,6 +23,8 @@ from gemmul8_tpu_torch.core import encode as enc
 from gemmul8_tpu_torch.hopper import kernels as hk
 from gemmul8_tpu_torch.types import f64_to_words, words_to_f64
 
+from test_torch_threads import one_torch_thread  # noqa: E402, F401
+
 STATS_BLOCK = (64, tables.STATS_CHUNK)
 
 

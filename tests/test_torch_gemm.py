@@ -22,6 +22,8 @@ from gemmul8_tpu.types import bits_to_f64, f64_to_bits
 from gemmul8_tpu_torch.core import gemm as tg
 from gemmul8_tpu_torch.hopper import kernels as hk
 
+from test_torch_threads import one_torch_thread  # noqa: E402, F401
+
 
 def _mk(shape, phi, seed=0):
     rng = np.random.default_rng(seed)

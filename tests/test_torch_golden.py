@@ -60,6 +60,8 @@ from gemmul8_tpu_torch.bench.golden import (c_operand,  # noqa: E402
                                             digest, operands, port_entry)
 from gemmul8_tpu_torch.core import encode as enc  # noqa: E402
 
+from test_torch_threads import one_torch_thread  # noqa: E402, F401
+
 GOLDEN = Path(__file__).resolve().parent / "data" / "torch_golden.npz"
 MARGIN = 1e-4
 
@@ -249,10 +251,27 @@ def test_golden_spec_is_this_file(golden):
         assert shift_margin(name) > MARGIN, name
 
 
+@pytest.fixture(scope="module")
+def jax_entries():
+    """jax_entry's results for the module, keyed by what the JAX side
+    computes: an entry whose "env" names a port switch has the JAX default
+    call of the same operands, so it shares that entry's result."""
+    cache = {}
+
+    def get(name):
+        kind, shape, L, fastmode, phi, seeds, ct, pipe, call = ENTRIES[name]
+        key = json.dumps([kind, shape, L, fastmode, phi, seeds, ct, pipe,
+                          {k: v for k, v in call.items() if k != "env"}])
+        if key not in cache:
+            cache[key] = jax_entry(name)
+        return cache[key]
+    return get
+
+
 @pytest.mark.parametrize("name", list(ENTRIES))
-def test_golden_file_is_fresh(golden, name):
+def test_golden_file_is_fresh(golden, jax_entries, name):
     """Regenerated from the JAX package, the entry is the committed one."""
-    sa, sb, dg = jax_entry(name)
+    sa, sb, dg = jax_entries(name)
     np.testing.assert_array_equal(golden[f"{name}.sft_a"], sa)
     np.testing.assert_array_equal(golden[f"{name}.sft_b"], sb)
     assert str(golden[f"{name}.digest"]) == dg

@@ -5,6 +5,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+from test_torch_threads import one_torch_thread  # noqa: E402, F401
+
 REPO = Path(__file__).resolve().parent.parent
 
 _PROBE = """

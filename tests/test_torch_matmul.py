@@ -14,6 +14,8 @@ from gemmul8_tpu_torch.core import modmath
 from gemmul8_tpu_torch.core import slicegemm as sg
 from gemmul8_tpu_torch.hopper import matmul as hm
 
+from test_torch_threads import one_torch_thread  # noqa: E402, F401
+
 
 def _slices(L, m, k, n, seed):
     rng = np.random.default_rng(seed)

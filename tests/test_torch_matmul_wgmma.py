@@ -32,6 +32,8 @@ from gemmul8_tpu_torch.hopper import build
 from gemmul8_tpu_torch.hopper import launch
 from gemmul8_tpu_torch.hopper import matmul as hm
 
+from test_torch_threads import one_torch_thread  # noqa: E402, F401
+
 REACH = 127 * 127 << 17   # largest |product| of centered odd-lane slices
 INT32_MIN, INT32_MAX = -(1 << 31), (1 << 31) - 1
 

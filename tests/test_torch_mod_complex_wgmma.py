@@ -41,6 +41,8 @@ from gemmul8_tpu_torch.hopper import build
 from gemmul8_tpu_torch.hopper import launch
 from gemmul8_tpu_torch.hopper import matmul as hm
 
+from test_torch_threads import one_torch_thread  # noqa: E402, F401
+
 SMS = 132                                # the H100's SMs: the grid's most
 INT32 = (-(1 << 31), (1 << 31) - 1)
 BIAS = hm.COMPLEX_IM_BIAS

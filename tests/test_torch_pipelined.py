@@ -42,6 +42,8 @@ from gemmul8_tpu_torch.hopper import matmul as hm
 from gemmul8_tpu_torch.hopper import pipelined as hp
 from gemmul8_tpu_torch.types import words_to_f64
 
+from test_torch_threads import one_torch_thread  # noqa: E402, F401
+
 SWITCHES = ("GEMMUL8_FUSED_ENCODE", "GEMMUL8_FUSED_MAG7",
             "GEMMUL8_MAGMAX_SCRATCH", "GEMMUL8_MM_PIPELINE", "GEMMUL8_MXU_CRT",
             "GEMMUL8_FUSED_RECONSTRUCT", "GEMMUL8_RIDER_UNCOND")

@@ -43,6 +43,8 @@ from gemmul8_tpu_torch.hopper import kernels as hk
 from gemmul8_tpu_torch.hopper import matmul as hm
 from gemmul8_tpu_torch.hopper import pipelined as hp
 
+from test_torch_threads import one_torch_thread  # noqa: E402, F401
+
 SWITCHES = ("GEMMUL8_FUSED_ENCODE", "GEMMUL8_FUSED_MAG7",
             "GEMMUL8_MAGMAX_SCRATCH", "GEMMUL8_MM_PIPELINE", "GEMMUL8_MXU_CRT",
             "GEMMUL8_FUSED_RECONSTRUCT", "GEMMUL8_RIDER_UNCOND")
@@ -386,6 +388,8 @@ def test_gemm_core_pipelined_f32_matches_jax(monkeypatch, ak, bk, out, L,
     np.testing.assert_array_equal(_words(default), _words(got))
     _hold(got, ref, a, b, L, fastmode)
     for other in "123":
+        if other == pipe:   # got, under the same switch, held above
+            continue
         monkeypatch.setenv("GEMMUL8_PIPELINE", other)
         np.testing.assert_array_equal(
             _words(tg.gemm_core(ta, tb, L, fastmode, out)), _words(default))

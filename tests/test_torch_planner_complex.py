@@ -28,6 +28,8 @@ import pytest
 from gemmul8_tpu_torch import planner
 from gemmul8_tpu_torch.types import ComputeType
 
+from test_torch_threads import one_torch_thread  # noqa: E402, F401
+
 CT = ComputeType
 STRATEGIES = [CT.COMPLEX_BIG_MATRIX_ENCODE, CT.COMPLEX_CLASSIC_MULT,
               CT.COMPLEX_KARATSUBA_MULT]

@@ -36,6 +36,8 @@ sys.path.insert(0, str(REPO / "scripts"))
 import probe_deaddep as jdd  # noqa: E402
 import probe_mxu_crt as jmxu  # noqa: E402
 
+from test_torch_threads import one_torch_thread  # noqa: E402, F401
+
 
 # ---- the CRT-contraction helpers ------------------------------------------
 

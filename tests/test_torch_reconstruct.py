@@ -20,6 +20,8 @@ from gemmul8_tpu_torch.core import limbs as lb
 from gemmul8_tpu_torch.core import reconstruct as rec
 from gemmul8_tpu_torch.hopper import kernels as hk
 
+from test_torch_threads import one_torch_thread  # noqa: E402, F401
+
 
 def _as_input(r: np.ndarray, kind: str) -> np.ndarray:
     """Canonical residues -> the matmul output form under test."""

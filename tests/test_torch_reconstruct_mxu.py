@@ -30,6 +30,8 @@ from gemmul8_tpu_torch.core import limbs as lb
 from gemmul8_tpu_torch.core import reconstruct as rec
 from gemmul8_tpu_torch.hopper import kernels as hk
 
+from test_torch_threads import one_torch_thread  # noqa: E402, F401
+
 
 def _inputs(r: np.ndarray, kind: str, seed: int = 0) -> np.ndarray:
     """Canonical residues (L, m, n) -> the matmul output form under test;

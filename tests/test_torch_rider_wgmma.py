@@ -37,6 +37,8 @@ from gemmul8_tpu_torch.hopper import kernels as hk
 from gemmul8_tpu_torch.hopper import launch
 from gemmul8_tpu_torch.hopper import pipelined as hp
 
+from test_torch_threads import one_torch_thread  # noqa: E402, F401
+
 SRC = (build.CSRC / "matmul_rider.cu").read_text()
 SMS = 132                              # the H100's SMs: the grid's most
 MM = launch.get("matmul_rider", (9, 0))  # the kernel's launch entry

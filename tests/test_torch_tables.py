@@ -7,6 +7,8 @@ from gemmul8_tpu import tables as jt
 from gemmul8_tpu.pallas import launch
 from gemmul8_tpu_torch import tables as tt
 
+from test_torch_threads import one_torch_thread  # noqa: E402, F401
+
 
 def test_moduli_and_bounds():
     assert tt.MODULI == jt.MODULI

@@ -37,6 +37,8 @@ from gemmul8_tpu_torch.hopper import matmul as hm
 from gemmul8_tpu_torch.types import (c128_to_words, f64_to_words,
                                      words_to_c128, words_to_f64)
 
+from test_torch_threads import one_torch_thread  # noqa: E402, F401
+
 SHIFT_RULE_FRAC = 1e-4
 SWITCHES = ("GEMMUL8_FUSED_ENCODE", "GEMMUL8_FUSED_MAG7",
             "GEMMUL8_MAGMAX_SCRATCH", "GEMMUL8_MM_PIPELINE", "GEMMUL8_MXU_CRT",
