@@ -385,6 +385,29 @@ csrc/probe_deaddep.cu: matmul_mod's kernel with the injected work) add:
   5s. (also) torch._int_mm x 14 in the ten-round rotation of
       matmul_reconstruct and matmul_mod_u8 + reconstruct.
 
+matmul_crt and the magnitude GEMM on the wgmma tile (csrc/matmul_crt.cu:
+matmul_reconstruct's walk and chunks, each chunk's CRT sums carried into
+canonical limbs and stored; csrc/magmax.cu: the cooperative tile at one
+slice with a row and column max epilogue; no source runs the mma.sync
+GEMM tile any more) add:
+  2.  (also) both sources' ptxas reports, each asserted free of spill
+      stores and loads;
+  3w. (also) matmul_crt against its plain version, bit for bit, every limb
+      in [0, 2^16), at the tile's edge shapes at 2, 14 and 20 moduli, at
+      every moduli count 2..20 on (65, 144, 257), at k = 2^17 (the 256
+      slice wrapped, the odd slices at +-127; random slices) and three
+      runs of (1000, 4100, 1500) at 14 moduli; magmax_matmul and
+      magmax_matmul_scratch against their plain version at the edge
+      shapes, from contiguous operands and from K-major buffers 48 bytes
+      wider than k whose bytes past k hold 64, and at k = 2^17 with every
+      magnitude 64 (products 2^29);
+  5, 5v, 5s. (also) the median SM clock and power draw (nvidia-smi every
+      20 ms) beside the variant kernels' rotations, the schedule kernels'
+      rotation and the main calls' rotation; magmax in both forms beside
+      torch._int_mm x 1 and matmul_crt beside torch._int_mm x 14 and
+      matmul_reconstruct, each as a ratio in its rotation; the accurate
+      call beside its time before (EARLIER_ACCURATE_MS, from PERF.md).
+
 The line before the last is a JSON object of per-kernel results
 (`launches` sums the main-path calls of phase 4, real and complex, for the
 variant kernels those of phase 4v at 8192^3, for matmul_crt and
@@ -563,7 +586,8 @@ EARLIER_MS = {"encode_slices": 2.521, "reconstruct": 1.975}
 MAIN_ROUNDS = 5          # phase 5: the fast, accurate and f32-8 calls
 # phase 2: sources whose ptxas report must show no spill store or load
 NO_SPILL_SOURCES = ("matmul_mod_pipelined.cu", "matmul_complex.cu",
-                    "matmul_reconstruct.cu", "probe_deaddep.cu")
+                    "matmul_reconstruct.cu", "probe_deaddep.cu",
+                    "matmul_crt.cu", "magmax.cu")
 # phase 3w: the wgmma tile's edge shapes (m, k, n) at these slice counts,
 # a moduli subset, and the int32 wrap at the largest k
 WGMMA_CASES = [(1, 16, 1), (65, 144, 257), (200, 4100, 129),
@@ -578,6 +602,16 @@ RECON_EDGE_LS = (2, 14, 20)
 RECON_ALL_LS = (65, 144, 257)
 RECON_REPEAT_CASE = ((1000, 4100, 1500), L_MAIN)
 RECON_REPEATS = 3
+# phase 3w: magmax on the wgmma tile at the edge shapes, also from
+# K-major buffers MAGMAX_PAD bytes wider than k whose bytes past k hold
+# the largest magnitude (the tensor maps' extent must keep them out), and
+# all-MAG_MAX magnitudes at k = 2^17 (products 2^29)
+MAGMAX_PAD = 48
+MAG_MAX = 64
+# phase 5: the accurate 8192^3 call's median in the main calls' rotation
+# before magmax moved to the wgmma tile (PERF.md section 5, same card and
+# power limit)
+EARLIER_ACCURATE_MS = 16.704
 # phase 3p: (m, k, n), moduli counts, panel_m; 2 or 3 panels, where the
 # pipeline's gates apply
 PIPELINE_CASES = [((2048, 2048, 2048), (L_MAIN,), 1024),
@@ -997,6 +1031,107 @@ def phase_reconstruct_wgmma(errs):
     log(f"  matmul_reconstruct at m={m} k={k} n={n} L={L}: "
         f"{RECON_REPEATS} runs bit-equal in each word")
 
+
+
+def hold_crt(errs, a8, b8, L, tag, repeats=1):
+    """matmul_crt == its plain version, bit for bit, every limb in [0,
+    2^16); repeats runs of it, bit-equal."""
+    runs = [hm.matmul_crt(a8, b8, L) for _ in range(repeats)]
+    for r in runs[1:]:
+        assert torch.equal(r, runs[0]), f"matmul_crt {tag}: runs differ"
+    hold(errs, "matmul_crt", runs[0], hm.matmul_crt_plain(a8, b8, L),
+         f"matmul_crt {tag}")
+    assert 0 <= int(runs[0].min()) and int(runs[0].max()) <= 0xFFFF, \
+        f"matmul_crt {tag}: limbs not canonical"
+
+
+def phase_crt_wgmma(errs):
+    """Phase 3w (also): matmul_crt on the wgmma tile at the tile's edge
+    shapes, every moduli count, the int32 wrap at k = 2^17 and three runs
+    of one shape."""
+    log(f"  matmul_crt launch: {hl.get('matmul_crt')}, built with "
+        f"{' '.join(build.SOURCE_FLAGS['matmul_crt.cu'])}")
+    for i, (m, k, n) in enumerate(WGMMA_CASES):
+        Ls = sorted(set(RECON_EDGE_LS) | (
+            set(range(2, tables.MAX_MODULI + 1))
+            if (m, k, n) == RECON_ALL_LS else set()))
+        for L in Ls:
+            a8, b8 = slices8(L, m, k, n, 150 + i)
+            hold_crt(errs, a8, b8, L, f"m={m} k={k} n={n} L={L}")
+        log(f"  matmul_crt == plain, limbs canonical, at m={m} k={k} n={n}, "
+            f"L = {', '.join(map(str, Ls))}")
+    L = tables.MAX_MODULI
+    a8 = torch.full((L, WRAP_MN, WRAP_K), -127, dtype=torch.int8,
+                    device=DEVICE)
+    b8 = torch.full((L, WRAP_K, WRAP_MN), 127, dtype=torch.int8,
+                    device=DEVICE)
+    a8[0] = -128
+    b8[0] = -128
+    b8[1:, :, ::2] = -127
+    hold_crt(errs, a8, b8, L, f"wrap k={WRAP_K}")
+    del a8, b8
+    a8, b8 = slices8(L, WRAP_MN, WRAP_K, WRAP_MN, 160)
+    hold_crt(errs, a8, b8, L, f"random k={WRAP_K}")
+    del a8, b8
+    log(f"  matmul_crt == plain at k = {WRAP_K}, m = n = {WRAP_MN}, L = {L}: "
+        "the 256 slice's products exactly 2^31, the odd slices' 127^2 * "
+        "2^17; and random slices")
+    (m, k, n), L = RECON_REPEAT_CASE
+    a8, b8 = slices8(L, m, k, n, 161)
+    hold_crt(errs, a8, b8, L, f"m={m} k={k} n={n} L={L}", RECON_REPEATS)
+    log(f"  matmul_crt at m={m} k={k} n={n} L={L}: {RECON_REPEATS} runs "
+        "bit-equal")
+
+
+def padded_k_major(x, pad, fill):
+    """x (rows, k) int8 as the view [:, :k] of a K-major buffer (rows, ld),
+    ld = k rounded up to 16 plus pad, whose bytes past k hold fill."""
+    rows, k = x.shape
+    buf = torch.full((rows, -(-k // 16) * 16 + pad), fill, dtype=torch.int8,
+                     device=x.device)
+    buf[:, :k] = x
+    return buf[:, :k]
+
+
+def phase_magmax_wgmma(errs):
+    """Phase 3w (also): magmax_matmul and magmax_matmul_scratch on the
+    wgmma tile at its edge shapes, from contiguous operands (which the
+    wrapper copies K-major) and from K-major buffers wider than k whose
+    bytes past k hold the largest magnitude; all-64 magnitudes at k =
+    2^17."""
+    log(f"  magmax launch: {hl.get('magmax')}, built with "
+        f"{' '.join(build.SOURCE_FLAGS['magmax.cu'])}")
+    for i, (m, k, n) in enumerate(WGMMA_CASES):
+        rng = np.random.default_rng(170 + i)
+        a = torch.from_numpy(rng.integers(0, MAG_MAX + 1, (m, k), np.int8)
+                             ).to(DEVICE)
+        b = torch.from_numpy(rng.integers(0, MAG_MAX + 1, (k, n), np.int8)
+                             ).to(DEVICE)
+        ref = hm.magmax_plain(a, b)
+        a_pad = padded_k_major(a, MAGMAX_PAD, MAG_MAX)
+        b_pad = padded_k_major(b.t().contiguous(), MAGMAX_PAD, MAG_MAX).t()
+        # the wrapper reads the padded buffers in place, past-k bytes and all
+        assert hm._k_major(a_pad)[0].data_ptr() == a_pad.data_ptr()
+        assert hm._k_major(b_pad.t())[0].data_ptr() == b_pad.data_ptr()
+        for x, y, form in ((a, b, "contiguous"),
+                           (a_pad, b_pad, f"K-major, {MAG_MAX} past k")):
+            tag = f"m={m} k={k} n={n} {form}"
+            hold(errs, "magmax_matmul", hm.magmax_matmul(x, y), ref,
+                 f"magmax_matmul {tag}")
+            hold(errs, "magmax_matmul_scratch",
+                 hm.magmax_matmul_scratch(x, y), ref,
+                 f"magmax_matmul_scratch {tag}")
+        log(f"  magmax_matmul, magmax_matmul_scratch == plain at m={m} k={k} "
+            f"n={n}, contiguous and padded K-major operands")
+    a = torch.full((WRAP_MN, WRAP_K), MAG_MAX, dtype=torch.int8,
+                   device=DEVICE)
+    ref = hm.magmax_plain(a, a.t())
+    assert int(ref[0].max()) == MAG_MAX ** 2 * WRAP_K
+    for name, fn in (("magmax_matmul", hm.magmax_matmul),
+                     ("magmax_matmul_scratch", hm.magmax_matmul_scratch)):
+        hold(errs, name, fn(a, a.t()), ref, f"{name} all {MAG_MAX} k={WRAP_K}")
+    log(f"  magmax_matmul, magmax_matmul_scratch == plain at k = {WRAP_K}, "
+        f"m = n = {WRAP_MN}, every magnitude {MAG_MAX} (products 2^29)")
 
 # (x, e): reconstruct must give x * 2^e rounded to nearest even
 ROUNDING_VALUES = [
@@ -2220,8 +2355,8 @@ def phase_variant_times(a, b, errs):
     bit for bit (fast_encode_fused's shifts: equal to fast_sft's kernel,
     under the floor rule against the plain version); then each variant call
     at N^3 against the default call of its mode, VARIANT_ROUNDS rounds in
-    rotated order. Returns ({kernel: ({label: [ms]}, plain ms)}, {call:
-    [ms]})."""
+    rotated order. Returns ({kernel: ({label: [ms]}, plain ms, the SM
+    clock and power draw during its rotation)}, {call: [ms]})."""
     L = L_MAIN
     sa, sb = hk.fast_sft(a, L, 1), hk.fast_sft(b, L, 0)
     a8, b8 = hk.encode_slices(a, sa, L, 1), hk.encode_slices(b, sb, L, 0)
@@ -2289,8 +2424,9 @@ def phase_variant_times(a, b, errs):
         del got, ref
         log(f"  {name} == plain at the main path's shapes ({N}^2, {L} "
             "moduli)")
-        by_name, _ = timed_rounds(kerns, VARIANT_ROUNDS, 5)
-        times[name] = (by_name, pms)
+        with ClockSampler() as clock:
+            by_name, _ = timed_rounds(kerns, VARIANT_ROUNDS, 5)
+        times[name] = (by_name, pms, clock.summary())
     del a8, b8, b8t, ma, mb
     calls = {"fast default": (True, {}), "accurate default": (False, {})}
     for name, fastmode, env, _ in VARIANT_CALLS:
@@ -2309,7 +2445,8 @@ def phase_schedule_times(a, b, errs):
     plain versions, the warm-up outputs held bit for bit; encode_slices on
     13 moduli in its three forms; the chunk fold; then the chunked and
     FUSED_RECONSTRUCT calls at N^3 beside the default call of their mode.
-    Returns ({label: [ms]}, {name: plain ms}, {call: [ms]})."""
+    Returns ({label: [ms]}, {name: plain ms}, {call: [ms]}, the SM clock
+    and power draw during the kernels' rotation)."""
     L = L_MAIN
     sa, sb = hk.fast_sft(a, L, 1), hk.fast_sft(b, L, 0)
     a8, b8 = hk.encode_slices(a, sa, L, 1), hk.encode_slices(b, sb, L, 0)
@@ -2330,16 +2467,18 @@ def phase_schedule_times(a, b, errs):
         log(f"  {name} == plain at the main path's shapes ({N}^2, {L} "
             "moduli)")
         del got, ref
-    kerns, _ = timed_rounds({
-        "matmul_crt": lambda: hm.matmul_crt(a8, b8, L),
-        "matmul_reconstruct": lambda: hm.matmul_reconstruct(a8, b8, sa, sb,
-                                                            L),
-        "matmul_mod_u8": lambda: hm.matmul_mod_u8(a8, b8, L, centered=True),
-        "reconstruct (limbs)": lambda: hk.reconstruct(limbs, sa, sb, L,
-                                                      input_kind="limbs"),
-        "reconstruct": lambda: hk.reconstruct(r8, sa, sb, L),
-        LIBRARY: int_mm(a8, b8t),
-    }, SCHEDULE_ROUNDS, 3)
+    with ClockSampler() as clock:
+        kerns, _ = timed_rounds({
+            "matmul_crt": lambda: hm.matmul_crt(a8, b8, L),
+            "matmul_reconstruct": lambda: hm.matmul_reconstruct(
+                a8, b8, sa, sb, L),
+            "matmul_mod_u8": lambda: hm.matmul_mod_u8(a8, b8, L,
+                                                      centered=True),
+            "reconstruct (limbs)": lambda: hk.reconstruct(
+                limbs, sa, sb, L, input_kind="limbs"),
+            "reconstruct": lambda: hk.reconstruct(r8, sa, sb, L),
+            LIBRARY: int_mm(a8, b8t),
+        }, SCHEDULE_ROUNDS, 3)
     del limbs, r8
     # the fused kernel against the pair it replaces and the library call,
     # resolved finer
@@ -2384,7 +2523,7 @@ def phase_schedule_times(a, b, errs):
         {name: (lambda f=f, env=env, kw=kw: under(env, lambda: gt.gemm(
             a, b, num_moduli=L, fastmode=f, device=DEVICE, **kw)))
          for name, (f, env, kw) in calls.items()}, SCHEDULE_ROUNDS, 2)
-    return kerns, plain_ms, by_name
+    return kerns, plain_ms, by_name, clock.summary()
 
 
 def hold_all(errs, name, got, ref, what):
@@ -4116,19 +4255,39 @@ def spread_ms(d):
 
 
 class ClockSampler:
-    """nvidia-smi's SM clock every 20 ms while the block runs."""
+    """nvidia-smi's SM clock and power draw every 20 ms while the block
+    runs. The block starts once the first sample is in, so that a block
+    of a few hundred ms is sampled from its start (nvidia-smi takes longer
+    than that to come up)."""
 
     def __enter__(self):
         self.proc = subprocess.Popen(
-            ["nvidia-smi", "--query-gpu=clocks.sm",
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
              "--format=csv,noheader,nounits", "-lms", "20"],
             stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        self.first = self.proc.stdout.readline()
         return self
 
     def __exit__(self, *exc):
         self.proc.terminate()
         out, _ = self.proc.communicate(timeout=30)
-        self.mhz = [float(v) for v in out.split() if v.strip()]
+        out = self.first + out
+        self.mhz, self.watts = [], []
+        for line in out.splitlines():
+            cells = [c.strip() for c in line.split(",")]
+            try:
+                self.mhz.append(float(cells[0]))
+                self.watts.append(float(cells[1]))
+            except (IndexError, ValueError):   # a partial or [N/A] sample
+                continue
+
+    def summary(self):
+        """'SM clock median ... MHz, power draw median ... W (n samples)'."""
+        if not self.mhz:
+            return "SM clock and power draw not sampled"
+        return (f"SM clock median {float(np.median(self.mhz)):.0f} MHz, power "
+                f"draw median {float(np.median(self.watts)):.1f} W "
+                f"({len(self.mhz)} samples)")
 
 
 def sass_counts():
@@ -4563,6 +4722,8 @@ def main():
     phase_mma_kernels(errs)
     phase_wgmma_kernels(errs)
     phase_reconstruct_wgmma(errs)
+    phase_crt_wgmma(errs)
+    phase_magmax_wgmma(errs)
     phase_rounding(errs)
     phase_accurate_kernels(errs)
     phase_log2()
@@ -4616,6 +4777,7 @@ def main():
         tflops = 2 * N ** 3 / (ms * 1e-3) / 1e12
         log(f"  gemm {N}^3 {L_MAIN} moduli f64 {mode}: {ms:.3f} ms, "
             f"{tflops:.2f} TFLOP/s, gate relerr {rel!r} ({card})")
+    bounds_main = kernel_bounds(a, b, L_MAIN)
     ctimes, calls, by_place = phase_complex_times(A, B, errs)
     ms, _ = ctimes["recenter_add_int8"]
     log(f"  Karatsuba sum slices (plain tensor ops, A + B): {ms:.3f} ms "
@@ -4650,7 +4812,7 @@ def main():
             f"{clib[form + ' ' + LIBRARY]:.3f} ms in one rotation: ratio "
             f"{clib[form] / clib[form + ' ' + LIBRARY]:.3f} ({card})")
     vtimes, vcalls = phase_variant_times(a, b, errs)
-    for name, (by_label, pms) in vtimes.items():
+    for name, (by_label, pms, clock) in vtimes.items():
         meds = {label: float(np.median(v)) for label, v in by_label.items()}
         times[name] = (meds[name], pms)
         log(f"  {name}: " + "; ".join(
@@ -4658,7 +4820,16 @@ def main():
             f"{', '.join(f'{t:.3f}' for t in by_label[label])})"
             for label, ms in meds.items())
             + f"; plain {pms:.3f} ms ({N}^2 operands, {L_MAIN} moduli; "
-            f"{card})")
+            f"{clock}; {card})")
+    mag_by, _, mag_clock = vtimes["magmax_matmul_scratch"]
+    mag_lib = float(np.median(mag_by[LIBRARY]))
+    for name in ("magmax_matmul", "magmax_matmul_scratch"):
+        ms = float(np.median(mag_by[name]))
+        log(f"  {name} (wgmma tile): median {ms:.3f} ms beside {LIBRARY} (x "
+            f"1 torch._int_mm) {mag_lib:.3f} ms in one rotation: ratio "
+            f"{ms / mag_lib:.3f}; bound {bounds_main[name][0]:.3f} ms "
+            f"({bounds_main[name][1]}), share {bounds_main[name][0] / ms:.3f}"
+            f"; {mag_clock} ({card})")
     log(f"  variant calls at {N}^3, {VARIANT_ROUNDS} rounds in rotated "
         "order, 2 calls per timing:")
     for name, mss in vcalls.items():
@@ -4673,8 +4844,8 @@ def main():
         vtimes["matmul_mod_u8_pipelined"][0][LIBRARY]))
     library["magmax_matmul_scratch"] = library["magmax_matmul"] = float(
         np.median(vtimes["magmax_matmul_scratch"][0][LIBRARY]))
-    bounds = kernel_bounds(a, b, L_MAIN)
-    skerns, splain, scalls = phase_schedule_times(a, b, errs)
+    bounds = bounds_main
+    skerns, splain, scalls, sclock = phase_schedule_times(a, b, errs)
     library["matmul_crt"] = library["matmul_reconstruct"] = float(
         np.median(skerns[LIBRARY]))
     for label, mss in skerns.items():
@@ -4686,6 +4857,14 @@ def main():
         log(line + f" ({N}^2 operands, {L_MAIN} moduli; {card})")
     for name in SCHEDULE_KERNELS:
         times[name] = (float(np.median(skerns[name])), splain[name])
+    crt_ms = times["matmul_crt"][0]
+    rec_ms = times["matmul_reconstruct"][0]
+    log(f"  matmul_crt (wgmma tile): median {crt_ms:.3f} ms beside {LIBRARY} "
+        f"(x {L_MAIN} torch._int_mm) {library['matmul_crt']:.3f} ms, ratio "
+        f"{crt_ms / library['matmul_crt']:.3f}; beside matmul_reconstruct "
+        f"{rec_ms:.3f} ms, ratio {crt_ms / rec_ms:.3f}; share of the bound "
+        f"{bounds['matmul_crt'][0] / crt_ms:.3f}; all in one rotation; "
+        f"{sclock} ({card})")
     log(f"  schedule calls at {N}^3, {SCHEDULE_ROUNDS} rounds in rotated "
         "order, 2 calls per timing:")
     for name, mss in scalls.items():
@@ -4745,19 +4924,23 @@ def main():
             f"{', '.join(f'{t:.3f}' for t in mss)}), "
             f"{2 * N ** 3 / (ms * 1e-3) / 1e12:.2f} TFLOP/s (2mnk/t)"
             f"{gate_note} ({card})")
-    by, _ = timed_rounds({
-        "fast": lambda: gt.gemm(a, b, num_moduli=L_MAIN, device=DEVICE),
-        "accurate": lambda: gt.gemm(a, b, num_moduli=L_MAIN, fastmode=False,
-                                    device=DEVICE),
-        "f32 fast-8": lambda: gt.gemm(a32, b32, num_moduli=L_F32,
-                                      device=DEVICE)}, MAIN_ROUNDS, 2)
+    with ClockSampler() as clock:
+        by, _ = timed_rounds({
+            "fast": lambda: gt.gemm(a, b, num_moduli=L_MAIN, device=DEVICE),
+            "accurate": lambda: gt.gemm(a, b, num_moduli=L_MAIN,
+                                        fastmode=False, device=DEVICE),
+            "f32 fast-8": lambda: gt.gemm(a32, b32, num_moduli=L_F32,
+                                          device=DEVICE)}, MAIN_ROUNDS, 2)
     log(f"  the main calls at {N}^3 in one rotation, {MAIN_ROUNDS} rounds, 2 "
-        f"calls per timing ({card}):")
+        f"calls per timing ({clock.summary()}; {card}):")
     for name, mss in by.items():
         ms = float(np.median(mss))
+        parent = (f"; before magmax's wgmma tile {EARLIER_ACCURATE_MS} ms "
+                  f"(PERF.md), ratio {ms / EARLIER_ACCURATE_MS:.3f}"
+                  if name == "accurate" else "")
         log(f"  gemm {N}^3 {name}: median {ms:.3f} ms (rounds "
             f"{', '.join(f'{t:.3f}' for t in mss)}), "
-            f"{2 * N ** 3 / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+            f"{2 * N ** 3 / (ms * 1e-3) / 1e12:.2f} TFLOP/s{parent}")
     ckerns, ccalls = phase_complex64_times(A, A64, B64, a, b, a32, b32,
                                            errs)
     bounds.update(kernel_bounds_c64(L_F32))

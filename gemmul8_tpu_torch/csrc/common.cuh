@@ -33,8 +33,8 @@ __device__ __forceinline__ unsigned pack4(unsigned r0, unsigned r1,
                      0x5410);
 }
 
-// c += a (16 x 32, row) x b (32 x 8, col), s8 x s8 -> s32: the mma.sync
-// tile of mma_s8.cuh and the CRT contraction of crt_mma.cuh
+// c += a (16 x 32, row) x b (32 x 8, col), s8 x s8 -> s32: the CRT
+// contraction of crt_mma.cuh
 __device__ __forceinline__ void mma_s8(int* c, const unsigned* a,
                                        const unsigned* b) {
   asm volatile(

@@ -1,6 +1,6 @@
-// The CRT sum and the rounding tail of matmul_crt.cu (crt_gemm.cuh) and
-// the deaddep probe's rec riders (probe_deaddep.cu); the reconstruct
-// kernel, the pipeline's rider and matmul_reconstruct.cu run the
+// The CRT sum and the rounding tail of the deaddep probe's rec riders
+// (probe_deaddep.cu); the reconstruct kernel, the pipeline's rider and
+// the CRT-fused GEMMs (matmul_reconstruct.cu, matmul_crt.cu) run the
 // tensor-core form (crt_mma.cuh, crt_tail.cuh), which gives the same bits:
 //   crt_add     acc += w_j * r_j           (64-bit column sums of six words)
 //   crt_words   column sums -> the integer X as six 32-bit words

@@ -1,8 +1,8 @@
 // The CRT contraction on the int8 tensor cores, shared by the reconstruct
 // kernel (reconstruct.cu), the pipeline's reconstruct rider
-// (matmul_rider.cu), the CRT-fused GEMM (matmul_reconstruct.cu), the
-// mxu_crt probe (probe_mxu_crt.cu) and the deaddep probe's recmxu rider
-// (probe_deaddep.cu).
+// (matmul_rider.cu), the two CRT-fused GEMMs (matmul_reconstruct.cu,
+// matmul_crt.cu), the mxu_crt probe (probe_mxu_crt.cu) and the deaddep
+// probe's recmxu rider (probe_deaddep.cu).
 //
 // For centred residues rc_j = r_j - 128 of one element, Y[d] = sum_j
 // wc[d][j] rc_j over the compact table wc ((nd+1) x L, nd = 2 * num_limbs;
@@ -29,7 +29,10 @@
 // 4g + 2p, row g + 8 element 4g + 2p + 1.
 #pragma once
 
+#include <cstring>
+
 #include "common.cuh"
+#include "moduli.cuh"
 
 namespace gm8 {
 
@@ -43,6 +46,51 @@ struct alignas(16) CrtMmaTable {
   int nd;                            // 2 * num_limbs
   int pad[3];
 };
+
+// The digit table from the CRT weights and M of a CrtTable, on the host
+// (the bytes of hopper/kernels.py crt_mma_table; core/reconstruct.py
+// crt_mxu_weights): nl 16-bit limbs hold 255 L M; row d < 2 nl is byte d
+// of each weight's limbs minus 128, row 2 nl all ones; CL[l] = C[2l] + 256
+// C[2l + 1], C[d] = 128 sum_j wc[d][j] + 128^2 L. For the CRT-fused GEMMs,
+// whose C signatures take the CrtTable.
+inline CrtMmaTable crt_mma_table(const CrtTable& T, int L) {
+  unsigned long long x[kWords + 1];
+  unsigned long long carry = 0;
+  for (int w = 0; w < kWords; ++w) {
+    const unsigned long long v =
+        static_cast<unsigned long long>(T.big_m[w]) * (255ull * L) + carry;
+    x[w] = v & 0xFFFFFFFFull;
+    carry = v >> 32;
+  }
+  x[kWords] = carry;
+  int bits = 0;
+  for (int w = kWords; w >= 0 && bits == 0; --w)
+    for (int b = 31; b >= 0; --b)
+      if ((x[w] >> b) & 1) {
+        bits = 32 * w + b + 1;
+        break;
+      }
+  const int nl = (bits + 15) / 16;
+  CrtMmaTable W;
+  std::memset(&W, 0, sizeof(W));
+  W.nd = 2 * nl;
+  for (int d = 0; d < W.nd; ++d) {
+    long long sum = 0;
+    for (int j = 0; j < L; ++j) {
+      const unsigned limb = (T.w[j][d / 4] >> (16 * ((d / 2) & 1))) & 0xFFFFu;
+      const int byte = static_cast<int>((d & 1) ? limb >> 8 : limb & 0xFFu);
+      W.w[d][j] = static_cast<signed char>(byte - 128);
+      sum += byte - 128;
+    }
+    const long long c = 128 * sum + 128 * 128 * L;
+    if (d & 1)
+      W.cl[d / 2] += static_cast<int>(c << 8);
+    else
+      W.cl[d / 2] += static_cast<int>(c);
+  }
+  for (int j = 0; j < L; ++j) W.w[W.nd][j] = 1;
+  return W;
+}
 
 namespace {
 

@@ -35,7 +35,8 @@
 // beside the products, reconstructing the previous tile from a second
 // buffer, ran slower: they took the products' issue slots, a stage's
 // shared memory, and could not keep up. The digit table is built on the
-// host from the CrtTable the call passes. B is copied K-major first
+// host from the CrtTable the call passes (crt_mma.cuh crt_mma_table).
+// matmul_crt.cu runs the same walk and chunks and stores canonical limbs. B is copied K-major first
 // (transpose_b.cuh), as for matmul_mod.cu.
 #include <cstring>
 
@@ -343,50 +344,6 @@ matmul_reconstruct_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
-// The digit table of crt_mma.cuh from the CRT weights and M of a CrtTable
-// (hopper/kernels.py crt_mma_table, core/reconstruct.py crt_mxu_weights):
-// nl 16-bit limbs hold 255 L M; row d < 2 nl is byte d of each weight's
-// limbs minus 128, row 2 nl all ones; CL[l] = C[2l] + 256 C[2l + 1], C[d]
-// = 128 sum_j wc[d][j] + 128^2 L.
-CrtMmaTable mma_table(const CrtTable& T, int L) {
-  unsigned long long x[gm8::kWords + 1];
-  unsigned long long carry = 0;
-  for (int w = 0; w < gm8::kWords; ++w) {
-    const unsigned long long v =
-        static_cast<unsigned long long>(T.big_m[w]) * (255ull * L) + carry;
-    x[w] = v & 0xFFFFFFFFull;
-    carry = v >> 32;
-  }
-  x[gm8::kWords] = carry;
-  int bits = 0;
-  for (int w = gm8::kWords; w >= 0 && bits == 0; --w)
-    for (int b = 31; b >= 0; --b)
-      if ((x[w] >> b) & 1) {
-        bits = 32 * w + b + 1;
-        break;
-      }
-  const int nl = (bits + 15) / 16;
-  CrtMmaTable W;
-  std::memset(&W, 0, sizeof(W));
-  W.nd = 2 * nl;
-  for (int d = 0; d < W.nd; ++d) {
-    long long sum = 0;
-    for (int j = 0; j < L; ++j) {
-      const unsigned limb = (T.w[j][d / 4] >> (16 * ((d / 2) & 1))) & 0xFFFFu;
-      const int byte = static_cast<int>((d & 1) ? limb >> 8 : limb & 0xFFu);
-      W.w[d][j] = static_cast<signed char>(byte - 128);
-      sum += byte - 128;
-    }
-    const long long c = 128 * sum + 128 * 128 * L;
-    if (d & 1)
-      W.cl[d / 2] += static_cast<int>(c << 8);
-    else
-      W.cl[d / 2] += static_cast<int>(c);
-  }
-  for (int j = 0; j < L; ++j) W.w[W.nd][j] = 1;
-  return W;
-}
-
 template <int kW, bool kHi, typename Out>
 int launch_kernel(const CUtensorMap& ma, const CUtensorMap& mb,
                   const Args<Out>& p, const Consts& P, int nblocks,
@@ -414,7 +371,7 @@ int launch(const signed char* a8, const signed char* btp,
               (kp + kBK - 1) / kBK};
   Consts P;
   std::memset(&P, 0, sizeof(P));
-  P.W = mma_table(T, L);
+  P.W = gm8::crt_mma_table(T, L);
   P.T = T;
   P.divs = gm8::slot_divisors(mods);
   if (L <= 14) return launch_kernel<4, false>(map_a, map_b, p, P, nblocks, s);

@@ -1,9 +1,10 @@
 // B's int8 slices (L, k, n), N-major, copied into a K-major workspace
-// (L, n, kp) with zeros in [k, kp): the layout the tensor-core tiles of
-// mma_s8.cuh and wgmma_s8.cuh read. Shared by the real (matmul_mod.cu,
+// (L, n, kp) with zeros in [k, kp): the layout the tensor-core tile of
+// wgmma_s8.cuh reads. Shared by the real (matmul_mod.cu,
 // matmul_mod_pipelined.cu) and the complex (matmul_complex.cu) residue
-// GEMMs and the panel pipeline (matmul_rider.cu, which copies one column
-// half of B with a row stride of its own). The kernel has internal linkage, so each including source gets
+// GEMMs, the CRT-fused GEMMs (matmul_reconstruct.cu, matmul_crt.cu), the
+// deaddep probe and the panel pipeline (matmul_rider.cu, which copies one
+// column half of B with a row stride of its own). The kernel has internal linkage, so each including source gets
 // its own copy.
 #pragma once
 

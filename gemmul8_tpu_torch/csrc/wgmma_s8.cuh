@@ -8,11 +8,12 @@
 // accumulator), matmul_mod_pipelined.cu (a ping-pong schedule: each
 // consumer warpgroup owns whole 128 x 128 tiles, wgmma.m64n128k32),
 // matmul_reconstruct.cu (the L products of a tile, their residues parked
-// in device memory and reconstructed after its last product) and
+// in device memory and reconstructed after its last product), matmul_crt.cu
+// (the same walk, the CRT sums stored as canonical limbs), magmax.cu (one
+// slice, a row and column max epilogue on the fragment) and
 // probe_deaddep.cu (matmul_mod.cu's kernel with integer work injected,
-// its kloop variant through consume's k-tile hook). The older mma.sync
-// tile (mma_s8.cuh) still carries magmax.cu and matmul_crt.cu
-// (crt_gemm.cuh).
+// its kloop variant through consume's k-tile hook). It is the port's only
+// int8 GEMM tile.
 //
 // Operands: A (L, m, kp) and Bt (L, n, kp) int8, both K-major (wgmma takes
 // 8-bit operands K-major only), kp % 16 == 0, each read through a 3-D

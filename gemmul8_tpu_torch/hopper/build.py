@@ -10,12 +10,12 @@ interface:
 
 `-fmad=false` keeps every f32 multiply and add a separate rounding, as in
 the plain versions (the Barrett and quotient-estimate budgets assume it).
-A source may take flags of its own (`SOURCE_FLAGS`): the six sources on
+A source may take flags of its own (`SOURCE_FLAGS`): the eight sources on
 the wgmma tile (matmul_mod.cu, matmul_rider.cu, matmul_mod_pipelined.cu,
-matmul_complex.cu, matmul_reconstruct.cu, and probe_deaddep.cu on
-matmul_mod's entry) get the launch table's constants of their entry
-(`-DGM8_MM_TILE_N=256 ...`, hopper/launch.py) and `-Xptxas -v`, whose
-report is kept in `PTXAS_REPORT`. The library
+matmul_complex.cu, matmul_reconstruct.cu, matmul_crt.cu, magmax.cu, and
+probe_deaddep.cu on matmul_mod's entry) get the launch table's
+constants of their entry (`-DGM8_MM_TILE_N=256 ...`, hopper/launch.py)
+and `-Xptxas -v`, whose report is kept in `PTXAS_REPORT`. The library
 lands in `build/kernels/` under the checkout, named by a hash of the
 sources and flags, so an edited source or launch entry never loads a
 stale build; the ptxas report is saved beside it and read back with it.
@@ -69,6 +69,8 @@ WGMMA_SOURCES = {"matmul_mod.cu": "matmul_mod",
                  "matmul_mod_pipelined.cu": "matmul_mod_pipelined",
                  "matmul_complex.cu": "matmul_complex",
                  "matmul_reconstruct.cu": "matmul_reconstruct",
+                 "matmul_crt.cu": "matmul_crt",
+                 "magmax.cu": "magmax",
                  "probe_deaddep.cu": "matmul_mod"}
 SOURCE_FLAGS = {
     **{src: ("-Xptxas", "-v", *launch.get(entry, ARCH_CAPABILITY).defines())

@@ -33,6 +33,12 @@ Entries:
                   the consumers reconstructing each tile after its last
                   modulus. The wrapper sizes the kernel's scratch of
                   residues by its `tile_n` (hopper/matmul.py).
+    "matmul_crt"  `MatmulModLaunch` of csrc/matmul_crt.cu, the same walk
+                  and scratch, the consumers storing each tile's CRT sum
+                  as canonical limbs.
+    "magmax"      `MatmulModLaunch` of csrc/magmax.cu, the cooperative tile
+                  at one slice with a row and column max epilogue; the
+                  scratch form's buffers follow its `tile_n`.
 csrc/probe_deaddep.cu is built with the "matmul_mod" entry: its GEMM is
 matmul_mod's kernel.
 """
@@ -71,8 +77,9 @@ class MatmulModLaunch:
 # thread): 32 KB stages, six of them beside its two 16 KB staging tiles
 # (230,496 bytes). The complex kernel runs matmul_mod's tile and ring; its
 # Karatsuba carry stays in registers, so no stage gives way, nor for the
-# CRT-fused GEMM, whose digit table and chunk counter take 848 bytes and
-# whose limb rows sit in the staging tile.
+# two CRT-fused GEMMs, whose digit table and chunk counter take 848 bytes
+# and whose limb rows sit in the staging tile, nor for the magnitude GEMM,
+# whose warps' column maxima sit there.
 TABLE = {(9, 0): {"matmul_mod": MatmulModLaunch(tile_n=256, stages=4,
                                                 raster_group=16),
                   "matmul_rider": MatmulModLaunch(tile_n=256, stages=3,
@@ -82,7 +89,11 @@ TABLE = {(9, 0): {"matmul_mod": MatmulModLaunch(tile_n=256, stages=4,
                   "matmul_complex": MatmulModLaunch(tile_n=256, stages=4,
                                                     raster_group=16),
                   "matmul_reconstruct": MatmulModLaunch(
-                      tile_n=256, stages=4, raster_group=16)}}
+                      tile_n=256, stages=4, raster_group=16),
+                  "matmul_crt": MatmulModLaunch(tile_n=256, stages=4,
+                                                raster_group=16),
+                  "magmax": MatmulModLaunch(tile_n=256, stages=4,
+                                            raster_group=16)}}
 
 
 def get(name: str, capability=None):

@@ -1,44 +1,44 @@
-"""Wrappers of the int8 tensor-core GEMM kernels.
+"""Wrappers of the int8 tensor-core GEMM kernels, all on the wgmma tile of
+csrc/wgmma_s8.cuh (each with its launch from hopper/launch.py).
 
-    matmul_mod_u8       csrc/matmul_mod.cu (the wgmma tile of
-                        csrc/wgmma_s8.cuh; launch from hopper/launch.py)
+    matmul_mod_u8       csrc/matmul_mod.cu
         <- pallas/matmul.py matmul_mod_u8_pallas
     matmul_mod_u8_pipelined  csrc/matmul_mod_pipelined.cu (the wgmma tile
                         in a ping-pong schedule)
         <- pallas/matmul.py matmul_mod_u8_pipelined
-    magmax_matmul       csrc/magmax.cu
+    magmax_matmul       csrc/magmax.cu (one slice, a row and column max
+                        epilogue)
         <- pallas/matmul.py magmax_matmul_pallas
     magmax_matmul_scratch    csrc/magmax.cu (deferred fold)
         <- pallas/matmul.py magmax_matmul_scratch
-    matmul_complex_mod  csrc/matmul_complex.cu (the wgmma tile, products
-                        chained)
+    matmul_complex_mod  csrc/matmul_complex.cu (products chained)
         <- pallas/matmul.py matmul_complex_mod_pallas
-    matmul_crt          csrc/matmul_crt.cu
+    matmul_crt          csrc/matmul_crt.cu (each tile's CRT sum on the
+                        tensor-core bodies after its products, stored as
+                        canonical limbs)
         <- pallas/matmul.py matmul_crt_pallas
-    matmul_reconstruct  csrc/matmul_reconstruct.cu (the wgmma tile, each
-                        tile's CRT on the tensor-core bodies after its
-                        products)
+    matmul_reconstruct  csrc/matmul_reconstruct.cu (each tile's CRT on the
+                        tensor-core bodies after its products)
         <- pallas/megakernel.py matmul_reconstruct_pallas
 
 A CPU tensor takes the plain version (exact f64 products, then the mod or
 the row/col max); a CUDA tensor launches the kernel. The GEMM kernels with
 a mod first copy each B operand into a K-major workspace the wrapper
 allocates; the magnitude GEMMs read both operands K-major in place where
-their layout allows (as `hopper.kernels.mag7` writes them). The two
-CRT-fused GEMMs also get a scratch of residues sized by the blocks in
-flight: `matmul_crt` one 128 x 128 tile's for each of two blocks an SM
-(csrc/crt_gemm.cuh), `matmul_reconstruct` one 128 x tile_n tile's for
-each block of its persistent grid (its launch entry). `matmul_crt` has
-no switch, as in the JAX package: it is called directly, and its limbs
-go to `hopper.kernels.reconstruct(..., input_kind="limbs")`.
+their layout allows (as `hopper.kernels.mag7` writes them), through tensor
+maps whose extent along k is k (`k_major_map`). The two CRT-fused GEMMs
+also get a scratch of residues sized by the blocks in flight
+(`reconstruct_scratch_shape`: one 128 x tile_n tile's for each block of
+the persistent grid). `matmul_crt` has no switch, as in the JAX package:
+it is called directly, and its limbs go to
+`hopper.kernels.reconstruct(..., input_kind="limbs")`.
 
 The wgmma epilogues divide by each slot's modulus with a multiplier and a
 shift (`mod_divisor`, `mod_div`: the host arithmetic, exact for every
 int32; with a bias, the residue of x - bias, for the complex kernel's Im
 chain, which starts at `COMPLEX_IM_BIAS`); `mod_div_mismatches` holds the
-card's division to its remainder. Each wgmma kernel is built with its
-launch table entry (hopper/launch.py) for sm_90; its wrapper raises on
-any other card.
+card's division to its remainder. Each kernel is built with its launch
+table entry for sm_90; its wrapper raises on any other card.
 
 Two dispatchers read the JAX package's switches at call time:
 `matmul_mod_u8` sends uncentered calls to `matmul_mod_u8_pipelined` under
@@ -71,11 +71,9 @@ matmul_complex_mod_plain = sg.matmul_complex_mod
 matmul_crt_plain = sg.matmul_crt
 matmul_reconstruct_plain = sg.matmul_reconstruct
 
-_TILE = 128  # kBM = kBN of csrc/mma_s8.cuh (matmul_crt, magmax)
 # csrc/matmul_complex.cu kImBias: the Im chain's accumulator starts here, so
 # that IR + RI (up to 2^31 at k = 2^16) stays inside int32
 COMPLEX_IM_BIAS = -(1 << 24)
-_BLOCKS_PER_SM = 2  # __launch_bounds__(256, 2) of matmul_crt
 _TILE_M = 128  # kBM of csrc/wgmma_s8.cuh: a wgmma tile's rows
 
 
@@ -214,22 +212,12 @@ def _launch_mod(name: str, a8: torch.Tensor, b8: torch.Tensor, idx: tuple,
     return out
 
 
-def _crt_scratch(device: torch.device, L: int, m: int, n: int):
-    """(nblocks, scratch): matmul_crt's persistent grid, two blocks per SM
-    or one per tile if fewer, and each block's (L, 128 * 128) bytes of
-    residues."""
-    tiles = -(-m // _TILE) * -(-n // _TILE)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    nblocks = min(tiles, _BLOCKS_PER_SM * sms)
-    return nblocks, torch.empty((nblocks, L, _TILE * _TILE),
-                                dtype=torch.uint8, device=device)
-
-
 def reconstruct_scratch_shape(L: int, m: int, n: int, tile_n: int,
                               sms: int) -> tuple:
-    """(nblocks, the scratch's shape) of `matmul_reconstruct`: its
-    persistent grid, one block per SM or one per 128 x tile_n tile if
-    fewer, and each block's L residue planes of its tile."""
+    """(nblocks, the scratch's shape) of `matmul_reconstruct` and
+    `matmul_crt`: their persistent grid, one block per SM or one per 128 x
+    tile_n tile if fewer, and each block's L residue planes of its
+    tile."""
     tiles = -(-m // _TILE_M) * -(-n // tile_n)
     nblocks = min(tiles, sms)
     return nblocks, (nblocks, L, _TILE_M * tile_n)
@@ -245,11 +233,16 @@ def matmul_crt(a8: torch.Tensor, b8: torch.Tensor,
     if a8.device.type == "cpu" and b8.device.type == "cpu":
         return matmul_crt_plain(a8, b8, num_moduli)
     build.require_cuda(a8, b8)
+    # the kernel is built with the table's sm_90 entry; any other card raises
+    cfg = launch.get("matmul_crt", torch.cuda.get_device_capability(a8.device))
     L, m, k = a8.shape
     n = b8.shape[2]
     nl = tables.num_limbs(L)
     a8, kp, bt = _k_workspace(a8, n)
-    nblocks, scratch = _crt_scratch(a8.device, L, m, n)
+    nblocks, shape = reconstruct_scratch_shape(
+        L, m, n, cfg.tile_n,
+        torch.cuda.get_device_properties(a8.device).multi_processor_count)
+    scratch = torch.empty(shape, dtype=torch.uint8, device=a8.device)
     out = torch.empty((nl, m, n), dtype=torch.int32, device=a8.device)
     table = hk.crt_table_entry(L)
     with torch.cuda.device(a8.device):
@@ -372,6 +365,41 @@ def _k_major(x: torch.Tensor):
     return t, ld
 
 
+def k_major_map(rows: int, k: int, ld: int) -> tuple:
+    """(dims, strides in bytes) of the 3-D tensor map csrc/magmax.cu reads
+    a K-major (rows, ld) int8 operand through (wgmma_s8.cuh
+    make_tensor_map at one slice): its extent along k is k, not ld, so the
+    bytes between k and ld, which a caller's buffer may hold anything in,
+    read as zeros, as rows past `rows` do. Raises ValueError where the
+    card could not encode the map (strides multiples of 16, ld >= k)."""
+    if not 0 < k <= ld or ld % 16 or rows < 1:
+        raise ValueError(f"K-major operand ({rows}, {k}) at stride {ld}: "
+                         "expected 0 < k <= ld and ld % 16 == 0")
+    return (k, rows, 1), (ld, rows * ld)
+
+
+def magmax_scratch_shapes(m: int, n: int, tile_n: int) -> tuple:
+    """The shapes of `magmax_matmul_scratch`'s two int32 buffers: each
+    128 x tile_n tile's row maxima in its own column of (m, n_tiles), its
+    column maxima in its own row of (m_tiles, n)."""
+    return (m, -(-n // tile_n)), (-(-m // _TILE_M), n)
+
+
+def _magmax_operands(mag_a: torch.Tensor, mag_b: torch.Tensor):
+    """(a, lda, bt, ldb, the launch entry) of a magnitude GEMM on the card:
+    both operands K-major (`_k_major`), their tensor maps checked
+    (`k_major_map`); any card but sm_90 raises."""
+    build.require_device(mag_a, mag_b)
+    cfg = launch.get("magmax", torch.cuda.get_device_capability(mag_a.device))
+    m, k = mag_a.shape
+    n = mag_b.shape[1]
+    a, lda = _k_major(mag_a)
+    bt, ldb = _k_major(mag_b.t())
+    k_major_map(m, k, lda)
+    k_major_map(n, k, ldb)
+    return a, lda, bt, ldb, cfg
+
+
 def magmax_matmul(mag_a: torch.Tensor, mag_b: torch.Tensor):
     """(m, k) x (k, n) int8 magnitudes -> (smax_row (m, 1), smax_col
     (1, n)) int32, the row and column maxima of their product; the (m, n)
@@ -383,12 +411,10 @@ def magmax_matmul(mag_a: torch.Tensor, mag_b: torch.Tensor):
     sg.check_magmax_args(mag_a, mag_b)
     if mag_a.device.type == "cpu" and mag_b.device.type == "cpu":
         return magmax_plain(mag_a, mag_b)
-    build.require_device(mag_a, mag_b)
     m, k = mag_a.shape
     n = mag_b.shape[1]
-    a, lda = _k_major(mag_a)
-    bt, ldb = _k_major(mag_b.t())
-    # zero-filled: blocks fold their maxima in with atomicMax
+    a, lda, bt, ldb, _ = _magmax_operands(mag_a, mag_b)
+    # zero-filled: tiles fold their maxima in with atomicMax
     row = torch.zeros((m, 1), dtype=torch.int32, device=a.device)
     col = torch.zeros((1, n), dtype=torch.int32, device=a.device)
     with torch.cuda.device(a.device):
@@ -402,22 +428,20 @@ def magmax_matmul(mag_a: torch.Tensor, mag_b: torch.Tensor):
 
 def magmax_matmul_scratch(mag_a: torch.Tensor, mag_b: torch.Tensor):
     """`magmax_matmul`'s values with the cross-tile fold deferred: the
-    kernel stores each 128 x 128 tile's row and column maxima plainly
+    kernel stores each 128 x tile_n tile's row and column maxima plainly
     into its own column of an (m, n_tiles) and its own row of an
-    (m_tiles, n) int32 buffer, and two torch.amax calls finish the fold."""
+    (m_tiles, n) int32 buffer (`magmax_scratch_shapes`), and two torch.amax
+    calls finish the fold."""
     sg.check_magmax_args(mag_a, mag_b)
     if mag_a.device.type == "cpu" and mag_b.device.type == "cpu":
         return magmax_scratch_plain(mag_a, mag_b)
-    build.require_device(mag_a, mag_b)
     m, k = mag_a.shape
     n = mag_b.shape[1]
-    a, lda = _k_major(mag_a)
-    bt, ldb = _k_major(mag_b.t())
+    a, lda, bt, ldb, cfg = _magmax_operands(mag_a, mag_b)
     # every entry is stored by one tile: no zero fill
-    row = torch.empty((m, -(-n // _TILE)), dtype=torch.int32,
-                      device=a.device)
-    col = torch.empty((-(-m // _TILE), n), dtype=torch.int32,
-                      device=a.device)
+    row_shape, col_shape = magmax_scratch_shapes(m, n, cfg.tile_n)
+    row = torch.empty(row_shape, dtype=torch.int32, device=a.device)
+    col = torch.empty(col_shape, dtype=torch.int32, device=a.device)
     with torch.cuda.device(a.device):
         code = build.lib().gm8_magmax_matmul_scratch(
             a.data_ptr(), lda, bt.data_ptr(), ldb, row.data_ptr(),

@@ -2,13 +2,13 @@
 (csrc/matmul_reconstruct.cu, csrc/probe_deaddep.cu): what of them the CPU
 can hold.
 
-- The build: each source's launch entry (matmul_reconstruct's own, a
-  stage fewer than matmul_mod's; the probe on matmul_mod's), `-Xptxas -v`,
-  the library's name following the flags; the wgmma tile included, the
-  mma.sync tile not.
+- The build: each source's launch entry (matmul_reconstruct's, matmul_crt's
+  and magmax's own, with matmul_mod's values; the probe on matmul_mod's),
+  `-Xptxas -v`, the library's name following the flags; the wgmma tile
+  included, the deleted mma.sync tile not.
 - matmul_reconstruct's scratch: one block an SM (or a tile), L residue
-  planes of its 128 x 256 tile; matmul_crt's sizing as before. Its
-  shared memory beside matmul_mod's four stages.
+  planes of its 128 x 256 tile; matmul_crt's the same, by its own entry.
+  Its shared memory beside matmul_mod's four stages.
 - The walk, mirrored from the source: the producer's (tile, modulus,
   k-tile) order is the consumers', every piece once across the grid; the
   reconstruct chunks of every tile taken once by the consumer warps off a
@@ -54,6 +54,8 @@ WG_SRC = (build.CSRC / "wgmma_s8.cuh").read_text()
 SMS = 132
 MR = launch.get("matmul_reconstruct", (9, 0))
 MOD = launch.get("matmul_mod", (9, 0))
+CRT = launch.get("matmul_crt", (9, 0))
+MAG = launch.get("magmax", (9, 0))
 BM, BN = 128, MR.tile_n
 
 
@@ -83,7 +85,9 @@ def tile_at(t, m, n, bn, group):
 # ---- the build ------------------------------------------------------------
 
 @pytest.mark.parametrize("src,entry", [("matmul_reconstruct.cu", MR),
-                                       ("probe_deaddep.cu", MOD)])
+                                       ("probe_deaddep.cu", MOD),
+                                       ("magmax.cu", MAG),
+                                       ("matmul_crt.cu", CRT)])
 def test_build_flags_of_the_wgmma_sources(src, entry):
     """Each source takes its launch entry's constants and `-Xptxas -v`,
     reads every constant and refuses to build without them; it runs the
@@ -126,8 +130,8 @@ def test_build_name_follows_the_reconstruct_flags(tmp_path, monkeypatch):
 
 def test_the_wgmma_users_and_the_hook():
     """consume's k-tile hook defaults to a no-op and runs between a
-    k-tile's commit and its wait; the CRT runs on the tensor-core bodies;
-    matmul_crt alone stays on crt_gemm.cuh."""
+    k-tile's commit and its wait; the CRT runs on the tensor-core bodies
+    in both CRT-fused GEMMs: matmul_crt now on the wgmma tile too."""
     body = WG_SRC[WG_SRC.index("__device__ __forceinline__ void consume("):]
     body = body[:body.index("\n}\n")]
     assert body.index("wgmma_commit();") < body.index("hook(kt, nk);") < \
@@ -136,8 +140,13 @@ def test_the_wgmma_users_and_the_hook():
     for inc in ('"crt_mma.cuh"', '"crt_tail.cuh"'):
         assert f"#include {inc}" in REC_SRC
     assert '#include "crt.cuh"' not in REC_SRC
-    assert '#include "crt_gemm.cuh"' in (build.CSRC /
-                                         "matmul_crt.cu").read_text()
+    crt_src = (build.CSRC / "matmul_crt.cu").read_text()
+    for inc in ('"wgmma_s8.cuh"', '"crt_mma.cuh"'):
+        assert f"#include {inc}" in crt_src
+    for old in ('"crt_gemm.cuh"', '"mma_s8.cuh"', '"crt.cuh"'):
+        assert f"#include {old}" not in crt_src
+    assert build._SIGNATURES["gm8_matmul_crt"] == \
+        [build._P] * 6 + [build._I] * 7 + [build._P]
     assert build._SIGNATURES["gm8_matmul_reconstruct"] == \
         [build._P] * 8 + [build._I] * 7 + [build._P]
     assert build._SIGNATURES["gm8_probe_deaddep"] == \
@@ -158,16 +167,18 @@ def test_reconstruct_scratch_sizing(L, m, n, want_blocks):
         assert np.prod(shape) < L * m * n // 15
 
 
-def test_matmul_crt_scratch_unchanged(monkeypatch):
-    """matmul_crt keeps its 128 x 128 tiles, two blocks an SM."""
-    class Props:
-        multi_processor_count = SMS
-    monkeypatch.setattr(torch.cuda, "get_device_properties",
-                        lambda device: Props())
+def test_matmul_crt_scratch_unchanged():
+    """matmul_crt's scratch follows matmul_reconstruct's sizing (one block
+    an SM or a 128 x 256 tile, its L residue planes) through its own launch
+    entry, whose tile is matmul_reconstruct's; the old 128 x 128 tiles at
+    two blocks an SM are gone."""
+    assert CRT.tile_n == MR.tile_n == BN
+    assert not hasattr(hm, "_crt_scratch")
     for L, m, n in ((14, 8192, 8192), (2, 300, 200), (20, 1, 1)):
-        nblocks, scratch = hm._crt_scratch(torch.device("cpu"), L, m, n)
-        assert nblocks == min(2 * SMS, cdiv(m, 128) * cdiv(n, 128))
-        assert tuple(scratch.shape) == (nblocks, L, 128 * 128)
+        nblocks, shape = hm.reconstruct_scratch_shape(L, m, n, CRT.tile_n,
+                                                      SMS)
+        assert nblocks == min(SMS, cdiv(m, 128) * cdiv(n, 256))
+        assert shape == (nblocks, L, 128 * 256)
 
 
 def test_reconstruct_wrapper_off_cpu_never_takes_the_plain_version(

@@ -48,14 +48,14 @@ def test_sources_are_cuda_files():
     from gemmul8_tpu_torch.hopper import build
 
     names = sorted(p.name for p in build.sources())
-    assert names == ["common.cuh", "crt.cuh", "crt_gemm.cuh", "crt_mma.cuh",
+    assert names == ["common.cuh", "crt.cuh", "crt_mma.cuh",
                      "crt_tail.cuh", "encode.cu", "encode_mma.cuh",
                      "fast_encode_fused.cu", "fast_sft.cu", "fast_stats.cuh",
                      "mag7.cu", "magmax.cu", "matmul_complex.cu",
                      "matmul_crt.cu", "matmul_mod.cu",
                      "matmul_mod_pipelined.cu", "matmul_reconstruct.cu",
                      "matmul_rider.cu",
-                     "mma_s8.cuh", "moduli.cuh", "probe_clz.cu",
+                     "moduli.cuh", "probe_clz.cu",
                      "probe_deaddep.cu", "probe_mxu_crt.cu",
                      "probe_vpu_ops.cu", "reconstruct.cu",
                      "residue.cuh", "src_word.cuh", "transpose_b.cuh",

@@ -183,7 +183,7 @@ def test_launch_table_entry_checks():
     """An unknown name raises; every constant the entry passes is one the
     source reads, and the source refuses to build without them."""
     with pytest.raises(KeyError):
-        launch.get("matmul_crt", (9, 0))
+        launch.get("no_such_kernel", (9, 0))
     src = (build.CSRC / "matmul_mod.cu").read_text()
     for flag in launch.get("matmul_mod", (9, 0)).defines():
         name = flag[2:].split("=")[0]
