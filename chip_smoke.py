@@ -408,6 +408,22 @@ GEMM tile any more) add:
       matmul_reconstruct, each as a ratio in its rotation; the accurate
       call beside its time before (EARLIER_ACCURATE_MS, from PERF.md).
 
+fast_encode_fused on the tensor-core encode body and mag7_fused reading
+its operand once (csrc/fast_encode_fused.cu, csrc/mag7.cu) add:
+  2.  (also) both sources' ptxas reports, each asserted free of spill
+      stores and loads;
+  3v. (also) both kernels in both words at FUSED_EDGE_CASES: 17 and 20
+      moduli (two slot tiles), f64 rows of 2^17 elements (past the row's
+      staged part) and a single column, strips of 100 columns over two
+      norm chunks and a partial one, one column; each operand as made and
+      with late-max lines (the max last and 40 binades up, zeros then a
+      subnormal, -0.0): the shifts the fast_sft kernel's bits, the slices
+      and magnitudes (shifts 5 and 4) the plain versions', the magnitudes
+      and exponents the emax + mag7 kernels';
+  5v. (also) each kernel's halves as shares of their read-once bounds
+      (B's encode also of its read-twice bound, (2 x 8 + 14) bytes an
+      element) beside the pair's time for the half and the SM clock.
+
 The line before the last is a JSON object of per-kernel results
 (`launches` sums the main-path calls of phase 4, real and complex, for the
 variant kernels those of phase 4v at 8192^3, for matmul_crt and
@@ -547,6 +563,15 @@ COMPLEX_EDGE_PATTERNS = ("neg", "pos", "mixed", "odd")
 COMPLEX_ROUNDS = 5
 # phase 3v: phase 3's shapes and k over three 2048-wide norm chunks
 VARIANT_CASES = CASES + [((1000, 4100, 1500), (2, 14), True)]
+# phase 3v: the fused statistics kernels in both words, each operand also
+# with late-max lines (late_max_lines), at: 17 and 20 moduli (the encode's
+# two slot tiles); f64 rows of 2^17 elements (past the staged part of the
+# row) and a single column; strips of 100 columns (not a multiple of 32 or
+# 64) over two norm chunks and a partial one; one column at 300 rows
+FUSED_EDGE_CASES = [((1000, 4100, 1500), (17, 20), True),
+                    ((3, tables.MAX_K, 1), (L_MAIN,), False),
+                    ((65, 2 * 2048 + 5, 100), (8, L_MAIN), True),
+                    ((64, 300, 1), (2, 20), False)]
 # phase 3v: the ping-pong matmul_mod_u8_pipelined at k = 2^17 (the 256
 # lane's products wrapping) and at a ragged shape, (m, k, n, L), several
 # tiles a block; each run PIPE_REPEATS times, bit-equal
@@ -587,7 +612,8 @@ MAIN_ROUNDS = 5          # phase 5: the fast, accurate and f32-8 calls
 # phase 2: sources whose ptxas report must show no spill store or load
 NO_SPILL_SOURCES = ("matmul_mod_pipelined.cu", "matmul_complex.cu",
                     "matmul_reconstruct.cu", "probe_deaddep.cu",
-                    "matmul_crt.cu", "magmax.cu")
+                    "matmul_crt.cu", "magmax.cu", "fast_encode_fused.cu",
+                    "mag7.cu")
 # phase 3w: the wgmma tile's edge shapes (m, k, n) at these slice counts,
 # a moduli subset, and the int32 wrap at the largest k
 WGMMA_CASES = [(1, 16, 1), (65, 144, 257), (200, 4100, 129),
@@ -1551,6 +1577,70 @@ def phase_variant_kernels(errs):
             assert torch.equal(r, hm.matmul_mod_u8(*slices, L)), \
                 f"matmul_mod_u8_pipelined {tag} L={L}: not matmul_mod_u8's"
         log(f"  variant kernels == plain at {tag} L={Ls}")
+
+
+def late_max_lines(x, axis):
+    """x with its first lines (rows for axis=1, columns for axis=0) made
+    hard for a kernel that reads a line once: line 0 at 2^-40 of itself
+    but its last element 1.5 (the max arrives last, 40 binades up); line 1
+    zero in its first half, then a subnormal, then its own values; line 2
+    -0.0 at every third element."""
+    y = (x if axis == 1 else x.t()).clone()
+    tiny = 5e-324 if y.dtype == torch.float64 else 1e-45
+    y[0] *= 2.0 ** -40
+    y[0, -1] = 1.5
+    if y.shape[0] > 1:
+        y[1, :y.shape[1] // 2] = 0.0
+        y[1, y.shape[1] // 2] = tiny
+    if y.shape[0] > 2:
+        y[2, ::3] = -0.0
+    return (y if axis == 1 else y.t()).contiguous()
+
+
+def hold_fused_stats(errs, x, axis, Ls, tag):
+    """fast_encode_fused and mag7_fused (shifts 5 and 4) on x: the shifts
+    the fast_sft kernel's bits (and the plain version's under the floor
+    rule), the slices the plain encode's at them, the magnitudes and
+    exponents the plain version's and the emax + mag7 kernels'."""
+    f32 = x.dtype == torch.float32
+    enc_key = build.form("fast_encode_fused", f32)
+    mag_key = build.form("mag7_fused", f32)
+    for L in Ls:
+        sl, sft = hk.fast_encode_fused(x, L, axis)
+        assert torch.equal(sft, hk.fast_sft(x, L, axis)), \
+            f"fast_encode_fused {tag} L={L}: shifts differ from fast_sft's"
+        _, psft = hk.fast_encode_fused_plain(x, L, axis)
+        errs[enc_key] = max(errs[enc_key], check_sft(sft, psft, x, axis, L))
+        hold(errs, enc_key, sl, hk.encode_slices_plain(x, sft, L, axis),
+             f"fast_encode_fused slices {tag} L={L}")
+    for shift in (enc.MAG_SHIFT, enc.MAG_SHIFT_COMPLEX):
+        got = hk.mag7_fused(x, axis, shift)
+        hold(errs, mag_key, got, hk.mag7_fused_plain(x, axis, shift),
+             f"mag7_fused {tag} shift {shift}")
+        e = hk.emax(x, axis)
+        assert torch.equal(got[1], e) and torch.equal(
+            got[0], hk.mag7(x, e, axis, shift)), \
+            f"mag7_fused {tag} shift {shift}: not the emax + mag7 kernels' bits"
+
+
+def phase_fused_stats_edges(errs):
+    """Phase 3v: the fused statistics kernels at FUSED_EDGE_CASES, f64 and
+    f32, each operand as made and with late-max lines."""
+    for (m, k, n), Ls, special in FUSED_EDGE_CASES:
+        for word in ("f64", "f32"):
+            if word == "f64":
+                a, b = operands(m, k, n, 9, special)
+            else:
+                a, b = operands32(m, k, n, 9, special)
+            for x, axis in ((a, 1), (b, 0)):
+                for late in (False, True):
+                    y = late_max_lines(x, axis) if late else x
+                    hold_fused_stats(errs, y, axis, Ls,
+                                     f"{word} m={m} k={k} n={n} axis={axis}"
+                                     + (" late max" if late else ""))
+            del a, b
+        log(f"  fast_encode_fused, mag7_fused (f64, f32, late-max lines) "
+            f"== plain at m={m} k={k} n={n} L={Ls}")
 
 
 def moduli_subsets(L):
@@ -4636,6 +4726,33 @@ def bound(nbytes, ops=0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def fused_half_lines(timing, name, pair, a, b):
+    """Phase 5v's lines for a fused statistics kernel: each half (A's
+    rows, B's columns) as a share of its read-once bound (and, for B's
+    encode, of the read-twice bound: its strips are read again to encode),
+    beside the pair's time for the same half and the rotation's SM clock.
+    timing: phase_variant_times' (medians by label, plain ms, clock)."""
+    by_label, _, clock = timing
+    lines = []
+    for half, (rows, kdim) in (("A rows", tuple(a.shape)),
+                               ("B columns", tuple(b.shape)[::-1])):
+        ms = float(np.median(by_label[f"{name} {half}"]))
+        pms = float(np.median(by_label[f"{pair} {half}"]))
+        x = rows * kdim
+        out = L_MAIN * x if name == "fast_encode_fused" else \
+            rows * (-(-kdim // 16) * 16)
+        once = bound(8 * x + out + 4 * rows)[0]
+        line = (f"  {name} {half}: median {ms:.3f} ms; share of its "
+                f"read-once bound {once:.3f} ms {once / ms:.3f}")
+        if name == "fast_encode_fused" and half == "B columns":
+            twice = bound(16 * x + out + 4 * rows)[0]
+            line += (f", of the read-twice bound {twice:.3f} ms "
+                     f"{twice / ms:.3f}")
+        lines.append(line + f"; {pair} {half} {pms:.3f} ms, ratio "
+                     f"{ms / pms:.3f} in one rotation; {clock}")
+    return lines
+
+
 def kernel_bounds(a, b, L):
     """bound() of each kernel's phase-5 work on a (m, k) and b (k, n), each
     input read once and each output written once: both operands where the
@@ -4730,6 +4847,7 @@ def main():
     phase_complex_kernels(errs)
     phase_complex_edge(errs)
     phase_variant_kernels(errs)
+    phase_fused_stats_edges(errs)
     phase_pipelined_edges(errs)
     phase_schedule_kernels(errs)
     phase_pipeline_kernels(errs)
@@ -4821,6 +4939,10 @@ def main():
             for label, ms in meds.items())
             + f"; plain {pms:.3f} ms ({N}^2 operands, {L_MAIN} moduli; "
             f"{clock}; {card})")
+    for name, pair in (("fast_encode_fused", "fast_sft + encode_slices"),
+                       ("mag7_fused", "emax + mag7")):
+        for line in fused_half_lines(vtimes[name], name, pair, a, b):
+            log(line + f" ({card})")
     mag_by, _, mag_clock = vtimes["magmax_matmul_scratch"]
     mag_lib = float(np.median(mag_by[LIBRARY]))
     for name in ("magmax_matmul", "magmax_matmul_scratch"):

@@ -520,6 +520,56 @@ def mag7_fused(x: torch.Tensor, axis: int, mag_shift: int = MAG_SHIFT):
     return mag7(x, e, axis, mag_shift), e
 
 
+def mag7_fused_chunked(x: torch.Tensor, axis: int,
+                       mag_shift: int = MAG_SHIFT, chunk: int = 64,
+                       ways: int = 1):
+    """`mag7_fused` with its operand read once, as the fused kernel reads
+    it: the bits of `mag7_fused` by another route.
+
+    Each line is cut into `chunk`-wide pieces along the contraction axis,
+    dealt in turn to `ways` readers (piece i to reader i % ways). A reader
+    keeps the running max exponent e_run of the pieces it has read, the
+    current one included, and takes that piece's magnitudes below it:
+    every element's exponent is <= e_run, so the byte m = ceil(|x| *
+    2^(mag_shift - (e_run - bias))) is <= 2^(mag_shift + 1). At the line's
+    end emax is the readers' largest e_run, and each piece taken below it
+    is rewritten as ceil(m / 2^d), d = emax - e_run: ceil(ceil(y) / 2^d) =
+    ceil(y / 2^d) for an integer d >= 0, and where the shift's clamp at 63
+    applies the answer is 1 for a nonzero element (0 for a zero) either
+    way; m < 2^8, so d >= 8 gives m != 0. The kernel's rows form is chunk
+    64 (f64) or 128 (f32) and ways 8 (a 256-thread block's warps, 16-byte
+    loads), its columns form chunk 128 and ways 1."""
+    mant_bits_of(x)
+    if axis not in (0, 1):
+        raise ValueError("axis must be 0 or 1")
+    if chunk < 1 or ways < 1:
+        raise ValueError("chunk and ways must be positive")
+    chunks, exp, _, nonzero = _fields(x)
+    e_nz = torch.where(nonzero, exp, 0)
+    lines = e_nz if axis == 1 else e_nz.t()          # (rows, kdim)
+    rows, kdim = lines.shape
+    npiece = -(-kdim // chunk)
+    padded = torch.zeros((rows, npiece * chunk), dtype=torch.int64,
+                         device=x.device)
+    padded[:, :kdim] = lines
+    pmax = padded.reshape(rows, npiece, chunk).amax(dim=2)
+    e_piece = torch.empty_like(pmax)
+    for w in range(ways):     # each reader's running max over its pieces
+        if w < npiece:
+            e_piece[:, w::ways] = torch.cummax(pmax[:, w::ways], dim=1)[0]
+    e_line = e_piece.amax(dim=1, keepdim=True)        # (rows, 1)
+    piece = torch.arange(kdim, device=x.device) // chunk
+    e_run = e_piece[:, piece]                         # (rows, kdim)
+    if axis == 0:
+        e_run, e_line = e_run.t(), e_line.t()
+    m = _extract_mag7(chunks, exp, e_run, mag_shift).to(torch.int64) & 0xFF
+    d = e_line - e_run
+    ds = torch.clamp(d, max=7)
+    fixed = torch.where(d >= 8, (m != 0).to(torch.int64),
+                        (m + (1 << ds) - 1) >> ds)
+    return fixed.to(torch.int8), e_line.to(torch.int32)
+
+
 def _accurate_pre_floor(smax: torch.Tensor, num_moduli: int):
     """-0.51 * log2(max(smax, 1)) + T_accu in f32, step by step.
 

@@ -64,8 +64,9 @@ template <bool kStats, typename Word>
 __global__ void __launch_bounds__(kRowThreads)
 sft_rows(const Word* __restrict__ x, int* __restrict__ out, StatsOut st,
          int kdim, int t_f, float guard) {
+  const Word* xr = x + static_cast<size_t>(blockIdx.x) * kdim;
   const gm8::Stats s =
-      gm8::row_stats(x + static_cast<size_t>(blockIdx.x) * kdim, kdim);
+      gm8::row_stats<Word>([xr](int k) { return __ldg(xr + k); }, kdim);
   if (threadIdx.x == 0)
     store<kStats, Word>(out, st, blockIdx.x, s, t_f, guard);
 }

@@ -3,13 +3,19 @@
 // it, merged online over 2048-wide chunks, and the any-nonzero flag; and
 // the shift taken from them. The source word is a template parameter
 // (unsigned long long: f64 bits, unsigned: f32 bits; src_word.cuh), so
-// every kernel built on these bodies gets both forms by instantiation. Shared by the shift kernels (fast_sft.cu) and the
-// fused stats + encode kernels (fast_encode_fused.cu), so both give the
-// same bits: one body, one summation order.
+// every kernel built on these bodies gets both forms by instantiation.
+// Shared by the shift kernels (fast_sft.cu) and the fused stats + encode
+// kernels (fast_encode_fused.cu, which encodes on the tensor cores with
+// encode_mma.cuh), so both give the same bits: one body, one summation
+// order.
 //
 // Rows (row_stats): one kRowThreads-thread block per row holds a chunk in
 // registers (8 elements a thread), reduces its max exponent and then its
-// f32 squared norm across the block. Columns (col_stats): a kColX x kColY
+// f32 squared norm across the block. The row's words come through a
+// loader (element k of the row), so a caller may also keep them as they
+// pass (the fused kernel stages the row in shared memory); where the words
+// come from never changes the order they are summed in. Columns
+// (col_stats): a kColX x kColY
 // block takes kColX neighbouring columns (coalesced reads along a row) and
 // splits each chunk of rows over kColY threads per column; each thread
 // reads its rows twice (max, then norm) instead of holding them. Every
@@ -101,11 +107,11 @@ __device__ __forceinline__ float block_sum(float v, float* sh) {
   return v;
 }
 
-// the statistics of row xr (kdim elements); every thread of the
+// the statistics of a row of kdim elements, element k read as load(k)
+// (once, for k < kdim, by thread k % kRowThreads); every thread of the
 // kRowThreads-thread block must call it
-template <typename Word>
-__device__ __forceinline__ Stats row_stats(const Word* __restrict__ xr,
-                                           int kdim) {
+template <typename Word, typename Load>
+__device__ __forceinline__ Stats row_stats(Load load, int kdim) {
   constexpr int kPer = kChunk / kRowThreads;
   __shared__ int sh_i[kRowThreads / 32];
   __shared__ float sh_f[kRowThreads / 32];
@@ -117,7 +123,7 @@ __device__ __forceinline__ Stats row_stats(const Word* __restrict__ xr,
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
       int k = c0 + i * kRowThreads + threadIdx.x;
-      f[i] = fields(k < kdim ? xr[k] : Word(0));
+      f[i] = fields(k < kdim ? load(k) : Word(0));
       if (f[i].nonzero) {
         e_t = max(e_t, f[i].exp);
         any_t = 1;

@@ -7,8 +7,7 @@
 // kMantShift), mant with the implicit bit where e > 0, as the JAX
 // package's _f64_fields / _f32_fields define it (subnormal-exact).
 // shifted_value is the encode's integer trunc(x * 2^sft) of a word, which
-// the residue chains (residue.cuh) and the tensor-core contraction
-// (encode_mma.cuh) reduce.
+// the tensor-core contraction (encode_mma.cuh) reduces.
 #pragma once
 
 #include "common.cuh"

@@ -15,7 +15,8 @@ the wgmma tile (matmul_mod.cu, matmul_rider.cu, matmul_mod_pipelined.cu,
 matmul_complex.cu, matmul_reconstruct.cu, matmul_crt.cu, magmax.cu, and
 probe_deaddep.cu on matmul_mod's entry) get the launch table's
 constants of their entry (`-DGM8_MM_TILE_N=256 ...`, hopper/launch.py)
-and `-Xptxas -v`, whose report is kept in `PTXAS_REPORT`. The library
+and `-Xptxas -v`, whose report is kept in `PTXAS_REPORT` (as are those
+of encode.cu, reconstruct.cu, fast_encode_fused.cu and mag7.cu). The library
 lands in `build/kernels/` under the checkout, named by a hash of the
 sources and flags, so an edited source or launch entry never loads a
 stale build; the ptxas report is saved beside it and read back with it.
@@ -60,10 +61,11 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
 LAUNCHES: collections.Counter = collections.Counter()
 # flags of single sources: the sources on the wgmma tile take their
 # launch constants from the launch table's entry of their name (source ->
-# entry below); their ptxas reports and those of the two main-path
-# kernels redesigned on the tensor cores (`-Xptxas -v`: each kernel's
-# registers, shared memory and spills) are kept by source name in
-# PTXAS_REPORT, saved beside the library and read back with it
+# entry below); their ptxas reports, those of the two main-path kernels
+# redesigned on the tensor cores and those of the two fused statistics
+# sources (`-Xptxas -v`: each kernel's registers, shared memory and
+# spills) are kept by source name in PTXAS_REPORT, saved beside the
+# library and read back with it
 WGMMA_SOURCES = {"matmul_mod.cu": "matmul_mod",
                  "matmul_rider.cu": "matmul_rider",
                  "matmul_mod_pipelined.cu": "matmul_mod_pipelined",
@@ -76,7 +78,9 @@ SOURCE_FLAGS = {
     **{src: ("-Xptxas", "-v", *launch.get(entry, ARCH_CAPABILITY).defines())
        for src, entry in WGMMA_SOURCES.items()},
     "encode.cu": ("-Xptxas", "-v"),
-    "reconstruct.cu": ("-Xptxas", "-v")}
+    "reconstruct.cu": ("-Xptxas", "-v"),
+    "fast_encode_fused.cu": ("-Xptxas", "-v"),
+    "mag7.cu": ("-Xptxas", "-v")}
 PTXAS_REPORT: dict = {}
 
 _P = ctypes.c_void_p
@@ -111,10 +115,10 @@ _SIGNATURES = {
     # ar, ai, sa, br, bi, sb, bt (workspaces), out_re, out_im, L, m, n, k,
     # kp, centered, kara, stream
     "gm8_matmul_complex_mod": [_P] * 9 + [_I] * 7 + [_P],
-    # x, out, sft, rows, kdim, axis, num_moduli, t_f, guard, q_max, f32,
-    # stream
-    "gm8_fast_encode_fused": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
-                              _P],
+    # x, out, sft, rows, kdim, axis, table (host), num_moduli, t_f, guard,
+    # q_max, f32, sync (workspace), stream
+    "gm8_fast_encode_fused": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _F, _I,
+                              _I, _P, _P],
     # x, emax, out, rows, kdim, axis, ld, mag_shift, f32, stream
     "gm8_mag7_fused": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # a, lda, bt, ldb, row_part, col_part, m, n, k, stream

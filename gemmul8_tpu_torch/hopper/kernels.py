@@ -13,10 +13,16 @@ products) and give the bits of `encode_slices` and `reconstruct`.
     emax           csrc/mag7.cu         <- pallas/kernels.py emax_pallas
     mag7           csrc/mag7.cu         <- pallas/kernels.py mag7_pallas
     mag7_fused     csrc/mag7.cu         <- pallas/kernels.py mag7_fused_pallas
+                   (the operand read once: magnitudes below a running max,
+                   rewritten below the final one; core.encode.
+                   mag7_fused_chunked is that arithmetic's plain twin)
     encode_slices  csrc/encode.cu       <- pallas/kernels.py encode_slices_pallas
                    (its residue dots on the int8 tensor cores, encode_mma.cuh)
     fast_encode_fused  csrc/fast_encode_fused.cu
                    <- pallas/kernels.py fast_encode_fused_pallas
+                   (fast_sft's statistics bodies, fast_stats.cuh, then
+                   encode_slices' tensor-core body on the same rows, staged
+                   in shared memory, or columns, read again)
     reconstruct    csrc/reconstruct.cu  <- pallas/kernels.py reconstruct_pallas
                    (the CRT sum on the int8 tensor cores, crt_mma.cuh; the
                    tail of crt_tail.cuh)
@@ -324,12 +330,17 @@ def fast_encode_fused(x: torch.Tensor, num_moduli: int, axis: int):
                       device=x.device)
     sft = torch.empty((rows, 1) if axis == 1 else (1, rows),
                       dtype=torch.int32, device=x.device)
+    table = encode_mma_table(tuple(range(num_moduli)))
+    # the column form's grid-wide barrier counts its blocks here
+    sync = torch.zeros(1, dtype=torch.int32, device=x.device) \
+        if axis == 0 else None
     with torch.cuda.device(x.device):
         code = build.lib().gm8_fast_encode_fused(
             x.data_ptr(), out.data_ptr(), sft.data_ptr(), rows, kdim, axis,
-            num_moduli, tables.threshold_fast(num_moduli),
+            table.ctypes.data, num_moduli, tables.threshold_fast(num_moduli),
             enc._norm_guard(kdim), enc.q_max(num_moduli, enc.mant_bits_of(x)),
-            int(f32), build.stream_ptr(x.device))
+            int(f32), None if sync is None else sync.data_ptr(),
+            build.stream_ptr(x.device))
     build.check(code, "fast_encode_fused")
     build.LAUNCHES[build.form("fast_encode_fused", f32)] += 1
     return out, sft

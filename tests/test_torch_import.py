@@ -58,7 +58,7 @@ def test_sources_are_cuda_files():
                      "moduli.cuh", "probe_clz.cu",
                      "probe_deaddep.cu", "probe_mxu_crt.cu",
                      "probe_vpu_ops.cu", "reconstruct.cu",
-                     "residue.cuh", "src_word.cuh", "transpose_b.cuh",
+                     "src_word.cuh", "transpose_b.cuh",
                      "wgmma_s8.cuh"]
 
 
