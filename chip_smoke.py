@@ -424,6 +424,25 @@ its operand once (csrc/fast_encode_fused.cu, csrc/mag7.cu) add:
       (B's encode also of its read-twice bound, (2 x 8 + 14) bytes an
       element) beside the pair's time for the half and the SM clock.
 
+fast_sft's column statistics reading each word once (a running exponent
+frame, a chunk a block, the chunks merged in a cluster; csrc/fast_sft.cu,
+csrc/fast_stats.cuh) add:
+  2.  (also) fast_sft.cu's ptxas report, asserted free of spills;
+  3v. (also) a fourth late-max line: the max last and 70 binades up, in a
+      later chunk than the line's first nonzero; fast_sft's statistics
+      mode held to its plain version on every FUSED_EDGE_CASES operand
+      beside fast_sft (through fast_encode_fused's shifts) and
+      fast_encode_fused, in both words;
+  5, 5c, 5f, 5x. (also) each half of fast_sft (5: f64, 5f: f32) and of
+      its statistics mode (5c: the f64 parts, 5x: the f32 parts), A's rows
+      and B's columns timed apart beside emax on the same operands in one
+      rotation (head started, so the host's launches never hold the card
+      back), each as a share of its read-once bound, with the rotation's
+      SM clock and power draw.
+`python3 chip_smoke.py halves` builds the kernels and prints only those
+halves lines and phase 5v's fast_encode_fused halves (no result line), for
+before-and-after runs of two trees in one call.
+
 The line before the last is a JSON object of per-kernel results
 (`launches` sums the main-path calls of phase 4, real and complex, for the
 variant kernels those of phase 4v at 8192^3, for matmul_crt and
@@ -594,6 +613,17 @@ VARIANT_CALLS = [
 VARIANT_ROUNDS = 3
 VARIANT_KERNELS = ("fast_encode_fused", "mag7_fused", "magmax_matmul_scratch",
                    "matmul_mod_u8_pipelined")
+# phases 5, 5c, 5f, 5x: each half of fast_sft (or of its statistics mode)
+# timed apart beside emax on the same operands, HALF_ROUNDS rounds in
+# rotated order of HALF_REPS calls, each timing after a head start of
+# HEAD_START_CYCLES SM cycles (torch.cuda._sleep) so that the host's
+# launches never hold the card back; and the bytes each line writes: a
+# shift (fast_sft), the statistics (fast_stats: int64 exponent, f32 norm,
+# bool flag) or an exponent (emax)
+HALF_ROUNDS = 5
+HALF_REPS = 20
+HEAD_START_CYCLES = 10_000_000
+LINE_OUT_BYTES = {"fast_sft": 4, "fast_stats": 13, "emax": 4}
 # phase 3s: phase 3's shapes, every one at 2 to 20 moduli but the largest
 SCHEDULE_CASES = [((2048, 2048, 2048), (L_MAIN,), False),
                   ((1000, 777, 1500), (2, 8, 14, 20), True),
@@ -612,8 +642,8 @@ MAIN_ROUNDS = 5          # phase 5: the fast, accurate and f32-8 calls
 # phase 2: sources whose ptxas report must show no spill store or load
 NO_SPILL_SOURCES = ("matmul_mod_pipelined.cu", "matmul_complex.cu",
                     "matmul_reconstruct.cu", "probe_deaddep.cu",
-                    "matmul_crt.cu", "magmax.cu", "fast_encode_fused.cu",
-                    "mag7.cu")
+                    "matmul_crt.cu", "magmax.cu", "fast_sft.cu",
+                    "fast_encode_fused.cu", "mag7.cu")
 # phase 3w: the wgmma tile's edge shapes (m, k, n) at these slice counts,
 # a moduli subset, and the int32 wrap at the largest k
 WGMMA_CASES = [(1, 16, 1), (65, 144, 257), (200, 4100, 129),
@@ -1584,7 +1614,9 @@ def late_max_lines(x, axis):
     hard for a kernel that reads a line once: line 0 at 2^-40 of itself
     but its last element 1.5 (the max arrives last, 40 binades up); line 1
     zero in its first half, then a subnormal, then its own values; line 2
-    -0.0 at every third element."""
+    -0.0 at every third element; line 3 at 2^-70 of itself but its last
+    element 1.5 (70 binades up, in a later 2048-wide chunk than its first
+    nonzero where the line is longer than one)."""
     y = (x if axis == 1 else x.t()).clone()
     tiny = 5e-324 if y.dtype == torch.float64 else 1e-45
     y[0] *= 2.0 ** -40
@@ -1594,6 +1626,9 @@ def late_max_lines(x, axis):
         y[1, y.shape[1] // 2] = tiny
     if y.shape[0] > 2:
         y[2, ::3] = -0.0
+    if y.shape[0] > 3:
+        y[3] *= 2.0 ** -70
+        y[3, -1] = 1.5
     return (y if axis == 1 else y.t()).contiguous()
 
 
@@ -1601,10 +1636,12 @@ def hold_fused_stats(errs, x, axis, Ls, tag):
     """fast_encode_fused and mag7_fused (shifts 5 and 4) on x: the shifts
     the fast_sft kernel's bits (and the plain version's under the floor
     rule), the slices the plain encode's at them, the magnitudes and
-    exponents the plain version's and the emax + mag7 kernels'."""
+    exponents the plain version's and the emax + mag7 kernels'; and
+    fast_sft's statistics mode held to its plain version (check_stats)."""
     f32 = x.dtype == torch.float32
     enc_key = build.form("fast_encode_fused", f32)
     mag_key = build.form("mag7_fused", f32)
+    check_stats(errs, x, axis, Ls[0])
     for L in Ls:
         sl, sft = hk.fast_encode_fused(x, L, axis)
         assert torch.equal(sft, hk.fast_sft(x, L, axis)), \
@@ -2263,6 +2300,9 @@ def phase_times(a, b, errs):
         log(f"  {name} == plain at the main path's shapes ({N}^2, {L} "
             "moduli)")
         del got, ref
+    for line in sft_half_lines("fast_sft", lambda x, ax: hk.fast_sft(x, L, ax),
+                               (a,), (b,)):
+        log(line)
     # the library's int8 GEMM on the same slices, without the mod epilogue:
     # L calls of torch._int_mm (the port never calls it)
     lib = {}
@@ -2324,11 +2364,13 @@ def int_mm(a8, b8t, pairs=None):
                     for l in range(x.shape[0])]
 
 
-def timed_rounds(calls, rounds, reps):
+def timed_rounds(calls, rounds, reps, head_start=False):
     """ms per call of each entry of calls (name -> fn), over rounds in
     which the order rotates by one, so each call takes each place; no
-    output is kept between timings. Returns (name -> list of ms, place ->
-    list of ms)."""
+    output is kept between timings. head_start: each timing's calls are
+    enqueued behind HEAD_START_CYCLES of torch.cuda._sleep, so that the
+    host's launches run ahead of the card. Returns (name -> list of ms,
+    place -> list of ms)."""
     names = list(calls)
     for name in names:                     # warm-up
         calls[name]()
@@ -2340,6 +2382,8 @@ def timed_rounds(calls, rounds, reps):
     for r in range(rounds):
         shift = r % len(names)
         for place, name in enumerate(names[shift:] + names[:shift]):
+            if head_start:
+                torch.cuda._sleep(HEAD_START_CYCLES)
             start.record()
             for _ in range(reps):
                 calls[name]()
@@ -2380,6 +2424,9 @@ def phase_complex_times(A, B, errs):
                         b_re, b_im, 0, L))
     log(f"  fast_stats and the joint shifts == plain at the main path's "
         f"shapes ({N}^2, Re and Im, rows and columns)")
+    for line in sft_half_lines("fast_stats", hk.fast_stats, (a_re, a_im),
+                               (b_re, b_im)):
+        log(line)
     ms, got = timed(lambda: (hk.mag7_operand_complex(a_re, a_im, 1),
                              hk.mag7_operand_complex(b_re, b_im, 0)), 5)
     pms, ref = timed(lambda: (mag7_complex_plain(a_re, a_im, 1),
@@ -2438,6 +2485,24 @@ def under(env, fn):
         return fn()
 
 
+def fused_encode_calls(a, b, L):
+    """fast_encode_fused on both operands and on each half, beside
+    fast_sft + encode_slices on the same (phase 5v's rotation)."""
+
+    def sft_encode(x, axis):
+        return hk.encode_slices(x, hk.fast_sft(x, L, axis), L, axis)
+
+    return {
+        "fast_encode_fused": lambda: (hk.fast_encode_fused(a, L, 1),
+                                      hk.fast_encode_fused(b, L, 0)),
+        "fast_sft + encode_slices": lambda: (sft_encode(a, 1),
+                                             sft_encode(b, 0)),
+        "fast_encode_fused A rows": lambda: hk.fast_encode_fused(a, L, 1),
+        "fast_sft + encode_slices A rows": lambda: sft_encode(a, 1),
+        "fast_encode_fused B columns": lambda: hk.fast_encode_fused(b, L, 0),
+        "fast_sft + encode_slices B columns": lambda: sft_encode(b, 0)}
+
+
 def phase_variant_times(a, b, errs):
     """Phase 5v: at the main path's shapes (N^2 operands, 14 moduli), each
     variant kernel beside the default kernels it replaces, VARIANT_ROUNDS
@@ -2458,20 +2523,9 @@ def phase_variant_times(a, b, errs):
         e = hk.emax(x, axis)
         return hk.mag7(x, e, axis), e
 
-    def sft_encode(x, axis):
-        return hk.encode_slices(x, hk.fast_sft(x, L, axis), L, axis)
-
     groups = {
         "fast_encode_fused": (
-            {"fast_encode_fused": lambda: (hk.fast_encode_fused(a, L, 1),
-                                           hk.fast_encode_fused(b, L, 0)),
-             "fast_sft + encode_slices": lambda: (sft_encode(a, 1),
-                                                  sft_encode(b, 0)),
-             "fast_encode_fused A rows": lambda: hk.fast_encode_fused(a, L, 1),
-             "fast_sft + encode_slices A rows": lambda: sft_encode(a, 1),
-             "fast_encode_fused B columns":
-                 lambda: hk.fast_encode_fused(b, L, 0),
-             "fast_sft + encode_slices B columns": lambda: sft_encode(b, 0)},
+            fused_encode_calls(a, b, L),
             lambda: (hk.fast_encode_fused_plain(a, L, 1),
                      hk.fast_encode_fused_plain(b, L, 0))),
         "mag7_fused": (
@@ -3382,6 +3436,9 @@ def phase_f32_times(a, b, a32, b32, errs):
         pms, _ = timed(plain[name], 2)
         kerns[key] = (float(np.median(by_name[key])),
                       float(np.median(by_name[name])), pms)
+    for line in sft_half_lines("fast_sft", lambda x, ax: hk.fast_sft(x, L, ax),
+                               (a32,), (b32,)):
+        log(line)
     prev = (torch.backends.cuda.matmul.allow_tf32,
             torch.get_float32_matmul_precision())
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3692,6 +3749,8 @@ def phase_complex64_times(A, A64, B64, a, b, a32, b32, errs):
     axes = (1, 1, 0, 0)
     for x, axis in zip(p32, axes):
         check_stats(errs, x, axis, L)
+    for line in sft_half_lines("fast_stats", hk.fast_stats, p32[:2], p32[2:]):
+        log(line)
     kerns = {}
 
     def record(key, rounds, plain):
@@ -4753,6 +4812,44 @@ def fused_half_lines(timing, name, pair, a, b):
     return lines
 
 
+def sft_half_lines(name, kern, a_parts, b_parts):
+    """The halves of fast_sft (name "fast_sft") or of its statistics mode
+    ("fast_stats") at the main path's shapes: A's rows and B's columns,
+    each over its parts (kern(x, axis) on each), timed apart beside emax
+    on the same parts in one rotation (HALF_ROUNDS rounds, head started,
+    the SM clock and power draw sampled), each as a share of its read-once
+    bound: every word read once, every line's outputs written once."""
+    halves = (("A rows", a_parts, 1), ("B columns", b_parts, 0))
+    calls = {}
+    for half, parts, axis in halves:
+        calls[f"{name} {half}"] = (
+            lambda p=parts, ax=axis: [kern(x, ax) for x in p])
+        calls[f"emax {half}"] = (
+            lambda p=parts, ax=axis: [hk.emax(x, ax) for x in p])
+    with ClockSampler() as clock:
+        by_name, _ = timed_rounds(calls, HALF_ROUNDS, HALF_REPS,
+                                  head_start=True)
+    lines = []
+    for half, parts, axis in halves:
+        x = parts[0]
+        rows = x.shape[1 - axis]
+        word = "f64" if x.dtype == torch.float64 else "f32"
+        got = {}
+        for k in (name, "emax"):
+            ms = float(np.median(by_name[f"{k} {half}"]))
+            lim = bound(len(parts) * (x.element_size() * x.numel()
+                                      + LINE_OUT_BYTES[k] * rows))[0]
+            got[k] = (ms, lim)
+        (ms, lim), (ems, elim) = got[name], got["emax"]
+        lines.append(
+            f"  {name} {half} ({word}, {len(parts)} x {x.shape[0]} x "
+            f"{x.shape[1]}): median {ms:.4f} ms; share of its read-once "
+            f"bound {lim:.4f} ms {lim / ms:.3f}; emax {half} {ems:.4f} ms, "
+            f"share {elim / ems:.3f}; ratio to emax {ms / ems:.3f} in one "
+            f"rotation; {clock.summary()} ({card_line()})")
+    return lines
+
+
 def kernel_bounds(a, b, L):
     """bound() of each kernel's phase-5 work on a (m, k) and b (k, n), each
     input read once and each output written once: both operands where the
@@ -5171,5 +5268,43 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+def halves_main():
+    """`python3 chip_smoke.py halves`: build the kernels and print only
+    the halves lines of the statistics kernels at the main path's shapes:
+    fast_sft and its statistics mode, f64 and f32, each half beside emax
+    (phases 5, 5c, 5f, 5x), and fast_encode_fused's halves (phase 5v);
+    no result line. For before-and-after runs in one call, each tree's
+    chip_smoke.py in turn."""
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: torch.cuda.is_available() is false")
+    log(card_line())
+    build.lib()
+    re64 = torch.from_numpy(phi_matrix(N, N, 0.5, seed=0)).to(DEVICE)
+    im64 = torch.from_numpy(phi_matrix(N, N, 0.5, seed=1)).to(DEVICE)
+    parts = {"f64": (re64, im64), "f32": (re64.float(), im64.float())}
+    for word, (re_, im_) in parts.items():
+        a, b = re_, re_.t().contiguous()
+        L = L_MAIN if word == "f64" else L_F32
+        for line in sft_half_lines(
+                "fast_sft", lambda x, ax, L=L: hk.fast_sft(x, L, ax), (a,),
+                (b,)):
+            log(line)
+        for line in sft_half_lines("fast_stats", hk.fast_stats, (re_, im_),
+                                   (b, im_.t().contiguous())):
+            log(line)
+        if word == "f64":
+            with ClockSampler() as clock:
+                by_name, _ = timed_rounds(fused_encode_calls(a, b, L),
+                                          VARIANT_ROUNDS, 5)
+            for line in fused_half_lines((by_name, None, clock.summary()),
+                                         "fast_encode_fused",
+                                         "fast_sft + encode_slices", a, b):
+                log(line + f" ({card_line()})")
+        del a, b
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["halves"]:
+        halves_main()
+    else:
+        main()

@@ -136,6 +136,76 @@ def fast_stats(x: torch.Tensor, axis: int):
     return e_acc, s_acc, af_acc
 
 
+def fast_stats_running(x: torch.Tensor, axis: int, run: int = 128,
+                       ways: int = 16):
+    """`fast_stats` summed in the fast_sft kernel's column order: the
+    plain twin of that order, in f32 step by step, for the tests.
+
+    Each STATS_CHUNK-wide chunk of a line is cut into `run`-wide runs
+    along the contraction axis, dealt in turn to `ways` readers (run i to
+    reader i % ways). A reader reads its words once, in order, keeping a
+    frame: the max biased exponent e of the nonzero words read so far and
+    the f32 sum s of their squares relative to it (each |x| scaled to
+    2^-(e - bias) as `_scaled_abs_f32` scales it); where a word raises e
+    by d, s is first multiplied by 2^-2d (exact, or 0 below the normal
+    range). At the chunk's end its max is the readers' largest e, and the
+    readers' sums, each multiplied by 2^(2 (e_reader - e_chunk)), are
+    added in reader order from 0. Chunks merge in order as in
+    `fast_stats`, from a zero accumulator. Without subnormal terms or sums
+    these are the bits of summing each reader's words relative to the
+    chunk's max from the start; they can differ where an element lies 63
+    or more binades under its chunk's max. The kernel's columns form is
+    run 128 and ways 16 (a 2048-row chunk over 16 threads a column)."""
+    mant_bits_of(x)
+    if axis not in (0, 1):
+        raise ValueError("axis must be 0 or 1")
+    if run < 1 or ways < 1:
+        raise ValueError("run and ways must be positive")
+    lines = x if axis == 1 else x.t()
+    nlines, kdim = lines.shape
+    step = run * ways
+    zero_i = torch.zeros((nlines, 1), dtype=torch.int64, device=x.device)
+    zero_f = torch.zeros((nlines, 1), dtype=torch.float32, device=x.device)
+    e_acc, s_acc, af_acc = zero_i, zero_f, zero_i.bool()
+    for c0 in range(0, kdim, tables.STATS_CHUNK):
+        chunk = lines[:, c0:c0 + tables.STATS_CHUNK]
+        clen = chunk.shape[1]
+        nsteps = -(-clen // step)
+        padded = torch.zeros((nlines, nsteps * step), dtype=x.dtype,
+                             device=x.device)
+        padded[:, :clen] = chunk
+        # (line, reader, its words in order): word (t, j) of reader w is
+        # run t * ways + w, element j
+        seq = (padded.reshape(nlines, nsteps, ways, run).permute(0, 2, 1, 3)
+               .reshape(nlines * ways, nsteps * run))
+        pieces, exp, _, nz = _fields(seq)
+        e = torch.zeros((nlines * ways,), dtype=torch.int64,
+                        device=x.device)
+        s = torch.zeros((nlines * ways,), dtype=torch.float32,
+                        device=x.device)
+        for t in range(nsteps * run):
+            e_new = torch.where(nz[:, t], torch.maximum(e, exp[:, t]), e)
+            s = s * _pow2_f32(2 * (e - e_new))
+            xs = _scaled_abs_f32([p[:, t] for p in pieces], exp[:, t], e_new,
+                                 nz[:, t])
+            s = s + xs * xs
+            e = e_new
+        e, s = e.reshape(nlines, ways), s.reshape(nlines, ways)
+        e_blk = e.amax(dim=1, keepdim=True)
+        s_blk = zero_f
+        for w in range(ways):
+            s_blk = s_blk + s[:, w:w + 1] * _pow2_f32(2 * (e[:, w:w + 1]
+                                                           - e_blk))
+        af_blk = nz.reshape(nlines, -1).any(dim=1, keepdim=True)
+        e_new = torch.maximum(e_acc, e_blk)
+        s_acc = (s_acc * _pow2_f32(2 * (e_acc - e_new))
+                 + s_blk * _pow2_f32(2 * (e_blk - e_new)))
+        e_acc, af_acc = e_new, af_acc | af_blk
+    if axis == 0:
+        return e_acc.t(), s_acc.t(), af_acc.t()
+    return e_acc, s_acc, af_acc
+
+
 def _norm_guard(k_total: int) -> float:
     """f32 round-up factor (1 + k * 2^-23) on the squared norm."""
     return float(np.float32(1.0 + k_total * 2.0 ** -23))

@@ -27,12 +27,14 @@
 // Columns of B: a column's shift needs the whole column, and a 32-column
 // strip (kdim x 256 bytes in f64, 2 MB at 8192) fits no SM. So the kernel
 // is one cooperative launch of as many blocks as are resident: each takes
-// the statistics of 32-column strips (32 x 16 threads, as fast_sft's
-// column kernel), a grid-wide barrier follows, and then every warp of the
-// grid encodes B as encode.cu walks it, in row-major order, last rows
-// first (the rows the statistics read last, likeliest still in L2), the
-// shifts read back from the output. So B is read twice, the second time
-// mostly from device memory at 8192^2 (its 537 MB are ten times L2), but in
+// the statistics of 32-column strips (32 x 16 threads, each chunk split
+// into runs as fast_sft's column kernel splits it, the chunks walked in
+// order: each word read once), a grid-wide barrier follows, and then every
+// warp of the grid encodes B as encode.cu walks it, in row-major order,
+// last rows first (the rows the statistics read last, likeliest still in
+// L2), the shifts read back from the output. So B is read twice, once for
+// the statistics and once to encode, the second time mostly from device
+// memory at 8192^2 (its 537 MB are ten times L2), but in
 // the order that keeps each slice's writes whole rows of 128-byte lines
 // (encoding strip by strip, each block in its own strip, wrote 32 bytes a
 // row of each slice at a time, and ran slower).
@@ -60,6 +62,10 @@ constexpr int kColWarps = kColThreads / 32;
 // multiple of the block's 512-element encode step
 constexpr int kStageBytes = 64 * 1024;
 constexpr int kRowStep = kRowWarps * kEncTile;  // a step of the row's encode
+// a column thread's loads in flight in the statistics: 8 bytes, the most
+// that leaves every form free of spills beside the encode's registers
+// (16 spilled in the f64 one-slot-tile form, 32 in the f32 one)
+constexpr int kColLoadBytes = 8;
 
 // every thread of every block of the grid, all of whose blocks are
 // resident (a cooperative launch); count: zero before the launch. The
@@ -251,7 +257,8 @@ fused_cols(const Word* __restrict__ x, signed char* __restrict__ out,
   for (int strip = blockIdx.x; strip < strips; strip += gridDim.x) {
     const int col = strip * kColX + tx;
     const bool valid = col < cols;
-    const gm8::Stats s = gm8::col_stats(x, kdim, cols, col, valid);
+    const gm8::Stats s =
+        gm8::col_stats<kColLoadBytes>(x, kdim, cols, col, valid);
     if (ty == 0 && valid)
       sft_out[col] = gm8::sft_from_stats(s.emax, s.nrm2, s.any, t_f, guard,
                                          gm8::Src<Word>::kBias);

@@ -14,27 +14,46 @@
 // Design: rows of A (axis=1) are contiguous, so one 256-thread block per
 // row holds a 2048-wide chunk in registers (8 elements a thread), reduces
 // the chunk's max exponent and then its f32 squared norm across the block,
-// and merges chunks online exactly as the TPU kernel does (rescale by exact
-// powers of two). Columns of B (axis=0) are strided, so a block takes 32
-// neighbouring columns (coalesced reads along a row) and splits each chunk
-// of rows over 16 threads per column; each thread reads its rows twice
-// (max, then norm) instead of holding them. The sum order inside a chunk
-// differs from XLA's, so a shift may differ by 1 where the floored value
-// lies within f32 rounding of an integer (sft_floor_frac < 1e-4). The
-// bodies live in fast_stats.cuh, shared with the fused stats + encode
-// kernels (fast_encode_fused.cu), whose shifts are therefore these bits.
-// The two modes share them; a template flag picks the final store. The
-// source word is the other template parameter (src_word.cuh): an f32
-// operand's form reads 4-byte words with the same threads and order, and
-// its shift takes bias 127.
+// and merges chunks online exactly as the TPU kernel does (rescale by
+// exact powers of two); at 8192^2 it reads at emax's rate, and staging the
+// row in shared memory by cp.async first ran slower (H100 80GB HBM3, 700
+// W). Columns of B (axis=0) are strided: a block takes 32 neighbouring
+// columns (coalesced reads along a row) and one 2048-row chunk, split over
+// 16 threads a column, each reading its 128-row run once in a running
+// exponent frame (fast_stats.cuh). The grid is strips x chunks in
+// clusters along the chunks (up to 8 blocks; a block takes chunk rank,
+// rank + 8, ..); after each round the cluster's first block reads the
+// others' chunk statistics from their shared memory and merges them in
+// chunk order, so a strip's merge order is fixed and nothing goes through
+// device memory. The sum order inside a chunk differs from XLA's, so a
+// shift may differ by 1 where the floored value lies within f32 rounding
+// of an integer (sft_floor_frac < 1e-4). The bodies live in
+// fast_stats.cuh, shared with the fused stats + encode kernels
+// (fast_encode_fused.cu), whose shifts are therefore these bits. The two
+// modes share them; a template flag picks the final store. The source
+// word is the other template parameter (src_word.cuh): an f32 operand's
+// form reads 4-byte words with the same threads and order, and its shift
+// takes bias 127.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 #include "fast_stats.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 using gm8::kColX;
 using gm8::kColY;
 using gm8::kRowThreads;
+
+constexpr int kMaxCluster = 8;  // the portable cluster size
+// a column thread's loads in flight (and as many in hand), and the column
+// kernel's blocks an SM that its registers must allow: the fastest of
+// 16-128 bytes and 2-4 blocks in both words on an H100 80GB HBM3 at its
+// 700 W limit
+constexpr int kColLoadBytes = 32;
+constexpr int kColBlocksPerSm = 3;
 
 // outputs of the stats mode: per row or column the max biased exponent,
 // the f32 squared norm relative to it and the any-nonzero flag
@@ -71,15 +90,40 @@ sft_rows(const Word* __restrict__ x, int* __restrict__ out, StatsOut st,
     store<kStats, Word>(out, st, blockIdx.x, s, t_f, guard);
 }
 
+// strip blockIdx.x, chunks blockIdx.y, + gridDim.y, ..; gridDim.y is the
+// cluster's size, so the cluster holds the strip's blocks
 template <bool kStats, typename Word>
-__global__ void __launch_bounds__(kColX * kColY)
+__global__ void __launch_bounds__(kColX * kColY, kColBlocksPerSm)
 sft_cols(const Word* __restrict__ x, int* __restrict__ out, StatsOut st,
          int kdim, int cols, int t_f, float guard) {
-  const int col = blockIdx.x * kColX + threadIdx.x;
+  __shared__ gm8::Stats part[2][kColX];  // a round's chunk, by its parity
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int col = blockIdx.x * kColX + tx;
   const bool valid = col < cols;
-  const gm8::Stats s = gm8::col_stats(x, kdim, cols, col, valid);
-  if (valid && threadIdx.y == 0)
-    store<kStats, Word>(out, st, col, s, t_f, guard);
+  const int ways = static_cast<int>(gridDim.y);
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int chunks = (kdim + gm8::kChunk - 1) / gm8::kChunk;
+  gm8::Stats acc{0, 0.0f, 0};
+  for (int r = 0; r * ways < chunks; ++r) {
+    const int c = r * ways + rank;
+    if (c < chunks) {
+      const gm8::Stats s =
+          gm8::col_chunk_stats<kColLoadBytes>(x, c * gm8::kChunk, kdim,
+                                              cols, col, valid);
+      if (ty == 0) part[r & 1][tx] = s;
+    }
+    // the round's parts are written; the last round but one's were read
+    cluster.sync();
+    if (rank == 0 && ty == 0) {
+      for (int i = 0; i < ways && r * ways + i < chunks; ++i)
+        acc = gm8::merge_stats(
+            acc, *cluster.map_shared_rank(&part[r & 1][tx], i));
+    }
+  }
+  cluster.sync();  // no block leaves while its parts may still be read
+  if (rank == 0 && ty == 0 && valid)
+    store<kStats, Word>(out, st, col, acc, t_f, guard);
 }
 
 template <bool kStats, typename Word>
@@ -89,12 +133,25 @@ int launch(const void* x, int* out, const StatsOut& st, int rows, int kdim,
   if (axis == 1) {
     sft_rows<kStats, Word><<<rows, kRowThreads, 0, s>>>(xp, out, st, kdim,
                                                         t_f, guard);
-  } else {
-    dim3 block(kColX, kColY);
-    sft_cols<kStats, Word><<<(rows + kColX - 1) / kColX, block, 0, s>>>(
-        xp, out, st, kdim, rows, t_f, guard);
+    return gm8::launch_status();
   }
-  return gm8::launch_status();
+  const int chunks = (kdim + gm8::kChunk - 1) / gm8::kChunk;
+  const int ways =
+      chunks < 1 ? 1 : chunks < kMaxCluster ? chunks : kMaxCluster;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((rows + kColX - 1) / kColX, ways);
+  cfg.blockDim = dim3(kColX, kColY);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = ways;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, sft_cols<kStats, Word>, xp,
+                                           out, st, kdim, rows, t_f, guard);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 }  // namespace

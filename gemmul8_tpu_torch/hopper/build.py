@@ -16,7 +16,8 @@ matmul_complex.cu, matmul_reconstruct.cu, matmul_crt.cu, magmax.cu, and
 probe_deaddep.cu on matmul_mod's entry) get the launch table's
 constants of their entry (`-DGM8_MM_TILE_N=256 ...`, hopper/launch.py)
 and `-Xptxas -v`, whose report is kept in `PTXAS_REPORT` (as are those
-of encode.cu, reconstruct.cu, fast_encode_fused.cu and mag7.cu). The library
+of encode.cu, reconstruct.cu, fast_sft.cu, fast_encode_fused.cu and
+mag7.cu). The library
 lands in `build/kernels/` under the checkout, named by a hash of the
 sources and flags, so an edited source or launch entry never loads a
 stale build; the ptxas report is saved beside it and read back with it.
@@ -62,7 +63,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 # flags of single sources: the sources on the wgmma tile take their
 # launch constants from the launch table's entry of their name (source ->
 # entry below); their ptxas reports, those of the two main-path kernels
-# redesigned on the tensor cores and those of the two fused statistics
+# redesigned on the tensor cores and those of the statistics
 # sources (`-Xptxas -v`: each kernel's registers, shared memory and
 # spills) are kept by source name in PTXAS_REPORT, saved beside the
 # library and read back with it
@@ -79,6 +80,7 @@ SOURCE_FLAGS = {
        for src, entry in WGMMA_SOURCES.items()},
     "encode.cu": ("-Xptxas", "-v"),
     "reconstruct.cu": ("-Xptxas", "-v"),
+    "fast_sft.cu": ("-Xptxas", "-v"),
     "fast_encode_fused.cu": ("-Xptxas", "-v"),
     "mag7.cu": ("-Xptxas", "-v")}
 PTXAS_REPORT: dict = {}
