@@ -443,6 +443,32 @@ csrc/fast_stats.cuh) add:
 halves lines and phase 5v's fast_encode_fused halves (no result line), for
 before-and-after runs of two trees in one call.
 
+The comparison harness and its baselines (gemmul8_tpu_torch.bench.harness,
+baselines/ozimmu.py, ops/mpgemm.py; no kernel of their own: OS-I's
+products are torch._int_mm, mpgemm's bf16 torch.mm with an f32 result)
+add:
+  3h. on the card against the same functions on the host's CPU:
+      ozimmu_gemm bit for bit at 2048^3 (8 and 9 slices) and at a ragged
+      1000 x 777 x 1500 with zeros, -0.0 and subnormals (3, 8, 13; the
+      card pads torch._int_mm's operands), ozimmu_zgemm at 300 x 130 x
+      200 (9), mantissa_loss_stats, auto_num_split and exp_stats equal;
+      mp_gemm in its six modes and mp_cgemm: float32 (complex64) out,
+      within 1e-6 of the CPU's per |A||B| and inside
+      tests/test_mpgemm.py's ladder bands of the dd oracle;
+  4h. harness.accuracy_check d at the reference's scale (m = n = 1024, k =
+      8192, phi 0.5, fast and accurate at test_scale_bands.py's L), every
+      row inside that file's band rule; a 256 x 1024 x 256 check at L = 8,
+      14, 20 whose OS2 rows equal the CPU run's exactly; a saved case
+      replayed on the card and on the CPU to the same C;
+  5h. harness.time_check d (8192, 14 moduli, fast and accurate: DGEMM,
+      INT8-GEMM, OS2 rows with their phases, OS2-fast-14-axpby,
+      OS1-EF-8/9), time_check f (8 moduli: SGEMM, BF16X3-SCALING),
+      time_check_complex (complex64 8192^3, 8 moduli, three strategies)
+      and watt_check of the OS2-fast-14 row (at least 10 s, the instant
+      power draw every 100 ms): each row with the SM clock and power draw sampled
+      while its own timed calls ran; the OS2-fast-14 row within 10% of phase 5's fast call;
+      OS1-EF-8/9 split into slicing, int8 products and the rest.
+
 The line before the last is a JSON object of per-kernel results
 (`launches` sums the main-path calls of phase 4, real and complex, for the
 variant kernels those of phase 4v at 8192^3, for matmul_crt and
@@ -467,6 +493,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from fractions import Fraction
 
@@ -476,9 +503,11 @@ import torch
 import gemmul8_tpu_torch as gt
 from gemmul8_tpu_torch import pipelined as pl
 from gemmul8_tpu_torch import planner, tables
-from gemmul8_tpu_torch.bench import golden
+from gemmul8_tpu_torch.baselines import ozimmu
+from gemmul8_tpu_torch.bench import golden, harness, replay
 from gemmul8_tpu_torch.bench.matrices import phi_matrix
 from gemmul8_tpu_torch.bench.native import dd_gemm, relerr_vs_dd
+from gemmul8_tpu_torch.bench.power import ClockSampler
 from gemmul8_tpu_torch.core import complexgemm as cg
 from gemmul8_tpu_torch.core import encode as enc
 from gemmul8_tpu_torch.core import gemm as tg
@@ -491,6 +520,7 @@ from gemmul8_tpu_torch.hopper import launch as hl
 from gemmul8_tpu_torch.hopper import matmul as hm
 from gemmul8_tpu_torch.hopper import pipelined as hp
 from gemmul8_tpu_torch.hopper import probes as hq
+from gemmul8_tpu_torch.ops import mpgemm as mp
 from gemmul8_tpu_torch.probes import clz as pclz
 from gemmul8_tpu_torch.probes import deaddep as pdd
 from gemmul8_tpu_torch.probes import mxu_crt as pmxu
@@ -4403,42 +4433,6 @@ def spread_ms(d):
             f"{float(np.max(d)):+.3f}]")
 
 
-class ClockSampler:
-    """nvidia-smi's SM clock and power draw every 20 ms while the block
-    runs. The block starts once the first sample is in, so that a block
-    of a few hundred ms is sampled from its start (nvidia-smi takes longer
-    than that to come up)."""
-
-    def __enter__(self):
-        self.proc = subprocess.Popen(
-            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
-             "--format=csv,noheader,nounits", "-lms", "20"],
-            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
-        self.first = self.proc.stdout.readline()
-        return self
-
-    def __exit__(self, *exc):
-        self.proc.terminate()
-        out, _ = self.proc.communicate(timeout=30)
-        out = self.first + out
-        self.mhz, self.watts = [], []
-        for line in out.splitlines():
-            cells = [c.strip() for c in line.split(",")]
-            try:
-                self.mhz.append(float(cells[0]))
-                self.watts.append(float(cells[1]))
-            except (IndexError, ValueError):   # a partial or [N/A] sample
-                continue
-
-    def summary(self):
-        """'SM clock median ... MHz, power draw median ... W (n samples)'."""
-        if not self.mhz:
-            return "SM clock and power draw not sampled"
-        return (f"SM clock median {float(np.median(self.mhz)):.0f} MHz, power "
-                f"draw median {float(np.median(self.watts)):.1f} W "
-                f"({len(self.mhz)} samples)")
-
-
 def sass_counts():
     """{kernel name: Counter of opcodes} of the chain kernels
     (gm8_vpu_<case>), from cuobjdump -sass of the built library."""
@@ -4899,6 +4893,260 @@ def kernel_bounds(a, b, L):
     }
 
 
+# The comparison harness and its baselines (phases 3h, 4h, 5h)
+OSI_CASES = [((2048, 2048, 2048), (8, 9), False),
+             ((1000, 777, 1500), (3, 8, 13), True)]
+OSI_COMPLEX = ((300, 130, 200), 9)
+# tests/test_scale_bands.py: the reference's GH200 max relerr at k = 8192,
+# phi = 0.5 (BASELINE.md section 3), by moduli count
+REF_FAST = {8: 1.43e-01, 10: 2.33e-03, 12: 4.95e-06, 13: 2.41e-07,
+            14: 3.47e-08, 15: 7.13e-10, 16: 3.92e-11, 18: 3.59e-14,
+            20: 1.83e-15}
+REF_ACCU = {8: 7.69e-02, 10: 3.51e-04, 12: 9.78e-07, 13: 3.21e-08,
+            14: 4.50e-09, 15: 2.16e-10, 16: 1.87e-11, 18: 1.83e-15,
+            20: 5.61e-16}
+SCALE_M, SCALE_K = 1024, 8192       # the reference's accuracy protocol
+PARITY_M, PARITY_K, PARITY_LS = 256, 1024, (8, 14, 20)
+HARNESS_ITERS = 5
+TIME_AGREE = 0.10                   # OS2-fast-14 against phase 5's call
+
+
+def mp_bands(errs):
+    """tests/test_mpgemm.py's ladder on median relerrs by mode."""
+    M = mp.Mode
+    assert errs[M.BF16X3] < errs[M.BF16TC] / 10, errs
+    assert errs[M.BF16X6] < errs[M.BF16X3], errs
+    assert errs[M.BF16TC] > 1e-4, errs
+    assert errs[M.BF16X3] < 5e-6, errs
+    assert errs[M.NATIVE] < 5e-7, errs
+    assert errs[M.SCALING] < 5e-6, errs
+    assert errs[M.AUTO] < 5e-6, errs
+
+
+def phase_baselines():
+    """Phase 3h: OS-I and mpgemm on the card against the same functions on
+    the host's CPU: ozimmu_gemm bit for bit (the card's padded
+    torch._int_mm route), ozimmu_zgemm bit for bit, exp_stats and
+    mantissa_loss_stats equal; mp_gemm's six modes and mp_cgemm float32
+    and within tests/test_mpgemm.py's bands of the dd oracle."""
+    for (m, k, n), splits, special in OSI_CASES:
+        a, b = operands(m, k, n, 31, special)
+        ac, bc = a.cpu(), b.cpu()
+        for s in splits:
+            t0 = time.perf_counter()
+            got = ozimmu.ozimmu_gemm(a, b, s).cpu()
+            t1 = time.perf_counter()
+            want = ozimmu.ozimmu_gemm(ac, bc, s, device="cpu")
+            t2 = time.perf_counter()
+            assert_bits_equal(got, want, f"ozimmu_gemm {m}x{k}x{n} s={s}")
+            rel = float(((got - ac @ bc).abs()
+                         / (ac.abs() @ bc.abs()).clamp_min(1e-300)).max())
+            log(f"  ozimmu_gemm {m} x {k} x {n} s={s}"
+                f"{' (zeros, -0.0, subnormals)' if special else ''}: card == "
+                f"CPU bit for bit (card {t1 - t0:.2f} s, CPU {t2 - t1:.2f} "
+                f"s); max |c - AB| / (|A||B|) {rel:.3e}")
+        for s in (3, 9, 16):
+            for x, axis in ((a, 1), (b, 0)):
+                kern = float(ozimmu.mantissa_loss_stats(x, s, axis))
+                plain = float(ozimmu.mantissa_loss_stats(x.cpu(), s, axis,
+                                                         device="cpu"))
+                assert kern == plain, ("mantissa_loss_stats", s, kern, plain)
+        assert (ozimmu.auto_num_split(a, b)
+                == ozimmu.auto_num_split(ac, bc, device="cpu"))
+    (m, k, n), s = OSI_COMPLEX
+    z = [phi_matrix(*shape, 0.5, seed=40 + i) for i, shape in
+         enumerate(((m, k), (m, k), (k, n), (k, n)))]
+    z[0][1, :] = 0.0
+    z[3][::9, 2] = -0.0
+    got = ozimmu.ozimmu_zgemm(*(torch.from_numpy(p).to(DEVICE) for p in z), s)
+    want = ozimmu.ozimmu_zgemm(*z, s, device="cpu")
+    for g, w, part in zip(got, want, ("Re", "Im")):
+        assert_bits_equal(g.cpu(), w, f"ozimmu_zgemm {part}")
+    log(f"  ozimmu_zgemm {m} x {k} x {n} s={s}: card == CPU bit for bit")
+
+    a = phi_matrix(64, 256, 0.5, seed=600).astype(np.float32)
+    b = phi_matrix(256, 64, 0.5, seed=601).astype(np.float32)
+    hi, _ = dd_gemm(a.astype(np.float64), b.astype(np.float64))
+    scale = np.abs(a).astype(np.float64) @ np.abs(b).astype(np.float64)
+    for x in (a, phi_matrix(300, 200, 6.0, seed=602).astype(np.float32)):
+        for lose in (4, 16):
+            kern = mp.exp_stats(x, lose)
+            plain = mp.exp_stats(x, lose, device="cpu")
+            assert [float(v) for v in kern] == [float(v) for v in plain]
+    errs = {}
+    for mode in mp.Mode:
+        c = mp.mp_gemm(a, b, mode)
+        assert c.dtype == torch.float32 and c.is_cuda, (mode, c.dtype)
+        c = c.cpu().numpy().astype(np.float64)
+        cpu = mp.mp_gemm(a, b, mode, device="cpu").numpy()
+        assert np.all(np.abs(c - cpu) <= 1e-6 * scale), mode
+        errs[mode] = float(np.median(np.abs(c - hi) / np.abs(hi)))
+    mp_bands(errs)
+    az = (a + 1j * (a * 0.7 + 0.1)).astype(np.complex64)
+    bz = (b + 0.5j * b).astype(np.complex64)
+    cz = mp.mp_cgemm(az, bz)
+    assert cz.dtype == torch.complex64 and cz.is_cuda
+    refz = az.astype(np.complex128) @ bz.astype(np.complex128)
+    zerr = float(np.median(np.abs(cz.cpu().numpy() - refz) / np.abs(refz)))
+    assert zerr < 1e-5, zerr
+    log("  mp_gemm (64 x 256 x 64, tests/test_mpgemm.py's data) median "
+        "relerr against the dd oracle, float32 out: "
+        + ", ".join(f"{mode.name} {e:.3e}" for mode, e in errs.items())
+        + f"; mp_cgemm (complex64 out) {zerr:.3e}: inside the ladder bands")
+
+
+def scale_band_check(rows):
+    """tests/test_scale_bands.py's rule on accuracy_check rows at the
+    reference scale: each max relerr at most max(4 band, 5e-14), each
+    median at most max(band, 5e-16), the max monotone in L (1.5x slack
+    down to 5e-16)."""
+    for tag, bands in (("OS2-fast", REF_FAST), ("OS2-accu", REF_ACCU)):
+        got = {}
+        for L, band in bands.items():
+            (row,) = [r for r in rows if r["func"] == f"{tag}-{L}"]
+            mx, med = row["max_relerr"], row["med_relerr"]
+            assert mx <= max(band * 4.0, 5e-14), (tag, L, mx, band)
+            assert med <= max(band, 5e-16), (tag, L, med, band)
+            got[L] = mx
+        ls = sorted(got)
+        for l0, l1 in zip(ls, ls[1:]):
+            assert got[l1] <= max(got[l0] * 1.5, 5e-16), (tag, l0, l1, got)
+
+
+def phase_harness_accuracy():
+    """Phase 4h: the reference's accuracy protocol on the card through
+    harness.accuracy_check (d, m = n = 1024, k = 8192, phi 0.5, both modes
+    at test_scale_bands.py's L), each row inside that file's band rule; a
+    256 x 1024 x 256 accuracy_check at L = 8, 14, 20 in both modes whose
+    OS2 rows equal the CPU run's (the same bits); a saved case replayed on
+    the card and on the CPU to the same C."""
+    t0 = time.perf_counter()
+    rows, _ = harness.accuracy_check(
+        "d", sizes=(SCALE_K,), phis=(0.5,), moduli=sorted(REF_FAST),
+        fastmodes=(True, False), m=SCALE_M, write_csv=False)
+    bands = {"OS2-fast": REF_FAST, "OS2-accu": REF_ACCU}
+    for row in rows:
+        tag, _, L = row["func"].rpartition("-")
+        band = bands[tag][int(L)] if tag in bands else None
+        log(f"  accuracy_check d {SCALE_M} x {SCALE_K} x {SCALE_M} "
+            f"{row['func']}: max {row['max_relerr']!r}, median "
+            f"{row['med_relerr']!r}"
+            + (f" (GH200 band {band})" if band else ""))
+    scale_band_check(rows)
+    log(f"  reference-scale rows inside test_scale_bands.py's rule "
+        f"({time.perf_counter() - t0:.1f} s with the dd oracle)")
+    kw = dict(sizes=(PARITY_K,), phis=(0.5,), moduli=PARITY_LS,
+              fastmodes=(True, False), m=PARITY_M, write_csv=False)
+    card, _ = harness.accuracy_check("d", **kw)
+    cpu, _ = harness.accuracy_check("d", device="cpu", **kw)
+    assert [r["func"] for r in card] == [r["func"] for r in cpu]
+    for r, c in zip(card, cpu):
+        if r["func"].startswith("OS2"):
+            assert (r["max_relerr"], r["med_relerr"]) == (
+                c["max_relerr"], c["med_relerr"]), (r, c)
+    log(f"  accuracy_check d {PARITY_M} x {PARITY_K} x {PARITY_M}, L "
+        f"{PARITY_LS}, both modes: every OS2 row's relerrs equal the CPU "
+        f"run's (DGEMM: card {card[0]['max_relerr']!r}, CPU "
+        f"{cpu[0]['max_relerr']!r})")
+    a, b = operands(300, 500, 200, 51, True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "case.npz")
+        replay.save_case(path, a.cpu().numpy(), b.cpu().numpy(), seed=51)
+        for fast in (True, False):
+            c_card, mx, med = replay.replay(path, 14, fast)
+            c_cpu, mx2, med2 = replay.replay(path, 14, fast, device="cpu")
+            assert np.array_equal(c_card.view(np.int64), c_cpu.view(np.int64))
+            assert (mx, med) == (mx2, med2), (mx, med, mx2, med2)
+    log(f"  replay of a saved 300 x 500 x 200 case (zeros, -0.0, "
+        f"subnormals), fast and accurate: card == CPU bit for bit, relerr "
+        f"max {mx!r}, median {med!r}")
+
+
+def log_time_rows(rows, what, card):
+    """One line a row, with the SM clock and power draw nvidia-smi read
+    while that row's timed calls ran (and the watt loop's clock)."""
+    log(f"  {what} ({card}):")
+    for row in rows:
+        phases = ""
+        if np.isfinite(row.get("t_scale", np.nan)):
+            phases = (", phases " + " / ".join(
+                f"{row[key] * 1e3:.3f}" for key in
+                ("t_scale", "t_int8gemm", "t_mod", "t_invscale")) + " ms")
+        watts = (f"; the watt loop: {row['watt']:.1f} W mean, "
+                 f"{row['gflops_per_watt']:.2f} GFLOP/s per W, SM clock "
+                 f"median {row['watt_sm_mhz']:.0f} MHz"
+                 if "watt" in row else "")
+        unit = "TOPS" if row["func"] == "INT8-GEMM" else "TFLOP/s"
+        log(f"    {row['func']} {row['m']}^3: {row['seconds'] * 1e3:.3f} ms, "
+            f"{row['tflops']:.2f} {unit}{phases}; SM clock median "
+            f"{row['sm_mhz']:.0f} MHz, power draw median "
+            f"{row['power_draw_w']:.1f} W while it was timed{watts}")
+
+
+def osi_parts_ms(x, y, s):
+    """ms of OS-I's slicing, of its int8 products alone (torch._int_mm over
+    each diagonal group, nothing accumulated) and of the whole call."""
+    k = x.shape[1]
+    split_ms, (a8, _, b8t, _) = timed(
+        lambda: ozimmu._slices(x, y, s, True), 3)
+    prod_ms, _ = timed(
+        lambda: [p for _, p in ozimmu._diagonal_products(a8, b8t, s, k)], 3)
+    del a8, b8t
+    whole_ms, _ = timed(lambda: ozimmu.ozimmu_gemm(x, y, s), 3)
+    return split_ms, prod_ms, whole_ms
+
+
+def phase_harness_times(fast_ms, card):
+    """Phase 5h: harness.time_check at 8192 (d: 14 moduli, fast and
+    accurate, OS1-EF-8/9; f: 8 moduli with BF16X3-SCALING), one
+    time_check_complex size and one watt_check row, each row printed with
+    the SM clock and power draw sampled while its own timed calls ran; the
+    OS2-fast-14 row
+    within 10% of phase 5's fast call (the same call by two protocols);
+    OS-I's time split into its slicing, its int8 products and the rest."""
+    out = {}
+    rows_d, _ = harness.time_check(
+        "d", sizes=(N,), num_moduli=(L_MAIN,), fastmodes=(True, False),
+        iters=HARNESS_ITERS, write_csv=False)
+    log_time_rows(rows_d, f"time_check d {N}^3", card)
+    rows_f, _ = harness.time_check(
+        "f", sizes=(N,), num_moduli=(L_F32,), iters=HARNESS_ITERS,
+        write_csv=False)
+    log_time_rows(rows_f, f"time_check f {N}^3", card)
+    rows_c, _ = harness.time_check_complex(
+        sizes=(N,), num_moduli=(L_F32,), iters=HARNESS_ITERS,
+        write_csv=False)
+    log_time_rows(rows_c, f"time_check_complex {N}^3 complex64", card)
+    (fast,) = [r for r in rows_d if r["func"] == f"OS2-fast-{L_MAIN}"]
+    ratio = fast["seconds"] * 1e3 / fast_ms
+    log(f"  OS2-fast-{L_MAIN} by the harness's protocol "
+        f"{fast['seconds'] * 1e3:.3f} ms against phase 5's fast call "
+        f"{fast_ms:.3f} ms: ratio {ratio:.3f}")
+    assert abs(ratio - 1) <= TIME_AGREE, ratio
+    for row in rows_d + rows_f + rows_c:
+        assert row["seconds"] > 0 and np.isfinite(row["tflops"]), row
+    watt_rows, _ = harness.watt_check(rows=[dict(fast)])
+    (w,) = watt_rows
+    assert np.isfinite(w["watt"]) and w["watt"] > 0, w
+    log_time_rows(watt_rows, f"watt_check, a loop of at least "
+                  f"{harness.WATT_SECONDS:.0f} s, the instant power draw every "
+                  f"{harness.WATT_INTERVAL_MS} ms", card)
+    x = torch.from_numpy(phi_matrix(N, N, 0.5, seed=123456)).to(DEVICE)
+    y = torch.from_numpy(phi_matrix(N, N, 0.5, seed=123457)).to(DEVICE)
+    for s in (8, 9):
+        split_ms, prod_ms, whole_ms = osi_parts_ms(x, y, s)
+        rest = whole_ms - split_ms - prod_ms
+        out[s] = (split_ms, prod_ms, whole_ms)
+        log(f"  OS1-EF-{s} {N}^3 in parts: slicing {split_ms:.3f} ms, int8 "
+            f"products (torch._int_mm, {s * (s + 1) // 2} slice pairs) "
+            f"{prod_ms:.3f} ms, limb scatter + carry + rounding "
+            f"{rest:.3f} ms, whole {whole_ms:.3f} ms: the rest is "
+            f"{rest / whole_ms:.3f} of it ({card})")
+    del x, y
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false")
@@ -4955,6 +5203,7 @@ def main():
     phase_rider_edges(errs)
     phase_golden()
     phase_probe_kernels(errs)
+    phase_baselines()
     log(f"[3/5] every kernel == its plain version "
         f"({time.perf_counter() - t0:.1f} s)")
 
@@ -4973,6 +5222,7 @@ def main():
     rcalls, _ = phase_pipeline_f32(a, b, a32, b32, b_wide, launches)
     bcalls, btimes = phase_batched_timed(a, b, a32, A64, B64)
     phase_probes(launches)
+    phase_harness_accuracy()
     log(f"[4/5] main path checked ({time.perf_counter() - t0:.1f} s)")
 
     times, total, total_accu, library = phase_times(a, b, errs)
@@ -5245,6 +5495,7 @@ def main():
     times.update(ptimes)
     bounds.update(pbounds)
     library.update(plib)
+    phase_harness_times(total, card)
     slower = sorted((times[name][0] / lib_ms, name, times[name][0], lib_ms)
                     for name, lib_ms in library.items()
                     if name in times and times[name][0] > lib_ms)

@@ -24,10 +24,11 @@ import torch
 def require_gpu() -> None:
     """Exit nonzero with a message unless a CUDA card of compute capability
     9.0 (Hopper, the kernels' sm_90a target) is present. Never falls back
-    to the CPU: the probes' numbers mean nothing there."""
+    to the CPU: the probes' and the harness's times mean nothing there."""
     if not torch.cuda.is_available():
         print("[bench] no CUDA device (torch.cuda.is_available() is "
-              "false): the probes run only on the card", file=sys.stderr)
+              "false): the probes and timed runs happen only on the card",
+              file=sys.stderr)
         sys.exit(1)
     cap = torch.cuda.get_device_capability()
     if cap != (9, 0):

@@ -168,3 +168,43 @@ def _check_matmul_args(a8: torch.Tensor, b8: torch.Tensor, num_moduli: int,
         raise ValueError(f"k={a8.shape[2]} exceeds the int32-exactness "
                          "bound 2^17")
     return idx
+
+
+def int8_probe_step(n: int, seed: int = 0, device="cuda"):
+    """The INT8-GEMM probe's step and first state: two random int8 (n, n)
+    operands drawn from an explicit torch.Generator, and step((a, b)) ->
+    (a ^ int8(a @ b), b), one `torch._int_mm` a step, each step's left
+    operand depending on the product before it. B is column-major (the
+    transpose of a contiguous draw), the layout cuBLASLt's int8
+    tensor-core GEMM takes: with a row-major B the probe ran at 128 TOPS
+    on the H100 (NVIDIA H100 80GB HBM3, 700 W)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    a = torch.randint(-128, 128, (n, n), dtype=torch.int8, device=device,
+                      generator=gen)
+    b = torch.randint(-128, 128, (n, n), dtype=torch.int8, device=device,
+                      generator=gen).t()
+
+    def step(st):
+        x, y = st
+        x ^= torch._int_mm(x, y).to(torch.int8)
+        return x, y
+
+    return step, (a, b)
+
+
+def int8_peak_probe(n: int = 4096, iters: int = 10) -> float:
+    """Raw int8 tensor-core throughput (TOPS, 2 n^3 / t): the analog of the
+    reference's INT8-GEMM row, on the card only (`require_gpu`). Chained
+    `torch._int_mm` steps (`int8_probe_step`; the fold into the left
+    operand is one elementwise pass a step, as in the JAX package), timed
+    by `bench.timing.chained_time` (CUDA events, nothing subtracted).
+    `iters` is a minimum: it is raised to at least 30, and so that the
+    timed steps take about 0.1 s at 1000 TOPS (at most 2000 steps)."""
+    from ..bench.timing import chained_time, require_gpu
+
+    require_gpu()
+    step, state = int8_probe_step(n)
+    est_step_s = 2 * n ** 3 / 1000e12
+    iters = max(iters, 30, min(int(0.1 / est_step_s) + 1, 2000))
+    dt, _ = chained_time(step, state, iters)
+    return 2 * n ** 3 / dt / 1e12

@@ -24,6 +24,10 @@ import gemmul8_tpu_torch.bench.timing, gemmul8_tpu_torch.hopper.probes
 import gemmul8_tpu_torch.probes.clz, gemmul8_tpu_torch.probes.vpu_ops
 import gemmul8_tpu_torch.probes.mxu_crt, gemmul8_tpu_torch.probes.deaddep
 import gemmul8_tpu_torch.probes.__main__
+import gemmul8_tpu_torch.config, gemmul8_tpu_torch.baselines.ozimmu
+import gemmul8_tpu_torch.ops.mpgemm, gemmul8_tpu_torch.bench.evalref
+import gemmul8_tpu_torch.bench.replay, gemmul8_tpu_torch.bench.harness
+import gemmul8_tpu_torch.bench.power, gemmul8_tpu_torch.bench.__main__
 from gemmul8_tpu_torch.hopper import build
 assert "jax" not in sys.modules, "jax imported"
 assert not any(m.startswith("gemmul8_tpu.") or m == "gemmul8_tpu"
