@@ -282,9 +282,9 @@ The probes (scripts/probe_*.py, ROADMAP B16) add:
       their bound, reconstruct on the same residues and torch._int_mm of
       W' by the residues laid out (L bm, m/bm n); deaddep at 8192, 14
       moduli, every chain variant (kloop too) at nops 0, 16 and 32, base
-      and the two rec riders: medians of nine rotated rounds, and each
+      and the two rec riders: medians of five rotated rounds, and each
       config's differences to base (a chain's also to its own nops 0,
-      recmxu's to recbody) over 15 adjacent pairs of calls as median
+      recmxu's to recbody) over 8 adjacent pairs of calls as median
       [least, most], and its launch span in SM clock cycles (median of
       five calls; each block stamps its SM and clock), beside the
       injected multiply-adds' serial time; every
@@ -469,6 +469,35 @@ add:
       while its own timed calls ran; the OS2-fast-14 row within 10% of phase 5's fast call;
       OS1-EF-8/9 split into slicing, int8 products and the rest.
 
+Interception and the sharded engine (gemmul8_tpu_torch.interception and
+gemmul8_tpu_torch.parallel; no kernel of their own) add:
+  4i. under override_matmuls(profile=True) at 8192^3 on phase 4's
+      operands: A @ B, torch.matmul, torch.einsum("ij,jk->ik") and
+      torch.mm, each with phase 4's fast bits and FAST_LAUNCHES; four
+      profile records with seconds > 0, and a 32 x 32 call native with no
+      launch; one accurate call with phase 4's accurate bits and
+      ACCURATE_LAUNCHES; A @ B after the context launches nothing; the
+      intercepted call beside gemm in one rotation, with the SM clock;
+  4d. a child process (`chip_smoke.py sharded-child`): a world of one rank
+      on NCCL from GEMMUL8_COORD (a free local port), GEMMUL8_NPROC 1 and
+      GEMMUL8_PROC_ID 0, a 1x1 mesh; gemm_sharded at 8192^3 fast and
+      accurate with phase 4's bits (blake2b digests) and the sharded
+      launch counts (fast_stats, encode_slices, matmul_mod_u8,
+      reconstruct; emax, mag7, no magmax_matmul); gemm_sharded_complex at
+      2048^3 in the three strategies with the complex gemm's bits; the
+      sharded calls beside gemm in one rotation, with the SM clock, and a
+      torch.profiler breakdown of one call of each. Then four processes
+      (`chip_smoke.py gloo-child`) share this card over gloo, which moves
+      the engine's collectives on CUDA tensors through host memory (NCCL
+      needs a card a rank; `python3 -m gemmul8_tpu_torch.parallel.smoke
+      --gloo-cuda 2` found gloo taking all three on the H100 host): a 2x2
+      mesh at 8192^3 global in both modes, launch counts on every rank,
+      the tiles gathered and assembled on rank 0 with phase 4's bits (a
+      fast word may differ only where its row's or column's shift lies
+      at a floor boundary, within 1e-8 of phase 4's word).
+`python3 chip_smoke.py sharded` builds the kernels and runs phases 4, 4i
+and 4d alone (no result line).
+
 The line before the last is a JSON object of per-kernel results
 (`launches` sums the main-path calls of phase 4, real and complex, for the
 variant kernels those of phase 4v at 8192^3, for matmul_crt and
@@ -488,6 +517,8 @@ call computes those functions). The last line is
 
 import collections
 import contextlib
+import functools
+import hashlib
 import json
 import os
 import re
@@ -501,6 +532,7 @@ import numpy as np
 import torch
 
 import gemmul8_tpu_torch as gt
+from gemmul8_tpu_torch import interception as icept
 from gemmul8_tpu_torch import pipelined as pl
 from gemmul8_tpu_torch import planner, tables
 from gemmul8_tpu_torch.baselines import ozimmu
@@ -780,8 +812,8 @@ PROBE_STEPS_CHECK = 64      # phase 3q's chain length (the probe's: 2048)
 PROBE_N_CHECK = 2048        # phase 3q's deaddep size (the probe's: 8192)
 PROBE_N_SMALL = 1024        # and its least: kloop's two batches a k-tile
 PROBE_ROUNDS = 3
-PROBE_DEADDEP_ROUNDS = 9    # its effects are near the power cap's swing,
-PROBE_DEADDEP_PAIRS = 15    # so its differences come from adjacent pairs
+PROBE_DEADDEP_ROUNDS = 5    # its effects are near the power cap's swing,
+PROBE_DEADDEP_PAIRS = 8     # so its differences come from adjacent pairs
 PROBE_DEADDEP_STAMPED = 5   # and from SM clock cycles
 SMS = 132
 # the chains' kernels (csrc/probe_vpu_ops.cu gm8_vpu_<name>), their
@@ -1878,6 +1910,440 @@ def phase_slice(launches):
                       "path")
     log(f"  {N_PLAIN}^3 accurate kernel path == all-plain path (bits)")
     return a, b, rel_fast, rel_accu, {True: c_fast, False: c_accu}, oracle
+
+
+def digest(t):
+    """blake2b of a tensor's bytes (complex as its (re, im) words): phase
+    4d's child and phase 4 compare outputs by it."""
+    if t.is_complex():
+        t = torch.view_as_real(t)
+    host = t.contiguous().cpu().numpy()
+    return hashlib.blake2b(memoryview(host).cast("B")).hexdigest()
+
+
+def phase_intercept(a, b, refs, launches):
+    """Phase 4i: the main path through interception at N^3 on phase 4's
+    operands: `A @ B`, torch.matmul, torch.einsum and torch.mm under
+    override_matmuls(profile=True), each with phase 4's fast bits and
+    FAST_LAUNCHES; a 32 x 32 call native with no launch; one accurate call
+    with ACCURATE_LAUNCHES and phase 4's accurate bits; nothing after the
+    context's exit; then the intercepted call beside the direct gemm call
+    in one rotation. Returns (intercepted ms, gemm ms, clock)."""
+    calls = {"A @ B": lambda: a @ b,
+             "torch.matmul": lambda: torch.matmul(a, b),
+             "torch.einsum": lambda: torch.einsum("ij,jk->ik", a, b),
+             "torch.mm": lambda: torch.mm(a, b)}
+    icept.clear_profile_log()
+    with icept.override_matmuls(num_moduli=L_MAIN, fastmode=True,
+                                profile=True):
+        for name, fn in calls.items():
+            torch.cuda.synchronize()
+            build.LAUNCHES.clear()
+            c = fn()
+            torch.cuda.synchronize()
+            counts = dict(build.LAUNCHES)
+            log(f"  launches in the intercepted {name} ({N}^3 fast): "
+                f"{counts}")
+            assert counts == FAST_LAUNCHES, f"{name}: launch counts {counts}"
+            assert_bits_equal(c, refs[True], f"intercepted {name} vs phase "
+                              "4's fast gemm")
+            add_launches(launches, counts)
+            del c
+        build.LAUNCHES.clear()
+        small = a[:32, :32] @ b[:32, :32]
+        torch.cuda.synchronize()
+        assert not build.LAUNCHES, f"32 x 32 call launched {build.LAUNCHES}"
+        assert icept.get_last_func_name() == \
+            "matmul[32x32x32,float64]->native"
+        del small
+    records = icept.get_profile_log()
+    assert [r.mode for r in records] == [f"emulate-{L_MAIN}"] * 4 + [
+        "native"], [r.mode for r in records]
+    assert all(r.seconds > 0 for r in records), records
+    log("  profile log: " + "; ".join(
+        f"{r.m}x{r.k}x{r.n} {r.dtype} {r.mode} {r.seconds * 1e3:.3f} ms"
+        for r in records))
+    with icept.override_matmuls(num_moduli=L_MAIN, fastmode=False):
+        torch.cuda.synchronize()
+        build.LAUNCHES.clear()
+        c = a @ b
+        torch.cuda.synchronize()
+        counts = dict(build.LAUNCHES)
+    log(f"  launches in the intercepted A @ B ({N}^3 accurate): {counts}")
+    assert counts == ACCURATE_LAUNCHES, f"accurate launch counts {counts}"
+    assert_bits_equal(c, refs[False], "intercepted accurate A @ B vs phase "
+                      "4's accurate gemm")
+    add_launches(launches, counts)
+    del c
+    build.LAUNCHES.clear()
+    c = a @ b
+    torch.cuda.synchronize()
+    assert not build.LAUNCHES and not icept.is_library_loaded(), \
+        f"A @ B after the context launched {build.LAUNCHES}"
+    del c
+    log(f"  4i: @, matmul, einsum and mm give phase 4's bits; the 32 x 32 "
+        "call and A @ B after exit launch nothing of the port")
+
+    def intercepted():
+        with icept.override_matmuls(num_moduli=L_MAIN, fastmode=True):
+            return a @ b
+
+    with ClockSampler() as clock:
+        by, _ = timed_rounds({
+            "intercepted": intercepted,
+            "gemm": lambda: gt.gemm(a, b, num_moduli=L_MAIN,
+                                    device=DEVICE)}, MAIN_ROUNDS, 2)
+    return (float(np.median(by["intercepted"])), float(np.median(by["gemm"])),
+            clock.summary(), by)
+
+
+# phase 4d: launch counts of the sharded calls on a 1x1 mesh
+SHARDED_FAST_LAUNCHES = {"fast_stats": 2, "encode_slices": 2,
+                         "matmul_mod_u8": 1, "reconstruct": 1}
+SHARDED_ACCURATE_LAUNCHES = {"emax": 2, "mag7": 2, "encode_slices": 2,
+                             "matmul_mod_u8": 1, "reconstruct": 1}
+SHARDED_COMPLEX_LAUNCHES = {
+    CT.COMPLEX_BIG_MATRIX_ENCODE: {"fast_stats": 4, "encode_slices": 4,
+                                   "matmul_mod_u8": 1, "reconstruct": 1},
+    CT.COMPLEX_CLASSIC_MULT: {"fast_stats": 4, "encode_slices": 4,
+                              "matmul_complex_mod": 1, "reconstruct": 1},
+    CT.COMPLEX_KARATSUBA_MULT: {"fast_stats": 4, "encode_slices": 4,
+                                "matmul_complex_mod": 1, "reconstruct": 1}}
+N_SHARDED_COMPLEX = 2048
+# phase 4d's process and the backend its world of one rank must be on
+SHARDED_CHILD = [sys.executable, os.path.abspath(__file__), "sharded-child"]
+SHARDED_BACKEND = "nccl"
+
+
+def rounds_text(mss):
+    return ", ".join(f"{t:.3f}" for t in mss)
+
+
+def phases_4i_4d(a, b, refs, launches, card):
+    """Phases 4i and 4d on phase 4's operands and outputs, with their
+    times beside gemm's."""
+    i_ms, g_ms, i_clock, i_by = phase_intercept(a, b, refs, launches)
+    log(f"  4i: intercepted A @ B {N}^3 fast median {i_ms:.3f} ms (rounds "
+        f"{rounds_text(i_by['intercepted'])}) beside gemm {g_ms:.3f} ms "
+        f"(rounds {rounds_text(i_by['gemm'])}) in one rotation, "
+        f"{MAIN_ROUNDS} rounds, 2 calls per timing: ratio "
+        f"{i_ms / g_ms:.4f} ({i_clock}; {card})")
+    shard, glo = phase_sharded(a, refs, launches)
+    for mode in ("fast", "accurate"):
+        held = ("phase 4's bits" if mode not in glo.get("differ", {}) else
+                f"phase 4's bits but at floor boundaries "
+                f"({glo['differ'][mode]})")
+        log(f"  4d: {GLOO_RANKS} ranks on this card over gloo, mesh 2x2, "
+            f"gemm_sharded {N}^3 {mode}: {held}; launches a rank "
+            f"{glo['launches'][mode]}; rank 0's call {glo['ms'][mode]:.1f} "
+            f"ms wall (gloo stages every collective through host memory; "
+            f"{card})")
+    for mode in ("fast", "accurate"):
+        s_by = shard["ms"][f"gemm_sharded {mode}"]
+        d_by = shard["ms"][f"gemm {mode}"]
+        s_ms, d_ms = float(np.median(s_by)), float(np.median(d_by))
+        log(f"  4d: gemm_sharded {N}^3 {mode} (1x1 NCCL) median {s_ms:.3f} "
+            f"ms (rounds {rounds_text(s_by)}) beside gemm {d_ms:.3f} ms "
+            f"(rounds {rounds_text(d_by)}) in one rotation, {MAIN_ROUNDS} "
+            f"rounds, 2 calls per timing: ratio {s_ms / d_ms:.4f} "
+            f"({shard['clock']}; {card})")
+    for name, prof in shard["profile"].items():
+        log(f"  4d profile, one {name} fast call: device ops "
+            f"{prof['total_ms']:.3f} ms; "
+            + "; ".join(f"{k} {ms:.3f} ms x{n}" for k, ms, n in prof["top"]))
+
+
+def sharded_main():
+    """`python3 chip_smoke.py sharded`: build the kernels, run phase 4's
+    main calls, then phases 4i and 4d, and stop (no result line)."""
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: torch.cuda.is_available() is false")
+    card = card_line()
+    log(card)
+    t0 = time.perf_counter()
+    build.lib()
+    log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    launches = {}
+    a, b, _, _, refs, _ = phase_slice(launches)
+    phases_4i_4d(a, b, refs, launches, card)
+    log(f"phases 4, 4i and 4d passed in {time.perf_counter() - t0:.1f} s")
+
+
+def sharded_child():
+    """`python3 chip_smoke.py sharded-child`, phase 4d's process: a world of
+    one rank on NCCL from the GEMMUL8_* variables, a 1x1 mesh, gemm_sharded
+    at N^3 on phase 4's operands (A from the file SMOKE_A names, B = A.T)
+    in both modes (launch counts asserted,
+    digests of the outputs printed for phase 4 to compare), the three
+    complex strategies at N_SHARDED_COMPLEX^3 bit-equal to the complex gemm,
+    and the sharded calls beside gemm in one rotation; prints one line
+    "4d-json {...}"."""
+    import torch.distributed as dist
+
+    from gemmul8_tpu_torch.parallel import distributed as sd
+    from gemmul8_tpu_torch.parallel import multihost
+
+    assert multihost.initialize_from_env(), "no process group started"
+    assert dist.get_backend() == SHARDED_BACKEND, dist.get_backend()
+    log("  " + multihost.process_summary())
+    mesh = sd.make_mesh()
+    assert (mesh.nx, mesh.ny) == (1, 1)
+    a = torch.from_numpy(np.load(os.environ["SMOKE_A"])).to(DEVICE)
+    b = a.t().contiguous()
+    A, B = sd.shard_of(a, mesh, ("x", "y")), sd.shard_of(b, mesh, ("y", "x"))
+    out = {"launches": {}, "digests": {}}
+    for fastmode, want in ((True, SHARDED_FAST_LAUNCHES),
+                           (False, SHARDED_ACCURATE_LAUNCHES)):
+        mode = "fast" if fastmode else "accurate"
+        torch.cuda.synchronize()
+        build.LAUNCHES.clear()
+        c = sd.gemm_sharded(A, B, mesh, num_moduli=L_MAIN, fastmode=fastmode)
+        torch.cuda.synchronize()
+        counts = dict(build.LAUNCHES)
+        log(f"  launches in gemm_sharded {N}^3 {mode} (1x1 NCCL): {counts}")
+        assert counts == want, f"sharded {mode} launch counts {counts}"
+        assert c.shape == (N, N) and c.dtype == torch.float64
+        out["launches"][mode] = counts
+        out["digests"][mode] = digest(c)
+        del c
+    parts = [torch.from_numpy(phi_matrix(N_SHARDED_COMPLEX,
+                                         N_SHARDED_COMPLEX, 0.5, seed=s))
+             for s in (0, 1)]
+    za = torch.complex(*parts).to(DEVICE)
+    zb = za.t().contiguous()
+    ZA, ZB = sd.shard_of(za, mesh, ("x", "y")), sd.shard_of(zb, mesh,
+                                                             ("y", "x"))
+    for ct, want in SHARDED_COMPLEX_LAUNCHES.items():
+        ref = gt.gemm(za, zb, num_moduli=L_MAIN, compute_type=ct,
+                      device=DEVICE)
+        torch.cuda.synchronize()
+        build.LAUNCHES.clear()
+        c = sd.gemm_sharded_complex(ZA, ZB, mesh, num_moduli=L_MAIN,
+                                    compute_type=ct)
+        torch.cuda.synchronize()
+        counts = dict(build.LAUNCHES)
+        log(f"  launches in gemm_sharded_complex {N_SHARDED_COMPLEX}^3 "
+            f"{ct.name}: {counts}")
+        assert counts == want, f"sharded {ct.name} launch counts {counts}"
+        assert c.dtype == torch.complex128
+        assert torch.equal(torch.view_as_real(c).view(torch.int64),
+                           torch.view_as_real(ref).view(torch.int64)), \
+            f"gemm_sharded_complex {ct.name} vs the complex gemm"
+        out["launches"][ct.name] = counts
+        del c, ref
+    log(f"  the three sharded complex strategies give the complex gemm's "
+        f"bits at {N_SHARDED_COMPLEX}^3")
+    with ClockSampler() as clock:
+        by, _ = timed_rounds({
+            "gemm_sharded fast": lambda: sd.gemm_sharded(
+                A, B, mesh, num_moduli=L_MAIN),
+            "gemm fast": lambda: gt.gemm(a, b, num_moduli=L_MAIN,
+                                         device=DEVICE),
+            "gemm_sharded accurate": lambda: sd.gemm_sharded(
+                A, B, mesh, num_moduli=L_MAIN, fastmode=False),
+            "gemm accurate": lambda: gt.gemm(a, b, num_moduli=L_MAIN,
+                                             fastmode=False, device=DEVICE)},
+            MAIN_ROUNDS, 2)
+    out["ms"] = by
+    out["clock"] = clock.summary()
+    out["profile"] = {
+        "gemm_sharded": device_profile(lambda: sd.gemm_sharded(
+            A, B, mesh, num_moduli=L_MAIN)),
+        "gemm": device_profile(lambda: gt.gemm(a, b, num_moduli=L_MAIN,
+                                               device=DEVICE))}
+    dist.destroy_process_group()
+    print("4d-json " + json.dumps(out), flush=True)
+
+
+def device_profile(fn, top=8):
+    """torch.profiler over one call of fn: the device time of its
+    costliest ops (name, ms, count) and the window's summed device ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+
+    def dev_ms(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+
+    rows = sorted(prof.key_averages(), key=dev_ms, reverse=True)
+    return {"total_ms": sum(dev_ms(e) for e in rows),
+            "top": [(e.key[:60], dev_ms(e), e.count) for e in rows[:top]]}
+
+
+# phase 4d: the 2x2 world of four ranks sharing this card over gloo
+GLOO_RANKS = 4
+GLOO_CHILD = [sys.executable, os.path.abspath(__file__), "gloo-child"]
+
+
+def gloo_child():
+    """`python3 chip_smoke.py gloo-child`, one of phase 4d's four ranks: a
+    gloo world from the GEMMUL8_* variables whose 2x2 mesh names this card
+    (gloo moves the CUDA shards through host memory); once the file GLOO_GO
+    names exists, gemm_sharded at N^3 global on phase 4's operands (the
+    file SMOKE_A) in both modes with launch counts; rank 0
+    gathers the tiles, assembles them and prints "4d-gloo-json {...}" with
+    their digests (and, where they differ from GLOO_WANT's, the rows and
+    columns that differ)."""
+    import torch.distributed as dist
+
+    from gemmul8_tpu_torch.parallel import distributed as sd
+    from gemmul8_tpu_torch.parallel import multihost
+
+    assert multihost.initialize_from_env(force_cpu=True)
+    assert dist.get_backend() == "gloo"
+    torch.cuda.set_device(0)
+    mesh = sd.make_mesh(shape=(2, 2), device="cuda:0")
+    src = torch.from_numpy(np.load(os.environ["SMOKE_A"]))
+    A = sd.shard_of(src, mesh, ("x", "y"))
+    B = sd.shard_of(src.t(), mesh, ("y", "x"))
+    del src
+    want = json.loads(os.environ["GLOO_WANT"])
+    while not os.path.exists(os.environ["GLOO_GO"]):   # the 1x1 run is done
+        time.sleep(0.2)
+    out = {"launches": {}, "digests": {}, "ms": {}}
+    for fastmode, counts_want in ((True, SHARDED_FAST_LAUNCHES),
+                                  (False, SHARDED_ACCURATE_LAUNCHES)):
+        mode = "fast" if fastmode else "accurate"
+        dist.barrier()
+        torch.cuda.synchronize()
+        build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        tile = sd.gemm_sharded(A, B, mesh, num_moduli=L_MAIN,
+                               fastmode=fastmode)
+        torch.cuda.synchronize()
+        out["ms"][mode] = (time.perf_counter() - t0) * 1e3
+        counts = dict(build.LAUNCHES)
+        assert counts == counts_want, f"rank {mesh.rank} {mode}: {counts}"
+        tiles = ([torch.empty_like(tile, device="cpu")
+                  for _ in range(GLOO_RANKS)] if mesh.rank == 0 else None)
+        dist.gather(tile.cpu(), tiles, dst=0)
+        del tile
+        if mesh.rank == 0:
+            full = sd.assemble(tiles, mesh)
+            out["launches"][mode] = counts
+            out["digests"][mode] = digest(full)
+            if out["digests"][mode] != want[mode]:
+                out.setdefault("differ", {})[mode] = full_differs(full,
+                                                                  fastmode)
+            del full, tiles
+    dist.destroy_process_group()
+    if mesh.rank == 0:
+        print("4d-gloo-json " + json.dumps(out), flush=True)
+
+
+def full_differs(full, fastmode):
+    """Where the 2x2 result differs from the 1x1 call's words on the card:
+    the rows and columns holding a differing word, and the floor-boundary
+    fraction of their 1x1 shifts (fast mode), for the parent to judge."""
+    a = torch.from_numpy(np.load(os.environ["SMOKE_A"])).to(DEVICE)
+    b = a.t().contiguous()
+    one = gt.gemm(a, b, num_moduli=L_MAIN, fastmode=fastmode, device=DEVICE)
+    diff = bits64(full.to(DEVICE)) != bits64(one)
+    rows = torch.nonzero(diff.any(dim=1)).flatten()
+    cols = torch.nonzero(diff.any(dim=0)).flatten()
+    rec = {"words": int(diff.sum()), "rows": rows.tolist()[:64],
+           "cols": cols.tolist()[:64]}
+    if fastmode:
+        fa = enc.sft_floor_frac(hk.fast_stats(a, 1)[1], N, L_MAIN).flatten()
+        fb = enc.sft_floor_frac(hk.fast_stats(b, 0)[1], N, L_MAIN).flatten()
+        near_a = fa < SHIFT_RULE_FRAC
+        near_b = fb < SHIFT_RULE_FRAC
+        ok = diff & (near_a[:, None] | near_b[None, :])
+        rec["off_boundary_words"] = int((diff & ~ok).sum())
+    rel = ((full.to(DEVICE) - one).abs() / one.abs())[diff]
+    rec["max_relerr_vs_1x1"] = float(rel.max()) if rel.numel() else 0.0
+    return rec
+
+
+def child_output(text):
+    """(the JSON record of a child's "4d...-json " line, or None), the other
+    lines logged."""
+    record = None
+    for line in text.splitlines():
+        if line.startswith("4d-json ") or line.startswith("4d-gloo-json "):
+            record = json.loads(line.split(" ", 1)[1])
+        else:
+            log(line)
+    return record
+
+
+def phase_sharded(a, refs, launches):
+    """Phase 4d: `sharded_child` in a process of its own, started with
+    GEMMUL8_COORD on a free local port, NPROC 1 and PROC_ID 0 (a world of
+    one rank on NCCL on this card), its fast and accurate outputs with the
+    digests of phase 4's; then GLOO_RANKS `gloo_child` processes on this
+    card over gloo, a 2x2 mesh at N^3 global, their assembled result with
+    phase 4's digests (or differing only on rows and columns whose shift
+    lies at a floor boundary, fast mode). A goes to the children as an .npy
+    file; the gloo ranks start beside the 1x1 run and wait for it to end
+    before they multiply. Returns (the 1x1 record, rank 0's record)."""
+    from gemmul8_tpu_torch.parallel.smoke import free_port
+
+    want = {"fast": digest(refs[True]), "accurate": digest(refs[False])}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "a.npy")
+        np.save(path, a.cpu().numpy())
+        go = os.path.join(tmp, "go")
+        port = free_port()
+        procs = [subprocess.Popen(GLOO_CHILD, stdout=subprocess.PIPE,
+                                  text=True, env=dict(
+                                      os.environ, SMOKE_A=path, GLOO_GO=go,
+                                      GLOO_WANT=json.dumps(want),
+                                      GEMMUL8_COORD=f"127.0.0.1:{port}",
+                                      GEMMUL8_NPROC=str(GLOO_RANKS),
+                                      GEMMUL8_PROC_ID=str(rank)))
+                 for rank in range(GLOO_RANKS)]
+        try:
+            env = dict(os.environ, SMOKE_A=path,
+                       GEMMUL8_COORD=f"127.0.0.1:{free_port()}",
+                       GEMMUL8_NPROC="1", GEMMUL8_PROC_ID="0",
+                       GEMMUL8_LOCAL_DEVICE_IDS=str(
+                           torch.cuda.current_device()))
+            proc = subprocess.run(SHARDED_CHILD, env=env,
+                                  stdout=subprocess.PIPE, text=True,
+                                  timeout=900)
+            one = child_output(proc.stdout)
+            assert proc.returncode == 0 and one is not None, \
+                f"phase 4d's process exited {proc.returncode}"
+            with open(go, "w"):
+                pass
+            outs = [p.communicate(timeout=900)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    for fastmode, mode in ((True, "fast"), (False, "accurate")):
+        assert one["digests"][mode] == want[mode], \
+            f"gemm_sharded {mode} vs phase 4's {mode} gemm: bits differ"
+    for counts in one["launches"].values():
+        add_launches(launches, counts)
+    log("  4d: gemm_sharded on a 1x1 NCCL world gives phase 4's bits in "
+        "both modes")
+    glo = [child_output(text) for text in outs]
+    codes = [p.returncode for p in procs]
+    assert not any(codes) and glo[0] is not None, \
+        f"phase 4d's gloo ranks exited {codes}"
+    glo = glo[0]
+    for mode in ("fast", "accurate"):
+        diff = glo.get("differ", {}).get(mode)
+        # a fast shift may differ by 1 where it lies at a floor boundary
+        # (the norm's sum is associated by rank); both encodings are
+        # valid, each word within the gate's 1e-8 of the other
+        assert diff is None or (mode == "fast"
+                                and diff["off_boundary_words"] == 0
+                                and diff["max_relerr_vs_1x1"] < 1e-8), \
+            f"2x2 gloo {mode} vs the 1x1 call: {diff}"
+    for counts in glo["launches"].values():   # every rank's alike
+        add_launches(launches, {k: v * GLOO_RANKS for k, v in counts.items()})
+    return one, glo
 
 
 def accurate_plain_sfts_complex(a_re, a_im, b_re, b_im, L):
@@ -4433,24 +4899,31 @@ def spread_ms(d):
             f"{float(np.max(d)):+.3f}]")
 
 
+@functools.lru_cache(maxsize=None)
+def library_sass():
+    """cuobjdump -sass of the built library, taken once a run."""
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    return subprocess.run([cuobjdump, "-sass", str(build.library_path())],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+
+
 def sass_counts():
     """{kernel name: Counter of opcodes} of the chain kernels
     (gm8_vpu_<case>), from cuobjdump -sass of the built library."""
-    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(build.library_path())],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
     out, cur = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            cur = m.group(1) if m.group(1).startswith("gm8_vpu_") else None
+    for line in library_sass().splitlines():
+        if "Function :" in line:
+            name = re.search(r"Function : (\S+)", line).group(1)
+            cur = name if name.startswith("gm8_vpu_") else None
             if cur:
                 out[cur] = collections.Counter()
             continue
+        if cur is None:     # only the chains' instructions are counted
+            continue
         m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
                       line)
-        if cur and m:
+        if m:
             out[cur][m.group(1)] += 1
     return out
 
@@ -4473,22 +4946,20 @@ def mma_loop_sass():
     cuobjdump -sass of the built library, outermost first. Static counts:
     a branch's both sides are counted, rare paths (ragged edges, the
     tail's near-tie fix) included."""
-    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(build.library_path())],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
     code, cur = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            cur = next((k for k, part in MMA_SASS.items()
-                        if part in m.group(1)), None)
+    for line in library_sass().splitlines():
+        if "Function :" in line:
+            name = re.search(r"Function : (\S+)", line).group(1)
+            cur = next((k for k, part in MMA_SASS.items() if part in name),
+                       None)
             if cur:
                 code[cur] = []
             continue
+        if cur is None:     # only the MMA_SASS instances are read
+            continue
         m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
                       r"([A-Z][A-Z0-9_]*)\S*(.*)", line)
-        if cur and m:
+        if m:
             code[cur].append((int(m.group(1), 16), m.group(2), m.group(3)))
     out = {}
     for name, ins in code.items():
@@ -4523,6 +4994,7 @@ def phase_probe_times(errs):
     rounds; returns ({name: (ms, plain ms)}, {name: bound}, {name:
     library ms})."""
     times, bounds, library = {}, {}, {}
+    marks = [("start", time.perf_counter())]
     # clz: both forms on the timing words, beside the plain version
     x = torch.from_numpy(pclz.limb_words(pclz.N_TIME)).to(DEVICE)
     by, _ = timed_rounds({f: (lambda f=f: hq.clz(x, f)) for f in pclz.FORMS},
@@ -4538,6 +5010,7 @@ def phase_probe_times(errs):
         f"{', '.join(f'{t:.4f}' for t in by['exp'])}); plain {pms:.3f} ms; "
         f"bound {b[0]:.4f} ms ({b[1]})")
     times["probe_clz"], bounds["probe_clz"] = (med["clz"], pms), b
+    marks.append(("clz", time.perf_counter()))
     # the nine chains at STEPS 2048, the SM clock sampled meanwhile
     xs = {c: torch.from_numpy(v).to(DEVICE) for c, v in pvpu.inputs().items()}
     with ClockSampler() as clock:
@@ -4566,6 +5039,7 @@ def phase_probe_times(errs):
     times["probe_vpu_ops"] = (ms_sum, pms_sum)
     bounds["probe_vpu_ops"] = (b_sum, "operations")
     del xs
+    marks.append(("chains", time.perf_counter()))
     # the CRT contraction: four variants at the script's defaults
     variant, bm, _, L, m, n = pmxu.DEFAULTS
     rs = {v: torch.from_numpy(pmxu.make_input(v, L, bm, m, n)).to(DEVICE)
@@ -4600,6 +5074,7 @@ def phase_probe_times(errs):
         log(f"  {label}: median {float(np.median(by[label])):.3f} ms")
     library["probe_mxu_crt"] = float(np.median(by["torch._int_mm W' x R"]))
     del rs, rp, calls
+    marks.append(("mxu_crt", time.perf_counter()))
     # integer work inside the GEMM's block at the script's size
     n, L = N, L_MAIN
     rng = np.random.default_rng(0)
@@ -4707,6 +5182,10 @@ def phase_probe_times(errs):
     log(f"  deaddep nops=16 plain {times['probe_deaddep'][1]:.1f} ms; bound "
         f"{bounds['probe_deaddep'][0]:.3f} ms "
         f"({bounds['probe_deaddep'][1]}); SM clock median {mhz:.0f} MHz")
+    marks.append(("deaddep", time.perf_counter()))
+    log("  phase 5q's parts, wall s: " + ", ".join(
+        f"{label} {t - t_prev:.1f}" for (_, t_prev), (label, t)
+        in zip(marks, marks[1:])))
     return times, bounds, library
 
 
@@ -5210,6 +5689,7 @@ def main():
     launches = {}
     t0 = time.perf_counter()
     a, b, rel_fast, rel_accu, refs, oracle = phase_slice(launches)
+    phases_4i_4d(a, b, refs, launches, card)
     A, B, rels = phase_complex(launches)
     phase_complex_peaks(A, B)
     variant_rels = phase_variants(a, b, refs, oracle, A, launches)
@@ -5505,6 +5985,9 @@ def main():
            or "none"))
     log("[5/5] times taken")
     log(f"wall time of the run: {time.perf_counter() - t_start:.1f} s")
+    log("seconds by phase function: " + ", ".join(
+        f"{name} {sec:.1f}" for name, sec in sorted(
+            PHASE_SECONDS.items(), key=lambda kv: -kv[1])))
 
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name],
@@ -5554,8 +6037,34 @@ def halves_main():
         del a, b
 
 
+# wall seconds of each phase function's calls (summed), printed after the
+# run's wall time so that a growing script shows where its time goes
+PHASE_SECONDS = collections.Counter()
+
+
+def _clocked(fn):
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            PHASE_SECONDS[fn.__name__] += time.perf_counter() - t0
+    return run
+
+
+for _name, _fn in list(globals().items()):
+    if _name.startswith("phase") and callable(_fn):
+        globals()[_name] = _clocked(_fn)
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["halves"]:
         halves_main()
+    elif sys.argv[1:] == ["sharded-child"]:
+        sharded_child()
+    elif sys.argv[1:] == ["gloo-child"]:
+        gloo_child()
+    elif sys.argv[1:] == ["sharded"]:
+        sharded_main()
     else:
         main()

@@ -19,9 +19,9 @@ OZIMMU_INTERCEPT_THRESHOLD_{M,N,K}) and cuMpSGEMM (CUMPSGEMM_COMPUTE_MODE).
                                 mirror) - baselines.ozimmu.auto_num_split
                                 default
 
-The interception thresholds, `compute_mode` and `profile` have no reader
-in the port yet (interception is not ported); they are kept so that it
-reads this same object. The kernel switches (GEMMUL8_PIPELINE,
+The interception thresholds, `compute_mode`, `profile`, `num_moduli` and
+`fastmode` are read by `interception` (`default_rule`,
+`override_matmuls`). The kernel switches (GEMMUL8_PIPELINE,
 GEMMUL8_FUSED_*, GEMMUL8_MM_PIPELINE, GEMMUL8_MXU_CRT, GEMMUL8_MAGMAX_SCRATCH)
 are read at each call by the modules they steer, not through this registry.
 """

@@ -28,7 +28,12 @@ import gemmul8_tpu_torch.config, gemmul8_tpu_torch.baselines.ozimmu
 import gemmul8_tpu_torch.ops.mpgemm, gemmul8_tpu_torch.bench.evalref
 import gemmul8_tpu_torch.bench.replay, gemmul8_tpu_torch.bench.harness
 import gemmul8_tpu_torch.bench.power, gemmul8_tpu_torch.bench.__main__
+import gemmul8_tpu_torch.interception, gemmul8_tpu_torch.parallel.multihost
+import gemmul8_tpu_torch.parallel.distributed
+import gemmul8_tpu_torch.parallel.smoke
+import torch.distributed
 from gemmul8_tpu_torch.hopper import build
+assert not torch.distributed.is_initialized(), "process group at import"
 assert "jax" not in sys.modules, "jax imported"
 assert not any(m.startswith("gemmul8_tpu.") or m == "gemmul8_tpu"
                for m in sys.modules), "JAX package imported"
