@@ -498,6 +498,29 @@ gemmul8_tpu_torch.parallel; no kernel of their own) add:
 `python3 chip_smoke.py sharded` builds the kernels and runs phases 4, 4i
 and 4d alone (no result line).
 
+The drivers (gemmul8_tpu_torch.scripts and .examples; no kernel of their
+own) add, each through its `main(argv)`, writing into a temporary
+directory:
+  6a. accuracy_sweep's d protocol at m = 1024, k in {1024, 8192}, phi in
+      {0.5, 4}, L 2..20, both modes, its DGEMM rows at k 8192, phi 0.5
+      inside tests/test_scale_bands.py's rule (one line a check); the
+      card's outputs bit-equal to the CPU's plain path (fast shifts under
+      the floor-boundary rule, accurate ones where the card's log2 and the
+      CPU's part at a floor boundary) at k 8192, phi 4, L 14 in both
+      modes, and at k 1024, phi 0.5, L 2 and 20 fast;
+  6b. time_sweep 1024,4096 d: its rows with the SM clock and power draw;
+  6c. scale_bench 16384 4096 14 3: the n_panel call bit-equal to the
+      one-shot call, the tile gate < 1e-8, both calls' ms, TFLOP/s and peak
+      device memory;
+  6d. profile_phases 8192 14: each kernel's time with the SM clock, and
+      the output's bits equal to phase 4's fast call (digests);
+  6e. profile_one_call --iters 3: the Chrome trace written and not empty,
+      the key_averages() table printed (a line says so where it shows no
+      CUDA device time), and the per-call ms by CUDA events.
+Each part's wall time is printed. `python3 chip_smoke.py drivers` builds
+the kernels and runs phase 6 alone on phase 4's fast call (no result
+line).
+
 The line before the last is a JSON object of per-kernel results
 (`launches` sums the main-path calls of phase 4, real and complex, for the
 variant kernels those of phase 4v at 8192^3, for matmul_crt and
@@ -546,6 +569,7 @@ from gemmul8_tpu_torch.core import gemm as tg
 from gemmul8_tpu_torch.core import reconstruct as rec
 from gemmul8_tpu_torch.core import riders
 from gemmul8_tpu_torch.core import slicegemm as sg
+from gemmul8_tpu_torch.examples import profile_one_call
 from gemmul8_tpu_torch.hopper import build
 from gemmul8_tpu_torch.hopper import kernels as hk
 from gemmul8_tpu_torch.hopper import launch as hl
@@ -558,6 +582,8 @@ from gemmul8_tpu_torch.probes import deaddep as pdd
 from gemmul8_tpu_torch.probes import mxu_crt as pmxu
 from gemmul8_tpu_torch.probes import vpu_ops as pvpu
 from gemmul8_tpu_torch.probes.__main__ import main as probes_main
+from gemmul8_tpu_torch.scripts import (accuracy_sweep, profile_phases,
+                                       scale_bench, time_sweep)
 
 DEVICE = "cuda"
 N = 8192                 # the main path's m = n = k
@@ -5376,15 +5402,9 @@ def kernel_bounds(a, b, L):
 OSI_CASES = [((2048, 2048, 2048), (8, 9), False),
              ((1000, 777, 1500), (3, 8, 13), True)]
 OSI_COMPLEX = ((300, 130, 200), 9)
-# tests/test_scale_bands.py: the reference's GH200 max relerr at k = 8192,
-# phi = 0.5 (BASELINE.md section 3), by moduli count
-REF_FAST = {8: 1.43e-01, 10: 2.33e-03, 12: 4.95e-06, 13: 2.41e-07,
-            14: 3.47e-08, 15: 7.13e-10, 16: 3.92e-11, 18: 3.59e-14,
-            20: 1.83e-15}
-REF_ACCU = {8: 7.69e-02, 10: 3.51e-04, 12: 9.78e-07, 13: 3.21e-08,
-            14: 4.50e-09, 15: 2.16e-10, 16: 1.87e-11, 18: 1.83e-15,
-            20: 5.61e-16}
-SCALE_M, SCALE_K = 1024, 8192       # the reference's accuracy protocol
+# tests/test_scale_bands.py's GH200 bands and rule: accuracy_sweep's copy
+REF_FAST, REF_ACCU = accuracy_sweep.REF_FAST, accuracy_sweep.REF_ACCU
+SCALE_M, SCALE_K = accuracy_sweep.BAND_M, accuracy_sweep.BAND_K
 PARITY_M, PARITY_K, PARITY_LS = 256, 1024, (8, 14, 20)
 HARNESS_ITERS = 5
 TIME_AGREE = 0.10                   # OS2-fast-14 against phase 5's call
@@ -5476,20 +5496,13 @@ def phase_baselines():
 
 def scale_band_check(rows):
     """tests/test_scale_bands.py's rule on accuracy_check rows at the
-    reference scale: each max relerr at most max(4 band, 5e-14), each
-    median at most max(band, 5e-16), the max monotone in L (1.5x slack
-    down to 5e-16)."""
-    for tag, bands in (("OS2-fast", REF_FAST), ("OS2-accu", REF_ACCU)):
-        got = {}
-        for L, band in bands.items():
-            (row,) = [r for r in rows if r["func"] == f"{tag}-{L}"]
-            mx, med = row["max_relerr"], row["med_relerr"]
-            assert mx <= max(band * 4.0, 5e-14), (tag, L, mx, band)
-            assert med <= max(band, 5e-16), (tag, L, med, band)
-            got[L] = mx
-        ls = sorted(got)
-        for l0, l1 in zip(ls, ls[1:]):
-            assert got[l1] <= max(got[l0] * 1.5, 5e-16), (tag, l0, l1, got)
+    reference scale (accuracy_sweep.band_checks): raises on a failed
+    check."""
+    checks = accuracy_sweep.band_checks(rows)
+    # every band's L present: a check each, a monotone step between each two
+    assert len(checks) == 2 * (2 * len(REF_FAST) - 1), checks
+    failed = [what for what, ok in checks if not ok]
+    assert not failed, failed
 
 
 def phase_harness_accuracy():
@@ -5696,6 +5709,7 @@ def main():
     schedule_rels = phase_schedules(a, b, refs, oracle, launches)
     pipe_rels, b_wide, peak_wide = phase_pipeline(a, b, refs, oracle,
                                                   launches)
+    fast_digest = digest(refs[True])
     del refs
     a32, b32, f32_rels = phase_f32(a, b, launches)
     A64, B64, c64_rels = phase_complex64(A, a32, b32, launches)
@@ -5984,6 +5998,9 @@ def main():
                      for ratio, name, ms, lib_ms in reversed(slower))
            or "none"))
     log("[5/5] times taken")
+    t0 = time.perf_counter()
+    phase_drivers(fast_digest, card)
+    log(f"[6] the drivers on the card ({time.perf_counter() - t0:.1f} s)")
     log(f"wall time of the run: {time.perf_counter() - t_start:.1f} s")
     log("seconds by phase function: " + ", ".join(
         f"{name} {sec:.1f}" for name, sec in sorted(
@@ -6000,6 +6017,167 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
+
+
+# Phase 6: the drivers on the card (accuracy_sweep's d protocol cut to
+# two k and two phi; the card against the CPU's plain path at these
+# (k, phi, L, fastmode) points; scale_bench's 16384^3 at 3 iterations)
+DRIVER_KS, DRIVER_PHIS = (1024, 8192), (0.5, 4.0)
+DRIVER_CPU_POINTS = [(8192, 4.0, 14, True), (8192, 4.0, 14, False),
+                     (1024, 0.5, 2, True), (1024, 0.5, 20, True)]
+SCALE_ARGS = ("16384", "4096", "14", "3")
+
+
+def held_to_cpu(a, b, L, fastmode):
+    """gemm on the card and on the CPU (the plain versions) on numpy a, b:
+    bit-equal, or their shifts differ only at a floor boundary and the
+    CPU's plain path on the card's shifts gives the card's bits. Returns
+    how many shifts differed."""
+    card = gt.gemm(a, b, num_moduli=L, fastmode=fastmode)
+    cpu = gt.gemm(a, b, num_moduli=L, fastmode=fastmode, device="cpu")
+    if torch.equal(bits64(card.cpu()), bits64(cpu)):
+        return 0
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    da, db = ta.to(DEVICE), tb.to(DEVICE)
+    if fastmode:
+        ks = (hk.fast_sft(da, L, 1).cpu(), hk.fast_sft(db, L, 0).cpu())
+        ps = (hk.fast_sft(ta, L, 1), hk.fast_sft(tb, L, 0))
+        for kern, plain, x, axis in zip(ks, ps, (ta, tb), (1, 0)):
+            check_sft(kern, plain, x, axis, L)
+    else:
+        ks = tuple(s.cpu() for s in tg.accurate_sfts(da, db, L))
+        ps = tg.accurate_sfts(ta, tb, L)
+        ea, eb = hk.emax_plain(ta, 1), hk.emax_plain(tb, 0)
+        smax = hm.magmax_plain(hk.mag7_plain(ta, ea, 1),
+                               hk.mag7_plain(tb, eb, 0))
+        for kern, plain, s in zip(ks, ps, smax):
+            diff = kern != plain
+            if bool(diff.any()):
+                assert int((kern.long() - plain.long()).abs().max()) <= 1
+                frac = enc.accurate_sft_floor_frac(s, L)
+                assert float(frac[diff].max()) < SHIFT_RULE_FRAC, \
+                    "accurate shift differs away from a floor boundary"
+    held, _, _ = plain_gemm(ta, tb, L, ks)
+    assert_bits_equal(card.cpu(), held, f"card vs CPU plain path, L={L}, "
+                      f"{'fast' if fastmode else 'accurate'}")
+    return sum(int((k != p).sum()) for k, p in zip(ks, ps))
+
+
+def phase_driver_accuracy(tmp):
+    """Phase 6a: accuracy_sweep d on the card, its band checks, and the
+    card's outputs against the CPU's plain path."""
+    out = accuracy_sweep.main(
+        ["d", "--sizes", ",".join(map(str, DRIVER_KS)), "--phis",
+         ",".join(map(str, DRIVER_PHIS)), "--outdir", tmp])
+    rows = out["rows"]
+    assert len(rows) == len(DRIVER_KS) * len(DRIVER_PHIS) * (1 + 2 * 19)
+    assert out["bands"] and all(ok for _, ok in out["bands"]), out["bands"]
+    for row in rows:
+        assert np.isfinite(row["max_relerr"]), row
+    log(f"  6a: accuracy_sweep d, m = {SCALE_M}, k {DRIVER_KS}, phi "
+        f"{DRIVER_PHIS}, L 2..20, both modes: {len(rows)} rows; "
+        f"{len(out['bands'])} band checks at k {SCALE_K}, phi 0.5 hold "
+        "(tests/test_scale_bands.py's rule)")
+    for k, phi, L, fastmode in DRIVER_CPU_POINTS:
+        a = phi_matrix(SCALE_M, k, phi, 123456)
+        b = phi_matrix(k, SCALE_M, phi, 123457)
+        moved = held_to_cpu(a, b, L, fastmode)
+        log(f"  6a: card == CPU plain path, {SCALE_M} x {k} x {SCALE_M}, phi "
+            f"{phi}, L {L}, {'fast' if fastmode else 'accurate'}: bits equal"
+            + (f" on the card's shifts ({moved} at a floor boundary)"
+               if moved else ""))
+
+
+def phase_driver_time_sweep(tmp, card):
+    """Phase 6b: time_sweep 1024,4096 d."""
+    rows, _ = time_sweep.main(["1024,4096", "d", "--outdir", tmp])["d"]
+    assert len(rows) == 2 * 7, [r["func"] for r in rows]
+    for row in rows:
+        assert row["seconds"] > 0 and np.isfinite(row["tflops"]), row
+    log_time_rows(rows, "6b: time_sweep 1024,4096 d", card)
+
+
+def phase_driver_scale(tmp, card):
+    """Phase 6c: scale_bench at 16384^3, panels of 4096 columns."""
+    out = scale_bench.main([*SCALE_ARGS, "--outdir", tmp])
+    assert out["bits_equal"]
+    for name in ("panel", "one_shot"):
+        r = out[name]
+        assert r["tile_max_relerr"] < 1e-8 and r["peak_bytes"] > 0, r
+        log(f"  6c: scale_bench {r['m']}^3 {r['func']}: "
+            f"{r['seconds'] * 1e3:.3f} ms, {r['tflops']:.2f} TFLOP/s, peak "
+            f"{r['peak_bytes']} bytes, tile relerr {r['tile_max_relerr']!r}; "
+            f"SM clock median {r['sm_mhz']:.0f} MHz, power draw median "
+            f"{r['power_draw_w']:.1f} W ({card})")
+    log(f"  6c: the n_panel={SCALE_ARGS[1]} call == the one-shot call, bit "
+        "for bit; peak ratio panel / one-shot "
+        f"{out['panel']['peak_bytes'] / out['one_shot']['peak_bytes']:.3f}")
+
+
+def phase_driver_profile_phases(fast_digest, card):
+    """Phase 6d: profile_phases 8192 14, its output against phase 4's."""
+    out = profile_phases.main([str(N), str(L_MAIN)])
+    assert digest(out["out"]) == fast_digest, \
+        "profile_phases vs phase 4's call"
+    log(f"  6d: profile_phases {N} {L_MAIN}: kernels' sum "
+        f"{out['sum_ms']:.3f} ms ({out['tflops']:.2f} TFLOP/s effective); "
+        f"output == phase 4's fast call (digest {fast_digest[:16]}) "
+        f"({card})")
+
+
+def phase_driver_profile_one_call(tmp, card):
+    """Phase 6e: profile_one_call --iters 3 with its trace."""
+    out = profile_one_call.main(["--iters", "3", "--trace-dir", tmp])
+    size = os.path.getsize(out["trace"])
+    assert size > 0, out["trace"]
+    log(f"  6e: profile_one_call: trace {os.path.basename(out['trace'])} "
+        f"written, {size} bytes; {out['ms']:.3f} ms per call by CUDA events "
+        f"({card})")
+    if out["device_us"] > 0:
+        log(f"  6e: key_averages() shows {out['device_us'] / 1e3:.3f} ms of "
+            "CUDA device time over the profiled calls")
+    else:
+        log("  6e: finding: key_averages() shows no CUDA device time on "
+            "this host (CUPTI gave the profiler no kernel records)")
+
+
+def phase_drivers(fast_digest, card):
+    """Phase 6: the drivers on the card, each part's wall time printed."""
+    marks = [("start", time.perf_counter())]
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_driver_accuracy(tmp)
+        marks.append(("6a", time.perf_counter()))
+        phase_driver_time_sweep(tmp, card)
+        marks.append(("6b", time.perf_counter()))
+        torch.cuda.empty_cache()
+        phase_driver_scale(tmp, card)
+        marks.append(("6c", time.perf_counter()))
+        torch.cuda.empty_cache()
+        phase_driver_profile_phases(fast_digest, card)
+        marks.append(("6d", time.perf_counter()))
+        phase_driver_profile_one_call(tmp, card)
+        marks.append(("6e", time.perf_counter()))
+    torch.cuda.empty_cache()
+    log("  phase 6's parts, wall s: " + ", ".join(
+        f"{label} {t - t_prev:.1f}" for (_, t_prev), (label, t)
+        in zip(marks, marks[1:])))
+
+
+def drivers_main():
+    """`python3 chip_smoke.py drivers`: build the kernels and run phase 6
+    alone, on phase 4's fast call at N^3 (no result line)."""
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: torch.cuda.is_available() is false")
+    t_start = time.perf_counter()
+    card = card_line()
+    log(card)
+    build.lib()
+    a = torch.from_numpy(phi_matrix(N, N, 0.5, seed=0)).to(DEVICE)
+    fast_digest = digest(gt.gemm(a, a.t().contiguous(), num_moduli=L_MAIN))
+    del a
+    torch.cuda.empty_cache()
+    phase_drivers(fast_digest, card)
+    log(f"wall time of the run: {time.perf_counter() - t_start:.1f} s")
 
 
 def halves_main():
@@ -6066,5 +6244,7 @@ if __name__ == "__main__":
         gloo_child()
     elif sys.argv[1:] == ["sharded"]:
         sharded_main()
+    elif sys.argv[1:] == ["drivers"]:
+        drivers_main()
     else:
         main()

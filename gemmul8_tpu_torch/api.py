@@ -41,6 +41,7 @@ from . import planner as _planner
 from . import tables
 from .core import complexgemm as _cg
 from .core import gemm as _g
+from .hopper import build as _build
 from .types import ComputeType
 
 ArrayLike = Union[torch.Tensor, np.ndarray]
@@ -58,15 +59,16 @@ def _device(device) -> Optional[torch.device]:
 
 
 def _as_tensor(x: ArrayLike, device, name: str) -> torch.Tensor:
-    device = _device(device)
+    """x as a tensor on `device`: a numpy array goes there (by default to
+    the current card; RuntimeError when there is none), a tensor must
+    already lie there (with device None it keeps its own)."""
     if isinstance(x, np.ndarray):
-        if device is None:
-            raise ValueError(f"{name} is a numpy array: pass device= "
-                             "explicitly")
-        x = torch.from_numpy(np.ascontiguousarray(x)).to(device)
-    elif not isinstance(x, torch.Tensor):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(
+            _device(_build.card_unless(device)))
+    device = _device(device)
+    if not isinstance(x, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor or numpy array")
-    elif device is not None and x.device != device:
+    if device is not None and x.device != device:
         raise ValueError(f"{name} lies on {x.device}, not on {device}")
     return x
 
@@ -291,8 +293,10 @@ def gemm(
     for that budget. n_panel < n (real operands) makes B, its residues and
     the output n_panel columns at a time (the one-shot call's bits in fast
     mode; accurate mode takes each panel's shifts from that panel, as the
-    JAX package does); n_panel >= n is the one-shot call. numpy operands
-    need device=; a numpy c goes to the operands' device.
+    JAX package does); n_panel >= n is the one-shot call. Tensor operands
+    stay on their device; numpy operands go to `device`, by default the
+    current card (RuntimeError without one: device="cpu" runs the plain
+    versions on the CPU); a numpy c goes to the operands' device.
 
     return_times=True (real operands, one-shot schedule) returns (C,
     [encode, int8_gemms, mod_reduce, reconstruct] seconds), the phases of
@@ -422,7 +426,7 @@ def gemm_batched(a: ArrayLike, b: ArrayLike, *, num_moduli: int = 14,
     operand complex) its complex dtypes, complex out_dtype spellings and
     compute_type. The elements run one after the other (the JAX package's
     `lax.map` on the TPU is sequential too) into one preallocated output.
-    numpy operands need device=."""
+    numpy operands go to `device`, by default the card, as in `gemm`."""
     if not 2 <= num_moduli <= tables.MAX_MODULI:
         raise ValueError(f"num_moduli must be in [2, {tables.MAX_MODULI}]")
     if _is_complex_operand(a) or _is_complex_operand(b):
@@ -491,7 +495,8 @@ def gemm_timed(a: ArrayLike, b: ArrayLike, *, num_moduli: int = 14,
     the mean. On the card each phase is timed with CUDA events on the
     operands' stream; on the CPU with the host clock. The mod runs in the
     GEMM's epilogue, so its phase is the identity and reads about 0. C has
-    the default call's bits. numpy operands need device=."""
+    the default call's bits. numpy operands go to `device`, by default the
+    card, as in `gemm`."""
     if not 2 <= num_moduli <= tables.MAX_MODULI:
         raise ValueError(f"num_moduli must be in [2, {tables.MAX_MODULI}]")
     if iters < 1:

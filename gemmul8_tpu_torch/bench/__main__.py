@@ -3,12 +3,13 @@
 
     python -m gemmul8_tpu_torch.bench [d|f] [accuracy_check|flops_check|watt_check|all]
         [--sizes 1024,2048] [--moduli 2-20] [--phi 0.5] [--outdir results]
-        [--iters 5] [--device cuda]
+        [--iters 5] [--device cuda] [--modes fast|accu|fast,accu]
 
 accuracy_check runs on --device (default cuda; cpu runs the kernels' plain
 versions); flops_check and watt_check run on the card only and exit
-nonzero without one. Writes the CSV schema the reference's plotting
-consumes.
+nonzero without one, their OS2 rows in the modes of --modes (default
+fast, as the JAX package's CLI). Writes the CSV schema the reference's
+plotting consumes.
 """
 
 import argparse
@@ -33,7 +34,12 @@ def main(argv=None):
     ap.add_argument("--outdir", default="results")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--modes", default="fast")
     args = ap.parse_args(argv)
+    modes = args.modes.split(",")
+    if set(modes) - {"fast", "accu"}:
+        ap.error(f"--modes {args.modes!r}: fast, accu or fast,accu")
+    fastmodes = tuple(mode == "fast" for mode in modes)
 
     from . import harness
 
@@ -52,13 +58,15 @@ def main(argv=None):
     if args.mode in ("flops_check", "all"):
         rows, path = harness.time_check(
             dtype=args.dtype, sizes=sizes, num_moduli=time_moduli,
-            phi=args.phi, iters=args.iters, outdir=args.outdir)
+            fastmodes=fastmodes, phi=args.phi, iters=args.iters,
+            outdir=args.outdir)
         for row in rows:
             print(row)
         print(f"flops_check -> {path}")
     if args.mode in ("watt_check", "all"):
         rows, _ = harness.watt_check(dtype=args.dtype, sizes=sizes,
-                                     num_moduli=time_moduli, phi=args.phi,
+                                     num_moduli=time_moduli,
+                                     fastmodes=fastmodes, phi=args.phi,
                                      iters=args.iters)
         for row in rows:
             print(row)

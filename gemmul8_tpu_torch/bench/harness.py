@@ -267,15 +267,18 @@ def _threaded(fn, x: torch.Tensor, y: torch.Tensor):
 
 
 def _gemm_step(x, y, num_moduli: int, fastmode: bool, out_dtype=None,
-               axpby=None, c=None, compute_type=None):
+               axpby=None, c=None, compute_type=None, n_panel=None):
     """(step, state) of the whole `gemm` call on x and the threaded y; with
     axpby=(alpha, beta), gemm(alpha=, beta=, c=c) (the epilogue on the
-    card; c a numpy array or a CUDA tensor)."""
+    card; c a numpy array or a CUDA tensor); with n_panel, the
+    column-panel schedule."""
     from ..api import gemm
 
     kw = dict(num_moduli=num_moduli, fastmode=fastmode, out_dtype=out_dtype)
     if compute_type is not None:
         kw["compute_type"] = compute_type
+    if n_panel is not None:
+        kw["n_panel"] = n_panel
     if axpby is not None:
         if c is None:
             raise ValueError("axpby needs c, of the output's shape")
@@ -285,19 +288,20 @@ def _gemm_step(x, y, num_moduli: int, fastmode: bool, out_dtype=None,
 
 def _fused_gemm_seconds(a, b, num_moduli: int, fastmode: bool,
                         iters: int, out_dtype=None, axpby=None,
-                        c=None, compute_type=None) -> float:
+                        c=None, compute_type=None, n_panel=None) -> float:
     """Seconds per call of the whole production `gemm` call on the card, by
     `chained_time`: the protocol of every OS2 row of `time_check` and
     `time_check_complex`, and the one the port's benchmark times its call
     with. a, b: numpy arrays or CUDA tensors. axpby=(alpha, beta): the call
     with C = alpha AB + beta C, where c (m, n) is a C of the output's own
-    shape (the JAX package sliced it out of A's bits, ROADMAP C1)."""
+    shape (the JAX package sliced it out of A's bits, ROADMAP C1).
+    n_panel: the column-panel call (`scripts/scale_bench.py`)."""
     from .timing import chained_time, require_gpu
 
     require_gpu()
     x, y = (_on_card(t) for t in (a, b))
     step, state = _gemm_step(x, y, num_moduli, fastmode, out_dtype, axpby, c,
-                             compute_type)
+                             compute_type, n_panel)
     dt, _ = chained_time(step, state, iters)
     return dt
 

@@ -284,6 +284,21 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def card_unless(device):
+    """`device`, or the current card when it is None: a numpy operand, or
+    an entry point given no device, runs on the card unless the caller
+    asks for the CPU. Raises RuntimeError when no card is present; nothing
+    falls back to the CPU."""
+    if device is not None:
+        return device
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA card is present (torch.cuda.is_available() is false), "
+            "and without device= this runs on the card: pass device=\"cpu\" "
+            "to run the kernels' plain versions on the CPU")
+    return "cuda"
+
+
 def require_device(*tensors: torch.Tensor) -> None:
     """Raise unless every tensor is a CUDA tensor on one device."""
     dev = tensors[0].device

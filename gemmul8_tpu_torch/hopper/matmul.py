@@ -158,11 +158,13 @@ def mod_div_mismatches(lo: int, hi: int, num_moduli: int = tables.MAX_MODULI,
     differs from the remainder. On a CUDA device the card's `mod_div`
     against its `mod_canon` (csrc/matmul_mod.cu mod_div_check_kernel;
     all 2^32 int32 values of 20 moduli in 0.12 s on an H100); on the CPU
-    `mod_div` against numpy's remainder, for small ranges."""
+    (device="cpu") `mod_div` against numpy's remainder, for small ranges.
+    With no device it runs on the current card (RuntimeError without
+    one)."""
     idx = sg.check_moduli_idx(moduli_idx, num_moduli)
     if not -(1 << 31) <= lo <= hi < 1 << 31:
         raise ValueError(f"[{lo}, {hi}]: expected -2^31 <= lo <= hi < 2^31")
-    device = torch.device("cpu" if device is None else device)
+    device = torch.device(build.card_unless(device))
     if device.type == "cpu":
         x = np.arange(lo, hi + 1, dtype=np.int64)
         return torch.tensor([int((mod_div(x, tables.MODULI[j])

@@ -47,18 +47,24 @@ def free_port() -> int:
 def launch(mode: str, nproc: int, extra=()) -> list:
     """Run nproc workers of `mode` through the GEMMUL8_* variables on a
     free port; return their exit codes (each killed after _TIMEOUT s)."""
+    return launch_world(["-m", "gemmul8_tpu_torch.parallel.smoke",
+                         "--worker", mode, *map(str, extra)], nproc)
+
+
+def launch_world(args, nproc: int, timeout: float = _TIMEOUT) -> list:
+    """Run `python <args>` as the nproc ranks of one world through the
+    GEMMUL8_* variables on a free local port; return their exit codes
+    (each killed after `timeout` s)."""
     port = free_port()
     procs = []
     for rank in range(nproc):
         env = dict(os.environ, GEMMUL8_COORD=f"127.0.0.1:{port}",
                    GEMMUL8_NPROC=str(nproc), GEMMUL8_PROC_ID=str(rank))
-        procs.append(subprocess.Popen(
-            [sys.executable, "-m", "gemmul8_tpu_torch.parallel.smoke",
-             "--worker", mode, *map(str, extra)], env=env))
+        procs.append(subprocess.Popen([sys.executable, *args], env=env))
     codes = []
     try:
         for p in procs:
-            codes.append(p.wait(timeout=_TIMEOUT))
+            codes.append(p.wait(timeout=timeout))
     finally:
         for p in procs:
             if p.poll() is None:

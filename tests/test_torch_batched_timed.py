@@ -168,9 +168,10 @@ def test_gemm_batched_shape_errors_like_jax(a_shape, b_shape, match, dtype):
         gt.gemm_batched(a, b, device="cpu")
 
 
-def test_gemm_batched_errors():
-    """k above 2^17, num_moduli out of range, numpy without device=,
-    operands on two devices."""
+def test_gemm_batched_errors(monkeypatch):
+    """k above 2^17, num_moduli out of range, numpy without device= and
+    without a card (the card is their default), operands on two
+    devices."""
     k = tables.MAX_K + 1
     a = torch.zeros((1, 1, k), dtype=torch.float64)
     b = torch.zeros((1, k, 1), dtype=torch.float64)
@@ -179,8 +180,14 @@ def test_gemm_batched_errors():
     x = torch.ones((2, 4, 4), dtype=torch.float64)
     with pytest.raises(ValueError, match="num_moduli"):
         gt.gemm_batched(x, x, num_moduli=21)
-    with pytest.raises(ValueError, match="device"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
         gt.gemm_batched(np.ones((2, 4, 4)), np.ones((2, 4, 4)))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        gt.gemm_timed(np.ones((4, 4)), np.ones((4, 4)))
+    got = gt.gemm_batched(np.ones((2, 4, 4)), np.ones((2, 4, 4)),
+                          device="cpu")
+    assert torch.equal(got, torch.full((2, 4, 4), 4.0, dtype=torch.float64))
     got = gt.gemm_batched(x, x)
     assert torch.equal(got, torch.full((2, 4, 4), 4.0, dtype=torch.float64))
 
@@ -302,11 +309,14 @@ def test_return_times_alpha_beta_and_f32():
         gt.gemm(a, b, beta=1.0, return_times=True, device="cpu")
 
 
-def test_gemm_timed_errors():
+def test_gemm_timed_errors(monkeypatch):
     x = np.ones((4, 4))
     with pytest.raises(ValueError, match="iters"):
         gt.gemm_timed(x, x, iters=0, device="cpu")
-    with pytest.raises(ValueError, match="device"):
+    # numpy operands go to the card by default: without one the call
+    # raises and names device="cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
         gt.gemm_timed(x, x)
     with pytest.raises(TypeError, match="real"):
         gt.gemm_timed(x.astype(np.complex128), x, device="cpu")

@@ -108,13 +108,25 @@ def test_gemm_core_alpha_exponent():
             tg.gemm_core(ta, tb, 14, alpha_e=-2).numpy().view(np.uint64))
 
 
-def test_gemm_numpy_needs_device():
+def test_gemm_numpy_needs_device(monkeypatch):
+    """numpy operands go to the card unless device= says otherwise: with
+    no card the call raises and names device="cpu" (nothing falls back to
+    the CPU); with the routing spied on, they are sent to "cuda"."""
+    from gemmul8_tpu_torch import api
+
     a = np.ones((4, 4))
-    with pytest.raises(ValueError, match="device"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
         gt.gemm(a, a)
     assert gt.gemm(a, a, device="cpu").shape == (4, 4)
     with pytest.raises(ValueError):
         gt.gemm(torch.ones((4, 4), dtype=torch.float64), a, device="meta")
+    asked = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(api, "_device",
+                        lambda d: asked.append(d) or torch.device("cpu"))
+    assert gt.gemm(a, a).shape == (4, 4)
+    assert asked[:2] == ["cuda", "cuda"]
 
 
 # return_times on real calls: tests/test_torch_batched_timed.py

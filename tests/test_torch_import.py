@@ -31,6 +31,18 @@ import gemmul8_tpu_torch.bench.power, gemmul8_tpu_torch.bench.__main__
 import gemmul8_tpu_torch.interception, gemmul8_tpu_torch.parallel.multihost
 import gemmul8_tpu_torch.parallel.distributed
 import gemmul8_tpu_torch.parallel.smoke
+import gemmul8_tpu_torch.scripts.accuracy_sweep
+import gemmul8_tpu_torch.scripts.band_seed_sweep
+import gemmul8_tpu_torch.scripts.time_sweep
+import gemmul8_tpu_torch.scripts.scale_bench
+import gemmul8_tpu_torch.scripts.profile_phases
+import gemmul8_tpu_torch.scripts.weak_scaling
+import gemmul8_tpu_torch.scripts.evidence
+import gemmul8_tpu_torch.scripts.compare_csvs
+import gemmul8_tpu_torch.examples.one_accuracy
+import gemmul8_tpu_torch.examples.one_accuracy_complex
+import gemmul8_tpu_torch.examples.profile_one_call
+import gemmul8_tpu_torch.examples.distributed_gemm
 import torch.distributed
 from gemmul8_tpu_torch.hopper import build
 assert not torch.distributed.is_initialized(), "process group at import"

@@ -81,17 +81,25 @@ def test_mod_div_argument_checks():
 
 
 def test_mod_div_mismatches_plain():
-    bad = hm.mod_div_mismatches(-3000, 3000, 20)
+    bad = hm.mod_div_mismatches(-3000, 3000, 20, device="cpu")
     assert bad.dtype == torch.int64 and bad.tolist() == [0] * 20
     bad = hm.mod_div_mismatches(INT32_MAX - 300, INT32_MAX, 14,
-                                moduli_idx=(2, 9, 13))
+                                moduli_idx=(2, 9, 13), device="cpu")
     assert bad.tolist() == [0, 0, 0]
     with pytest.raises(ValueError):
-        hm.mod_div_mismatches(5, 4)
+        hm.mod_div_mismatches(5, 4, device="cpu")
     with pytest.raises(ValueError):
-        hm.mod_div_mismatches(INT32_MIN - 1, 0)
+        hm.mod_div_mismatches(INT32_MIN - 1, 0, device="cpu")
     with pytest.raises(ValueError):
-        hm.mod_div_mismatches(0, 1, 14, moduli_idx=(3, 3))
+        hm.mod_div_mismatches(0, 1, 14, moduli_idx=(3, 3), device="cpu")
+
+
+def test_mod_div_mismatches_defaults_to_the_card(monkeypatch):
+    """Without device= it runs on the card; with no card it raises and
+    names device="cpu"."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        hm.mod_div_mismatches(-3000, 3000, 20)
 
 
 @pytest.mark.parametrize("centered", [True, False])
