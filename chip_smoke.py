@@ -282,9 +282,9 @@ The probes (scripts/probe_*.py, ROADMAP B16) add:
       their bound, reconstruct on the same residues and torch._int_mm of
       W' by the residues laid out (L bm, m/bm n); deaddep at 8192, 14
       moduli, every chain variant (kloop too) at nops 0, 16 and 32, base
-      and the two rec riders: medians of five rotated rounds, and each
+      and the two rec riders: medians of three rotated rounds, and each
       config's differences to base (a chain's also to its own nops 0,
-      recmxu's to recbody) over 8 adjacent pairs of calls as median
+      recmxu's to recbody) over 5 adjacent pairs of calls as median
       [least, most], and its launch span in SM clock cycles (median of
       five calls; each block stamps its SM and clock), beside the
       injected multiply-adds' serial time; every
@@ -521,6 +521,24 @@ Each part's wall time is printed. `python3 chip_smoke.py drivers` builds
 the kernels and runs phase 6 alone on phase 4's fast call (no result
 line).
 
+The tuners (gemmul8_tpu_torch.scripts.tune_kernels' sections, through
+their functions) add:
+  7.  every section at 8192 and 14 moduli on a cut candidate list
+      (TUNER_CUT: matmul the table's entry and two candidates; mmpipe,
+      stats (fast_sft and mag7.cu's blocking), encode, fusedenc and recon
+      the table's entry and one each), all the candidates compiled at
+      once, in parallel: each candidate builds, launches, gives the table
+      library's bits word for word and has 0 ptxas spill bytes, or the run
+      fails; the rows print with their ms, share of the bound, ratio to
+      the table's entry in their rotation and the SM clock.
+`python3 chip_smoke.py tuners` builds the kernels and runs phase 7 alone
+(no result line).
+
+Phases 5 (each kernel timed alone and both main calls), 5c and 5p print
+the SM clock and power draw that nvidia-smi sampled over each timing
+(`timed_clocked` fills a timing to CLOCK_WINDOW_MS so that samples land
+in it) or rotation.
+
 The line before the last is a JSON object of per-kernel results
 (`launches` sums the main-path calls of phase 4, real and complex, for the
 variant kernels those of phase 4v at 8192^3, for matmul_crt and
@@ -543,6 +561,7 @@ import contextlib
 import functools
 import hashlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -560,9 +579,11 @@ from gemmul8_tpu_torch import pipelined as pl
 from gemmul8_tpu_torch import planner, tables
 from gemmul8_tpu_torch.baselines import ozimmu
 from gemmul8_tpu_torch.bench import golden, harness, replay
+from gemmul8_tpu_torch.bench.bounds import (INT8_OPS_PER_S, bound,
+                                            kernel_bounds)
 from gemmul8_tpu_torch.bench.matrices import phi_matrix
 from gemmul8_tpu_torch.bench.native import dd_gemm, relerr_vs_dd
-from gemmul8_tpu_torch.bench.power import ClockSampler
+from gemmul8_tpu_torch.bench.power import ClockSampler, card_line
 from gemmul8_tpu_torch.core import complexgemm as cg
 from gemmul8_tpu_torch.core import encode as enc
 from gemmul8_tpu_torch.core import gemm as tg
@@ -576,6 +597,11 @@ from gemmul8_tpu_torch.hopper import launch as hl
 from gemmul8_tpu_torch.hopper import matmul as hm
 from gemmul8_tpu_torch.hopper import pipelined as hp
 from gemmul8_tpu_torch.hopper import probes as hq
+from gemmul8_tpu_torch.hopper.launch import (EncodeLaunch,
+                                             FastEncodeFusedLaunch,
+                                             FastSftLaunch, Mag7Launch,
+                                             MatmulModLaunch,
+                                             ReconstructLaunch)
 from gemmul8_tpu_torch.ops import mpgemm as mp
 from gemmul8_tpu_torch.probes import clz as pclz
 from gemmul8_tpu_torch.probes import deaddep as pdd
@@ -584,6 +610,7 @@ from gemmul8_tpu_torch.probes import vpu_ops as pvpu
 from gemmul8_tpu_torch.probes.__main__ import main as probes_main
 from gemmul8_tpu_torch.scripts import (accuracy_sweep, profile_phases,
                                        scale_bench, time_sweep)
+from gemmul8_tpu_torch.scripts import tune_kernels as tk
 
 DEVICE = "cuda"
 N = 8192                 # the main path's m = n = k
@@ -727,6 +754,7 @@ PLANNER_SLACK = 0.05     # phase 4s: a measured peak within 5% under the model
 # took the tensor cores (PERF.md, same card and power limit), beside theirs
 EARLIER_MS = {"encode_slices": 2.521, "reconstruct": 1.975}
 MAIN_ROUNDS = 5          # phase 5: the fast, accurate and f32-8 calls
+CLOCK_WINDOW_MS = 100    # a clocked timing's least length (20 ms samples)
 # phase 2: sources whose ptxas report must show no spill store or load
 NO_SPILL_SOURCES = ("matmul_mod_pipelined.cu", "matmul_complex.cu",
                     "matmul_reconstruct.cu", "probe_deaddep.cu",
@@ -838,8 +866,8 @@ PROBE_STEPS_CHECK = 64      # phase 3q's chain length (the probe's: 2048)
 PROBE_N_CHECK = 2048        # phase 3q's deaddep size (the probe's: 8192)
 PROBE_N_SMALL = 1024        # and its least: kloop's two batches a k-tile
 PROBE_ROUNDS = 3
-PROBE_DEADDEP_ROUNDS = 5    # its effects are near the power cap's swing,
-PROBE_DEADDEP_PAIRS = 8     # so its differences come from adjacent pairs
+PROBE_DEADDEP_ROUNDS = 3    # its effects are near the power cap's swing,
+PROBE_DEADDEP_PAIRS = 5     # so its differences come from adjacent pairs
 PROBE_DEADDEP_STAMPED = 5   # and from SM clock cycles
 SMS = 132
 # the chains' kernels (csrc/probe_vpu_ops.cu gm8_vpu_<name>), their
@@ -862,22 +890,10 @@ VPU_RATE = {"imad": 64, "iadd": 64, "shift": 64, "logic": 64, "fp32": 128,
             "cvt": 16, "i2fp": 64}
 VPU_OPCODES = {"IMAD", "IADD3", "SHF", "LOP3", "FMUL", "FADD", "FFMA",
                "FRND", "F2I", "I2FP", "I2F"}
-# the card's published peaks (H100 SXM5 data sheet, dense): device-memory
-# bytes per second and int8 tensor-core operations per second
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1979e12
 
 
 def log(msg):
     print(msg, flush=True)
-
-
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()
-    return out[0].strip()
 
 
 def bits64(t):
@@ -2775,6 +2791,18 @@ def timed(fn, reps):
     return start.elapsed_time(stop) / reps, first
 
 
+def timed_clocked(fn, reps):
+    """(ms per call, the warm-up call's output, the SM clock and power
+    draw nvidia-smi sampled over the timed calls): `timed` with reps
+    raised until the timed calls last CLOCK_WINDOW_MS, so that samples
+    land in them."""
+    est, first = timed(fn, 1)
+    reps = max(reps, math.ceil(CLOCK_WINDOW_MS / est))
+    with ClockSampler() as clock:
+        ms, _ = timed(fn, reps)
+    return ms, first, clock.summary()
+
+
 def phase_times(a, b, errs):
     """Phase 5: ms per main-path use of each kernel (both operands where
     the path runs it twice) beside its plain version, and the whole call.
@@ -2809,9 +2837,9 @@ def phase_times(a, b, errs):
         "magmax_matmul": (lambda: hm.magmax_matmul(ma, mb),
                           lambda: hm.magmax_plain(ma, mb)),
     }
-    times = {}
+    times, clocks = {}, {}
     for name, (kern, plain) in pairs.items():
-        ms, got = timed(kern, 5)
+        ms, got, clocks[name] = timed_clocked(kern, 5)
         pms, ref = timed(plain, 2)
         times[name] = (ms, pms)
         if name == "fast_sft":
@@ -2846,10 +2874,11 @@ def phase_times(a, b, errs):
         f"ms bound (int8 ops) matmul_mod_u8 {bound_ms / mod_ms:.3f}, library "
         f"{bound_ms / lib['matmul_mod_u8']:.3f} ({hl.get('matmul_mod')})")
     del b8t
-    total, _ = timed(lambda: gt.gemm(a, b, num_moduli=L, device=DEVICE), 3)
-    total_accu, _ = timed(lambda: gt.gemm(a, b, num_moduli=L, fastmode=False,
-                                          device=DEVICE), 3)
-    return times, total, total_accu, lib
+    total, _, clocks["fast"] = timed_clocked(
+        lambda: gt.gemm(a, b, num_moduli=L, device=DEVICE), 3)
+    total_accu, _, clocks["accurate"] = timed_clocked(
+        lambda: gt.gemm(a, b, num_moduli=L, fastmode=False, device=DEVICE), 3)
+    return times, total, total_accu, lib, clocks
 
 
 def gate_lines(s, axis):
@@ -2933,8 +2962,11 @@ def phase_complex_times(A, B, errs):
     times = {}
     for x, axis in parts:
         check_stats(errs, x, axis, L)
+    clocks = {}
+    ms, _, clocks["fast_stats"] = timed_clocked(
+        lambda: [hk.fast_stats(x, ax) for x, ax in parts], 5)
     times["fast_stats"] = (
-        timed(lambda: [hk.fast_stats(x, ax) for x, ax in parts], 5)[0],
+        ms,
         timed(lambda: [hk.fast_stats_plain(x, ax) for x, ax in parts], 2)[0])
     sa = enc.joint_fast_sft(a_re, a_im, L, 1, stats=hk.fast_stats)
     sb = enc.joint_fast_sft(b_re, b_im, L, 0, stats=hk.fast_stats)
@@ -2949,8 +2981,9 @@ def phase_complex_times(A, B, errs):
     for line in sft_half_lines("fast_stats", hk.fast_stats, (a_re, a_im),
                                (b_re, b_im)):
         log(line)
-    ms, got = timed(lambda: (hk.mag7_operand_complex(a_re, a_im, 1),
-                             hk.mag7_operand_complex(b_re, b_im, 0)), 5)
+    ms, got, clocks["complex magnitudes"] = timed_clocked(
+        lambda: (hk.mag7_operand_complex(a_re, a_im, 1),
+                 hk.mag7_operand_complex(b_re, b_im, 0)), 5)
     pms, ref = timed(lambda: (mag7_complex_plain(a_re, a_im, 1),
                               mag7_complex_plain(b_re, b_im, 0)), 2)
     hold(errs, "mag7", got[0] + got[1], ref[0] + ref[1],
@@ -2966,12 +2999,13 @@ def phase_complex_times(A, B, errs):
     a8 = [hk.encode_slices(x, sa, L, 1) for x in (a_re, a_im)]
     b8 = [hk.encode_slices(x, sb, L, 0) for x in (b_re, b_im)]
     del a_re, a_im, b_re, b_im, parts
-    ms, kara = timed(lambda: (sg.recenter_add_int8(*a8, L),
-                              sg.recenter_add_int8(*b8, L)), 3)
+    ms, kara, clocks["recenter_add_int8"] = timed_clocked(
+        lambda: (sg.recenter_add_int8(*a8, L), sg.recenter_add_int8(*b8, L)),
+        3)
     times["recenter_add_int8"] = (ms, None)
     for form, ks in (("4-dot", None), ("Karatsuba", kara)):
-        ms, got = timed(lambda: hm.matmul_complex_mod(*a8, *b8, L, True, ks),
-                        3)
+        ms, got, clocks[form] = timed_clocked(
+            lambda: hm.matmul_complex_mod(*a8, *b8, L, True, ks), 3)
         pms, ref = timed(
             lambda: hm.matmul_complex_mod_plain(*a8, *b8, L, True, ks), 1)
         hold(errs, "matmul_complex_mod", got, ref,
@@ -2981,22 +3015,29 @@ def phase_complex_times(A, B, errs):
     log(f"  matmul_complex_mod == plain at the main path's shapes ({N}^2, "
         f"{L} moduli, both forms)")
     bt = [x.transpose(1, 2).contiguous() for x in b8]   # untimed
-    by, _ = timed_rounds({
-        "4-dot": lambda: hm.matmul_complex_mod(*a8, *b8, L, True, None),
-        "4-dot " + LIBRARY: int_mm(None, None, [
-            (a8[0], bt[0]), (a8[1], bt[1]), (a8[0], bt[1]), (a8[1], bt[0])]),
-        "Karatsuba": lambda: hm.matmul_complex_mod(*a8, *b8, L, True, kara),
-        "Karatsuba " + LIBRARY: int_mm(None, None, [
-            (a8[0], bt[0]), (a8[1], bt[1]), (a8[0], bt[1])]),
-    }, PROBE_ROUNDS, 1)
+    with ClockSampler() as clock:
+        by, _ = timed_rounds({
+            "4-dot": lambda: hm.matmul_complex_mod(*a8, *b8, L, True, None),
+            "4-dot " + LIBRARY: int_mm(None, None, [
+                (a8[0], bt[0]), (a8[1], bt[1]), (a8[0], bt[1]),
+                (a8[1], bt[0])]),
+            "Karatsuba": lambda: hm.matmul_complex_mod(*a8, *b8, L, True,
+                                                       kara),
+            "Karatsuba " + LIBRARY: int_mm(None, None, [
+                (a8[0], bt[0]), (a8[1], bt[1]), (a8[0], bt[1])]),
+        }, PROBE_ROUNDS, 1)
+    clocks["library"] = clock.summary()
     times["library"] = {label: float(np.median(v)) for label, v in by.items()}
     del a8, b8, kara, bt
-    calls, by_place = timed_rounds(
-        {(strat, fastmode): (
-            lambda s=strat, f=fastmode: gt.gemm(A, B, num_moduli=L,
-                                                fastmode=f, compute_type=s,
-                                                device=DEVICE))
-         for strat, fastmode in COMPLEX_CALLS}, COMPLEX_ROUNDS, 2)
+    with ClockSampler() as clock:
+        calls, by_place = timed_rounds(
+            {(strat, fastmode): (
+                lambda s=strat, f=fastmode: gt.gemm(
+                    A, B, num_moduli=L, fastmode=f, compute_type=s,
+                    device=DEVICE))
+             for strat, fastmode in COMPLEX_CALLS}, COMPLEX_ROUNDS, 2)
+    clocks["calls"] = clock.summary()
+    times["clocks"] = clocks
     return times, calls, by_place
 
 
@@ -3475,33 +3516,36 @@ def phase_pipeline_times(a, b, b_wide, errs):
         del got, ref
         log(f"  {name} == plain at the main path's shapes ({N}^2 operands, "
             f"panels of {pm}, {L} moduli)")
-    kerns, _ = timed_rounds({
-        "rider step, no rider": step(False, False),
-        "rider step, reconstruct rider": step(True, False),
-        "rider step, encode rider": step(False, True),
-        "matmul_rider_step": step(True, True),
-        "matmul_mod_u8, one panel (its copy of B included)":
-            lambda: hm.matmul_mod_u8(a8p, b8, L, centered=True),
-        "reconstruct, one panel": lambda: hk.reconstruct(r0, sa1, sb, L),
-        "encode_slices, one panel of A":
-            lambda: hk.encode_slices(a2_rows, sa2, L, 1),
-        "matmul_mod_u8 + reconstruct + encode_slices, one panel": lambda: (
-            hm.matmul_mod_u8(a8p, b8, L, centered=True),
-            hk.reconstruct(r0, sa1, sb, L),
-            hk.encode_slices(a2_rows, sa2, L, 1)),
-        "matmul_bsplit_pair": lambda: hp.matmul_bsplit_pair(
-            a8_0, b8l, b, sa, sb, L, pm, a_src=a),
-        "matmul_mod_u8 panel 0 + encode_slices of B's right half and of A "
-        "panel 1": lambda: (
-            hm.matmul_mod_u8(a8_0, b8, L, centered=True),
-            hk.encode_slices(b, sb, L, 0, col_tiles=(N // 2 // 512,
-                                                     N // 512)),
-            hk.encode_slices(riders.panel_rows(a, 1, pm),
-                             riders.panel_rows(sa, 1, pm), L, 1)),
-        "reconstruct_into": lambda: hp.reconstruct_into(
-            r0, sa, sb, L, out, N // pm - 1, pm),
-        LIBRARY + ", one panel": int_mm(a8p, b8t),
-    }, PIPELINE_ROUNDS, 5)
+    clocks = {}
+    with ClockSampler() as clock:
+        kerns, _ = timed_rounds({
+            "rider step, no rider": step(False, False),
+            "rider step, reconstruct rider": step(True, False),
+            "rider step, encode rider": step(False, True),
+            "matmul_rider_step": step(True, True),
+            "matmul_mod_u8, one panel (its copy of B included)":
+                lambda: hm.matmul_mod_u8(a8p, b8, L, centered=True),
+            "reconstruct, one panel": lambda: hk.reconstruct(r0, sa1, sb, L),
+            "encode_slices, one panel of A":
+                lambda: hk.encode_slices(a2_rows, sa2, L, 1),
+            "matmul_mod_u8 + reconstruct + encode_slices, one panel": lambda: (
+                hm.matmul_mod_u8(a8p, b8, L, centered=True),
+                hk.reconstruct(r0, sa1, sb, L),
+                hk.encode_slices(a2_rows, sa2, L, 1)),
+            "matmul_bsplit_pair": lambda: hp.matmul_bsplit_pair(
+                a8_0, b8l, b, sa, sb, L, pm, a_src=a),
+            "matmul_mod_u8 panel 0 + encode_slices of B's right half and of A "
+            "panel 1": lambda: (
+                hm.matmul_mod_u8(a8_0, b8, L, centered=True),
+                hk.encode_slices(b, sb, L, 0, col_tiles=(N // 2 // 512,
+                                                         N // 512)),
+                hk.encode_slices(riders.panel_rows(a, 1, pm),
+                                 riders.panel_rows(sa, 1, pm), L, 1)),
+            "reconstruct_into": lambda: hp.reconstruct_into(
+                r0, sa, sb, L, out, N // pm - 1, pm),
+            LIBRARY + ", one panel": int_mm(a8p, b8t),
+        }, PIPELINE_ROUNDS, 5)
+    clocks["kernels"] = clock.summary()
     del a8, b8, bt, r0, a8p, a8_0, b8l, out, b8t
     calls = {"fast default": (True, "0")}
     calls.update({name: (f, pipe) for name, f, pipe, _ in pipeline_calls()
@@ -3509,17 +3553,21 @@ def phase_pipeline_times(a, b, b_wide, errs):
     calls["accurate default"] = (False, "0")
     calls.update({name: (f, pipe) for name, f, pipe, _ in pipeline_calls()
                   if not f})
-    by_name, _ = timed_rounds(
-        {name: (lambda f=f, pipe=pipe: pipe_gemm(a, b, f, pipe))
-         for name, (f, pipe) in calls.items()}, PIPELINE_ROUNDS, 2)
+    with ClockSampler() as clock:
+        by_name, _ = timed_rounds(
+            {name: (lambda f=f, pipe=pipe: pipe_gemm(a, b, f, pipe))
+             for name, (f, pipe) in calls.items()}, PIPELINE_ROUNDS, 2)
+    clocks["calls"] = clock.summary()
     wide = {f"{N_WIDE} columns one-shot": lambda: pipe_gemm(a, b_wide, True,
                                                             "0")}
     wide.update({name: (lambda pipe=pipe: pipe_gemm(
         a, b_wide, True, pipe, n_panel=N_PANEL))
         for name, pipe, _ in panel_calls(N_WIDE)})
-    wide_ms, _ = timed_rounds(wide, PIPELINE_ROUNDS, 2)
+    with ClockSampler() as clock:
+        wide_ms, _ = timed_rounds(wide, PIPELINE_ROUNDS, 2)
+    clocks["wide"] = clock.summary()
     by_name.update(wide_ms)
-    return kerns, plain_ms, by_name
+    return kerns, plain_ms, by_name, clocks
 
 
 # ---- f32 operands and output: phases 3f, 3b (f32), 4f, 5f -----------------
@@ -5275,15 +5323,6 @@ def kernel_bounds_f32(a32, b32, L):
             "reconstruct[f32]": bound(L * m * n + s + 4 * m * n)}
 
 
-def bound(nbytes, ops=0):
-    """(ms, "bytes" or "operations"): the least time the card could take,
-    the larger of nbytes of device memory at HBM_BYTES_PER_S and ops int8
-    tensor-core operations at INT8_OPS_PER_S."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT8_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def fused_half_lines(timing, name, pair, a, b):
     """Phase 5v's lines for a fused statistics kernel: each half (A's
     rows, B's columns) as a share of its read-once bound (and, for B's
@@ -5347,55 +5386,6 @@ def sft_half_lines(name, kern, a_parts, b_parts):
             f"share {elim / ems:.3f}; ratio to emax {ms / ems:.3f} in one "
             f"rotation; {clock.summary()} ({card_line()})")
     return lines
-
-
-def kernel_bounds(a, b, L):
-    """bound() of each kernel's phase-5 work on a (m, k) and b (k, n), each
-    input read once and each output written once: both operands where the
-    path runs the kernel twice; the complex GEMM in its 4-dot form on parts
-    of these shapes. Integer and f32 ALU work is not counted (no published
-    peak; it is below the byte bound of these kernels)."""
-    m, k = a.shape
-    n = b.shape[1]
-    pm = PANEL_M                     # the pipeline's kernels: one panel
-    x = a.numel() + b.numel()        # f64 elements of both operands
-    s = 4 * (m + n)                  # int32 shifts, exponents or maxima
-    ops = 2 * m * n * k              # int8 operations of one product
-    slices = L * (m * k + k * n)     # int8 residues of both operands
-    return {
-        "fast_sft": bound(8 * x + s),
-        "encode_slices": bound(8 * x + s + L * x),
-        "matmul_mod_u8": bound(slices + L * m * n, L * ops),
-        "reconstruct": bound(L * m * n + s + 8 * m * n),
-        "emax": bound(8 * x + s),
-        "mag7": bound(8 * x + s + x),
-        "magmax_matmul": bound(x + s, ops),
-        "matmul_complex_mod": bound(2 * slices + 2 * L * m * n, 4 * L * ops),
-        "fast_encode_fused": bound(8 * x + L * x + s),
-        "mag7_fused": bound(8 * x + x + s),
-        "magmax_matmul_scratch": bound(x + s, ops),
-        "matmul_mod_u8_pipelined": bound(slices + L * m * n, L * ops),
-        "matmul_crt": bound(slices + 4 * tables.num_limbs(L) * m * n,
-                            L * ops),
-        "matmul_reconstruct": bound(slices + s + 8 * m * n, L * ops),
-        # not a kernel of its own: reconstruct on its limb input
-        "reconstruct (limbs)": bound(4 * tables.num_limbs(L) * m * n + s
-                                     + 8 * m * n),
-        # both riders: A's panel slices, B, the previous panel's residues,
-        # the next panel's f64 rows and the shifts read; the residues, the
-        # previous panel's f64 rows and the next panel's slices written
-        "matmul_rider_step": bound(
-            L * (pm * k + k * n + pm * n) + L * pm * n + 8 * pm * n
-            + 8 * pm * k + L * pm * k + 4 * (3 * pm + n), L * 2 * pm * n * k),
-        # with the A-panel-1 rider: panel 0's slices, B's left-half slices
-        # and B's right half in f64 read; the residues, all of B's slices
-        # (K-major) and A-panel 1's slices written
-        "matmul_bsplit_pair": bound(
-            L * pm * k + L * k * (n // 2) + 8 * k * (n // 2) + L * pm * n
-            + L * k * n + 8 * pm * k + L * pm * k + 4 * (2 * pm + n),
-            L * 2 * pm * n * k),
-        "reconstruct_into": bound(L * pm * n + 4 * (pm + n) + 8 * pm * n),
-    }
 
 
 # The comparison harness and its baselines (phases 3h, 4h, 5h)
@@ -5719,12 +5709,13 @@ def main():
     phase_harness_accuracy()
     log(f"[4/5] main path checked ({time.perf_counter() - t0:.1f} s)")
 
-    times, total, total_accu, library = phase_times(a, b, errs)
+    times, total, total_accu, library, clocks = phase_times(a, b, errs)
     for name, (ms, pms) in times.items():
         earlier = (f"; before the tensor-core redesign {EARLIER_MS[name]} ms "
                    "(PERF.md)" if name in EARLIER_MS else "")
         log(f"  {name}: kernel {ms:.3f} ms, plain {pms:.3f} ms{earlier} "
-            f"({N}^2 operands, {L_MAIN} moduli; {card})")
+            f"({N}^2 operands, {L_MAIN} moduli; kernel's {clocks[name]}; "
+            f"{card})")
     for name, loops in mma_loop_sass().items():
         log(f"  {name} ({MMA_SASS[name]}) SASS loops, outermost first: "
             + "; ".join(
@@ -5735,12 +5726,15 @@ def main():
                           ("accurate", total_accu, rel_accu)):
         tflops = 2 * N ** 3 / (ms * 1e-3) / 1e12
         log(f"  gemm {N}^3 {L_MAIN} moduli f64 {mode}: {ms:.3f} ms, "
-            f"{tflops:.2f} TFLOP/s, gate relerr {rel!r} ({card})")
-    bounds_main = kernel_bounds(a, b, L_MAIN)
+            f"{tflops:.2f} TFLOP/s, gate relerr {rel!r} ({clocks[mode]}; "
+            f"{card})")
+    bounds_main = kernel_bounds(a, b, L_MAIN, PANEL_M)
     ctimes, calls, by_place = phase_complex_times(A, B, errs)
+    cclocks = ctimes["clocks"]
     ms, _ = ctimes["recenter_add_int8"]
     log(f"  Karatsuba sum slices (plain tensor ops, A + B): {ms:.3f} ms "
-        f"({N}^2 operands, {L_MAIN} moduli; {card})")
+        f"({N}^2 operands, {L_MAIN} moduli; "
+        f"{cclocks['recenter_add_int8']}; {card})")
     for step, what in (("fast_stats", "Re and Im of A rows and B columns"),
                        ("complex magnitudes", "emax x4, mag7 x4 at shift 4 "
                         "and the sums, A and B"),
@@ -5748,9 +5742,10 @@ def main():
                        ("Karatsuba", "matmul_complex_mod")):
         ms, pms = ctimes[step]
         log(f"  {step} ({what}): kernel {ms:.3f} ms, plain {pms:.3f} ms "
-            f"({N}^2 operands, {L_MAIN} moduli; {card})")
+            f"({N}^2 operands, {L_MAIN} moduli; kernel's {cclocks[step]}; "
+            f"{card})")
     log(f"  complex {N}^3 calls, {COMPLEX_ROUNDS} rounds in rotated order, "
-        "2 calls per timing:")
+        f"2 calls per timing ({cclocks['calls']}):")
     for (strat, fastmode), mss in calls.items():
         ms = float(np.median(mss))
         elem = 2 * N ** 3 / (ms * 1e-3) / 1e12
@@ -5769,7 +5764,8 @@ def main():
         log(f"  matmul_complex_mod {form}: median {clib[form]:.3f} ms beside "
             f"{LIBRARY} ({n_mm} x {L_MAIN} torch._int_mm) "
             f"{clib[form + ' ' + LIBRARY]:.3f} ms in one rotation: ratio "
-            f"{clib[form] / clib[form + ' ' + LIBRARY]:.3f} ({card})")
+            f"{clib[form] / clib[form + ' ' + LIBRARY]:.3f} "
+            f"({cclocks['library']}; {card})")
     vtimes, vcalls = phase_variant_times(a, b, errs)
     for name, (by_label, pms, clock) in vtimes.items():
         meds = {label: float(np.median(v)) for label, v in by_label.items()}
@@ -5838,7 +5834,8 @@ def main():
         log(f"  gemm {N}^3 {L_MAIN} moduli f64 {name}: median {ms:.3f} ms "
             f"(rounds {', '.join(f'{t:.3f}' for t in mss)}), "
             f"{tflops:.2f} TFLOP/s, gate relerr {rel!r} ({card})")
-    pkerns, pplain, pcalls = phase_pipeline_times(a, b, b_wide, errs)
+    pkerns, pplain, pcalls, pclocks = phase_pipeline_times(a, b, b_wide,
+                                                           errs)
     for label, mss in pkerns.items():
         line = (f"  {label}: median {float(np.median(mss)):.3f} ms (rounds "
                 f"{', '.join(f'{t:.3f}' for t in mss)})")
@@ -5846,7 +5843,7 @@ def main():
             ms, by = bounds[label]
             line += f"; plain {pplain[label]:.3f} ms; bound {ms:.3f} ms ({by})"
         log(line + f" ({N}^2 operands, panels of {PANEL_M} rows, {L_MAIN} "
-            f"moduli; {card})")
+            f"moduli; the rotation's {pclocks['kernels']}; {card})")
     for name in PIPELINE_KERNELS:
         times[name] = (float(np.median(pkerns[name])), pplain[name])
     library["matmul_rider_step"] = library["matmul_bsplit_pair"] = float(
@@ -5932,7 +5929,9 @@ def main():
                else "") + f" ({card})")
     del A64, B64
     log(f"  pipelined and column-panel calls, {PIPELINE_ROUNDS} rounds in "
-        "rotated order, 2 calls per timing:")
+        f"rotated order, 2 calls per timing ({N}^3 calls' rotation: "
+        f"{pclocks['calls']}; {N_WIDE}-column calls' rotation: "
+        f"{pclocks['wide']}):")
     for name, mss in pcalls.items():
         ms = float(np.median(mss))
         wide = name.startswith(("n_panel", str(N_WIDE)))
@@ -6001,6 +6000,9 @@ def main():
     t0 = time.perf_counter()
     phase_drivers(fast_digest, card)
     log(f"[6] the drivers on the card ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    phase_tuners()
+    log(f"[7] the tuners on the card ({time.perf_counter() - t0:.1f} s)")
     log(f"wall time of the run: {time.perf_counter() - t_start:.1f} s")
     log("seconds by phase function: " + ", ".join(
         f"{name} {sec:.1f}" for name, sec in sorted(
@@ -6163,6 +6165,68 @@ def phase_drivers(fast_digest, card):
         in zip(marks, marks[1:])))
 
 
+# Phase 7: the tuners' sections at the main path's size on a cut
+# candidate list (launch entry name -> candidates beside the table's)
+TUNER_CUT = {
+    "matmul_mod": (MatmulModLaunch(256, 3, 16), MatmulModLaunch(256, 4, 8)),
+    "matmul_mod_pipelined": (MatmulModLaunch(128, 5, 16),),
+    "fast_sft": (FastSftLaunch(16, 3),),
+    "mag7": (Mag7Launch(32, 8, 256, 64, 4, 128),),
+    "encode": (EncodeLaunch(128, 16),),
+    "fast_encode_fused": (FastEncodeFusedLaunch(32 * 1024, 8),),
+    "reconstruct": (ReconstructLaunch(32, 128, 32),)}
+TUNER_ROUNDS = 3
+
+
+def phase_tuners():
+    """Phase 7: every tuner section through its functions at N and
+    L_MAIN on TUNER_CUT, the candidates of all sections compiled at once;
+    each candidate must build, launch, give the table library's bits and
+    have 0 spill bytes, and every row, the table's too, is timed with its
+    clock."""
+    t0 = time.perf_counter()
+    for sw in tk.SWEEPS:
+        run, dropped = tk.candidates(sw, TUNER_CUT[sw.entry])
+        assert not dropped and len(run) == 1 + len(TUNER_CUT[sw.entry]), \
+            f"phase 7: {sw.entry} runs {run}, drops {dropped}"
+    pairs = [(sw.source, e) for sw in tk.SWEEPS for e in TUNER_CUT[sw.entry]]
+    got = build.build_candidates(pairs)
+    bad = {pair: lib for pair, lib in got.items()
+           if isinstance(lib, Exception)}
+    assert not bad, f"phase 7: candidates that did not build: {bad}"
+    log(f"  7: {len(pairs)} candidate libraries built in parallel in "
+        f"{time.perf_counter() - t0:.1f} s")
+    inp = tk.Inputs(N, L_MAIN)
+    rows = []
+    for section in tk.SECTIONS:
+        rows += tk.run_section(section, inp, entries=TUNER_CUT,
+                               rounds=TUNER_ROUNDS,
+                               out=lambda line: log(f"  7: {line}"))
+    del inp
+    torch.cuda.empty_cache()
+    # the table's own reconstruct.cu spills 48 bytes (its uint8-input
+    # kernels above 14 moduli): the spill rule is the candidates'
+    bad = [tk.format_row(r.label, r) for r in rows
+           if not r.ok or not r.rounds or (r.spill_bytes and not r.table)]
+    assert not bad, "phase 7: " + "; ".join(bad)
+    log(f"  7: {len(rows)} rows, every candidate built, launched, bit-equal "
+        f"to the table library and free of spills ({card_line()})")
+
+
+def tuners_main():
+    """`python3 chip_smoke.py tuners`: build the kernels and run phase 7
+    alone (no result line)."""
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: torch.cuda.is_available() is false")
+    t_start = time.perf_counter()
+    log(card_line())
+    t0 = time.perf_counter()
+    build.lib()
+    log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    phase_tuners()
+    log(f"wall time of the run: {time.perf_counter() - t_start:.1f} s")
+
+
 def drivers_main():
     """`python3 chip_smoke.py drivers`: build the kernels and run phase 6
     alone, on phase 4's fast call at N^3 (no result line)."""
@@ -6246,5 +6310,7 @@ if __name__ == "__main__":
         sharded_main()
     elif sys.argv[1:] == ["drivers"]:
         drivers_main()
+    elif sys.argv[1:] == ["tuners"]:
+        tuners_main()
     else:
         main()

@@ -73,6 +73,21 @@ class ClockSampler:
         return float(np.mean(self.power))
 
 
+def card_line() -> str:
+    """The card's name and power limit as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` gives them (the
+    first card's line)."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout
+    except (OSError, subprocess.SubprocessError) as exc:
+        raise RuntimeError(f"cannot read the card's name and power limit "
+                           f"from nvidia-smi: {exc}") from exc
+    return out.strip().splitlines()[0].strip()
+
+
 def _sample(line: str):
     """(MHz, W) of one line of nvidia-smi's output, or None for a partial
     or [N/A] sample."""

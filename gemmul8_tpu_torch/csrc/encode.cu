@@ -28,12 +28,24 @@
 #include "common.cuh"
 #include "encode_mma.cuh"
 
+#if !defined(GM8_ENC_THREADS) || !defined(GM8_ENC_BLOCKS_PER_SM)
+#error "encode.cu takes its launch from hopper/launch.py (nvcc -D)"
+#endif
+
 namespace {
 
 using gm8::EncMmaTable;
 using gm8::kEncTile;
-constexpr int kThreads = 256;
+// a block's threads and the grid's blocks an SM (the grid-stride walk's
+// cap), from the launch table (hopper/launch.py `EncodeLaunch`)
+constexpr int kThreads = GM8_ENC_THREADS;
+constexpr int kBlocksPerSm = GM8_ENC_BLOCKS_PER_SM;
 constexpr int kWarps = kThreads / 32;
+static_assert(kThreads % 32 == 0 && kThreads >= 32 && kThreads <= 1024,
+              "whole warps, at most 1024 threads a block");
+static_assert(kBlocksPerSm >= 1, "a block an SM or more");
+static_assert(kWarps * kEncTile * 16 + sizeof(EncMmaTable) <= 49152,
+              "over the static shared memory of a block");
 
 // kMT slot tiles of 16 (1: up to 16 moduli, 2: up to 32)
 template <typename Word, int kMT>
@@ -128,7 +140,8 @@ void launch(const void* x, const int* sp, signed char* op, int d0, int d1,
   const long long tiles =
       static_cast<long long>(d0) * ((c1 - c0 + kEncTile - 1) / kEncTile);
   const long long want = (tiles + kWarps - 1) / kWarps;
-  const int blocks = static_cast<int>(want < 8LL * sms ? want : 8LL * sms);
+  const long long cap = static_cast<long long>(kBlocksPerSm) * sms;
+  const int blocks = static_cast<int>(want < cap ? want : cap);
   auto xp = static_cast<const Word*>(x);
   if (L <= 16)
     encode_kernel<Word, 1><<<blocks, kThreads, 0, s>>>(

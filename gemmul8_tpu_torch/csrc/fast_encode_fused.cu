@@ -47,6 +47,10 @@
 #include "encode_mma.cuh"
 #include "fast_stats.cuh"
 
+#if !defined(GM8_FUSED_STAGE_BYTES) || !defined(GM8_FUSED_COL_LOAD_BYTES)
+#error "fast_encode_fused.cu takes its launch from hopper/launch.py (nvcc -D)"
+#endif
+
 namespace {
 
 using gm8::EncMmaTable;
@@ -58,14 +62,26 @@ using gm8::kRowThreads;
 constexpr int kRowWarps = kRowThreads / 32;
 constexpr int kColThreads = kColX * kColY;
 constexpr int kColWarps = kColThreads / 32;
-// a row's words kept in shared memory: 8192 f64 or 16384 f32 elements, a
-// multiple of the block's 512-element encode step
-constexpr int kStageBytes = 64 * 1024;
 constexpr int kRowStep = kRowWarps * kEncTile;  // a step of the row's encode
-// a column thread's loads in flight in the statistics: 8 bytes, the most
-// that leaves every form free of spills beside the encode's registers
-// (16 spilled in the f64 one-slot-tile form, 32 in the f32 one)
-constexpr int kColLoadBytes = 8;
+// From the launch table (hopper/launch.py `FastEncodeFusedLaunch`): a
+// row's words kept in shared memory (64 KB: 8192 f64 or 16384 f32
+// elements), a multiple of the block's 512-element encode step in f64
+// words; and a column thread's loads in flight in the statistics (8 bytes:
+// the most that leaves every form free of spills beside the encode's
+// registers; 16 spilled in the f64 one-slot-tile form, 32 in the f32 one).
+constexpr int kStageBytes = GM8_FUSED_STAGE_BYTES;
+constexpr int kColLoadBytes = GM8_FUSED_COL_LOAD_BYTES;
+constexpr int kStepBytes = kRowStep * 8;  // an encode step of f64 words
+static_assert(kStageBytes > 0 &&
+                  kStageBytes / kStepBytes * kStepBytes == kStageBytes,
+              "whole encode steps of f64 words staged");
+static_assert(kColLoadBytes >= 8 && kColLoadBytes / 8 * 8 == kColLoadBytes,
+              "a column thread loads whole f64 words (and f32 pairs)");
+static_assert(kStageBytes + 16 + kRowWarps * kEncTile * 16 +
+                      sizeof(EncMmaTable) + 2 * 4 * (kRowThreads / 32) <=
+                  232448,
+              "the row kernel: over the shared memory a block may opt into "
+              "on sm_90");
 
 // every thread of every block of the grid, all of whose blocks are
 // resident (a cooperative launch); count: zero before the launch. The

@@ -39,6 +39,10 @@
 #include "common.cuh"
 #include "fast_stats.cuh"
 
+#if !defined(GM8_SFT_COL_LOAD_BYTES) || !defined(GM8_SFT_COL_BLOCKS_PER_SM)
+#error "fast_sft.cu takes its launch from hopper/launch.py (nvcc -D)"
+#endif
+
 namespace {
 
 namespace cg = cooperative_groups;
@@ -49,11 +53,17 @@ using gm8::kRowThreads;
 
 constexpr int kMaxCluster = 8;  // the portable cluster size
 // a column thread's loads in flight (and as many in hand), and the column
-// kernel's blocks an SM that its registers must allow: the fastest of
-// 16-128 bytes and 2-4 blocks in both words on an H100 80GB HBM3 at its
-// 700 W limit
-constexpr int kColLoadBytes = 32;
-constexpr int kColBlocksPerSm = 3;
+// kernel's blocks an SM that its registers must allow, from the launch
+// table (hopper/launch.py `FastSftLaunch`). The row kernel's threads and
+// the column kernel's 32 x 16 threads stay fixed: they set the order of
+// the f32 norm's sums (fast_stats.cuh), which the shift's bits follow.
+constexpr int kColLoadBytes = GM8_SFT_COL_LOAD_BYTES;
+constexpr int kColBlocksPerSm = GM8_SFT_COL_BLOCKS_PER_SM;
+static_assert(kColLoadBytes >= 8 && kColLoadBytes % 8 == 0,
+              "a column thread loads whole f64 words (and f32 pairs)");
+static_assert(kColBlocksPerSm >= 1 &&
+                  kColBlocksPerSm * kColX * kColY <= 2048,
+              "over the 2048 threads an SM holds");
 
 // outputs of the stats mode: per row or column the max biased exponent,
 // the f32 squared norm relative to it and the any-nonzero flag

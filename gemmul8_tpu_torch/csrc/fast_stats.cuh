@@ -42,7 +42,13 @@
 namespace gm8 {
 namespace {
 
-constexpr int kChunk = 2048;  // tables.STATS_CHUNK: part of the bit contract
+// The chunk, the row block's threads (8 elements a thread, then a warp
+// shuffle tree and the 8 warps in order) and a column's 16 runs of 128
+// rows set the order of the f32 norm's sums, which the shift's bits
+// follow: they are part of the bit contract, not launch entries
+// (core/encode.py fast_stats_running(run=128, ways=16) is the columns'
+// plain twin).
+constexpr int kChunk = 2048;  // tables.STATS_CHUNK
 constexpr int kRowThreads = 256;
 constexpr int kColX = 32;
 constexpr int kColY = 16;

@@ -22,11 +22,11 @@
 // (rows, ld) with ld = k rounded up to 16 and zero padding, which is the
 // layout the magnitude GEMM (magmax.cu) reads without a transpose: for A
 // that is its own layout (a thread turns 4 elements into one 4-byte word);
-// for B (k, n) a block transposes a 64 x 64 tile through shared memory, so
-// both the 8-byte reads (along n) and the 4-byte writes (along k)
-// coalesce. The magnitude is computed on the 53-bit (f32: 24-bit)
-// significand in one 64-bit word, so no shift reaches the width of its
-// operand. The source word is a template parameter (src_word.cuh): the
+// for B (k, n) a block transposes a 32 x 32 tile (the launch entry's)
+// through shared memory, so both the 8-byte reads (along n) and the 4-byte
+// writes (along k) coalesce. The magnitude is computed on the 53-bit (f32:
+// 24-bit) significand in one 64-bit word, so no shift reaches the width of
+// its operand. The source word is a template parameter (src_word.cuh): the
 // f32 forms read 4-byte words with the same blocks and tiles.
 //
 // gm8_mag7_fused computes both in one kernel and writes the same buffer.
@@ -50,13 +50,32 @@
 #include "common.cuh"
 #include "src_word.cuh"
 
+#if !defined(GM8_MAG_COL_STRIP) || !defined(GM8_MAG_COL_THREADS) || \
+    !defined(GM8_MAG_COL_ROWS) || !defined(GM8_MAG_TILE) ||            \
+    !defined(GM8_MAG_FUSED_STEPS) || !defined(GM8_MAG_FUSED_K)
+#error "mag7.cu takes its launch from hopper/launch.py (nvcc -D)"
+#endif
+
 namespace {
 
+// The blocking below comes from the launch table (hopper/launch.py
+// `Mag7Launch`); the max is order-independent and the magnitudes are
+// elementwise, so none of it moves a bit.
 constexpr int kThreads = 256;
-constexpr int kColX = 32;      // emax over columns: columns per block
-constexpr int kColY = 8;       // ... threads per column
-constexpr int kColRows = 256;  // ... rows of the contraction axis per block
-constexpr int kT = 64;         // mag7 over columns: 64 x 64 tile
+// the column kernels' strip: emax's columns per block, and mag7_fused's
+constexpr int kColX = GM8_MAG_COL_STRIP;
+constexpr int kColY = GM8_MAG_COL_THREADS;  // emax over columns: threads
+                                            // per column
+constexpr int kColRows = GM8_MAG_COL_ROWS;  // ... rows of the contraction
+                                            // axis per block
+constexpr int kT = GM8_MAG_TILE;  // mag7 over columns: kT x kT tile
+static_assert(kColX * kColY <= 1024 && kColY >= 1 && kColRows >= 1,
+              "emax's column blocks: at most 1024 threads");
+static_assert((kT & (kT - 1)) == 0 && kT <= kThreads &&
+                  kT * kT / 4 % kThreads == 0,
+              "mag7's tile: a power of two whose words the block divides");
+static_assert(kT * (kT + 4) <= 49152,
+              "mag7's tile: over the static shared memory of a block");
 
 // biased exponent of a nonzero element (1 for subnormals); 0 for +-0
 template <typename Word>
@@ -141,7 +160,7 @@ mag7_rows(const Word* __restrict__ x, const int* __restrict__ emax,
   }
 }
 
-// B (kdim, cols) -> (cols, ld) magnitudes, K-major, through a 64 x 64 tile
+// B (kdim, cols) -> (cols, ld) magnitudes, K-major, through a kT x kT tile
 template <typename Word>
 __global__ void __launch_bounds__(kThreads)
 mag7_cols(const Word* __restrict__ x, const int* __restrict__ emax,
@@ -219,7 +238,9 @@ __device__ __forceinline__ void load16(const Word* __restrict__ p, int k,
   }
 }
 
-constexpr int kFusedU = 4;  // rows: a warp's steps whose loads go out together
+constexpr int kFusedU = GM8_MAG_FUSED_STEPS;  // rows: a warp's steps whose
+                                             // loads go out together
+static_assert(kFusedU >= 1, "a step or more in flight");
 
 // A (rows, kdim) -> emax and the (rows, ld) magnitudes, the row read once.
 // A warp's step is kStep elements, one 16-byte load a lane; warp w takes
@@ -287,10 +308,26 @@ mag7_fused_rows(const Word* __restrict__ x, int* __restrict__ emax,
   }
 }
 
-constexpr int kFusedK = 128;  // columns: k per tile
+constexpr int kFusedK = GM8_MAG_FUSED_K;  // columns: k per tile
+constexpr int kFusedPieces = kFusedK / 16;  // a column's 16-byte pieces a
+                                            // tile, one a thread
+__host__ __device__ constexpr int log2_exact(int v) {
+  return v == 1 ? 0 : 1 + log2_exact(v / 2);
+}
+constexpr int kPieceShift = log2_exact(kFusedPieces);
 // the longest line the fused kernels take (tables.MAX_K): its bytes and
 // records fit a block's shared memory
 constexpr int kMaxLd = 1 << 17;
+static_assert(kColX * kFusedK / 16 == kThreads, "one piece a thread");
+static_assert(kFusedK % 16 == 0 && (kFusedPieces & (kFusedPieces - 1)) == 0,
+              "a tile's column is a power of two of 16-byte pieces");
+static_assert(kColX % 4 == 0 && kColX <= 64 && (kColX & (kColX - 1)) == 0,
+              "a strip row is a power of two of lanes, 16 bytes a lane");
+static_assert(kMaxLd / kFusedK * kColX * 2 + (kThreads / 32 + 1) * kColX * 4 +
+                      kColX * (kFusedK + 4) <=
+                  232448,
+              "mag7_fused's columns: over the shared memory a block may opt "
+              "into on sm_90");
 
 // B (kdim, cols) -> emax and the (cols, ld) magnitudes, K-major, B read
 // once. A block walks a kColX-column strip in tiles of kFusedK rows (16-byte
@@ -311,8 +348,9 @@ mag7_fused_cols(const Word* __restrict__ x, int* __restrict__ emax,
   constexpr int kRowsPass = kThreads / kLanes;  // rows a pass of the block
   constexpr int kPass = kFusedK / kRowsPass;    // passes a tile
   constexpr int kWarps = kThreads / 32;
-  constexpr int kRowBytes = kFusedK + 4;  // a transpose row: 33 words
-  static_assert(kColX * kFusedK / 16 == kThreads, "one piece a thread");
+  constexpr int kRowBytes = kFusedK + 4;  // a transpose row: 33 words at
+                                          // k 128
+  static_assert(kFusedK % kRowsPass == 0, "whole passes a tile");
   extern __shared__ __align__(16) unsigned char dyn[];
   unsigned short* const e_rec = reinterpret_cast<unsigned short*>(dyn);
   __shared__ int red[kWarps][kColX];
@@ -386,7 +424,7 @@ mag7_fused_cols(const Word* __restrict__ x, int* __restrict__ emax,
                                                  mag_shift));
     __syncthreads();  // sm
     {
-      const int c = tid >> 3, j = tid & 7;
+      const int c = tid >> kPieceShift, j = tid & (kFusedPieces - 1);
       const int n = n0 + c, k = k0 + 16 * j;
       if (n < cols && k < ld) {
         const unsigned* row = sm + c * (kRowBytes / 4) + 4 * j;

@@ -34,15 +34,29 @@
 #include "crt_tail.cuh"
 #include "moduli.cuh"
 
+#if !defined(GM8_REC_THREADS) || !defined(GM8_REC_CHUNK) || \
+    !defined(GM8_REC_BLOCKS_PER_SM)
+#error "reconstruct.cu takes its launch from hopper/launch.py (nvcc -D)"
+#endif
+
 namespace {
 
 using gm8::CrtMmaTable;
 using gm8::CrtTable;
 using gm8::kCrtTiles;
-constexpr int kThreads = 128;
+// a block's threads, the elements a warp takes at a time and the grid's
+// blocks an SM (the grid-stride walk's cap), from the launch table
+// (hopper/launch.py `ReconstructLaunch`)
+constexpr int kThreads = GM8_REC_THREADS;
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 128;           // elements a warp takes at a time
+constexpr int kChunk = GM8_REC_CHUNK;
+constexpr int kBlocksPerSm = GM8_REC_BLOCKS_PER_SM;
 constexpr int kZStride = kChunk + 4;  // ints a limb row: conflict-free
+static_assert(kChunk == 128, "a warp's mma fragments hold 8 row groups of "
+              "16 elements: 128 elements a chunk");
+static_assert(kThreads % 32 == 0 && kThreads >= 32 && kThreads <= 1024,
+              "whole warps, at most 1024 threads a block");
+static_assert(kBlocksPerSm >= 1, "a block an SM or more");
 
 __constant__ CrtTable c_crt[gm8::kMaxModuli + 1];  // indexed by num_moduli
 
@@ -54,6 +68,8 @@ struct alignas(16) Consts {
   CrtMmaTable mma;          // the digit table of L
   gm8::SlotDivisors div;    // kProducts: the divisors of moduli 0..L-1
 };
+static_assert(kWarps * 12 * kZStride * sizeof(int) + sizeof(Consts) <= 49152,
+              "over the static shared memory of a block");
 
 // the centred residue bytes r_j - 128 of elements e0..e0+15 of modulus j,
 // four to a word (0 past L and past mn); vec: 16-byte loads
@@ -234,7 +250,8 @@ void launch_kind(const void* r, int planes, const int* a, const int* b,
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const size_t chunks = (static_cast<size_t>(m) * n + kChunk - 1) / kChunk;
   const size_t want = (chunks + kWarps - 1) / kWarps;
-  const int blocks = static_cast<int>(want < 16u * sms ? want : 16u * sms);
+  const size_t cap = static_cast<size_t>(kBlocksPerSm) * sms;
+  const int blocks = static_cast<int>(want < cap ? want : cap);
   reconstruct_kernel<kKind, Out, kW><<<blocks, kThreads, 0, s>>>(
       r, a, b, static_cast<Out*>(out), L, planes, m, n, e_extra, P);
 }

@@ -10,18 +10,24 @@ interface:
 
 `-fmad=false` keeps every f32 multiply and add a separate rounding, as in
 the plain versions (the Barrett and quotient-estimate budgets assume it).
-A source may take flags of its own (`SOURCE_FLAGS`): the eight sources on
-the wgmma tile (matmul_mod.cu, matmul_rider.cu, matmul_mod_pipelined.cu,
+A source may take flags of its own (`SOURCE_FLAGS`): the thirteen sources
+with a launch entry (`LAUNCH_SOURCES`: the eight on the wgmma tile,
+matmul_mod.cu, matmul_rider.cu, matmul_mod_pipelined.cu,
 matmul_complex.cu, matmul_reconstruct.cu, matmul_crt.cu, magmax.cu, and
-probe_deaddep.cu on matmul_mod's entry) get the launch table's
+probe_deaddep.cu on matmul_mod's entry; and fast_sft.cu, encode.cu,
+reconstruct.cu, mag7.cu, fast_encode_fused.cu) get the launch table's
 constants of their entry (`-DGM8_MM_TILE_N=256 ...`, hopper/launch.py)
-and `-Xptxas -v`, whose report is kept in `PTXAS_REPORT` (as are those
-of encode.cu, reconstruct.cu, fast_sft.cu, fast_encode_fused.cu and
-mag7.cu). The library
+and `-Xptxas -v`, whose report is kept in `PTXAS_REPORT`. The library
 lands in `build/kernels/` under the checkout, named by a hash of the
 sources and flags, so an edited source or launch entry never loads a
 stale build; the ptxas report is saved beside it and read back with it.
 Nothing runs at import: the first kernel launch builds and loads.
+
+`lib()` is the one library the main path loads. A tuner builds one more
+library per candidate entry (`candidate`, `build_candidates`: one
+source, its defines, the same nvcc flags, compiled in parallel), which
+binds only that source's entry points; a wrapper given `launch=` runs
+its kernel from there (`lib_for`).
 
 The C entry points act on the current CUDA device: a wrapper calls them
 inside `torch.cuda.device(x.device)`, which restores the caller's device.
@@ -75,14 +81,21 @@ WGMMA_SOURCES = {"matmul_mod.cu": "matmul_mod",
                  "matmul_crt.cu": "matmul_crt",
                  "magmax.cu": "magmax",
                  "probe_deaddep.cu": "matmul_mod"}
-SOURCE_FLAGS = {
-    **{src: ("-Xptxas", "-v", *launch.get(entry, ARCH_CAPABILITY).defines())
-       for src, entry in WGMMA_SOURCES.items()},
-    "encode.cu": ("-Xptxas", "-v"),
-    "reconstruct.cu": ("-Xptxas", "-v"),
-    "fast_sft.cu": ("-Xptxas", "-v"),
-    "fast_encode_fused.cu": ("-Xptxas", "-v"),
-    "mag7.cu": ("-Xptxas", "-v")}
+LAUNCH_SOURCES = {**WGMMA_SOURCES,
+                  "fast_sft.cu": "fast_sft",
+                  "encode.cu": "encode",
+                  "reconstruct.cu": "reconstruct",
+                  "mag7.cu": "mag7",
+                  "fast_encode_fused.cu": "fast_encode_fused"}
+
+
+def launch_flags(entry) -> tuple:
+    """The flags of a source built under launch entry `entry`."""
+    return ("-Xptxas", "-v", *entry.defines())
+
+
+SOURCE_FLAGS = {src: launch_flags(launch.get(entry, ARCH_CAPABILITY))
+                for src, entry in LAUNCH_SOURCES.items()}
 PTXAS_REPORT: dict = {}
 
 _P = ctypes.c_void_p
@@ -155,10 +168,17 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
+_candidates: dict = {}   # (source, entry) -> Candidate
 
 
 def sources() -> list[Path]:
     return sorted(list(CSRC.glob("*.cu")) + list(CSRC.glob("*.cuh")))
+
+
+def exports(src: str) -> list:
+    """The C entry points that source `src` defines (`GM8_EXPORT`)."""
+    return re.findall(r"GM8_EXPORT\s+int\s+(gm8_\w+)\s*\(",
+                      (CSRC / src).read_text())
 
 
 def _nvcc() -> str:
@@ -169,14 +189,23 @@ def _nvcc() -> str:
     return nvcc
 
 
-def _library(srcs: list) -> Path:
-    """Where the library of srcs under the current flags lands."""
+def _library(srcs: list, flags: dict | None = None,
+             stem: str = "gemmul8_kernels") -> Path:
+    """Where the library of srcs under `flags` (source name -> its own
+    flags; the current SOURCE_FLAGS by default) lands."""
+    flags = SOURCE_FLAGS if flags is None else flags
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in srcs:
         h.update(s.name.encode())
-        h.update(" ".join(SOURCE_FLAGS.get(s.name, ())).encode())
+        h.update(" ".join(flags.get(s.name, ())).encode())
         h.update(s.read_bytes())
-    return BUILD_DIR / f"libgemmul8_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
+
+
+def compile_command(nvcc: str, src: Path, obj: str, flags: tuple) -> list:
+    """The nvcc command that compiles one source into an object."""
+    return [nvcc, *NVCC_FLAGS, *flags, "-I", str(CSRC), "-c", str(src),
+            "-o", obj]
 
 
 def _build() -> Path:
@@ -192,8 +221,8 @@ def _build() -> Path:
         objs, procs = [], []
         for src in (s for s in srcs if s.suffix == ".cu"):
             obj = os.path.join(tmpdir, src.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src.name, ()), "-I",
-                   str(CSRC), "-c", str(src), "-o", obj]
+            cmd = compile_command(nvcc, src, obj,
+                                  SOURCE_FLAGS.get(src.name, ()))
             objs.append(obj)
             procs.append((src.name, cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -223,12 +252,18 @@ def _build() -> Path:
     return out
 
 
-def spill_bytes(src: str) -> list:
+def spill_bytes(src: str, report: str | None = None) -> list:
     """The spill store and spill load byte counts of every function of
-    source `src` in its ptxas report (`-Xptxas -v`), in the report's
-    order; KeyError when the source has no report."""
-    return [int(x) for x in re.findall(r"(\d+) bytes spill",
-                                       PTXAS_REPORT[src])]
+    source `src` in its ptxas report (`-Xptxas -v`; the table library's,
+    or `report`), in the report's order; KeyError when the source has no
+    report."""
+    text = PTXAS_REPORT[src] if report is None else report
+    return [int(x) for x in re.findall(r"(\d+) bytes spill", text)]
+
+
+def registers(report: str) -> list:
+    """The registers of every function in a ptxas report, in its order."""
+    return [int(x) for x in re.findall(r"Used (\d+) registers", report)]
 
 
 def _wait(cmd: list, proc: subprocess.Popen) -> tuple:
@@ -253,13 +288,150 @@ def lib() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(str(_build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(handle, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = handle
+            _lib = _bind(ctypes.CDLL(str(_build())), _SIGNATURES)
         return _lib
+
+
+class Candidate:
+    """The library of one source built under a candidate launch entry:
+    its path, its ptxas report and the loaded handle, which binds only
+    the source's entry points."""
+
+    def __init__(self, src: str, entry, path: Path, ptxas: str):
+        self.src, self.entry, self.path, self.ptxas = src, entry, path, ptxas
+        self.lib = _bind(ctypes.CDLL(str(path)), exports(src))
+
+
+def _bind(handle: ctypes.CDLL, names) -> ctypes.CDLL:
+    for name in names:
+        fn = getattr(handle, name)
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    return handle
+
+
+def _check_candidate(src: str, entry) -> None:
+    name = LAUNCH_SOURCES.get(src)
+    if name is None:
+        raise KeyError(f"{src} has no launch entry")
+    table = launch.get(name, ARCH_CAPABILITY)
+    if type(entry) is not type(table):
+        raise TypeError(f"{src} takes a {type(table).__name__}, not "
+                        f"{entry!r}")
+
+
+def candidate_library(src: str, entry) -> Path:
+    """Where source `src`'s library under launch entry `entry` lands: a
+    name hashed from the headers, the source and its flags, beside the
+    table library in BUILD_DIR."""
+    srcs = [s for s in sources() if s.suffix == ".cuh" or s.name == src]
+    return _library(srcs, {src: launch_flags(entry)},
+                    stem=f"gemmul8_{Path(src).stem}")
+
+
+def candidate_command(nvcc: str, src: str, entry, obj: str) -> list:
+    """The nvcc command of source `src`'s candidate under `entry`: that
+    source alone, the table library's flags and the entry's defines."""
+    return compile_command(nvcc, CSRC / src, obj, launch_flags(entry))
+
+
+def build_candidates(pairs) -> dict:
+    """Build the library of each (source, entry) in pairs (cached ones are
+    loaded, the rest compiled in parallel and linked), each from that
+    source alone with `launch_flags(entry)` and the table library's nvcc
+    flags. Returns (source, entry) -> `Candidate`, or the RuntimeError of
+    one that failed to compile, link or load (its first line says what),
+    so a sweep goes on past it."""
+    pairs = list(dict.fromkeys(pairs))
+    for src, entry in pairs:
+        _check_candidate(src, entry)
+    out = {}
+    with _lock:
+        todo = []
+        for pair in pairs:
+            if pair in _candidates:
+                out[pair] = _candidates[pair]
+                continue
+            path = candidate_library(*pair)
+            report = path.with_suffix(".ptxas.json")
+            if path.exists() and report.exists():
+                out[pair] = _load_candidate(pair, path,
+                                            json.loads(report.read_text()))
+            else:
+                todo.append((pair, path))
+        if todo:
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            nvcc = _nvcc()
+            with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+                out.update(_compile_candidates(nvcc, todo, tmpdir))
+    return {pair: out[pair] for pair in pairs}
+
+
+def _load_candidate(pair, path: Path, ptxas: str):
+    try:
+        cand = Candidate(*pair, path, ptxas)
+    except OSError as exc:
+        return RuntimeError(f"loading {path.name} failed: {exc}")
+    _candidates[pair] = cand
+    return cand
+
+
+def _compile_candidates(nvcc: str, todo: list, tmpdir: str) -> dict:
+    """Compile every (pair, path) of todo at once, then link each that
+    compiled; (pair -> Candidate or RuntimeError)."""
+    out, procs = {}, []
+    for i, ((src, entry), path) in enumerate(todo):
+        obj = os.path.join(tmpdir, f"{i}.o")
+        cmd = candidate_command(nvcc, src, entry, obj)
+        procs.append(((src, entry), path, obj, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    links = []
+    for pair, path, obj, cmd, proc in procs:
+        error, ptxas = _wait(cmd, proc)
+        if error:
+            out[pair] = _candidate_error(error)
+            continue
+        lib_tmp = os.path.join(tmpdir, path.name)
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", lib_tmp, obj]
+        links.append((pair, path, lib_tmp, ptxas, link, subprocess.Popen(
+            link, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)))
+    for pair, path, lib_tmp, ptxas, link, proc in links:
+        error, _ = _wait(link, proc)
+        if error:
+            out[pair] = _candidate_error(error)
+            continue
+        report = path.with_suffix(".ptxas.json")
+        report_tmp = lib_tmp + ".ptxas.json"
+        Path(report_tmp).write_text(json.dumps(ptxas))
+        os.replace(report_tmp, report)
+        os.replace(lib_tmp, path)
+        out[pair] = _load_candidate(pair, path, ptxas)
+    return out
+
+
+def _candidate_error(error: str) -> RuntimeError:
+    """nvcc's failure with its first error line first."""
+    lines = [line.strip() for line in error.splitlines()]
+    first = next((line for line in lines if "error" in line.lower()),
+                 lines[0])
+    return RuntimeError(f"{first}\n{error}")
+
+
+def candidate(src: str, entry) -> Candidate:
+    """The library of source `src` under launch entry `entry`, built
+    first if needed; raises RuntimeError if it does not build."""
+    got = build_candidates([(src, entry)])[(src, entry)]
+    if isinstance(got, Exception):
+        raise got
+    return got
+
+
+def lib_for(src: str, entry=None) -> ctypes.CDLL:
+    """The library a wrapper launches source `src`'s kernel from: the
+    table library for entry None, else the candidate library of
+    `entry`."""
+    return lib() if entry is None else candidate(src, entry).lib
 
 
 def form(name: str, *f32: bool) -> str:

@@ -43,6 +43,13 @@ dtype's form of its kernel; `reconstruct` writes float64 or float32
 `mag7_operand` reads GEMMUL8_FUSED_MAG7 at call time, as the JAX package's
 `mag7_operand_pallas` does: "1" takes mag7_fused, anything else the emax +
 mag7 pair.
+
+The kernel wrappers take `launch=`, the counterpart of the JAX functions'
+`block=`: None runs the kernel of the launch table's entry (the library
+`build.lib()` loads), an entry of the source's type (hopper/launch.py)
+runs the kernel built under it (`build.candidate`), counted under the
+same `LAUNCHES` key. Launch entries are the card's: a CPU tensor given
+one raises ValueError, and the plain version never takes one.
 """
 
 from __future__ import annotations
@@ -68,8 +75,16 @@ fast_encode_fused_plain = enc.fast_encode_fused
 reconstruct_plain = rec.reconstruct_mxu
 
 
-def _on_cpu(x: torch.Tensor) -> bool:
+def _on_cpu(x: torch.Tensor, launch=None) -> bool:
+    """Whether x lies on the CPU (its wrapper takes the plain version);
+    raises ValueError for a CPU tensor given a launch entry, and for a
+    device that is neither the CPU nor a CUDA card."""
     if x.device.type == "cpu":
+        if launch is not None:
+            raise ValueError(
+                f"launch={launch!r} is a launch entry of the card's "
+                "kernels: a CPU tensor takes the plain version, which has "
+                "no launch shape")
         return True
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
@@ -89,18 +104,19 @@ def _rows_kdim(x: torch.Tensor, axis: int):
     return (d0, d1) if axis == 1 else (d1, d0)
 
 
-def fast_sft(x: torch.Tensor, num_moduli: int, axis: int) -> torch.Tensor:
+def fast_sft(x: torch.Tensor, num_moduli: int, axis: int,
+             launch=None) -> torch.Tensor:
     """Fast-mode shifts of a float64 or float32 operand: (m, 1) int32 for
     axis=1, (1, n) for axis=0."""
     f32 = _is_f32(x)
     rows, kdim = _rows_kdim(x, axis)
-    if _on_cpu(x):
+    if _on_cpu(x, launch):
         return fast_sft_plain(x, num_moduli, axis)
     build.require_cuda(x)
     out = torch.empty((rows, 1) if axis == 1 else (1, rows),
                       dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
-        code = build.lib().gm8_fast_sft(
+        code = build.lib_for("fast_sft.cu", launch).gm8_fast_sft(
             x.data_ptr(), out.data_ptr(), rows, kdim, axis,
             tables.threshold_fast(num_moduli), enc._norm_guard(kdim),
             int(f32), build.stream_ptr(x.device))
@@ -109,14 +125,14 @@ def fast_sft(x: torch.Tensor, num_moduli: int, axis: int) -> torch.Tensor:
     return out
 
 
-def fast_stats(x: torch.Tensor, axis: int):
+def fast_stats(x: torch.Tensor, axis: int, launch=None):
     """Fast-mode statistics (emax int64, nrm2 f32, anyfinite bool) of a
     float64 or float32 operand, each (m, 1) for axis=1 or (1, n) for
     axis=0: what fast_sft takes its shift from, for the complex path to
     merge over Re and Im (the shift's bias is the operand's)."""
     f32 = _is_f32(x)
     rows, kdim = _rows_kdim(x, axis)
-    if _on_cpu(x):
+    if _on_cpu(x, launch):
         return fast_stats_plain(x, axis)
     build.require_cuda(x)
     shape = (rows, 1) if axis == 1 else (1, rows)
@@ -124,7 +140,7 @@ def fast_stats(x: torch.Tensor, axis: int):
            torch.empty(shape, dtype=torch.float32, device=x.device),
            torch.empty(shape, dtype=torch.bool, device=x.device))
     with torch.cuda.device(x.device):
-        code = build.lib().gm8_fast_stats(
+        code = build.lib_for("fast_sft.cu", launch).gm8_fast_stats(
             x.data_ptr(), *(t.data_ptr() for t in out), rows, kdim, axis,
             int(f32), build.stream_ptr(x.device))
     build.check(code, "fast_stats")
@@ -132,22 +148,22 @@ def fast_stats(x: torch.Tensor, axis: int):
     return out
 
 
-def emax(x: torch.Tensor, axis: int) -> torch.Tensor:
+def emax(x: torch.Tensor, axis: int, launch=None) -> torch.Tensor:
     """Max biased exponent over the nonzero elements of each row (axis=1,
     (m, 1)) or column (axis=0, (1, n)) of a float64 or float32 operand,
     int32."""
     f32 = _is_f32(x)
     rows, kdim = _rows_kdim(x, axis)
-    if _on_cpu(x):
+    if _on_cpu(x, launch):
         return emax_plain(x, axis)
     build.require_cuda(x)
     # zero-filled: the column kernel folds its pieces with atomicMax
     out = torch.zeros((rows, 1) if axis == 1 else (1, rows),
                       dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
-        code = build.lib().gm8_emax(x.data_ptr(), out.data_ptr(), rows, kdim,
-                                    axis, int(f32),
-                                    build.stream_ptr(x.device))
+        code = build.lib_for("mag7.cu", launch).gm8_emax(
+            x.data_ptr(), out.data_ptr(), rows, kdim, axis, int(f32),
+            build.stream_ptr(x.device))
     build.check(code, "emax")
     build.LAUNCHES[build.form("emax", f32)] += 1
     return out
@@ -161,7 +177,7 @@ def _check_emax(x: torch.Tensor, emax: torch.Tensor, axis: int):
 
 
 def _mag7_buffer(x: torch.Tensor, emax: torch.Tensor, axis: int,
-                 mag_shift: int) -> torch.Tensor:
+                 mag_shift: int, launch=None) -> torch.Tensor:
     """The mag7 kernel's output: (rows, ld) int8, K-major for both axes,
     ld = k rounded up to 16, zeros in the padding."""
     if emax.dtype != torch.int32:
@@ -172,10 +188,9 @@ def _mag7_buffer(x: torch.Tensor, emax: torch.Tensor, axis: int,
     ld = -(-kdim // 16) * 16
     out = torch.empty((rows, ld), dtype=torch.int8, device=x.device)
     with torch.cuda.device(x.device):
-        code = build.lib().gm8_mag7(x.data_ptr(), emax.data_ptr(),
-                                    out.data_ptr(), rows, kdim, axis, ld,
-                                    mag_shift, int(f32),
-                                    build.stream_ptr(x.device))
+        code = build.lib_for("mag7.cu", launch).gm8_mag7(
+            x.data_ptr(), emax.data_ptr(), out.data_ptr(), rows, kdim, axis,
+            ld, mag_shift, int(f32), build.stream_ptr(x.device))
     build.check(code, "mag7")
     build.LAUNCHES[build.form("mag7", f32)] += 1
     return out
@@ -188,7 +203,7 @@ def _mag7_view(buf: torch.Tensor, kdim: int, axis: int) -> torch.Tensor:
 
 
 def mag7(x: torch.Tensor, emax: torch.Tensor, axis: int,
-         mag_shift: int = enc.MAG_SHIFT) -> torch.Tensor:
+         mag_shift: int = enc.MAG_SHIFT, launch=None) -> torch.Tensor:
     """Round-up magnitudes (int8 of x's shape, in [0, 2^(mag_shift + 1)])
     of a float64 or float32 operand below the row (axis=1) or column
     (axis=0) max exponents `emax`.
@@ -199,19 +214,20 @@ def mag7(x: torch.Tensor, emax: torch.Tensor, axis: int,
     without a copy; the values are those of the plain version."""
     _is_f32(x)
     _check_emax(x, emax, axis)
-    if _on_cpu(x):
+    if _on_cpu(x, launch):
         return mag7_plain(x, emax, axis, mag_shift)
-    return _mag7_view(_mag7_buffer(x, emax, axis, mag_shift), x.shape[axis],
-                      axis)
+    return _mag7_view(_mag7_buffer(x, emax, axis, mag_shift, launch),
+                      x.shape[axis], axis)
 
 
-def mag7_fused(x: torch.Tensor, axis: int, mag_shift: int = enc.MAG_SHIFT):
+def mag7_fused(x: torch.Tensor, axis: int, mag_shift: int = enc.MAG_SHIFT,
+               launch=None):
     """(magnitudes, emax) of a float64 or float32 operand in one kernel:
     the values of `emax` and `mag7`, the magnitudes in the same padded
     K-major buffer `mag7` writes on the card."""
     f32 = _is_f32(x)
     rows, kdim = _rows_kdim(x, axis)
-    if _on_cpu(x):
+    if _on_cpu(x, launch):
         return mag7_fused_plain(x, axis, mag_shift)
     build.require_cuda(x)
     ld = -(-kdim // 16) * 16
@@ -219,10 +235,9 @@ def mag7_fused(x: torch.Tensor, axis: int, mag_shift: int = enc.MAG_SHIFT):
     e = torch.empty((rows, 1) if axis == 1 else (1, rows), dtype=torch.int32,
                     device=x.device)
     with torch.cuda.device(x.device):
-        code = build.lib().gm8_mag7_fused(x.data_ptr(), e.data_ptr(),
-                                          buf.data_ptr(), rows, kdim, axis,
-                                          ld, mag_shift, int(f32),
-                                          build.stream_ptr(x.device))
+        code = build.lib_for("mag7.cu", launch).gm8_mag7_fused(
+            x.data_ptr(), e.data_ptr(), buf.data_ptr(), rows, kdim, axis, ld,
+            mag_shift, int(f32), build.stream_ptr(x.device))
     build.check(code, "mag7_fused")
     build.LAUNCHES[build.form("mag7_fused", f32)] += 1
     return _mag7_view(buf, kdim, axis), e
@@ -285,7 +300,8 @@ def encode_mma_table(moduli_idx: tuple) -> np.ndarray:
 
 
 def encode_slices(x: torch.Tensor, sft: torch.Tensor, num_moduli: int,
-                  axis: int, moduli_idx=None, col_tiles=None) -> torch.Tensor:
+                  axis: int, moduli_idx=None, col_tiles=None,
+                  launch=None) -> torch.Tensor:
     """(L', *x.shape) int8 centered residues of trunc(x * 2^sft) of a
     float64 or float32 operand: slice l for modulus moduli_idx[l], any
     tuple of distinct indices below num_moduli (default: all of them in
@@ -299,7 +315,7 @@ def encode_slices(x: torch.Tensor, sft: torch.Tensor, num_moduli: int,
     idx = enc.check_moduli_idx(moduli_idx, num_moduli)
     d0, d1 = x.shape
     c0, c1 = (0, d1) if col_tiles is None else enc.col_range(col_tiles, d1)
-    if _on_cpu(x):
+    if _on_cpu(x, launch):
         return encode_slices_plain(x, sft, num_moduli, axis, idx, col_tiles)
     if sft.dtype != torch.int32:
         raise TypeError("sft must be int32")
@@ -307,7 +323,7 @@ def encode_slices(x: torch.Tensor, sft: torch.Tensor, num_moduli: int,
     out = torch.empty((len(idx), d0, d1), dtype=torch.int8, device=x.device)
     table = encode_mma_table(idx)
     with torch.cuda.device(x.device):
-        code = build.lib().gm8_encode_slices(
+        code = build.lib_for("encode.cu", launch).gm8_encode_slices(
             x.data_ptr(), sft.data_ptr(), out.data_ptr(), d0, d1, axis,
             table.ctypes.data, len(idx),
             enc.q_max(num_moduli, enc.mant_bits_of(x)), c0, c1, int(f32),
@@ -317,13 +333,14 @@ def encode_slices(x: torch.Tensor, sft: torch.Tensor, num_moduli: int,
     return out
 
 
-def fast_encode_fused(x: torch.Tensor, num_moduli: int, axis: int):
+def fast_encode_fused(x: torch.Tensor, num_moduli: int, axis: int,
+                      launch=None):
     """(slices (L, *x.shape) int8, sft int32) of a float64 or float32
     operand in one kernel: the shifts of `fast_sft` ((m, 1) for axis=1,
     (1, n) for axis=0) and the residues of `encode_slices` with them."""
     f32 = _is_f32(x)
     rows, kdim = _rows_kdim(x, axis)
-    if _on_cpu(x):
+    if _on_cpu(x, launch):
         return fast_encode_fused_plain(x, num_moduli, axis)
     build.require_cuda(x)
     out = torch.empty((num_moduli, *x.shape), dtype=torch.int8,
@@ -335,7 +352,8 @@ def fast_encode_fused(x: torch.Tensor, num_moduli: int, axis: int):
     sync = torch.zeros(1, dtype=torch.int32, device=x.device) \
         if axis == 0 else None
     with torch.cuda.device(x.device):
-        code = build.lib().gm8_fast_encode_fused(
+        code = build.lib_for("fast_encode_fused.cu",
+                             launch).gm8_fast_encode_fused(
             x.data_ptr(), out.data_ptr(), sft.data_ptr(), rows, kdim, axis,
             table.ctypes.data, num_moduli, tables.threshold_fast(num_moduli),
             enc._norm_guard(kdim), enc.q_max(num_moduli, enc.mant_bits_of(x)),
@@ -397,18 +415,22 @@ def crt_mma_table(num_moduli: int) -> np.ndarray:
                            tail.view(np.uint8)])
 
 
+# (library, device index) pairs whose __constant__ CRT table is set: each
+# library (the table's, each candidate's) has its own constant memory
 _tables_on = set()
 
 
-def _ensure_crt_tables(device: torch.device) -> None:
-    if device.index in _tables_on:
+def _ensure_crt_tables(lib, device: torch.device) -> None:
+    """Copy the CRT constants into library `lib`'s __constant__ table on
+    `device`, once per library and device."""
+    if (lib, device.index) in _tables_on:
         return
     blob = crt_table_bytes()
     buf = np.frombuffer(blob, dtype=np.uint8)
     with torch.cuda.device(device):
-        code = build.lib().gm8_set_crt_tables(buf.ctypes.data, len(blob))
+        code = lib.gm8_set_crt_tables(buf.ctypes.data, len(blob))
     build.check(code, "set_crt_tables")
-    _tables_on.add(device.index)
+    _tables_on.add((lib, device.index))
 
 
 # the reconstruct kernel's input kinds (csrc/reconstruct.cu)
@@ -418,7 +440,8 @@ _KIND_U8, _KIND_CENTERED, _KIND_PRODUCTS, _KIND_LIMBS = range(4)
 def reconstruct(r: torch.Tensor, sft_a: torch.Tensor, sft_b: torch.Tensor,
                 num_moduli: int, out_dtype: str = "f64", e_extra: int = 0,
                 input_kind: str = "residues",
-                out: torch.Tensor | None = None) -> torch.Tensor:
+                out: torch.Tensor | None = None,
+                launch=None) -> torch.Tensor:
     """Residues and shifts (m, 1), (1, n) -> the (m, n) result. r is
     (L, m, n): int8 holding r - 128, uint8, or int32 raw slice products
     (reduced mod m_j in the kernel); or, with input_kind="limbs", the
@@ -430,12 +453,12 @@ def reconstruct(r: torch.Tensor, sft_a: torch.Tensor, sft_b: torch.Tensor,
     dtype (rows of a larger output) to write into and return, instead of a
     new one."""
     return reconstruct_launch("reconstruct", r, sft_a, sft_b, num_moduli,
-                              out_dtype, e_extra, input_kind, out)
+                              out_dtype, e_extra, input_kind, out, launch)
 
 
 def reconstruct_launch(name: str, r, sft_a, sft_b, num_moduli: int,
                        out_dtype: str = "f64", e_extra: int = 0,
-                       input_kind: str = "residues", out=None):
+                       input_kind: str = "residues", out=None, launch=None):
     """`reconstruct`, its launch counted under `name` (the panel
     pipeline's last reconstruct counts as its own kernel), or under its
     f32 form's key for f32 output."""
@@ -458,7 +481,7 @@ def reconstruct_launch(name: str, r, sft_a, sft_b, num_moduli: int,
         raise ValueError(f"out must be a contiguous ({m}, {n}) tensor on "
                          f"{r.device} in the output's dtype: float64 for f64 "
                          "output, float32 for f32")
-    if _on_cpu(r):
+    if _on_cpu(r, launch):
         c = reconstruct_plain(r, sft_a, sft_b, num_moduli, out_dtype,
                               e_extra, input_kind)
         return c if out is None else out.copy_(c)
@@ -477,11 +500,12 @@ def reconstruct_launch(name: str, r, sft_a, sft_b, num_moduli: int,
     build.require_cuda(r, sft_a, sft_b)
     if not -(1 << 20) < e_extra < (1 << 20):
         raise ValueError("e_extra out of range")
-    _ensure_crt_tables(r.device)
+    lib = build.lib_for("reconstruct.cu", launch)
+    _ensure_crt_tables(lib, r.device)
     if out is None:
         out = torch.empty((m, n), dtype=dtype, device=r.device)
     with torch.cuda.device(r.device):
-        code = build.lib().gm8_reconstruct(
+        code = lib.gm8_reconstruct(
             r.data_ptr(), kind, planes, sft_a.data_ptr(), sft_b.data_ptr(),
             out.data_ptr(), crt_mma_table(num_moduli).ctypes.data,
             num_moduli, m, n, e_extra, int(f32), build.stream_ptr(r.device))

@@ -7,10 +7,16 @@ no generic profile to fall back on, since a tile that does not fit a
 card's shared memory would not launch, and one that fits but was never
 measured there has no claim to run.
 
-Only what is pure tuning lives here. The statistics kernels' reduction
-chunk, `STATS_CHUNK` (2048 along the contraction axis), is part of the
-fast shift's bits (the block-wise online norm merge) and stays fixed on
-every card, as in the JAX package.
+Only what is pure tuning lives here: a launch shape that moves no bit.
+What sets the order of a sum stays fixed on every card, as in the JAX
+package, because the fast shift's bits follow it: the statistics
+kernels' reduction chunk, `STATS_CHUNK` (2048 along the contraction
+axis, the block-wise online norm merge); the row statistics' 256-thread
+block (8 elements a thread, a warp shuffle tree, the 8 warps in order);
+and a column's 16 runs of 128 rows (csrc/fast_stats.cuh; core/encode.py
+`fast_stats_running(run=128, ways=16)` is the columns' plain twin). A
+constant that sets such an order is part of the bit contract, not an
+entry.
 
 Entries:
     "matmul_mod"  `MatmulModLaunch` of csrc/matmul_mod.cu (the wgmma tile
@@ -39,8 +45,34 @@ Entries:
     "magmax"      `MatmulModLaunch` of csrc/magmax.cu, the cooperative tile
                   at one slice with a row and column max epilogue; the
                   scratch form's buffers follow its `tile_n`.
+    "fast_sft"    `FastSftLaunch` of csrc/fast_sft.cu (the JAX table's
+                  "stats_ax1" and "stats_ax0"): the column kernel's loads
+                  in flight and blocks an SM.
+    "encode"      `EncodeLaunch` of csrc/encode.cu ("enc_mxu"): threads a
+                  block and the grid's blocks an SM.
+    "reconstruct" `ReconstructLaunch` of csrc/reconstruct.cu ("rec_mxu"):
+                  threads a block, elements a warp takes at a time, the
+                  grid's blocks an SM.
+    "mag7"        `Mag7Launch` of csrc/mag7.cu ("mag7"): emax's and
+                  mag7_fused's column blocking, mag7's tile, mag7_fused's
+                  steps in flight and k per tile.
+    "fast_encode_fused" `FastEncodeFusedLaunch` of
+                  csrc/fast_encode_fused.cu: the row stage's bytes and the
+                  column statistics' loads in flight.
 csrc/probe_deaddep.cu is built with the "matmul_mod" entry: its GEMM is
-matmul_mod's kernel.
+matmul_mod's kernel. Every entry's constants are compile-time constants
+of its source: hopper/build.py passes `defines()` of the entry for the
+capability it builds for to nvcc (`build.SOURCE_FLAGS`), and the source
+refuses to build without them (`#error`) and checks their limits
+(`static_assert`), whose formulas `fits` and `smem_bytes` repeat, so a
+tuner drops a candidate before it compiles. A candidate entry builds into
+a library of its own (`build.candidate`); a wrapper takes it by its
+`launch=` keyword.
+
+The JAX table's names (`pallas/launch.py` `get`) map to these entries by
+`JAX_NAMES`; its "enc_vpu" and "rec_vpu" blocks have no counterpart: the
+port has one encode kernel and one reconstruct kernel, on the tensor
+cores, for every form.
 """
 
 from __future__ import annotations
@@ -65,6 +97,70 @@ class MatmulModLaunch:
         return (f"-DGM8_MM_TILE_N={self.tile_n}",
                 f"-DGM8_MM_STAGES={self.stages}",
                 f"-DGM8_MM_GROUP={self.raster_group}")
+
+
+@dataclass(frozen=True)
+class FastSftLaunch:
+    col_load_bytes: int     # a column thread's bytes of loads in flight
+    col_blocks_per_sm: int  # the column kernel's blocks an SM its
+                            # registers must allow
+
+    def defines(self) -> tuple:
+        return (f"-DGM8_SFT_COL_LOAD_BYTES={self.col_load_bytes}",
+                f"-DGM8_SFT_COL_BLOCKS_PER_SM={self.col_blocks_per_sm}")
+
+
+@dataclass(frozen=True)
+class EncodeLaunch:
+    threads: int        # threads a block
+    blocks_per_sm: int  # the grid-stride walk's cap: blocks an SM
+
+    def defines(self) -> tuple:
+        return (f"-DGM8_ENC_THREADS={self.threads}",
+                f"-DGM8_ENC_BLOCKS_PER_SM={self.blocks_per_sm}")
+
+
+@dataclass(frozen=True)
+class ReconstructLaunch:
+    threads: int        # threads a block
+    chunk: int          # elements a warp takes at a time (its limb rows'
+                        # stride is chunk + 4 ints)
+    blocks_per_sm: int  # the grid-stride walk's cap: blocks an SM
+
+    def defines(self) -> tuple:
+        return (f"-DGM8_REC_THREADS={self.threads}",
+                f"-DGM8_REC_CHUNK={self.chunk}",
+                f"-DGM8_REC_BLOCKS_PER_SM={self.blocks_per_sm}")
+
+
+@dataclass(frozen=True)
+class Mag7Launch:
+    col_strip: int    # columns a block of emax's and mag7_fused's column
+                      # kernels
+    col_threads: int  # emax over columns: threads a column
+    col_rows: int     # emax over columns: rows a block
+    tile: int         # mag7 over columns: the transpose tile's side
+    fused_steps: int  # mag7_fused's rows: a warp's steps in flight
+    fused_k: int      # mag7_fused's columns: k a tile
+
+    def defines(self) -> tuple:
+        return (f"-DGM8_MAG_COL_STRIP={self.col_strip}",
+                f"-DGM8_MAG_COL_THREADS={self.col_threads}",
+                f"-DGM8_MAG_COL_ROWS={self.col_rows}",
+                f"-DGM8_MAG_TILE={self.tile}",
+                f"-DGM8_MAG_FUSED_STEPS={self.fused_steps}",
+                f"-DGM8_MAG_FUSED_K={self.fused_k}")
+
+
+@dataclass(frozen=True)
+class FastEncodeFusedLaunch:
+    stage_bytes: int     # a row's words kept in shared memory
+    col_load_bytes: int  # a column thread's bytes of loads in flight in
+                         # the statistics
+
+    def defines(self) -> tuple:
+        return (f"-DGM8_FUSED_STAGE_BYTES={self.stage_bytes}",
+                f"-DGM8_FUSED_COL_LOAD_BYTES={self.col_load_bytes}")
 
 
 # H100 and H200 (sm_90): a 128 x 256 tile (64 x 256 s32 accumulator, 128
@@ -93,7 +189,102 @@ TABLE = {(9, 0): {"matmul_mod": MatmulModLaunch(tile_n=256, stages=4,
                   "matmul_crt": MatmulModLaunch(tile_n=256, stages=4,
                                                 raster_group=16),
                   "magmax": MatmulModLaunch(tile_n=256, stages=4,
-                                            raster_group=16)}}
+                                            raster_group=16),
+                  # the other sources: the constants they were built with
+                  # before the table held them, kept by the tuners' sweeps
+                  # on an H100 80GB HBM3 at 700 W (PERF.md) but for two:
+                  # mag7's transpose tile, 64 before (32 ran mag7 in
+                  # 0.94-0.95 of the time), and encode's grid, 8 blocks an
+                  # SM before (16 ran encode_slices in 0.98)
+                  "fast_sft": FastSftLaunch(col_load_bytes=32,
+                                            col_blocks_per_sm=3),
+                  "encode": EncodeLaunch(threads=256, blocks_per_sm=16),
+                  "reconstruct": ReconstructLaunch(threads=128, chunk=128,
+                                                   blocks_per_sm=16),
+                  "mag7": Mag7Launch(col_strip=32, col_threads=8,
+                                     col_rows=256, tile=32, fused_steps=4,
+                                     fused_k=128),
+                  "fast_encode_fused": FastEncodeFusedLaunch(
+                      stage_bytes=64 * 1024, col_load_bytes=8)}}
+
+
+# the JAX table's names -> the port's entries (None: no counterpart)
+JAX_NAMES = {"stats_ax1": "fast_sft", "stats_ax0": "fast_sft",
+             "enc_mxu": "encode", "enc_vpu": None,
+             "rec_mxu": "reconstruct", "rec_vpu": None,
+             "matmul": "matmul_mod", "magmax": "magmax", "mag7": "mag7"}
+
+SMEM_BLOCK = 232448   # shared memory a block may opt into on sm_90
+SMEM_STATIC = 49152   # a block's static shared memory
+_ENC_TABLE_BYTES = 1024     # sizeof(EncMmaTable), csrc/encode_mma.cuh
+_REC_CONSTS_BYTES = 1152    # sizeof(Consts), csrc/reconstruct.cu: the
+                            # CrtMmaTable (832) and 20 ModDivisors (320)
+_MAX_LD = 1 << 17           # mag7.cu kMaxLd
+
+
+def _pow2(v: int) -> bool:
+    return v >= 1 and v & (v - 1) == 0
+
+
+def smem_bytes(name: str, entry) -> int:
+    """The shared memory of the largest block that entry `name`'s source
+    launches under `entry`, by the formula its `static_assert` checks."""
+    if name in ("matmul_mod", "matmul_mod_pipelined"):
+        stage = (128 + entry.tile_n) * 128      # wgmma_s8.cuh stage_bytes
+        staging = 128 * entry.tile_n * (2 if name != "matmul_mod" else 1)
+        return 1024 + entry.stages * stage + staging + 16 * entry.stages
+    if name == "fast_sft":       # the column block's parts (static)
+        return 12 * 32 * (2 + 16)
+    if name == "encode":
+        return entry.threads // 32 * 64 * 16 + _ENC_TABLE_BYTES
+    if name == "reconstruct":
+        return (entry.threads // 32 * 12 * (entry.chunk + 4) * 4
+                + _REC_CONSTS_BYTES)
+    if name == "mag7":
+        cols = (_MAX_LD // entry.fused_k * entry.col_strip * 2
+                + (256 // 32 + 1) * entry.col_strip * 4
+                + entry.col_strip * (entry.fused_k + 4))
+        rows = _MAX_LD // 64 * (64 + 4)          # mag7_fused's f64 rows
+        return max(cols, rows, entry.tile * (entry.tile + 4))
+    if name == "fast_encode_fused":
+        return (entry.stage_bytes + 16 + 8 * 64 * 16 + _ENC_TABLE_BYTES
+                + 2 * 4 * 8)
+    raise KeyError(name)
+
+
+def fits(name: str, entry) -> bool:
+    """Whether entry `name`'s source builds under `entry`: its
+    `static_assert`s, shared memory within what a block may hold."""
+    e = entry
+    if name in ("matmul_mod", "matmul_mod_pipelined"):
+        ok = (e.tile_n == (256 if name == "matmul_mod" else 128)
+              and e.stages >= 2 and e.raster_group >= 1)
+    elif name == "fast_sft":
+        ok = (e.col_load_bytes >= 8 and e.col_load_bytes % 8 == 0
+              and 1 <= e.col_blocks_per_sm and e.col_blocks_per_sm * 512
+              <= 2048)
+    elif name in ("encode", "reconstruct"):
+        ok = (e.threads % 32 == 0 and 32 <= e.threads <= 1024
+              and e.blocks_per_sm >= 1
+              and (name == "encode" or e.chunk == 128)
+              and smem_bytes(name, e) <= SMEM_STATIC)
+    elif name == "mag7":
+        pieces = e.fused_k // 16
+        ok = (e.col_strip * e.col_threads <= 1024 and e.col_threads >= 1
+              and e.col_rows >= 1 and _pow2(e.tile) and e.tile <= 256
+              and e.tile * e.tile // 4 % 256 == 0
+              and e.tile * (e.tile + 4) <= SMEM_STATIC
+              and e.fused_steps >= 1
+              and e.col_strip * e.fused_k // 16 == 256
+              and e.fused_k % 16 == 0 and _pow2(pieces)
+              and e.col_strip % 4 == 0 and e.col_strip <= 64
+              and _pow2(e.col_strip))
+    elif name == "fast_encode_fused":
+        ok = (e.stage_bytes > 0 and e.stage_bytes % (512 * 8) == 0
+              and e.col_load_bytes >= 8 and e.col_load_bytes % 8 == 0)
+    else:
+        raise KeyError(name)
+    return ok and smem_bytes(name, e) <= SMEM_BLOCK
 
 
 def get(name: str, capability=None):

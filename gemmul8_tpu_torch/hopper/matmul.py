@@ -42,8 +42,15 @@ table entry for sm_90; its wrapper raises on any other card.
 
 Two dispatchers read the JAX package's switches at call time:
 `matmul_mod_u8` sends uncentered calls to `matmul_mod_u8_pipelined` under
-GEMMUL8_MM_PIPELINE=1, and `magmax_matmul` goes to `magmax_matmul_scratch`
-under GEMMUL8_MAGMAX_SCRATCH=1. Each variant gives the default's bits.
+GEMMUL8_MM_PIPELINE=1 (unless given a launch entry, which names
+matmul_mod.cu's kernel), and `magmax_matmul` goes to
+`magmax_matmul_scratch` under GEMMUL8_MAGMAX_SCRATCH=1. Each variant gives
+the default's bits.
+
+`matmul_mod_u8`, `matmul_mod_u8_pipelined` and the two magnitude GEMMs
+take `launch=` as the wrappers of hopper/kernels.py do (the JAX
+functions' `block=`): None is the table's entry, a `MatmulModLaunch` runs
+the kernel built under it; a CPU pair given one raises ValueError.
 """
 
 from __future__ import annotations
@@ -77,6 +84,19 @@ COMPLEX_IM_BIAS = -(1 << 24)
 _TILE_M = 128  # kBM of csrc/wgmma_s8.cuh: a wgmma tile's rows
 
 
+def _table_entry(name: str, device: torch.device):
+    """The launch table's entry `name` for the card of `device`; the
+    kernels are built with the sm_90 entries, so any other card raises."""
+    return launch.get(name, torch.cuda.get_device_capability(device))
+
+
+def _plain(a: torch.Tensor, b: torch.Tensor, launch=None) -> bool:
+    """Whether both operands lie on the CPU, where the plain version runs;
+    a launch entry given for them raises ValueError."""
+    return (a.device.type == "cpu" and b.device.type == "cpu"
+            and hk._on_cpu(a, launch))
+
+
 def _pad_k(a8: torch.Tensor, kp: int) -> torch.Tensor:
     """(L, m, k) int8 as the GEMM tile reads A: k zero-padded to kp (exact:
     zero terms) and a 16-byte aligned start."""
@@ -86,7 +106,8 @@ def _pad_k(a8: torch.Tensor, kp: int) -> torch.Tensor:
 
 
 def matmul_mod_u8(a8: torch.Tensor, b8: torch.Tensor, num_moduli: int,
-                  centered: bool = False, moduli_idx=None) -> torch.Tensor:
+                  centered: bool = False, moduli_idx=None,
+                  launch=None) -> torch.Tensor:
     """(L', m, k) int8 x (L', k, n) int8 -> (L', m, n) residues, slice l
     mod MODULI[moduli_idx[l]] (any tuple of distinct indices below
     num_moduli; default: all of them in order): canonical uint8, or r - 128
@@ -94,31 +115,34 @@ def matmul_mod_u8(a8: torch.Tensor, b8: torch.Tensor, num_moduli: int,
     under GEMMUL8_MM_PIPELINE=1, as the JAX package's `matmul_mod_u8`
     dispatches (its k and VMEM limits are the TPU's; the port's kernel
     takes any k <= 2^17)."""
-    if not centered and os.environ.get("GEMMUL8_MM_PIPELINE") == "1":
+    if (not centered and launch is None
+            and os.environ.get("GEMMUL8_MM_PIPELINE") == "1"):
         return matmul_mod_u8_pipelined(a8, b8, num_moduli, moduli_idx)
     idx = sg._check_matmul_args(a8, b8, num_moduli, moduli_idx)
-    if a8.device.type == "cpu" and b8.device.type == "cpu":
+    if _plain(a8, b8, launch):
         return matmul_mod_u8_plain(a8, b8, num_moduli, centered, idx)
     build.require_cuda(a8, b8)
     # the kernel is built with the table's sm_90 entry; any other card raises
-    launch.get("matmul_mod", torch.cuda.get_device_capability(a8.device))
-    return _launch_mod("matmul_mod_u8", a8, b8, idx, centered, int(centered))
+    _table_entry("matmul_mod", a8.device)
+    return _launch_mod("matmul_mod_u8", "matmul_mod.cu", launch, a8, b8, idx,
+                       centered, int(centered))
 
 
 def matmul_mod_u8_pipelined(a8: torch.Tensor, b8: torch.Tensor,
-                            num_moduli: int, moduli_idx=None) -> torch.Tensor:
+                            num_moduli: int, moduli_idx=None,
+                            launch=None) -> torch.Tensor:
     """(L', m, k) int8 x (L', k, n) int8 -> (L', m, n) canonical uint8
     residues, the bits of `matmul_mod_u8(..., centered=False)`, with each
     tile's mod run while the next tile's product is formed (the kernel's
     two consumer warpgroups take alternate tiles)."""
     idx = sg._check_matmul_args(a8, b8, num_moduli, moduli_idx)
-    if a8.device.type == "cpu" and b8.device.type == "cpu":
+    if _plain(a8, b8, launch):
         return matmul_mod_u8_pipelined_plain(a8, b8, num_moduli,
                                              moduli_idx=idx)
     build.require_cuda(a8, b8)
-    launch.get("matmul_mod_pipelined",
-               torch.cuda.get_device_capability(a8.device))
-    return _launch_mod("matmul_mod_u8_pipelined", a8, b8, idx, False)
+    _table_entry("matmul_mod_pipelined", a8.device)
+    return _launch_mod("matmul_mod_u8_pipelined", "matmul_mod_pipelined.cu",
+                       launch, a8, b8, idx, False)
 
 
 def mod_divisor(d: int, bias: int = 0) -> tuple:
@@ -192,9 +216,11 @@ def _k_workspace(a8: torch.Tensor, n: int):
             torch.empty((L, n, kp), dtype=torch.int8, device=a8.device))
 
 
-def _launch_mod(name: str, a8: torch.Tensor, b8: torch.Tensor, idx: tuple,
-                centered: bool, *flags) -> torch.Tensor:
-    """Launch gm8_<name>, a batched GEMM with the mod in its epilogue, on
+def _launch_mod(name: str, src: str, entry, a8: torch.Tensor,
+                b8: torch.Tensor, idx: tuple, centered: bool,
+                *flags) -> torch.Tensor:
+    """Launch gm8_<name> of source src (built under launch entry `entry`,
+    None for the table's), a batched GEMM with the mod in its epilogue, on
     CUDA slices of the moduli idx: B is copied into a K-major workspace by
     the kernel; flags go between kp and the stream."""
     build.require_cuda(a8, b8)
@@ -205,7 +231,7 @@ def _launch_mod(name: str, a8: torch.Tensor, b8: torch.Tensor, idx: tuple,
                       device=a8.device)
     idx_host = hk.host_idx(idx)
     with torch.cuda.device(a8.device):
-        code = getattr(build.lib(), f"gm8_{name}")(
+        code = getattr(build.lib_for(src, entry), f"gm8_{name}")(
             a8.data_ptr(), b8.data_ptr(), bt.data_ptr(), out.data_ptr(),
             idx_host.ctypes.data, L, m, n, k, kp, *flags,
             build.stream_ptr(a8.device))
@@ -236,7 +262,8 @@ def matmul_crt(a8: torch.Tensor, b8: torch.Tensor,
         return matmul_crt_plain(a8, b8, num_moduli)
     build.require_cuda(a8, b8)
     # the kernel is built with the table's sm_90 entry; any other card raises
-    cfg = launch.get("matmul_crt", torch.cuda.get_device_capability(a8.device))
+    cfg = launch.get("matmul_crt",
+                           torch.cuda.get_device_capability(a8.device))
     L, m, k = a8.shape
     n = b8.shape[2]
     nl = tables.num_limbs(L)
@@ -327,7 +354,8 @@ def matmul_complex_mod(a8r: torch.Tensor, a8i: torch.Tensor,
         return matmul_complex_mod_plain(a8r, a8i, b8r, b8i, num_moduli,
                                         centered, kara)
     build.require_cuda(*a_ops, *b_ops)
-    launch.get("matmul_complex", torch.cuda.get_device_capability(a8r.device))
+    launch.get("matmul_complex",
+                     torch.cuda.get_device_capability(a8r.device))
     L, m, k = a8r.shape
     n = b8r.shape[2]
     kp = -(-k // 16) * 16
@@ -392,7 +420,8 @@ def _magmax_operands(mag_a: torch.Tensor, mag_b: torch.Tensor):
     both operands K-major (`_k_major`), their tensor maps checked
     (`k_major_map`); any card but sm_90 raises."""
     build.require_device(mag_a, mag_b)
-    cfg = launch.get("magmax", torch.cuda.get_device_capability(mag_a.device))
+    cfg = launch.get("magmax",
+                           torch.cuda.get_device_capability(mag_a.device))
     m, k = mag_a.shape
     n = mag_b.shape[1]
     a, lda = _k_major(mag_a)
@@ -402,16 +431,16 @@ def _magmax_operands(mag_a: torch.Tensor, mag_b: torch.Tensor):
     return a, lda, bt, ldb, cfg
 
 
-def magmax_matmul(mag_a: torch.Tensor, mag_b: torch.Tensor):
+def magmax_matmul(mag_a: torch.Tensor, mag_b: torch.Tensor, launch=None):
     """(m, k) x (k, n) int8 magnitudes -> (smax_row (m, 1), smax_col
     (1, n)) int32, the row and column maxima of their product; the (m, n)
     product is never stored. GEMMUL8_MAGMAX_SCRATCH=1 takes
     `magmax_matmul_scratch`, as the JAX package's `magmax_matmul_pallas`
     dispatches."""
     if os.environ.get("GEMMUL8_MAGMAX_SCRATCH", "0") == "1":
-        return magmax_matmul_scratch(mag_a, mag_b)
+        return magmax_matmul_scratch(mag_a, mag_b, launch)
     sg.check_magmax_args(mag_a, mag_b)
-    if mag_a.device.type == "cpu" and mag_b.device.type == "cpu":
+    if _plain(mag_a, mag_b, launch):
         return magmax_plain(mag_a, mag_b)
     m, k = mag_a.shape
     n = mag_b.shape[1]
@@ -420,7 +449,7 @@ def magmax_matmul(mag_a: torch.Tensor, mag_b: torch.Tensor):
     row = torch.zeros((m, 1), dtype=torch.int32, device=a.device)
     col = torch.zeros((1, n), dtype=torch.int32, device=a.device)
     with torch.cuda.device(a.device):
-        code = build.lib().gm8_magmax_matmul(
+        code = build.lib_for("magmax.cu", launch).gm8_magmax_matmul(
             a.data_ptr(), lda, bt.data_ptr(), ldb, row.data_ptr(),
             col.data_ptr(), m, n, k, build.stream_ptr(a.device))
     build.check(code, "magmax_matmul")
@@ -428,24 +457,27 @@ def magmax_matmul(mag_a: torch.Tensor, mag_b: torch.Tensor):
     return row, col
 
 
-def magmax_matmul_scratch(mag_a: torch.Tensor, mag_b: torch.Tensor):
+def magmax_matmul_scratch(mag_a: torch.Tensor, mag_b: torch.Tensor,
+                          launch=None):
     """`magmax_matmul`'s values with the cross-tile fold deferred: the
     kernel stores each 128 x tile_n tile's row and column maxima plainly
     into its own column of an (m, n_tiles) and its own row of an
     (m_tiles, n) int32 buffer (`magmax_scratch_shapes`), and two torch.amax
     calls finish the fold."""
     sg.check_magmax_args(mag_a, mag_b)
-    if mag_a.device.type == "cpu" and mag_b.device.type == "cpu":
+    if _plain(mag_a, mag_b, launch):
         return magmax_scratch_plain(mag_a, mag_b)
     m, k = mag_a.shape
     n = mag_b.shape[1]
     a, lda, bt, ldb, cfg = _magmax_operands(mag_a, mag_b)
+    cfg = cfg if launch is None else launch
     # every entry is stored by one tile: no zero fill
     row_shape, col_shape = magmax_scratch_shapes(m, n, cfg.tile_n)
     row = torch.empty(row_shape, dtype=torch.int32, device=a.device)
     col = torch.empty(col_shape, dtype=torch.int32, device=a.device)
     with torch.cuda.device(a.device):
-        code = build.lib().gm8_magmax_matmul_scratch(
+        code = build.lib_for(
+            "magmax.cu", launch).gm8_magmax_matmul_scratch(
             a.data_ptr(), lda, bt.data_ptr(), ldb, row.data_ptr(),
             col.data_ptr(), m, n, k, build.stream_ptr(a.device))
     build.check(code, "magmax_matmul_scratch")

@@ -15,9 +15,15 @@ with the JAX script's positional arguments and defaults, and each with a
     profile_phases   scripts/profile_phases.py
     weak_scaling     scripts/weak_scaling.py
     evidence         scripts/run_evidence.sh
+    tune_matmul      scripts/tune_matmul.py ([n=8192] [L=14])
+    tune_kernels     scripts/tune_kernels.py ([n=8192] [L=14]
+                     [which=all|stats|encode|fusedenc|mmpipe|recon|matmul])
 
 They drive `bench/harness.py` and `api.gemm` and write the harness's CSVs
-(its schema and file names) to `results_torch/` by default. Every timed
+(its schema and file names) to `results_torch/` by default; the two
+tuners print their rows (each candidate launch entry built into a library
+of its own under `build/kernels/`, held to the table library's bits and
+timed beside its entry) and write no file. Every timed
 row runs on the card only (`bench.timing.require_gpu` exits nonzero
 without one); only the accuracy drivers take `--device cpu`, and the weak
 scaling driver runs on gloo CPU ranks with it. Plots come from the JAX

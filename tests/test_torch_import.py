@@ -39,6 +39,9 @@ import gemmul8_tpu_torch.scripts.profile_phases
 import gemmul8_tpu_torch.scripts.weak_scaling
 import gemmul8_tpu_torch.scripts.evidence
 import gemmul8_tpu_torch.scripts.compare_csvs
+import gemmul8_tpu_torch.scripts.tune_kernels
+import gemmul8_tpu_torch.scripts.tune_matmul
+import gemmul8_tpu_torch.bench.bounds
 import gemmul8_tpu_torch.examples.one_accuracy
 import gemmul8_tpu_torch.examples.one_accuracy_complex
 import gemmul8_tpu_torch.examples.profile_one_call
