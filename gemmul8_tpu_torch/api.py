@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from . import planner as _planner
-from . import tables
+from . import tables, trace
 from .core import complexgemm as _cg
 from .core import gemm as _g
 from .hopper import build as _build
@@ -242,6 +242,7 @@ def _complex_epilogue(ore: torch.Tensor, oim: torch.Tensor, alpha: complex,
     return ore, oim
 
 
+@trace.traced("gm8.api.gemm")
 def gemm(
     a: ArrayLike,
     b: ArrayLike,
@@ -416,6 +417,7 @@ def _gemm_complex(a, b, alpha, beta, c, num_moduli, fastmode, compute_type,
     return torch.complex(re, im)
 
 
+@trace.traced("gm8.api.gemm_batched")
 def gemm_batched(a: ArrayLike, b: ArrayLike, *, num_moduli: int = 14,
                  fastmode: bool = True, out_dtype=None,
                  compute_type: ComputeType = ComputeType.REAL_DEFAULT,
@@ -485,6 +487,7 @@ def _gemm_batched_complex(a, b, num_moduli, fastmode, out_dtype,
     return out
 
 
+@trace.traced("gm8.api.gemm_timed")
 def gemm_timed(a: ArrayLike, b: ArrayLike, *, num_moduli: int = 14,
                fastmode: bool = True, out_dtype=None, iters: int = 1,
                device=None):

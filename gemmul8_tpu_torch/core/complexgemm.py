@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import tables
+from .. import tables, trace
 from ..hopper import kernels as hk
 from ..hopper import matmul as hm
 from ..types import ComputeType
@@ -86,6 +86,7 @@ def encode_complex_operands(a_re, a_im, b_re, b_im, num_moduli: int,
             hk.encode_slices(b_im, sft_b, num_moduli, axis=0), sft_b)
 
 
+@trace.traced("gm8.core.gemm_complex_core")
 def gemm_complex_core(a_re, a_im, b_re, b_im, num_moduli: int,
                       fastmode: bool, compute_type: ComputeType,
                       out_dtype: str = "f64", e_extra: int = 0):

@@ -53,7 +53,7 @@ import os
 import torch
 
 from .. import pipelined as pl
-from .. import tables
+from .. import tables, trace
 from ..hopper import kernels as hk
 from ..hopper import matmul as hm
 from ..planner import ModuliSchedule
@@ -100,6 +100,7 @@ def _check_call(a: torch.Tensor, b: torch.Tensor, out_dtype: str) -> None:
     enc.mant_bits_of(b)
 
 
+@trace.traced("gm8.core.gemm_core")
 def gemm_core(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
               fastmode: bool = True, out_dtype: str = "f64",
               moduli_chunk: int | None = None,
@@ -153,6 +154,7 @@ def gemm_core(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
                           e_extra=alpha_e)
 
 
+@trace.traced("gm8.core.gemm_chunked")
 def _gemm_chunked(a, b, sft_a, sft_b, num_moduli: int, moduli_chunk: int,
                   out_dtype: str, alpha_e: int) -> torch.Tensor:
     """The moduli-chunked schedule on shifts already selected: per chunk,
@@ -184,6 +186,7 @@ def centered_residues() -> bool:
     return os.environ.get("GEMMUL8_MXU_CRT", "1") == "1"
 
 
+@trace.traced("gm8.core.gemm_core_panels")
 def gemm_core_panels(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
                      fastmode: bool = True, out_dtype: str = "f64",
                      n_panel: int | None = None,

@@ -32,11 +32,19 @@ its kernel from there (`lib_for`).
 The C entry points act on the current CUDA device: a wrapper calls them
 inside `torch.cuda.device(x.device)`, which restores the caller's device.
 Every C entry point returns `cudaGetLastError()` after its launch; `check`
-raises on a nonzero code. `LAUNCHES` counts kernel launches per wrapper;
-a kernel's f32 form (f32 operand, or f32 output for reconstruct and
+raises on a nonzero code. `LAUNCHES` counts C entry calls, one per call
+under the wrapper's key (`launched`), not kernels: the entries of the
+GEMMs with a mod (matmul_mod_u8 and its pipelined form, matmul_crt,
+matmul_reconstruct, a rider step given B) also launch the copy of B into
+its K-major workspace (`transpose_b_kernel`), matmul_complex_mod one copy
+per B part (two, three for Karatsuba), and the rider pair one before its
+two GEMM launches, which count two.
+A kernel's f32 form (f32 operand, or f32 output for reconstruct and
 matmul_reconstruct) counts under its own key, the name with "[f32]"; the
 pipeline's rider step and pair, which have two words each, count each
-combination under its own key (`form`).
+combination under its own key (`form`). While `trace.recording()` is on,
+`launched` also puts the count and the bytes of the tensors the wrapper
+made on the wrapper's span.
 """
 
 from __future__ import annotations
@@ -55,6 +63,7 @@ from pathlib import Path
 
 import torch
 
+from .. import trace
 from . import launch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -64,7 +73,8 @@ ARCH_CAPABILITY = (9, 0)  # the compute capability ARCH_FLAGS builds for
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
               "-fPIC")
 
-# launches of each kernel wrapper; reset by the caller that reads them
+# C entry calls, one count per call under the wrapper's key (`launched`);
+# reset by the caller that reads them
 LAUNCHES: collections.Counter = collections.Counter()
 # flags of single sources: the sources on the wgmma tile take their
 # launch constants from the launch table's entry of their name (source ->
@@ -445,6 +455,15 @@ def form(name: str, *f32: bool) -> str:
     if len(f32) == 1:
         return f"{name}[f32]"
     return f"{name}[{','.join('f32' if f else 'f64' for f in f32)}]"
+
+
+def launched(key: str, *made: torch.Tensor, count: int = 1) -> None:
+    """Count a wrapper's C entry call (`count` for an entry that launches
+    a kernel several times) in `LAUNCHES` under `key`, and, while
+    recording, on the wrapper's span with the device bytes of the tensors
+    it made (outputs and workspaces)."""
+    LAUNCHES[key] += count
+    trace.count(count, made)
 
 
 def check(code: int, name: str) -> None:

@@ -60,7 +60,7 @@ import os
 import numpy as np
 import torch
 
-from .. import tables
+from .. import tables, trace
 from ..core import encode as enc
 from ..core import reconstruct as rec
 from . import build
@@ -104,6 +104,7 @@ def _rows_kdim(x: torch.Tensor, axis: int):
     return (d0, d1) if axis == 1 else (d1, d0)
 
 
+@trace.traced("gm8.hopper.fast_sft")
 def fast_sft(x: torch.Tensor, num_moduli: int, axis: int,
              launch=None) -> torch.Tensor:
     """Fast-mode shifts of a float64 or float32 operand: (m, 1) int32 for
@@ -121,10 +122,11 @@ def fast_sft(x: torch.Tensor, num_moduli: int, axis: int,
             tables.threshold_fast(num_moduli), enc._norm_guard(kdim),
             int(f32), build.stream_ptr(x.device))
     build.check(code, "fast_sft")
-    build.LAUNCHES[build.form("fast_sft", f32)] += 1
+    build.launched(build.form("fast_sft", f32), out)
     return out
 
 
+@trace.traced("gm8.hopper.fast_stats")
 def fast_stats(x: torch.Tensor, axis: int, launch=None):
     """Fast-mode statistics (emax int64, nrm2 f32, anyfinite bool) of a
     float64 or float32 operand, each (m, 1) for axis=1 or (1, n) for
@@ -144,10 +146,11 @@ def fast_stats(x: torch.Tensor, axis: int, launch=None):
             x.data_ptr(), *(t.data_ptr() for t in out), rows, kdim, axis,
             int(f32), build.stream_ptr(x.device))
     build.check(code, "fast_stats")
-    build.LAUNCHES[build.form("fast_stats", f32)] += 1
+    build.launched(build.form("fast_stats", f32), *out)
     return out
 
 
+@trace.traced("gm8.hopper.emax")
 def emax(x: torch.Tensor, axis: int, launch=None) -> torch.Tensor:
     """Max biased exponent over the nonzero elements of each row (axis=1,
     (m, 1)) or column (axis=0, (1, n)) of a float64 or float32 operand,
@@ -165,7 +168,7 @@ def emax(x: torch.Tensor, axis: int, launch=None) -> torch.Tensor:
             x.data_ptr(), out.data_ptr(), rows, kdim, axis, int(f32),
             build.stream_ptr(x.device))
     build.check(code, "emax")
-    build.LAUNCHES[build.form("emax", f32)] += 1
+    build.launched(build.form("emax", f32), out)
     return out
 
 
@@ -192,7 +195,7 @@ def _mag7_buffer(x: torch.Tensor, emax: torch.Tensor, axis: int,
             x.data_ptr(), emax.data_ptr(), out.data_ptr(), rows, kdim, axis,
             ld, mag_shift, int(f32), build.stream_ptr(x.device))
     build.check(code, "mag7")
-    build.LAUNCHES[build.form("mag7", f32)] += 1
+    build.launched(build.form("mag7", f32), out)
     return out
 
 
@@ -202,6 +205,7 @@ def _mag7_view(buf: torch.Tensor, kdim: int, axis: int) -> torch.Tensor:
     return mag if axis == 1 else mag.t()
 
 
+@trace.traced("gm8.hopper.mag7")
 def mag7(x: torch.Tensor, emax: torch.Tensor, axis: int,
          mag_shift: int = enc.MAG_SHIFT, launch=None) -> torch.Tensor:
     """Round-up magnitudes (int8 of x's shape, in [0, 2^(mag_shift + 1)])
@@ -220,6 +224,7 @@ def mag7(x: torch.Tensor, emax: torch.Tensor, axis: int,
                       x.shape[axis], axis)
 
 
+@trace.traced("gm8.hopper.mag7_fused")
 def mag7_fused(x: torch.Tensor, axis: int, mag_shift: int = enc.MAG_SHIFT,
                launch=None):
     """(magnitudes, emax) of a float64 or float32 operand in one kernel:
@@ -239,7 +244,7 @@ def mag7_fused(x: torch.Tensor, axis: int, mag_shift: int = enc.MAG_SHIFT,
             x.data_ptr(), e.data_ptr(), buf.data_ptr(), rows, kdim, axis, ld,
             mag_shift, int(f32), build.stream_ptr(x.device))
     build.check(code, "mag7_fused")
-    build.LAUNCHES[build.form("mag7_fused", f32)] += 1
+    build.launched(build.form("mag7_fused", f32), buf, e)
     return _mag7_view(buf, kdim, axis), e
 
 
@@ -252,6 +257,7 @@ def mag7_operand(x: torch.Tensor, axis: int):
     return mag7(x, e, axis), e
 
 
+@trace.traced("gm8.hopper.mag7_operand_complex")
 def mag7_operand_complex(re: torch.Tensor, im: torch.Tensor, axis: int):
     """(magnitudes, emax) of a complex operand whose Re and Im parts are
     both float64 or both float32: emax of each part, their max, then |Re| +
@@ -299,6 +305,7 @@ def encode_mma_table(moduli_idx: tuple) -> np.ndarray:
                            cols.view(np.uint8).ravel()])
 
 
+@trace.traced("gm8.hopper.encode_slices")
 def encode_slices(x: torch.Tensor, sft: torch.Tensor, num_moduli: int,
                   axis: int, moduli_idx=None, col_tiles=None,
                   launch=None) -> torch.Tensor:
@@ -329,10 +336,11 @@ def encode_slices(x: torch.Tensor, sft: torch.Tensor, num_moduli: int,
             enc.q_max(num_moduli, enc.mant_bits_of(x)), c0, c1, int(f32),
             build.stream_ptr(x.device))
     build.check(code, "encode_slices")
-    build.LAUNCHES[build.form("encode_slices", f32)] += 1
+    build.launched(build.form("encode_slices", f32), out)
     return out
 
 
+@trace.traced("gm8.hopper.fast_encode_fused")
 def fast_encode_fused(x: torch.Tensor, num_moduli: int, axis: int,
                       launch=None):
     """(slices (L, *x.shape) int8, sft int32) of a float64 or float32
@@ -360,7 +368,8 @@ def fast_encode_fused(x: torch.Tensor, num_moduli: int, axis: int,
             int(f32), None if sync is None else sync.data_ptr(),
             build.stream_ptr(x.device))
     build.check(code, "fast_encode_fused")
-    build.LAUNCHES[build.form("fast_encode_fused", f32)] += 1
+    made = (out, sft) if sync is None else (out, sft, sync)
+    build.launched(build.form("fast_encode_fused", f32), *made)
     return out, sft
 
 
@@ -437,6 +446,7 @@ def _ensure_crt_tables(lib, device: torch.device) -> None:
 _KIND_U8, _KIND_CENTERED, _KIND_PRODUCTS, _KIND_LIMBS = range(4)
 
 
+@trace.traced("gm8.hopper.reconstruct")
 def reconstruct(r: torch.Tensor, sft_a: torch.Tensor, sft_b: torch.Tensor,
                 num_moduli: int, out_dtype: str = "f64", e_extra: int = 0,
                 input_kind: str = "residues",
@@ -502,13 +512,15 @@ def reconstruct_launch(name: str, r, sft_a, sft_b, num_moduli: int,
         raise ValueError("e_extra out of range")
     lib = build.lib_for("reconstruct.cu", launch)
     _ensure_crt_tables(lib, r.device)
+    made = ()
     if out is None:
         out = torch.empty((m, n), dtype=dtype, device=r.device)
+        made = (out,)
     with torch.cuda.device(r.device):
         code = lib.gm8_reconstruct(
             r.data_ptr(), kind, planes, sft_a.data_ptr(), sft_b.data_ptr(),
             out.data_ptr(), crt_mma_table(num_moduli).ctypes.data,
             num_moduli, m, n, e_extra, int(f32), build.stream_ptr(r.device))
     build.check(code, name)
-    build.LAUNCHES[build.form(name, f32)] += 1
+    build.launched(build.form(name, f32), *made)
     return out

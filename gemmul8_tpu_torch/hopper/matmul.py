@@ -63,7 +63,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import tables
+from .. import tables, trace
 from ..core import slicegemm as sg
 from . import build
 from . import kernels as hk
@@ -105,6 +105,15 @@ def _pad_k(a8: torch.Tensor, kp: int) -> torch.Tensor:
     return a8.clone() if a8.data_ptr() % 16 else a8
 
 
+def _copies(*pairs) -> list:
+    """Of (t, source) pairs, the t that a wrapper made as a copy of its
+    source (`_pad_k`, `_k_major`), not a view of the source's storage."""
+    return [t for t, src in pairs
+            if t.untyped_storage().data_ptr()
+            != src.untyped_storage().data_ptr()]
+
+
+@trace.traced("gm8.hopper.matmul_mod_u8")
 def matmul_mod_u8(a8: torch.Tensor, b8: torch.Tensor, num_moduli: int,
                   centered: bool = False, moduli_idx=None,
                   launch=None) -> torch.Tensor:
@@ -128,6 +137,7 @@ def matmul_mod_u8(a8: torch.Tensor, b8: torch.Tensor, num_moduli: int,
                        centered, int(centered))
 
 
+@trace.traced("gm8.hopper.matmul_mod_u8_pipelined")
 def matmul_mod_u8_pipelined(a8: torch.Tensor, b8: torch.Tensor,
                             num_moduli: int, moduli_idx=None,
                             launch=None) -> torch.Tensor:
@@ -175,6 +185,7 @@ def mod_div(x, d: int, bias: int = 0) -> np.ndarray:
     return np.where(r >= d, r - d, r)
 
 
+@trace.traced("gm8.hopper.mod_div_mismatches")
 def mod_div_mismatches(lo: int, hi: int, num_moduli: int = tables.MAX_MODULI,
                        moduli_idx=None, device=None) -> torch.Tensor:
     """(L,) int64: per modulus MODULI[moduli_idx[l]], the x in [lo, hi]
@@ -201,7 +212,7 @@ def mod_div_mismatches(lo: int, hi: int, num_moduli: int = tables.MAX_MODULI,
             idx_host.ctypes.data, len(idx), lo, hi, bad.data_ptr(),
             build.stream_ptr(device))
     build.check(code, "mod_div_check")
-    build.LAUNCHES["mod_div_check"] += 1
+    build.launched("mod_div_check", bad)
     return bad
 
 
@@ -226,17 +237,17 @@ def _launch_mod(name: str, src: str, entry, a8: torch.Tensor,
     build.require_cuda(a8, b8)
     L, m, k = a8.shape
     n = b8.shape[2]
-    a8, kp, bt = _k_workspace(a8, n)
+    ap, kp, bt = _k_workspace(a8, n)
     out = torch.empty((L, m, n), dtype=torch.int8 if centered else torch.uint8,
                       device=a8.device)
     idx_host = hk.host_idx(idx)
     with torch.cuda.device(a8.device):
         code = getattr(build.lib_for(src, entry), f"gm8_{name}")(
-            a8.data_ptr(), b8.data_ptr(), bt.data_ptr(), out.data_ptr(),
+            ap.data_ptr(), b8.data_ptr(), bt.data_ptr(), out.data_ptr(),
             idx_host.ctypes.data, L, m, n, k, kp, *flags,
             build.stream_ptr(a8.device))
     build.check(code, name)
-    build.LAUNCHES[name] += 1
+    build.launched(name, bt, out, *_copies((ap, a8)))
     return out
 
 
@@ -251,6 +262,7 @@ def reconstruct_scratch_shape(L: int, m: int, n: int, tile_n: int,
     return nblocks, (nblocks, L, _TILE_M * tile_n)
 
 
+@trace.traced("gm8.hopper.matmul_crt")
 def matmul_crt(a8: torch.Tensor, b8: torch.Tensor,
                num_moduli: int) -> torch.Tensor:
     """(L, m, k) int8 x (L, k, n) int8 -> (num_limbs, m, n) int32 canonical
@@ -267,7 +279,7 @@ def matmul_crt(a8: torch.Tensor, b8: torch.Tensor,
     L, m, k = a8.shape
     n = b8.shape[2]
     nl = tables.num_limbs(L)
-    a8, kp, bt = _k_workspace(a8, n)
+    ap, kp, bt = _k_workspace(a8, n)
     nblocks, shape = reconstruct_scratch_shape(
         L, m, n, cfg.tile_n,
         torch.cuda.get_device_properties(a8.device).multi_processor_count)
@@ -276,11 +288,11 @@ def matmul_crt(a8: torch.Tensor, b8: torch.Tensor,
     table = hk.crt_table_entry(L)
     with torch.cuda.device(a8.device):
         code = build.lib().gm8_matmul_crt(
-            a8.data_ptr(), b8.data_ptr(), bt.data_ptr(), scratch.data_ptr(),
+            ap.data_ptr(), b8.data_ptr(), bt.data_ptr(), scratch.data_ptr(),
             out.data_ptr(), table.ctypes.data, L, nl, m, n, k, kp, nblocks,
             build.stream_ptr(a8.device))
     build.check(code, "matmul_crt")
-    build.LAUNCHES["matmul_crt"] += 1
+    build.launched("matmul_crt", bt, scratch, out, *_copies((ap, a8)))
     return out
 
 
@@ -295,6 +307,7 @@ def fused_reconstruct_ok(m: int, n: int, k: int, num_moduli: int) -> bool:
             and 2 <= num_moduli <= tables.MAX_MODULI)
 
 
+@trace.traced("gm8.hopper.matmul_reconstruct")
 def matmul_reconstruct(a8: torch.Tensor, b8: torch.Tensor,
                        sft_a: torch.Tensor, sft_b: torch.Tensor,
                        num_moduli: int,
@@ -320,7 +333,7 @@ def matmul_reconstruct(a8: torch.Tensor, b8: torch.Tensor,
     # the kernel is built with the table's sm_90 entry; any other card raises
     cfg = launch.get("matmul_reconstruct",
                      torch.cuda.get_device_capability(a8.device))
-    a8, kp, bt = _k_workspace(a8, n)
+    ap, kp, bt = _k_workspace(a8, n)
     nblocks, shape = reconstruct_scratch_shape(
         L, m, n, cfg.tile_n,
         torch.cuda.get_device_properties(a8.device).multi_processor_count)
@@ -330,15 +343,17 @@ def matmul_reconstruct(a8: torch.Tensor, b8: torch.Tensor,
     table = hk.crt_table_entry(L)
     with torch.cuda.device(a8.device):
         code = build.lib().gm8_matmul_reconstruct(
-            a8.data_ptr(), b8.data_ptr(), bt.data_ptr(), scratch.data_ptr(),
+            ap.data_ptr(), b8.data_ptr(), bt.data_ptr(), scratch.data_ptr(),
             sft_a.data_ptr(), sft_b.data_ptr(), out.data_ptr(),
             table.ctypes.data, L, m, n, k, kp, nblocks, int(f32),
             build.stream_ptr(a8.device))
     build.check(code, "matmul_reconstruct")
-    build.LAUNCHES[build.form("matmul_reconstruct", f32)] += 1
+    build.launched(build.form("matmul_reconstruct", f32), bt, scratch, out,
+                   *_copies((ap, a8)))
     return out
 
 
+@trace.traced("gm8.hopper.matmul_complex_mod")
 def matmul_complex_mod(a8r: torch.Tensor, a8i: torch.Tensor,
                        b8r: torch.Tensor, b8i: torch.Tensor, num_moduli: int,
                        centered: bool = False, kara=None):
@@ -350,7 +365,8 @@ def matmul_complex_mod(a8r: torch.Tensor, a8i: torch.Tensor,
     sg.check_complex_args(a8r, a8i, b8r, b8i, num_moduli, kara)
     a_ops = [a8r, a8i] + ([kara[0]] if kara is not None else [])
     b_ops = [b8r, b8i] + ([kara[1]] if kara is not None else [])
-    if all(x.device.type == "cpu" for x in a_ops + b_ops):
+    if (all(x.device.type == "cpu" for x in a_ops + b_ops)
+            and hk._on_cpu(a8r)):
         return matmul_complex_mod_plain(a8r, a8i, b8r, b8i, num_moduli,
                                         centered, kara)
     build.require_cuda(*a_ops, *b_ops)
@@ -361,22 +377,24 @@ def matmul_complex_mod(a8r: torch.Tensor, a8i: torch.Tensor,
     kp = -(-k // 16) * 16
     # each operand padded by its own shape: A's parts along k, B's parts
     # into their own K-major workspaces (L, n, kp) by the kernel
-    a_ops = [_pad_k(x, kp) for x in a_ops]
+    a_padded = [_pad_k(x, kp) for x in a_ops]
     bt = torch.empty((len(b_ops), L, n, kp), dtype=torch.int8,
                      device=a8r.device)
     odt = torch.int8 if centered else torch.uint8
     out_re = torch.empty((L, m, n), dtype=odt, device=a8r.device)
     out_im = torch.empty((L, m, n), dtype=odt, device=a8r.device)
-    sa = a_ops[2].data_ptr() if kara is not None else None
+    sa = a_padded[2].data_ptr() if kara is not None else None
     sb = b_ops[2].data_ptr() if kara is not None else None
     with torch.cuda.device(a8r.device):
         code = build.lib().gm8_matmul_complex_mod(
-            a_ops[0].data_ptr(), a_ops[1].data_ptr(), sa, b_ops[0].data_ptr(),
-            b_ops[1].data_ptr(), sb, bt.data_ptr(), out_re.data_ptr(),
+            a_padded[0].data_ptr(), a_padded[1].data_ptr(), sa,
+            b_ops[0].data_ptr(), b_ops[1].data_ptr(), sb, bt.data_ptr(),
+            out_re.data_ptr(),
             out_im.data_ptr(), L, m, n, k, kp, int(centered),
             int(kara is not None), build.stream_ptr(a8r.device))
     build.check(code, "matmul_complex_mod")
-    build.LAUNCHES["matmul_complex_mod"] += 1
+    build.launched("matmul_complex_mod", bt, out_re, out_im,
+                   *_copies(*zip(a_padded, a_ops)))
     return out_re, out_im
 
 
@@ -431,6 +449,7 @@ def _magmax_operands(mag_a: torch.Tensor, mag_b: torch.Tensor):
     return a, lda, bt, ldb, cfg
 
 
+@trace.traced("gm8.hopper.magmax_matmul")
 def magmax_matmul(mag_a: torch.Tensor, mag_b: torch.Tensor, launch=None):
     """(m, k) x (k, n) int8 magnitudes -> (smax_row (m, 1), smax_col
     (1, n)) int32, the row and column maxima of their product; the (m, n)
@@ -453,10 +472,12 @@ def magmax_matmul(mag_a: torch.Tensor, mag_b: torch.Tensor, launch=None):
             a.data_ptr(), lda, bt.data_ptr(), ldb, row.data_ptr(),
             col.data_ptr(), m, n, k, build.stream_ptr(a.device))
     build.check(code, "magmax_matmul")
-    build.LAUNCHES["magmax_matmul"] += 1
+    build.launched("magmax_matmul", row, col,
+                   *_copies((a, mag_a), (bt, mag_b)))
     return row, col
 
 
+@trace.traced("gm8.hopper.magmax_matmul_scratch")
 def magmax_matmul_scratch(mag_a: torch.Tensor, mag_b: torch.Tensor,
                           launch=None):
     """`magmax_matmul`'s values with the cross-tile fold deferred: the
@@ -481,6 +502,7 @@ def magmax_matmul_scratch(mag_a: torch.Tensor, mag_b: torch.Tensor,
             a.data_ptr(), lda, bt.data_ptr(), ldb, row.data_ptr(),
             col.data_ptr(), m, n, k, build.stream_ptr(a.device))
     build.check(code, "magmax_matmul_scratch")
-    build.LAUNCHES["magmax_matmul_scratch"] += 1
+    build.launched("magmax_matmul_scratch", row, col,
+                   *_copies((a, mag_a), (bt, mag_b)))
     return (torch.amax(row, dim=1, keepdim=True),
             torch.amax(col, dim=0, keepdim=True))

@@ -30,7 +30,7 @@ import threading
 import numpy as np
 import torch
 
-from .. import tables
+from .. import tables, trace
 from ..core import encode as enc
 from ..core import riders
 from . import build
@@ -120,6 +120,7 @@ def _q_max(num_moduli: int, src) -> int:
                                            enc.mant_bits_of(src))
 
 
+@trace.traced("gm8.hopper.matmul_rider_step")
 def matmul_rider_step(a8, bt, panel: int, r_prev, prev_panel: int, sft_a,
                       sft_b, num_moduli: int, panel_m: int, *, b8=None,
                       a_src=None, next_panel: int = -1, out=None,
@@ -168,20 +169,24 @@ def matmul_rider_step(a8, bt, panel: int, r_prev, prev_panel: int, sft_a,
     _check_kernel_args(k, n, False, a8=a8, bt=bt)
     _ensure_rider_tables()
     res = _new((L, panel_m, n), torch.uint8, a8)
+    made = [res]
     # the riders' pointers, null for a rider that is off
     rec = [None] * 4      # residues, row shifts, rows out, CRT table
     nxt = [None] * 3      # source rows, row shifts, slices out
     rec_rows = a8_next = None
     if r_prev is not None:
-        rec_rows = (_new((panel_m, n), riders.KINDS[out_kind], a8)
-                    if out is None
-                    else riders.panel_rows(out, prev_panel, panel_m))
+        if out is None:
+            rec_rows = _new((panel_m, n), riders.KINDS[out_kind], a8)
+            made.append(rec_rows)
+        else:
+            rec_rows = riders.panel_rows(out, prev_panel, panel_m)
         table = hk.crt_table_entry(L)   # alive until the call returns
         rec = [r_prev.data_ptr(),
                riders.panel_rows(sft_a, prev_panel, panel_m).data_ptr(),
                rec_rows.data_ptr(), table.ctypes.data]
     if a_src is not None:
         a8_next = _new((L, panel_m, k), torch.int8, a8)
+        made.append(a8_next)
         nxt = [riders.panel_rows(a_src, next_panel, panel_m).data_ptr(),
                riders.panel_rows(sft_a, next_panel, panel_m).data_ptr(),
                a8_next.data_ptr()]
@@ -194,10 +199,11 @@ def matmul_rider_step(a8, bt, panel: int, r_prev, prev_panel: int, sft_a,
             _q_max(L, a_src), int(a_f32), int(out_f32),
             build.stream_ptr(a8.device))
     build.check(code, "matmul_rider_step")
-    build.LAUNCHES[build.form("matmul_rider_step", a_f32, out_f32)] += 1
+    build.launched(build.form("matmul_rider_step", a_f32, out_f32), *made)
     return res, rec_rows, a8_next
 
 
+@trace.traced("gm8.hopper.matmul_bsplit_pair")
 def matmul_bsplit_pair(a8_p0, b8_left, b_src, sft_a, sft_b, num_moduli: int,
                        panel_m: int, *, a_src=None, a_kind: str = "f64",
                        b_kind: str = "f64"):
@@ -253,10 +259,13 @@ def matmul_bsplit_pair(a8_p0, b8_left, b_src, sft_a, sft_b, num_moduli: int,
             k, _q_max(L, a_src), _q_max(L, b_src), int(a_f32), int(b_f32),
             build.stream_ptr(a8_p0.device))
     build.check(code, "matmul_bsplit_pair")
-    build.LAUNCHES[build.form("matmul_bsplit_pair", a_f32, b_f32)] += 2
+    made = (res, bt) if a8_next is None else (res, bt, a8_next)
+    build.launched(build.form("matmul_bsplit_pair", a_f32, b_f32), *made,
+                   count=2)
     return res, bt, a8_next
 
 
+@trace.traced("gm8.hopper.reconstruct_into")
 def reconstruct_into(r8, sft_a, sft_b, num_moduli: int, out,
                      last_panel: int, panel_m: int, kind: str = "f64"):
     """The last panel's reconstruct from (L, panel_m, n) residues, written

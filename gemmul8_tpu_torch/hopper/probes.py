@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from ..probes import clz as pclz
 from ..probes import deaddep as pdd
 from ..probes import mxu_crt as pmxu
@@ -30,12 +31,15 @@ vpu_chain_plain = pvpu.chain_plain
 mxu_crt_plain = pmxu.mxu_crt_plain
 deaddep_plain = pdd.deaddep_plain
 
-def _launch(name: str, key: str, device: torch.device, *args) -> None:
+def _launch(name: str, key: str, device: torch.device, made: tuple,
+            *args) -> None:
+    """Launch gm8_<name> on args, counted under "name[key]" with the
+    tensors the wrapper made."""
     with torch.cuda.device(device):
         code = getattr(build.lib(), f"gm8_{name}")(
             *args, build.stream_ptr(device))
     build.check(code, name)
-    build.LAUNCHES[f"{name}[{key}]"] += 1
+    build.launched(f"{name}[{key}]", *made)
 
 
 def _check_count(x: torch.Tensor) -> None:
@@ -43,6 +47,7 @@ def _check_count(x: torch.Tensor) -> None:
         raise ValueError("the kernel takes fewer than 2^31 words")
 
 
+@trace.traced("gm8.hopper.clz")
 def clz(x: torch.Tensor, form: str = "clz") -> torch.Tensor:
     """Leading zeros of each int32 word. form "clz": `__clz`, any word;
     "exp": the f32-exponent trick, for words in [0, 2^24) only (16-bit
@@ -62,11 +67,12 @@ def clz(x: torch.Tensor, form: str = "clz") -> torch.Tensor:
     _check_count(x)
     out = torch.empty_like(x)
     if x.numel():
-        _launch("probe_clz", form, x.device, x.data_ptr(), out.data_ptr(),
-                x.numel(), pclz.FORMS.index(form))
+        _launch("probe_clz", form, x.device, (out,), x.data_ptr(),
+                out.data_ptr(), x.numel(), pclz.FORMS.index(form))
     return out
 
 
+@trace.traced("gm8.hopper.vpu_chain")
 def vpu_chain(x: torch.Tensor, case: str, steps: int = pvpu.STEPS):
     """One op chain of `probes.vpu_ops` over every element of x (int32 or
     float32, as the case): steps x REPS dependent ops."""
@@ -83,11 +89,12 @@ def vpu_chain(x: torch.Tensor, case: str, steps: int = pvpu.STEPS):
     _check_count(x)
     out = torch.empty_like(x)
     if x.numel():
-        _launch("probe_vpu_ops", case, x.device, x.data_ptr(),
+        _launch("probe_vpu_ops", case, x.device, (out,), x.data_ptr(),
                 out.data_ptr(), x.numel(), pvpu.CASES.index(case), steps)
     return out
 
 
+@trace.traced("gm8.hopper.mxu_crt")
 def mxu_crt(r: torch.Tensor, num_moduli: int, bm: int,
             variant: str = "full") -> torch.Tensor:
     """(m, n) int32 fold of the CRT contraction (`probes.mxu_crt`)."""
@@ -99,12 +106,13 @@ def mxu_crt(r: torch.Tensor, num_moduli: int, bm: int,
     out = torch.empty((m, n), dtype=torch.int32, device=r.device)
     if out.numel():
         table = crt_mma_table(num_moduli)
-        _launch("probe_mxu_crt", variant, r.device, r.data_ptr(),
+        _launch("probe_mxu_crt", variant, r.device, (out,), r.data_ptr(),
                 out.data_ptr(), table.ctypes.data, num_moduli, m, n, bm,
                 pmxu.VARIANTS.index(variant))
     return out
 
 
+@trace.traced("gm8.hopper.deaddep")
 def deaddep(a8: torch.Tensor, b8: torch.Tensor, num_moduli: int, nops: int,
             variant: str, rin: torch.Tensor | None = None,
             stamps: torch.Tensor | None = None):
@@ -144,8 +152,9 @@ def deaddep(a8: torch.Tensor, b8: torch.Tensor, num_moduli: int, nops: int,
     ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
     crt = crt_table_entry(L)
     mma = crt_mma_table(L)
-    _launch("probe_deaddep", variant, dev, a8.data_ptr(), b8.data_ptr(),
-            bt.data_ptr(), out.data_ptr(), ptr(rin),
+    made = tuple(t for t in (bt, out, aux, rout) if t is not None)
+    _launch("probe_deaddep", variant, dev, made, a8.data_ptr(),
+            b8.data_ptr(), bt.data_ptr(), out.data_ptr(), ptr(rin),
             ptr(rout if variant == "hbmio" else None), ptr(aux),
             ptr(rout if variant in pdd.REC else None), crt.ctypes.data,
             mma.ctypes.data, L, n, pdd.VARIANTS.index(variant), nops // 2,

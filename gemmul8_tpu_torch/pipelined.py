@@ -32,6 +32,7 @@ import os
 
 import torch
 
+from . import trace
 from .core import encode as enc
 from .core import riders
 from .core.encode import ENC_BLOCK
@@ -121,6 +122,7 @@ def bsplit_applicable(m: int, n: int, k: int, num_moduli: int,
     return _rider_tiles(k, n // 2, num_moduli * (nt // 2)) is not None
 
 
+@trace.traced("gm8.core.gemm_pipelined")
 def gemm_pipelined(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
                    kind: str = "f64", panel_m: int = 1024, bn: int = 512,
                    sfts=None, encode_rider: bool = False, a8=None,
