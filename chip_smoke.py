@@ -25,9 +25,10 @@ result):
      256 x 256 tiles must be within 1e-8 of the double-double oracle; and
      at 2048^3 the kernel path must give the bits of the all-plain path;
   5. times (CUDA events, after a warm-up) of each kernel and its plain
-     version at the main path's shapes, and of the whole 8192^3 call in
-     each mode; the warm-up outputs of each kernel and its plain version
-     are held to the same bit rule as in phase 3.
+     version at the main path's shapes and layouts (B's slices K-major,
+     read by matmul_mod_u8 without a copy), and of the whole 8192^3 call
+     in each mode; the warm-up outputs of each kernel and its plain
+     version are held to the same bit rule as in phase 3.
 
 The complex path (complex128, all three compute types) adds to phases 3-5:
   3e. the complex residue GEMM (matmul_complex_mod) in its 4-dot and
@@ -53,7 +54,8 @@ The complex path (complex128, all three compute types) adds to phases 3-5:
       columns, the joint shifts and the shift-4 |Re| + |Im| magnitudes held
       to their plain versions as in 3e; how many shifts accurate mode moves
       from fast mode's; times of these, of matmul_complex_mod (both forms,
-      held bit for bit) beside its plain version and of the Karatsuba sum
+      on B's parts K-major as the main path encodes them, held bit for
+      bit) beside its plain version and of the Karatsuba sum
       slices (plain tensor ops on the card); and each complex 8192^3 call,
       the median of five rounds in rotated order, with two rates: the
       reference's element-op convention 2mnk/t and real flops 8mnk/t.
@@ -91,9 +93,9 @@ The low-memory schedule, the limb input and the two CRT-fused GEMMs add:
       3's rounding-branch values too; matmul_crt (limbs equal, each in
       [0, 65535]); matmul_reconstruct, equal to matmul_mod_u8 + reconstruct
       as well; the in-place chunk fold on the card;
-  4s. at 8192^3, 14 moduli, on phase 4's operands: gemm(moduli_chunk=5)
+  4s. at 8192^3, 14 moduli, on phase 4's operands: gemm(moduli_chunk=3)
       fast and accurate and one gemm(max_workspace_bytes=...) whose budget
-      the planner turns into 4 chunks: each returns the one-shot call's
+      the planner turns into 7 chunks: each returns the one-shot call's
       bits, its launch counts show one encode_slices pair and one
       matmul_mod_u8 per chunk and one reconstruct, and its peak of device
       memory above what was allocated before the call is below the one-shot
@@ -109,7 +111,7 @@ The low-memory schedule, the limb input and the two CRT-fused GEMMs add:
       matmul_reconstruct against matmul_mod_u8 + reconstruct over ten
       alternating rounds; encode_slices on
       13 moduli in its three forms; the chunk fold; then the chunked calls
-      (chunk 5 and chunk 1) and the FUSED_RECONSTRUCT call beside the
+      (chunk 3 and chunk 1) and the FUSED_RECONSTRUCT call beside the
       default call of their mode.
 
 The panel/rider pipeline (GEMMUL8_PIPELINE 1-3) and the column-panel
@@ -534,6 +536,28 @@ their functions) add:
 `python3 chip_smoke.py tuners` builds the kernels and runs phase 7 alone
 (no result line).
 
+B's K-major encode (the default schedules' B slices, read by matmul_mod_u8
+and matmul_complex_mod without a copy) adds:
+  3k. encode.cu's K-major form against its plain form (the N-major plain
+      slices transposed and zero-padded) and against the N-major kernel,
+      bit for bit, f64 and f32, at k in {1, 17, 100, 1000, 4100, 2048}
+      (under, across and at whole 32-row units; k % 16 != 0) and ragged n,
+      1 to 20 slots (all in order, one modulus, a tuple), also launched
+      into a buffer first filled with junk so the zero pad is seen written;
+      matmul_mod_u8 (centered and not, a moduli subset) and
+      matmul_complex_mod (4-dot and Karatsuba, centered and not) on K-major
+      B against the N-major route; a default 2048^3 dgemm (14 moduli) and
+      cgemm (8) call each counting 0 in build.B_COPIES and 6 and 11
+      launches; 0 ptxas spill bytes in the K-major instantiations (their
+      registers printed beside the N-major ones');
+  5k. in one rotation each at 8192^2 (14 moduli f64, 8 f32): encode of B
+      N-major and K-major; matmul_mod_u8 at 8192^3 with B K-major and
+      N-major (the copy route, timed only here); matmul_complex_mod 4-dot
+      likewise at 14 and 8 moduli; each with the SM clock and the card
+      line.
+`python3 chip_smoke.py kmajor` builds the kernels and runs 3k and 5k
+alone (no result line).
+
 Phases 5 (each kernel timed alone and both main calls), 5c and 5p print
 the SM clock and power draw that nvidia-smi sampled over each timing
 (`timed_clocked` fills a timing to CLOCK_WINDOW_MS so that samples land
@@ -743,8 +767,15 @@ LINE_OUT_BYTES = {"fast_sft": 4, "fast_stats": 13, "emax": 4}
 SCHEDULE_CASES = [((2048, 2048, 2048), (L_MAIN,), False),
                   ((1000, 777, 1500), (2, 8, 14, 20), True),
                   ((300, 5, 200), (2, 8, 14, 20), True)]
-CHUNK = 5                # phase 4s: moduli_chunk of the chunked calls
-BUDGET_CHUNK = 4         # and the chunk its max_workspace_bytes call plans
+# phase 4s: moduli_chunk of the chunked calls, and the chunk its
+# max_workspace_bytes call plans: at N^3 and 14 moduli a chunk of 4 or more
+# holds more than the one-shot call, whose B needs no K-major copy
+CHUNK = 3
+BUDGET_CHUNK = 2
+# phase 4s: the chunk of the ragged-k peak check. At CHUNK the planner's
+# 1 MiB a large tensor (planner.py's docstring) is more than PLANNER_SLACK
+# of that small call's peak, so the check takes a larger chunk
+RAGGED_CHUNK = 5
 SCHEDULE_KERNELS = ("matmul_crt", "matmul_reconstruct")
 SCHEDULE_ROUNDS = 3
 # phase 4c's ragged complex shape (m, k, n)
@@ -759,7 +790,7 @@ CLOCK_WINDOW_MS = 100    # a clocked timing's least length (20 ms samples)
 NO_SPILL_SOURCES = ("matmul_mod_pipelined.cu", "matmul_complex.cu",
                     "matmul_reconstruct.cu", "probe_deaddep.cu",
                     "matmul_crt.cu", "magmax.cu", "fast_sft.cu",
-                    "fast_encode_fused.cu", "mag7.cu")
+                    "fast_encode_fused.cu", "mag7.cu", "encode.cu")
 # phase 3w: the wgmma tile's edge shapes (m, k, n) at these slice counts,
 # a moduli subset, and the int32 wrap at the largest k
 WGMMA_CASES = [(1, 16, 1), (65, 144, 257), (200, 4100, 129),
@@ -784,6 +815,15 @@ MAG_MAX = 64
 # before magmax moved to the wgmma tile (PERF.md section 5, same card and
 # power limit)
 EARLIER_ACCURATE_MS = 16.704
+# phase 3k: B operands (k, n) for the K-major encode: k under, at and
+# across the 32-row unit, k % 16 != 0; ragged n; its slot sets
+# (num_moduli, moduli_idx); GEMM shapes (m, k, n) on K-major B
+KMAJOR_SHAPES = [(1, 70), (17, 130), (100, 5), (1000, 1500), (4100, 129),
+                 (2048, 2048)]
+KMAJOR_SLOTS = [(14, (5,)), (8, None), (14, None), (16, None), (17, None),
+                (20, None), (20, (19, 3, 7, 11))]
+KMAJOR_GEMMS = [(65, 144, 257), (200, 4100, 129), (1000, 1000, 1500)]
+KMAJOR_ROUNDS = 5        # phase 5k: rounds of each rotation
 # phase 3p: (m, k, n), moduli counts, panel_m; 2 or 3 panels, where the
 # pipeline's gates apply
 PIPELINE_CASES = [((2048, 2048, 2048), (L_MAIN,), 1024),
@@ -1059,6 +1099,202 @@ def phase_mma_kernels(errs):
             f"{', column range' if n > 2 * enc.ENC_BLOCK[1] else ''}) and "
             f"reconstruct (int8, uint8, int32, limbs; f64, f32; out=) == "
             f"plain at {m} x {n}, L = {MMA_LS[0]}..{MMA_LS[-1]}")
+
+
+def kmajor_operand(k, n, dtype, seed):
+    """A B operand (k, n) for phase 3k: phi 0.5 values, a zero column, a
+    negative zero, subnormal and large rows where k allows."""
+    b = phi_matrix(k, n, 0.5, seed=seed)
+    b[:, -1] = 0.0
+    b[0, 0] = -0.0
+    if k > 2:
+        b[1, ::3] = 1e-310
+        b[2, ::5] *= 2.0 ** 40
+    return torch.from_numpy(b).to(DEVICE).to(dtype)
+
+
+def encode_kmajor_into(out, x, sft, L, idx):
+    """gm8_encode_slices_kmajor of x's slots idx of L moduli, launched as
+    hk.encode_slices(..., k_major=True) launches it, but into out (n_idx,
+    n, kp), a buffer the caller has filled."""
+    k, n = x.shape
+    idx = enc.check_moduli_idx(idx, L)
+    with torch.cuda.device(x.device):
+        code = build.lib_for("encode.cu").gm8_encode_slices_kmajor(
+            x.data_ptr(), sft.data_ptr(), out.data_ptr(), k, n, out.shape[2],
+            hk.encode_mma_table(idx).ctypes.data, len(idx),
+            enc.q_max(L, enc.mant_bits_of(x)), int(x.dtype == torch.float32),
+            build.stream_ptr(x.device))
+    build.check(code, "encode_slices K-major")
+
+
+def ptxas_functions(report):
+    """(mangled name, registers, spill store bytes, spill load bytes) of
+    each function of a ptxas report (`-Xptxas -v`)."""
+    out = []
+    for block in report.split("Compiling entry function '")[1:]:
+        name = block.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        out.append((name, int(regs.group(1)) if regs else None,
+                    *(map(int, spill.groups()) if spill else (None, None))))
+    return out
+
+
+def phase_kmajor_b(errs):
+    """Phase 3k: encode.cu's K-major form and the residue GEMMs on it
+    (see the module docstring)."""
+    fns = ptxas_functions(build.PTXAS_REPORT["encode.cu"])
+    kmajor = [f for f in fns if "encode_kernel" in f[0] and "Lb1E" in f[0]]
+    assert len(kmajor) == 4, f"K-major instantiations: {fns}"
+    for name, regs, st, ld in fns:
+        log(f"  ptxas encode.cu: {name}: {regs} registers, spill stores "
+            f"{st}, loads {ld}")
+    assert all(st == 0 and ld == 0 for _, _, st, ld in kmajor), kmajor
+    log("  ptxas encode.cu: 0 spill bytes in the 4 K-major instantiations")
+    for i, (k, n) in enumerate(KMAJOR_SHAPES):
+        x64 = kmajor_operand(k, n, torch.float64, 300 + i)
+        for x in (x64, x64.float()):
+            key = build.form("encode_slices", x.dtype == torch.float32)
+            for L, idx in KMAJOR_SLOTS:
+                s = hk.fast_sft(x, L, 0)
+                slots = L if idx is None else len(idx)
+                kp = -(-k // 16) * 16
+                got = hk.encode_slices(x, s, L, 0, idx, k_major=True)
+                assert isinstance(got, enc.KMajorSlices) and got.k == k
+                ref = enc.k_major(hk.encode_slices_plain(x, s, L, 0, idx))
+                tag = f"{key} K-major k={k} n={n} L={L} idx={idx}"
+                hold(errs, key, got.bt, ref.bt, tag)
+                # into a junk-filled buffer: every byte, the pad [k, kp)
+                # too, is written
+                junk = torch.full((slots, n, kp), 0x55, dtype=torch.int8,
+                                  device=DEVICE)
+                encode_kmajor_into(junk, x, s, L, idx)
+                assert_bits_equal(junk, ref.bt, f"{tag} into junk")
+                assert_bits_equal(got.n_major().contiguous(),
+                                  hk.encode_slices(x, s, L, 0, idx),
+                                  f"{tag} vs the N-major kernel")
+        log(f"  encode_slices K-major == plain == N-major kernel at k={k} "
+            f"n={n}, f64 and f32, slots "
+            + ", ".join(f"{L}{'' if i is None else str(i)}"
+                        for L, i in KMAJOR_SLOTS))
+    for i, (m, k, n) in enumerate(KMAJOR_GEMMS):
+        for L, idx in ((2, None), (14, None), (20, None), (20, (19, 3, 7))):
+            slots = L if idx is None else len(idx)
+            a8, b8 = slices8(slots, m, k, n, 320 + i)
+            kb = enc.k_major(b8)
+            for centered in (True, False):
+                hold(errs, "matmul_mod_u8",
+                     hm.matmul_mod_u8(a8, kb, L, centered=centered,
+                                      moduli_idx=idx),
+                     hm.matmul_mod_u8(a8, b8, L, centered=centered,
+                                      moduli_idx=idx),
+                     f"matmul_mod_u8 K-major B m={m} k={k} n={n} L={L} "
+                     f"idx={idx} centered={centered}")
+        if k <= tables.MAX_K // 4:
+            for L in (2, 14, 20):
+                ar, br = slices8(L, m, k, n, 330 + i)
+                ai, bi = slices8(L, m, k, n, 340 + i)
+                sa = sg.recenter_add_int8(ar, ai, L)
+                sb = sg.recenter_add_int8(br, bi, L)
+                kr, ki = enc.k_major(br), enc.k_major(bi)
+                ks = sg.recenter_add_int8(kr, ki, L)
+                assert_bits_equal(ks.bt, enc.k_major(sb).bt,
+                                  "K-major Karatsuba sum")
+                for centered in (True, False):
+                    for kara, kkara in ((None, None), ((sa, sb), (sa, ks))):
+                        hold(errs, "matmul_complex_mod",
+                             hm.matmul_complex_mod(ar, ai, kr, ki, L,
+                                                   centered, kkara),
+                             hm.matmul_complex_mod(ar, ai, br, bi, L,
+                                                   centered, kara),
+                             f"matmul_complex_mod K-major B m={m} k={k} "
+                             f"n={n} L={L} centered={centered} "
+                             f"kara={kara is not None}")
+        log(f"  matmul_mod_u8 and matmul_complex_mod (4-dot, Karatsuba) on "
+            f"K-major B == N-major route at m={m} k={k} n={n}")
+    a = torch.from_numpy(phi_matrix(2048, 2048, 0.5, seed=360)).to(DEVICE)
+    b = torch.from_numpy(phi_matrix(2048, 2048, 0.5, seed=361)).to(DEVICE)
+    for name, (x, y, L, launches) in {
+            "dgemm": (a, b, 14, 6),
+            "cgemm": (torch.complex(a, b).to(torch.complex64),
+                      torch.complex(b, a).to(torch.complex64), 8, 11)}.items():
+        build.B_COPIES.clear()
+        _, counts, _ = counted(lambda: gt.gemm(x, y, num_moduli=L))
+        assert sum(counts.values()) == launches, (name, counts)
+        assert not build.B_COPIES, (name, dict(build.B_COPIES))
+        log(f"  default 2048^3 {name} call ({L} moduli): B_COPIES "
+            f"{dict(build.B_COPIES)}, {launches} launches {counts}")
+
+
+def phase_kmajor_times(card):
+    """Phase 5k: the K-major encode and the GEMMs without B's copy, each in
+    one rotation with the form it replaces (see the module docstring)."""
+    b64 = torch.from_numpy(phi_matrix(N, N, 0.5, seed=1)).to(DEVICE)
+    a64 = torch.from_numpy(phi_matrix(N, N, 0.5, seed=0)).to(DEVICE)
+    for x, L in ((b64, L_MAIN), (b64.float(), 8)):
+        s = hk.fast_sft(x, L, 0)
+        calls = {"N-major": lambda: hk.encode_slices(x, s, L, 0),
+                 "K-major": lambda: hk.encode_slices(x, s, L, 0,
+                                                     k_major=True)}
+        with ClockSampler() as clock:
+            by, _ = timed_rounds(calls, KMAJOR_ROUNDS, 3)
+        word = "f32" if x.dtype == torch.float32 else "f64"
+        meds = {n_: float(np.median(v)) for n_, v in by.items()}
+        log(f"  encode_slices B {word} {N}^2 {L} moduli: "
+            + "; ".join(f"{n_} median {ms:.3f} ms (rounds "
+                        f"{', '.join(f'{t:.3f}' for t in by[n_])})"
+                        for n_, ms in meds.items())
+            + f"; K-major - N-major {meds['K-major'] - meds['N-major']:+.3f}"
+            f" ms; {clock.summary()} ({card})")
+    del s, calls
+    for L in (L_MAIN, 8):
+        sa, sb = hk.fast_sft(a64, L, 1), hk.fast_sft(b64, L, 0)
+        a8 = hk.encode_slices(a64, sa, L, 1)
+        b8 = hk.encode_slices(b64, sb, L, 0)
+        kb = hk.encode_slices(b64, sb, L, 0, k_major=True)
+        calls = {"K-major B": lambda: hm.matmul_mod_u8(a8, kb, L,
+                                                       centered=True),
+                 "N-major B": lambda: hm.matmul_mod_u8(a8, b8, L,
+                                                       centered=True)}
+        with ClockSampler() as clock:
+            by, _ = timed_rounds(calls, KMAJOR_ROUNDS, 2)
+        log(f"  matmul_mod_u8 {N}^3 {L} moduli: "
+            + "; ".join(f"{n_} median {float(np.median(v)):.3f} ms (rounds "
+                        f"{', '.join(f'{t:.3f}' for t in v)})"
+                        for n_, v in by.items())
+            + f"; {clock.summary()} ({card})")
+        kbi = hk.encode_slices(a64, hk.fast_sft(a64, L, 0), L, 0,
+                               k_major=True)
+        b8i = kbi.n_major().contiguous()
+        calls = {"K-major B": lambda: hm.matmul_complex_mod(
+                     a8, a8, kb, kbi, L, centered=True),
+                 "N-major B": lambda: hm.matmul_complex_mod(
+                     a8, a8, b8, b8i, L, centered=True)}
+        with ClockSampler() as clock:
+            by, _ = timed_rounds(calls, KMAJOR_ROUNDS, 1)
+        log(f"  matmul_complex_mod 4-dot {N}^3 {L} moduli: "
+            + "; ".join(f"{n_} median {float(np.median(v)):.3f} ms (rounds "
+                        f"{', '.join(f'{t:.3f}' for t in v)})"
+                        for n_, v in by.items())
+            + f"; {clock.summary()} ({card})")
+        del a8, b8, kb, kbi, b8i, calls
+        torch.cuda.empty_cache()
+
+
+def kmajor_main():
+    """`python3 chip_smoke.py kmajor`: build the kernels and run phases 3k
+    and 5k alone (no result line)."""
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: torch.cuda.is_available() is false")
+    t_start = time.perf_counter()
+    card = card_line()
+    log(card)
+    build.lib()
+    phase_kmajor_b(dict.fromkeys(KERNELS, 0.0))
+    phase_kmajor_times(card)
+    log(f"wall time of the run: {time.perf_counter() - t_start:.1f} s")
 
 
 def slices8(L, m, k, n, seed):
@@ -2044,6 +2280,11 @@ SHARDED_FAST_LAUNCHES = {"fast_stats": 2, "encode_slices": 2,
                          "matmul_mod_u8": 1, "reconstruct": 1}
 SHARDED_ACCURATE_LAUNCHES = {"emax": 2, "mag7": 2, "encode_slices": 2,
                              "matmul_mod_u8": 1, "reconstruct": 1}
+# phase 4d: B's copies (build.B_COPIES) a sharded call makes: none where B
+# is encoded K-major, the big-matrix form's one (B's parts stacked along k)
+SHARDED_COMPLEX_COPIES = {CT.COMPLEX_BIG_MATRIX_ENCODE: {"matmul_mod_u8": 1},
+                          CT.COMPLEX_CLASSIC_MULT: {},
+                          CT.COMPLEX_KARATSUBA_MULT: {}}
 SHARDED_COMPLEX_LAUNCHES = {
     CT.COMPLEX_BIG_MATRIX_ENCODE: {"fast_stats": 4, "encode_slices": 4,
                                    "matmul_mod_u8": 1, "reconstruct": 1},
@@ -2139,11 +2380,14 @@ def sharded_child():
         mode = "fast" if fastmode else "accurate"
         torch.cuda.synchronize()
         build.LAUNCHES.clear()
+        build.B_COPIES.clear()
         c = sd.gemm_sharded(A, B, mesh, num_moduli=L_MAIN, fastmode=fastmode)
         torch.cuda.synchronize()
         counts = dict(build.LAUNCHES)
-        log(f"  launches in gemm_sharded {N}^3 {mode} (1x1 NCCL): {counts}")
+        log(f"  launches in gemm_sharded {N}^3 {mode} (1x1 NCCL): {counts}; "
+            f"B_COPIES {dict(build.B_COPIES)}")
         assert counts == want, f"sharded {mode} launch counts {counts}"
+        assert not build.B_COPIES, f"sharded {mode} copies B"
         assert c.shape == (N, N) and c.dtype == torch.float64
         out["launches"][mode] = counts
         out["digests"][mode] = digest(c)
@@ -2160,13 +2404,16 @@ def sharded_child():
                       device=DEVICE)
         torch.cuda.synchronize()
         build.LAUNCHES.clear()
+        build.B_COPIES.clear()
         c = sd.gemm_sharded_complex(ZA, ZB, mesh, num_moduli=L_MAIN,
                                     compute_type=ct)
         torch.cuda.synchronize()
         counts = dict(build.LAUNCHES)
         log(f"  launches in gemm_sharded_complex {N_SHARDED_COMPLEX}^3 "
-            f"{ct.name}: {counts}")
+            f"{ct.name}: {counts}; B_COPIES {dict(build.B_COPIES)}")
         assert counts == want, f"sharded {ct.name} launch counts {counts}"
+        assert build.B_COPIES == SHARDED_COMPLEX_COPIES[ct], \
+            f"sharded {ct.name} copies of B {dict(build.B_COPIES)}"
         assert c.dtype == torch.complex128
         assert torch.equal(torch.view_as_real(c).view(torch.int64),
                            torch.view_as_real(ref).view(torch.int64)), \
@@ -2674,13 +2921,14 @@ def schedule_calls():
 
     fast_pre = {"fast_sft": 2}
     accu_pre = {"emax": 2, "mag7": 2, "magmax_matmul": 1}
-    n5 = planner.ModuliSchedule(L, CHUNK).num_chunks
+    n_chunks = planner.ModuliSchedule(L, CHUNK).num_chunks
     fused = {"GEMMUL8_FUSED_RECONSTRUCT": "1"}
     return [
         (f"fast moduli_chunk={CHUNK}", True, gemm(True, moduli_chunk=CHUNK),
-         chunked(fast_pre, n5), CHUNK),
+         chunked(fast_pre, n_chunks), CHUNK),
         (f"accurate moduli_chunk={CHUNK}", False,
-         gemm(False, moduli_chunk=CHUNK), chunked(accu_pre, n5), CHUNK),
+         gemm(False, moduli_chunk=CHUNK), chunked(accu_pre, n_chunks),
+         CHUNK),
         (f"fast max_workspace_bytes={budget}", True,
          gemm(True, max_workspace_bytes=budget),
          chunked(fast_pre, sched.num_chunks), BUDGET_CHUNK),
@@ -2726,7 +2974,7 @@ def phase_schedules(a, b, refs, oracle, launches):
     # a ragged k: the GEMM holds A's slices padded to kp beside them (C11)
     m, k, n = PEAK_RAGGED
     ar, br = operands(m, k, n, 21, False)
-    for chunk in (None, CHUNK):
+    for chunk in (None, RAGGED_CHUNK):
         kw = {} if chunk is None else {"moduli_chunk": chunk}
         _, _, peak = counted(lambda: gt.gemm(ar, br, num_moduli=L,
                                              device=DEVICE, **kw))
@@ -2812,7 +3060,7 @@ def phase_times(a, b, errs):
     sa = hk.fast_sft(a, L, 1)
     sb = hk.fast_sft(b, L, 0)
     a8 = hk.encode_slices(a, sa, L, 1)
-    b8 = hk.encode_slices(b, sb, L, 0)
+    b8 = hk.encode_slices(b, sb, L, 0, k_major=True)   # as the main path
     r8 = hm.matmul_mod_u8(a8, b8, L, centered=True)
     ea, eb = hk.emax(a, 1), hk.emax(b, 0)
     ma, mb = hk.mag7(a, ea, 1), hk.mag7(b, eb, 0)
@@ -2822,12 +3070,13 @@ def phase_times(a, b, errs):
                               hk.fast_sft_plain(b, L, 0))),
         "encode_slices": (
             lambda: (hk.encode_slices(a, sa, L, 1),
-                     hk.encode_slices(b, sb, L, 0)),
+                     hk.encode_slices(b, sb, L, 0, k_major=True).bt),
             lambda: (hk.encode_slices_plain(a, sa, L, 1),
-                     hk.encode_slices_plain(b, sb, L, 0))),
+                     enc.k_major(hk.encode_slices_plain(b, sb, L, 0)).bt)),
         "matmul_mod_u8": (
             lambda: hm.matmul_mod_u8(a8, b8, L, centered=True),
-            lambda: hm.matmul_mod_u8_plain(a8, b8, L, centered=True)),
+            lambda: hm.matmul_mod_u8_plain(a8, b8.n_major(), L,
+                                           centered=True)),
         "reconstruct": (lambda: hk.reconstruct(r8, sa, sb, L),
                         lambda: hk.reconstruct_plain(r8, sa, sb, L)),
         "emax": (lambda: (hk.emax(a, 1), hk.emax(b, 0)),
@@ -2856,7 +3105,7 @@ def phase_times(a, b, errs):
     # the library's int8 GEMM on the same slices, without the mod epilogue:
     # L calls of torch._int_mm (the port never calls it)
     lib = {}
-    b8t = b8.transpose(1, 2).contiguous()   # column-major B, untimed
+    b8t = b8.bt     # column-major B: K-major, kp = k at N
     by, _ = timed_rounds({
         "matmul_mod_u8": lambda: hm.matmul_mod_u8(a8, b8, L, centered=True),
         "int_mm": lambda: [torch._int_mm(a8[l], b8t[l].t())
@@ -2997,24 +3246,28 @@ def phase_complex_times(A, B, errs):
         f"{shifts_moved(sa, acc_a, 1)}; B columns "
         f"{shifts_moved(sb, acc_b, 0)}")
     a8 = [hk.encode_slices(x, sa, L, 1) for x in (a_re, a_im)]
-    b8 = [hk.encode_slices(x, sb, L, 0) for x in (b_re, b_im)]
+    b8 = [hk.encode_slices(x, sb, L, 0, k_major=True)    # as the main path
+          for x in (b_re, b_im)]
     del a_re, a_im, b_re, b_im, parts
     ms, kara, clocks["recenter_add_int8"] = timed_clocked(
         lambda: (sg.recenter_add_int8(*a8, L), sg.recenter_add_int8(*b8, L)),
         3)
     times["recenter_add_int8"] = (ms, None)
+    b8_views = [x.n_major() for x in b8]    # the plain version's B
     for form, ks in (("4-dot", None), ("Karatsuba", kara)):
+        pks = None if ks is None else (ks[0], ks[1].n_major())
         ms, got, clocks[form] = timed_clocked(
             lambda: hm.matmul_complex_mod(*a8, *b8, L, True, ks), 3)
         pms, ref = timed(
-            lambda: hm.matmul_complex_mod_plain(*a8, *b8, L, True, ks), 1)
+            lambda: hm.matmul_complex_mod_plain(*a8, *b8_views, L, True,
+                                                pks), 1)
         hold(errs, "matmul_complex_mod", got, ref,
              f"matmul_complex_mod {form} at {N}^2, {L} moduli")
         times[form] = (ms, pms)
         del got, ref
     log(f"  matmul_complex_mod == plain at the main path's shapes ({N}^2, "
         f"{L} moduli, both forms)")
-    bt = [x.transpose(1, 2).contiguous() for x in b8]   # untimed
+    bt = [x.bt for x in b8]     # column-major B: K-major, kp = k at N
     with ClockSampler() as clock:
         by, _ = timed_rounds({
             "4-dot": lambda: hm.matmul_complex_mod(*a8, *b8, L, True, None),
@@ -3028,7 +3281,7 @@ def phase_complex_times(A, B, errs):
         }, PROBE_ROUNDS, 1)
     clocks["library"] = clock.summary()
     times["library"] = {label: float(np.median(v)) for label, v in by.items()}
-    del a8, b8, kara, bt
+    del a8, b8, b8_views, kara, bt
     with ClockSampler() as clock:
         calls, by_place = timed_rounds(
             {(strat, fastmode): (
@@ -5003,9 +5256,11 @@ def sass_counts():
 
 
 # the main-path instances of the two kernels redesigned on the tensor cores
-# (f64 words, up to 16 moduli; int8 residues, f64 output, 4-word tail), by
-# a part of their mangled names
-MMA_SASS = {"encode_slices": "encode_kernelIyLi1E",
+# (f64 words, up to 16 moduli; encode in its N-major form, A's, and its
+# K-major form, B's; int8 residues, f64 output, 4-word tail), by a part of
+# their mangled names
+MMA_SASS = {"encode_slices": "encode_kernelIyLi1ELb0E",
+            "encode_slices K-major": "encode_kernelIyLi1ELb1E",
             "reconstruct": "reconstruct_kernelILi1EyLi4E"}
 SASS_CLASSES = {"IMMA": ("IMMA",), "LDSM/LDS": ("LDSM", "LDS"),
                 "STS": ("STS",), "LDG": ("LDG",), "STG": ("STG",),
@@ -5646,8 +5901,8 @@ def main():
         f"{time.perf_counter() - t0:.1f} s from {len(build.sources())} "
         "sources")
 
-    for src in ("matmul_mod.cu", "matmul_rider.cu", "encode.cu",
-                "reconstruct.cu", *NO_SPILL_SOURCES):
+    for src in ("matmul_mod.cu", "matmul_rider.cu", "reconstruct.cu",
+                *NO_SPILL_SOURCES):
         ptxas = [line.strip() for line in
                  build.PTXAS_REPORT.get(src, "").splitlines()
                  if "entry function" in line or "Used" in line
@@ -5677,6 +5932,7 @@ def main():
     phase_fused_stats_edges(errs)
     phase_pipelined_edges(errs)
     phase_schedule_kernels(errs)
+    phase_kmajor_b(errs)
     phase_pipeline_kernels(errs)
     phase_f32_kernels(errs)
     phase_rounding_f32(errs)
@@ -5834,6 +6090,7 @@ def main():
         log(f"  gemm {N}^3 {L_MAIN} moduli f64 {name}: median {ms:.3f} ms "
             f"(rounds {', '.join(f'{t:.3f}' for t in mss)}), "
             f"{tflops:.2f} TFLOP/s, gate relerr {rel!r} ({card})")
+    phase_kmajor_times(card)
     pkerns, pplain, pcalls, pclocks = phase_pipeline_times(a, b, b_wide,
                                                            errs)
     for label, mss in pkerns.items():
@@ -6312,5 +6569,7 @@ if __name__ == "__main__":
         drivers_main()
     elif sys.argv[1:] == ["tuners"]:
         tuners_main()
+    elif sys.argv[1:] == ["kmajor"]:
+        kmajor_main()
     else:
         main()

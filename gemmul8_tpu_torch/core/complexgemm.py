@@ -71,7 +71,8 @@ def accurate_sfts_complex(a_re, a_im, b_re, b_im, num_moduli: int):
 def encode_complex_operands(a_re, a_im, b_re, b_im, num_moduli: int,
                             fastmode: bool):
     """(a8r, a8i, sft_a, b8r, b8i, sft_b): the shared shifts and the int8
-    residue slices of the four parts."""
+    residue slices of the four parts, B's K-major (`enc.KMajorSlices`, read
+    by the residue GEMM without a copy)."""
     if fastmode:
         sft_a = enc.joint_fast_sft(a_re, a_im, num_moduli, 1,
                                    stats=hk.fast_stats)
@@ -82,8 +83,9 @@ def encode_complex_operands(a_re, a_im, b_re, b_im, num_moduli: int,
                                              num_moduli)
     return (hk.encode_slices(a_re, sft_a, num_moduli, axis=1),
             hk.encode_slices(a_im, sft_a, num_moduli, axis=1), sft_a,
-            hk.encode_slices(b_re, sft_b, num_moduli, axis=0),
-            hk.encode_slices(b_im, sft_b, num_moduli, axis=0), sft_b)
+            hk.encode_slices(b_re, sft_b, num_moduli, axis=0, k_major=True),
+            hk.encode_slices(b_im, sft_b, num_moduli, axis=0, k_major=True),
+            sft_b)
 
 
 @trace.traced("gm8.core.gemm_complex_core")

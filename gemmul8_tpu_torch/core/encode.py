@@ -26,6 +26,8 @@ masked to 32 bits.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -414,6 +416,31 @@ def encode_slices(x: torch.Tensor, sft: torch.Tensor, num_moduli: int,
     chunks, exp, sign, _ = _fields(x)
     return _encode_with_sft(chunks, exp, sign, sft.to(torch.int64),
                             num_moduli, idx)
+
+
+class KMajorSlices(NamedTuple):
+    """A B operand's residue slices in the layout the GEMM tile reads: `bt`
+    (L, n, kp) int8, slice l's row j the residues of B's column j down k,
+    kp = k rounded up to 16, zeros in [k, kp). What
+    `hopper.kernels.encode_slices(..., k_major=True)` returns; the residue
+    GEMMs tell it from N-major (L, k, n) slices by its type and read it
+    without a copy."""
+    bt: torch.Tensor
+    k: int
+
+    def n_major(self) -> torch.Tensor:
+        """The (L, k, n) slices, a view of `bt`."""
+        return self.bt[:, :, :self.k].transpose(1, 2)
+
+
+def k_major(b8: torch.Tensor) -> KMajorSlices:
+    """(L, k, n) int8 slices in their K-major form: transposed, and
+    zero-padded along k to a multiple of 16."""
+    L, k, n = b8.shape
+    t = torch.zeros((L, n, -(-k // 16) * 16), dtype=b8.dtype,
+                    device=b8.device)
+    t[:, :, :k] = b8.transpose(1, 2)
+    return KMajorSlices(t, k)
 
 
 # The byte-plane contraction of the encode kernel (csrc/encode_mma.cuh): the

@@ -44,6 +44,12 @@ act on int8 data.
 
 `gemm_phases` splits the default one-shot call into the four phases that
 `api.gemm_timed` times (the JAX package's `gemm_phases`).
+
+B's slices are encoded K-major (`hk.encode_slices(..., k_major=True)`), the
+layout the residue GEMM reads without a copy, in the default one-shot
+schedule, the chunked one, the column panels and `gemm_phases`. The
+fused-reconstruct branch, the fused encode, the panel/rider pipeline and
+`matmul_crt` take N-major slices, which their kernels copy K-major.
 """
 
 from __future__ import annotations
@@ -119,6 +125,10 @@ def gemm_core(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
     # read where the JAX package reads it: an invalid value raises even
     # where the pipeline cannot run (FUSED_ENCODE)
     pipe = pl.pipeline_mode() if one_shot and alpha_e == 0 else 0
+    # chosen before B is encoded: the fused kernel takes B N-major
+    fused = (one_shot and alpha_e == 0
+             and os.environ.get("GEMMUL8_FUSED_RECONSTRUCT") == "1"
+             and hm.fused_reconstruct_ok(m, n, k, num_moduli))
     if (fastmode and one_shot
             and os.environ.get("GEMMUL8_FUSED_ENCODE") == "1"):
         a8, sft_a = hk.fast_encode_fused(a, num_moduli, axis=1)
@@ -143,9 +153,9 @@ def gemm_core(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
                                      sfts=(sft_a, sft_b),
                                      encode_rider=pipe >= 2, b_rider=bsp)
         a8 = hk.encode_slices(a, sft_a, num_moduli, axis=1)
-        b8 = hk.encode_slices(b, sft_b, num_moduli, axis=0)
-    if (alpha_e == 0 and os.environ.get("GEMMUL8_FUSED_RECONSTRUCT") == "1"
-            and hm.fused_reconstruct_ok(m, n, k, num_moduli)):
+        b8 = hk.encode_slices(b, sft_b, num_moduli, axis=0,
+                              k_major=not fused)
+    if fused:
         return hm.matmul_reconstruct(a8, b8, sft_a, sft_b, num_moduli,
                                      out_dtype)
     r8 = hm.matmul_mod_u8(a8, b8, num_moduli, centered=centered_residues())
@@ -166,7 +176,8 @@ def _gemm_chunked(a, b, sft_a, sft_b, num_moduli: int, moduli_chunk: int,
     for j0, width in ModuliSchedule(num_moduli, moduli_chunk).chunks():
         idx = tuple(range(j0, j0 + width))
         a8 = hk.encode_slices(a, sft_a, num_moduli, axis=1, moduli_idx=idx)
-        b8 = hk.encode_slices(b, sft_b, num_moduli, axis=0, moduli_idx=idx)
+        b8 = hk.encode_slices(b, sft_b, num_moduli, axis=0, moduli_idx=idx,
+                              k_major=True)
         r8 = hm.matmul_mod_u8(a8, b8, num_moduli, moduli_idx=idx)
         del a8, b8
         if limbs is None:
@@ -227,7 +238,8 @@ def gemm_core_panels(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
                                       panel_m=cfg[0], bn=cfg[1],
                                       sfts=(sft_a, sft_b), a8=a8)
         else:
-            b8 = hk.encode_slices(bp, sft_b, num_moduli, axis=0)
+            b8 = hk.encode_slices(bp, sft_b, num_moduli, axis=0,
+                                  k_major=True)
             r8 = hm.matmul_mod_u8(a8, b8, num_moduli,
                                   centered=centered_residues())
             del b8
@@ -244,12 +256,12 @@ def gemm_phases(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
     """The default one-shot call as four callables, for phase timing (the
     JAX package's `gemm_phases`, the reference's four-part breakdown):
     encode(a, b) -> (a8, sft_a, b8, sft_b), the shifts (fast_sft, or the
-    accurate pre-phase) and encode_slices of both operands; matmul(a8, b8)
-    -> the int8 GEMMs with the mod in their epilogue (matmul_mod_u8, int8
-    residues); mod(r) -> r, the identity, since the mod ran in the GEMM's
-    epilogue; reconstruct(r, sft_a, sft_b) -> the (m, n) result. They run
-    the default kernels whatever the switches say, and give the default
-    `gemm_core` call's bits."""
+    accurate pre-phase) and encode_slices of both operands (B's K-major);
+    matmul(a8, b8) -> the int8 GEMMs with the mod in their epilogue
+    (matmul_mod_u8, int8 residues); mod(r) -> r, the identity, since the
+    mod ran in the GEMM's epilogue; reconstruct(r, sft_a, sft_b) -> the
+    (m, n) result. They run the default kernels whatever the switches say,
+    and give the default `gemm_core` call's bits."""
     check_shapes(a, b)
     _check_call(a, b, out_dtype)
 
@@ -261,7 +273,8 @@ def gemm_phases(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
         else:
             sft_a, sft_b = accurate_sfts(a, b, num_moduli)
         return (hk.encode_slices(a, sft_a, num_moduli, axis=1), sft_a,
-                hk.encode_slices(b, sft_b, num_moduli, axis=0), sft_b)
+                hk.encode_slices(b, sft_b, num_moduli, axis=0, k_major=True),
+                sft_b)
 
     def matmul(a8, b8):
         return hm.matmul_mod_u8(a8, b8, num_moduli, centered=True)

@@ -13,7 +13,7 @@ import torch
 
 from .. import tables
 from . import reconstruct as rec
-from .encode import check_moduli_idx
+from .encode import KMajorSlices, check_moduli_idx
 from .modmath import mod_reduce
 
 
@@ -63,14 +63,19 @@ def matmul_reconstruct(a8: torch.Tensor, b8: torch.Tensor,
                            num_moduli, out_dtype)
 
 
-def recenter_add_int8(x8: torch.Tensor, y8: torch.Tensor,
-                      num_moduli: int) -> torch.Tensor:
+def recenter_add_int8(x8, y8, num_moduli: int):
     """(L, ...) int8 residues x + y mod m_j, centered: for odd m_j in
     [-(m_j - 1)/2, (m_j - 1)/2], for 256 in [-128, 127] (the sum's low
     byte). The Karatsuba sum slices; the counterpart of the JAX package's
     `_recenter_add_int8`, for any int8 inputs. Plain tensor ops on x8's
     device, in int16: ((x + y + h) mod m) - h with h = (m - 1) / 2, or 128
-    for 256."""
+    for 256. Two `KMajorSlices` of one k give theirs (the pad's zeros sum
+    to zero)."""
+    if isinstance(x8, KMajorSlices) and isinstance(y8, KMajorSlices):
+        if x8.k != y8.k:
+            raise ValueError("K-major slices of two k")
+        return KMajorSlices(recenter_add_int8(x8.bt, y8.bt, num_moduli),
+                            x8.k)
     if x8.dtype != torch.int8 or y8.dtype != torch.int8:
         raise TypeError("slices must be int8")
     if x8.shape != y8.shape or x8.shape[0] != num_moduli:
@@ -155,6 +160,8 @@ def _check_matmul_args(a8: torch.Tensor, b8: torch.Tensor, num_moduli: int,
     """Raise on slices the residue GEMMs do not take; returns the moduli
     index of each slice (`check_moduli_idx`)."""
     idx = check_moduli_idx(moduli_idx, num_moduli)
+    if not isinstance(a8, torch.Tensor) or not isinstance(b8, torch.Tensor):
+        raise TypeError("slices must be tensors, B's N-major (L, k, n)")
     if a8.dtype != torch.int8 or b8.dtype != torch.int8:
         raise TypeError("slices must be int8")
     if a8.dim() != 3 or b8.dim() != 3:

@@ -10,9 +10,12 @@
 // the 4-dot form is 4 x 15.4 T multiply-adds, the Karatsuba form 3 x; the
 // int8 operands (4 or 6 x 0.94 GB) and residues (2 x 0.94 GB) are small
 // next to that.
-// Design: matmul_mod.cu's wgmma tile (wgmma_s8.cuh): each B operand is
-// first copied into its own K-major workspace (transpose_b.cuh); each A
-// operand (row stride kp, padded by the caller) and each workspace is read
+// Design: matmul_mod.cu's wgmma tile (wgmma_s8.cuh): the B operands come
+// K-major from their encode (encode.cu's K-major form; the Karatsuba sum
+// of two such parts is one too) and are read in place; B operands given
+// N-major are first copied each into its own K-major workspace
+// (transpose_b.cuh). Each A operand (row stride kp, padded by the
+// caller) and each K-major B is read
 // through its own 3-D tensor map into one TMA ring; one producer warp, two
 // consumer warpgroups each accumulating a 64 x 256 half of a 128 x 256
 // tile with wgmma.m64n256k32, a persistent grid. The producer walks (tile,
@@ -306,10 +309,12 @@ int launch(const Maps& maps, unsigned char* out_re, unsigned char* out_im,
 
 // ar, ai (and sa when kara): (L, m, kp) int8, kp % 16 == 0, zero-padded past
 // k by the caller when k % 16 != 0, 16-byte aligned; br, bi (and sb):
-// (L, k, n) int8; bt: the K-major workspaces, (2 or 3, L, n, kp) int8,
-// 16-byte aligned; out_re, out_im: (L, m, n) uint8 or int8. Slice l uses
-// modulus MODULI[l]. sa and sb are ignored (may be null) unless kara.
-// k <= 2^16 (checked by the caller).
+// (L, k, n) int8, copied into bt, the K-major workspaces, (2 or 3, L, n, kp)
+// int8, 16-byte aligned; or, with bt null, B's parts themselves, each
+// (L, n, kp) K-major with zeros in [k, kp), 16-byte aligned, read in place
+// (matmul_mod.cu's form); out_re, out_im: (L, m, n) uint8 or int8.
+// Slice l uses modulus MODULI[l]. sa and sb are ignored (may be null)
+// unless kara. k <= 2^16 (checked by the caller).
 GM8_EXPORT int gm8_matmul_complex_mod(const void* ar, const void* ai,
                                       const void* sa, const void* br,
                                       const void* bi, const void* sb,
@@ -323,7 +328,8 @@ GM8_EXPORT int gm8_matmul_complex_mod(const void* ar, const void* ai,
   bool aligned = reinterpret_cast<uintptr_t>(bt) % 16 == 0;
   for (int i = 0; i < nb; ++i)
     aligned = aligned && a_in[i] != nullptr && b_in[i] != nullptr &&
-              reinterpret_cast<uintptr_t>(a_in[i]) % 16 == 0;
+              reinterpret_cast<uintptr_t>(a_in[i]) % 16 == 0 &&
+              (bt || reinterpret_cast<uintptr_t>(b_in[i]) % 16 == 0);
   if (kp % 16 != 0 || kp < k || k > (1 << 16) || m < 0 || n < 0 ||
       !aligned || !gm8::slot_moduli(nullptr, L, &mods))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -341,9 +347,12 @@ GM8_EXPORT int gm8_matmul_complex_mod(const void* ar, const void* ai,
   const size_t ws = static_cast<size_t>(L) * n * kp;
   Maps maps;
   for (int i = 0; i < nb; ++i) {
-    auto bti = static_cast<signed char*>(bt) + i * ws;
-    gm8::transpose_b(static_cast<const signed char*>(b_in[i]), bti, L, k, n,
-                     kp, s);
+    const signed char* bti = static_cast<const signed char*>(b_in[i]);
+    if (bt) {
+      signed char* ws_i = static_cast<signed char*>(bt) + i * ws;
+      gm8::transpose_b(bti, ws_i, L, k, n, kp, s);
+      bti = ws_i;
+    }
     if (!gm8::wg::make_tensor_map(&maps.a[i], a_in[i], L, m, kp, kBM) ||
         !gm8::wg::make_tensor_map(&maps.b[i], bti, L, n, kp, kBN))
       return static_cast<int>(cudaErrorInvalidValue);

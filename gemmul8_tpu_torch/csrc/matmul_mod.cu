@@ -6,10 +6,12 @@
 // Bound on the H100: tensor-core operations. At 8192^3 with 14 moduli the
 // call is 15.4 T integer multiply-adds x 2 (7.78 ms at 1,979 TOPS); the
 // int8 operands (1.9 GB) and residues (0.9 GB) are small next to that.
-// Design: wgmma reads 8-bit operands K-major only. A (L, m, k) is; B
-// (L, k, n) is not, so a first kernel copies B into a K-major workspace
-// (L, n, kp), kp = k rounded up to 16 with zeros (one 1-byte-per-element
-// pass, small next to the product; transpose_b.cuh). The GEMM kernel then
+// Design: wgmma reads 8-bit operands K-major only. A (L, m, k) is; B is
+// too where its encode wrote it so ((L, n, kp), kp = k rounded up to 16
+// with zeros: encode.cu's K-major form), and the kernel reads it in place.
+// A B given N-major (L, k, n) (the fused-encode variant, the sharded
+// engine's big-matrix complex form) is first copied into a K-major
+// workspace of that shape by a first kernel (transpose_b.cuh). The GEMM kernel then
 // runs the tile of wgmma_s8.cuh on a persistent grid, one block per SM:
 // TMA fills a ring of stages from 3-D tensor maps (which zero-fill ragged
 // rows and k), a producer warp keeps the loads in flight, and two consumer
@@ -149,8 +151,10 @@ int launch_gemm(const signed char* a8, const signed char* bt,
 }  // namespace
 
 // a8: (L, m, kp) int8 with kp % 16 == 0 (zero-padded past k by the caller
-// when k % 16 != 0) and a 16-byte aligned start; b8: (L, k, n) int8; bt:
-// (L, n, kp) int8 workspace; out: (L, m, n) uint8 or int8. Slice l uses
+// when k % 16 != 0) and a 16-byte aligned start; b8: (L, k, n) int8, copied
+// into the (L, n, kp) int8 workspace bt; or, with bt null, B itself, (L, n,
+// kp) K-major with zeros in [k, kp) and 16-byte aligned, read in place;
+// out: (L, m, n) uint8 or int8. Slice l uses
 // modulus MODULI[moduli_idx[l]] (moduli_idx: L ints on the host, or null
 // for 0..L-1); k <= 2^17 (checked by the caller).
 GM8_EXPORT int gm8_matmul_mod_u8(const void* a8, const void* b8, void* bt,
@@ -160,7 +164,7 @@ GM8_EXPORT int gm8_matmul_mod_u8(const void* a8, const void* b8, void* bt,
   gm8::SlotModuli mods;
   if (kp % 16 != 0 || kp < k || m < 0 || n < 0 ||
       reinterpret_cast<uintptr_t>(a8) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(bt) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(bt ? bt : b8) % 16 != 0 ||
       !gm8::slot_moduli(static_cast<const int*>(moduli_idx), L, &mods))
     return static_cast<int>(cudaErrorInvalidValue);
   if (m == 0 || n == 0) return 0;
@@ -169,8 +173,11 @@ GM8_EXPORT int gm8_matmul_mod_u8(const void* a8, const void* b8, void* bt,
   if (kp == 0)  // empty products: residue 0 everywhere
     return static_cast<int>(cudaMemsetAsync(
         outp, centered ? 0x80 : 0, static_cast<size_t>(L) * m * n, s));
-  auto btp = static_cast<signed char*>(bt);
-  gm8::transpose_b(static_cast<const signed char*>(b8), btp, L, k, n, kp, s);
+  auto btp = static_cast<const signed char*>(b8);
+  if (bt) {
+    gm8::transpose_b(btp, static_cast<signed char*>(bt), L, k, n, kp, s);
+    btp = static_cast<const signed char*>(bt);
+  }
   return launch_gemm(static_cast<const signed char*>(a8), btp, outp, L, m,
                      n, kp, centered, mods, s);
 }

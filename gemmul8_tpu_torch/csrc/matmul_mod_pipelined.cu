@@ -7,8 +7,9 @@
 // moduli: 1.54e13 int8 operations, 7.78 ms at 1,979 TOPS).
 // Design: the TPU kernel reduced tile j-1 from one accumulator while its
 // matrix unit filled the other with tile j. The Hopper form of that is the
-// ping-pong schedule on the wgmma tile of wgmma_s8.cuh. B is first copied
-// K-major (transpose_b.cuh), as for matmul_mod.cu; TMA fills a ring of
+// ping-pong schedule on the wgmma tile of wgmma_s8.cuh. B is read K-major
+// in place where its encode wrote it so, else first copied K-major
+// (transpose_b.cuh), as for matmul_mod.cu; TMA fills a ring of
 // stages from 3-D tensor maps, one producer warp keeps the loads in flight
 // across tiles, and a persistent grid walks the tiles. Where matmul_mod.cu's
 // two consumer warpgroups share each 128 x 256 tile (the cooperative
@@ -302,7 +303,8 @@ matmul_mod_pipelined_kernel(const __grid_constant__ CUtensorMap map_a,
 // when k % 16 != 0) and a 16-byte aligned start; b8: (L, k, n) int8; bt:
 // (L, n, kp) int8 workspace; out: (L, m, n) uint8 canonical residues.
 // Slice l uses modulus MODULI[moduli_idx[l]] (moduli_idx: L ints on the
-// host, or null for 0..L-1); k <= 2^17 (checked by the caller).
+// host, or null for 0..L-1); k <= 2^17 (checked by the caller). bt null:
+// b8 is B itself, K-major (matmul_mod.cu's form), read in place.
 GM8_EXPORT int gm8_matmul_mod_u8_pipelined(const void* a8, const void* b8,
                                            void* bt, void* out,
                                            const void* moduli_idx, int L,
@@ -311,7 +313,7 @@ GM8_EXPORT int gm8_matmul_mod_u8_pipelined(const void* a8, const void* b8,
   gm8::SlotModuli mods;
   if (kp % 16 != 0 || kp < k || m < 0 || n < 0 ||
       reinterpret_cast<uintptr_t>(a8) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(bt) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(bt ? bt : b8) % 16 != 0 ||
       !gm8::slot_moduli(static_cast<const int*>(moduli_idx), L, &mods))
     return static_cast<int>(cudaErrorInvalidValue);
   if (m == 0 || n == 0) return 0;
@@ -320,8 +322,11 @@ GM8_EXPORT int gm8_matmul_mod_u8_pipelined(const void* a8, const void* b8,
   if (kp == 0)  // empty products: residue 0 everywhere
     return static_cast<int>(
         cudaMemsetAsync(outp, 0, static_cast<size_t>(L) * m * n, s));
-  auto btp = static_cast<signed char*>(bt);
-  gm8::transpose_b(static_cast<const signed char*>(b8), btp, L, k, n, kp, s);
+  auto btp = static_cast<const signed char*>(b8);
+  if (bt) {
+    gm8::transpose_b(btp, static_cast<signed char*>(bt), L, k, n, kp, s);
+    btp = static_cast<const signed char*>(bt);
+  }
   CUtensorMap map_a, map_b;
   if (!gm8::wg::make_tensor_map(&map_a, a8, L, m, kp, kBM) ||
       !gm8::wg::make_tensor_map(&map_b, btp, L, n, kp, kHalfB))

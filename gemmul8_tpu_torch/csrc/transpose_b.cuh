@@ -1,10 +1,13 @@
 // B's int8 slices (L, k, n), N-major, copied into a K-major workspace
 // (L, n, kp) with zeros in [k, kp): the layout the tensor-core tile of
-// wgmma_s8.cuh reads. Shared by the real (matmul_mod.cu,
-// matmul_mod_pipelined.cu) and the complex (matmul_complex.cu) residue
-// GEMMs, the CRT-fused GEMMs (matmul_reconstruct.cu, matmul_crt.cu), the
-// deaddep probe and the panel pipeline (matmul_rider.cu, which copies one
-// column half of B with a row stride of its own). The kernel has internal linkage, so each including source gets
+// wgmma_s8.cuh reads. The main path's B needs no copy: encode.cu writes it
+// K-major, and matmul_mod.cu, matmul_mod_pipelined.cu and matmul_complex.cu
+// read it in place. The copy is left to the entries given an N-major B:
+// those three for such a B (the fused-encode variant, the sharded engine's
+// big-matrix complex form), the CRT-fused GEMMs (matmul_reconstruct.cu,
+// matmul_crt.cu), the deaddep probe and the panel pipeline
+// (matmul_rider.cu, which copies one column half of B with a row stride of
+// its own). The kernel has internal linkage, so each including source gets
 // its own copy.
 #pragma once
 

@@ -33,12 +33,16 @@ The C entry points act on the current CUDA device: a wrapper calls them
 inside `torch.cuda.device(x.device)`, which restores the caller's device.
 Every C entry point returns `cudaGetLastError()` after its launch; `check`
 raises on a nonzero code. `LAUNCHES` counts C entry calls, one per call
-under the wrapper's key (`launched`), not kernels: the entries of the
-GEMMs with a mod (matmul_mod_u8 and its pipelined form, matmul_crt,
-matmul_reconstruct, a rider step given B) also launch the copy of B into
-its K-major workspace (`transpose_b_kernel`), matmul_complex_mod one copy
-per B part (two, three for Karatsuba), and the rider pair one before its
-two GEMM launches, which count two.
+under the wrapper's key (`launched`), not kernels. An entry given B's
+slices N-major (L, k, n) also launches the copy of B into a K-major
+workspace (`transpose_b_kernel`): matmul_mod_u8 and its pipelined form
+(which read B in place when it comes K-major, `core.encode.KMajorSlices`,
+as the main path's encode writes it), matmul_crt, matmul_reconstruct, a
+rider step given B, the rider pair (one copy before its two GEMM
+launches, which count two) and the deaddep probe; matmul_complex_mod one
+copy per N-major B part (two, three for Karatsuba). `B_COPIES` counts
+those copies by the wrapper's key (`copied_b`), apart from `LAUNCHES`, so
+that 1 - copies / B operands is the share of B operands read in place.
 A kernel's f32 form (f32 operand, or f32 output for reconstruct and
 matmul_reconstruct) counts under its own key, the name with "[f32]"; the
 pipeline's rider step and pair, which have two words each, count each
@@ -76,6 +80,9 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
 # C entry calls, one count per call under the wrapper's key (`launched`);
 # reset by the caller that reads them
 LAUNCHES: collections.Counter = collections.Counter()
+# copies of B into a K-major workspace (`transpose_b_kernel`), one count
+# per copy under the wrapper's key (`copied_b`); reset by their reader
+B_COPIES: collections.Counter = collections.Counter()
 # flags of single sources: the sources on the wgmma tile take their
 # launch constants from the launch table's entry of their name (source ->
 # entry below); their ptxas reports, those of the two main-path kernels
@@ -120,8 +127,11 @@ _SIGNATURES = {
     # stream
     "gm8_encode_slices": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I,
                           _P],
-    # a8, b8, bt (workspace), out, moduli_idx (host), L, m, n, k, kp,
-    # centered, stream
+    # x, sft, out, k, n, kp, table (host), n_idx, q_max, f32, stream
+    "gm8_encode_slices_kmajor": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _I,
+                                 _P],
+    # a8, b8, bt (workspace, null for a K-major b8), out, moduli_idx
+    # (host), L, m, n, k, kp, centered, stream
     "gm8_matmul_mod_u8": [_P] * 5 + [_I] * 6 + [_P],
     # moduli_idx (host), L, lo, hi, bad, stream
     "gm8_mod_div_check": [_P, _I, ctypes.c_longlong, ctypes.c_longlong, _P,
@@ -137,8 +147,8 @@ _SIGNATURES = {
     "gm8_mag7": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # a, lda, bt, ldb, row_max, col_max, m, n, k, stream
     "gm8_magmax_matmul": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _P],
-    # ar, ai, sa, br, bi, sb, bt (workspaces), out_re, out_im, L, m, n, k,
-    # kp, centered, kara, stream
+    # ar, ai, sa, br, bi, sb, bt (workspaces, null for K-major parts),
+    # out_re, out_im, L, m, n, k, kp, centered, kara, stream
     "gm8_matmul_complex_mod": [_P] * 9 + [_I] * 7 + [_P],
     # x, out, sft, rows, kdim, axis, table (host), num_moduli, t_f, guard,
     # q_max, f32, sync (workspace), stream
@@ -148,7 +158,8 @@ _SIGNATURES = {
     "gm8_mag7_fused": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # a, lda, bt, ldb, row_part, col_part, m, n, k, stream
     "gm8_magmax_matmul_scratch": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _P],
-    # a8, b8, bt (workspace), out, moduli_idx (host), L, m, n, k, kp, stream
+    # a8, b8, bt (workspace, null for a K-major b8), out, moduli_idx
+    # (host), L, m, n, k, kp, stream
     "gm8_matmul_mod_u8_pipelined": [_P] * 5 + [_I] * 5 + [_P],
     # a8, b8, bt, scratch (workspaces), out, table (host), L, nl, m, n, k,
     # kp, nblocks, stream
@@ -464,6 +475,12 @@ def launched(key: str, *made: torch.Tensor, count: int = 1) -> None:
     it made (outputs and workspaces)."""
     LAUNCHES[key] += count
     trace.count(count, made)
+
+
+def copied_b(key: str, count: int = 1) -> None:
+    """Count `count` copies of B into a K-major workspace, made by the C
+    entry of the wrapper `key`, in `B_COPIES`."""
+    B_COPIES[key] += count
 
 
 def check(code: int, name: str) -> None:

@@ -29,7 +29,11 @@ products) and give the bits of `encode_slices` and `reconstruct`.
 
 `encode_slices` takes a subset of the moduli (`moduli_idx`, the chunks of
 the moduli-chunked schedule) and a range of columns (`col_tiles`, the panel
-pipeline's B split), and `reconstruct` takes, besides int8 and uint8
+pipeline's B split); for a B operand it writes, with `k_major=True`, the
+K-major layout the residue GEMMs read without a copy
+(`core.encode.KMajorSlices`: its plain version is the N-major plain slices
+transposed and zero-padded, `core.encode.k_major`). `reconstruct` takes,
+besides int8 and uint8
 residues, raw int32 slice products and the weighted CRT sum as 16-bit limbs
 (`input_kind="limbs"`: what `hopper.matmul.matmul_crt` and the chunked
 schedule's fold produce), and writes into a given output (`out=`, rows of
@@ -308,36 +312,55 @@ def encode_mma_table(moduli_idx: tuple) -> np.ndarray:
 @trace.traced("gm8.hopper.encode_slices")
 def encode_slices(x: torch.Tensor, sft: torch.Tensor, num_moduli: int,
                   axis: int, moduli_idx=None, col_tiles=None,
-                  launch=None) -> torch.Tensor:
+                  launch=None, k_major: bool = False):
     """(L', *x.shape) int8 centered residues of trunc(x * 2^sft) of a
     float64 or float32 operand: slice l for modulus moduli_idx[l], any
     tuple of distinct indices below num_moduli (default: all of them in
     order). col_tiles (j0, j1): only x's columns [j0, j1) x
     enc.ENC_BLOCK[1] (clipped to its width) are written, the rest of the
-    full-shape output is left as allocated."""
+    full-shape output is left as allocated. k_major (a B operand, axis=0,
+    all its columns): the same residues as a `core.encode.KMajorSlices`,
+    (L', n, kp) with zeros in [k, kp), from the K-major form of the
+    kernel, counted under the same `LAUNCHES` key."""
     f32 = _is_f32(x)
     want = (x.shape[0], 1) if axis == 1 else (1, x.shape[1])
     if tuple(sft.shape) != want or axis not in (0, 1):
         raise ValueError(f"sft shape {tuple(sft.shape)}, expected {want}")
+    if k_major and (axis != 0 or col_tiles is not None):
+        raise ValueError("k_major takes a B operand (axis=0), all its "
+                         "columns")
     idx = enc.check_moduli_idx(moduli_idx, num_moduli)
     d0, d1 = x.shape
     c0, c1 = (0, d1) if col_tiles is None else enc.col_range(col_tiles, d1)
     if _on_cpu(x, launch):
-        return encode_slices_plain(x, sft, num_moduli, axis, idx, col_tiles)
+        out = encode_slices_plain(x, sft, num_moduli, axis, idx, col_tiles)
+        return enc.k_major(out) if k_major else out
     if sft.dtype != torch.int32:
         raise TypeError("sft must be int32")
     build.require_cuda(x, sft)
-    out = torch.empty((len(idx), d0, d1), dtype=torch.int8, device=x.device)
     table = encode_mma_table(idx)
-    with torch.cuda.device(x.device):
-        code = build.lib_for("encode.cu", launch).gm8_encode_slices(
-            x.data_ptr(), sft.data_ptr(), out.data_ptr(), d0, d1, axis,
-            table.ctypes.data, len(idx),
-            enc.q_max(num_moduli, enc.mant_bits_of(x)), c0, c1, int(f32),
-            build.stream_ptr(x.device))
+    q_max = enc.q_max(num_moduli, enc.mant_bits_of(x))
+    lib = build.lib_for("encode.cu", launch)
+    if k_major:
+        kp = -(-d0 // 16) * 16
+        out = torch.empty((len(idx), d1, kp), dtype=torch.int8,
+                          device=x.device)
+        with torch.cuda.device(x.device):
+            code = lib.gm8_encode_slices_kmajor(
+                x.data_ptr(), sft.data_ptr(), out.data_ptr(), d0, d1, kp,
+                table.ctypes.data, len(idx), q_max, int(f32),
+                build.stream_ptr(x.device))
+    else:
+        out = torch.empty((len(idx), d0, d1), dtype=torch.int8,
+                          device=x.device)
+        with torch.cuda.device(x.device):
+            code = lib.gm8_encode_slices(
+                x.data_ptr(), sft.data_ptr(), out.data_ptr(), d0, d1, axis,
+                table.ctypes.data, len(idx), q_max, c0, c1, int(f32),
+                build.stream_ptr(x.device))
     build.check(code, "encode_slices")
     build.launched(build.form("encode_slices", f32), out)
-    return out
+    return enc.KMajorSlices(out, d0) if k_major else out
 
 
 @trace.traced("gm8.hopper.fast_encode_fused")

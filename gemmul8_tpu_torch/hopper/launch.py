@@ -49,7 +49,8 @@ Entries:
                   "stats_ax1" and "stats_ax0"): the column kernel's loads
                   in flight and blocks an SM.
     "encode"      `EncodeLaunch` of csrc/encode.cu ("enc_mxu"): threads a
-                  block and the grid's blocks an SM.
+                  block (of the N-major form; the K-major form's block is
+                  8 warps) and the grid's blocks an SM.
     "reconstruct" `ReconstructLaunch` of csrc/reconstruct.cu ("rec_mxu"):
                   threads a block, elements a warp takes at a time, the
                   grid's blocks an SM.
@@ -235,8 +236,8 @@ def smem_bytes(name: str, entry) -> int:
         return 1024 + entry.stages * stage + staging + 16 * entry.stages
     if name == "fast_sft":       # the column block's parts (static)
         return 12 * 32 * (2 + 16)
-    if name == "encode":
-        return entry.threads // 32 * 64 * 16 + _ENC_TABLE_BYTES
+    if name == "encode":       # the N-major block, or the K-major one's
+        return max(entry.threads // 32, 4 * 8) * 64 * 16 + _ENC_TABLE_BYTES
     if name == "reconstruct":
         return (entry.threads // 32 * 12 * (entry.chunk + 4) * 4
                 + _REC_CONSTS_BYTES)

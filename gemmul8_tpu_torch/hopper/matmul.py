@@ -22,9 +22,14 @@ csrc/wgmma_s8.cuh (each with its launch from hopper/launch.py).
         <- pallas/megakernel.py matmul_reconstruct_pallas
 
 A CPU tensor takes the plain version (exact f64 products, then the mod or
-the row/col max); a CUDA tensor launches the kernel. The GEMM kernels with
-a mod first copy each B operand into a K-major workspace the wrapper
-allocates; the magnitude GEMMs read both operands K-major in place where
+the row/col max); a CUDA tensor launches the kernel. `matmul_mod_u8`, its
+pipelined form and `matmul_complex_mod` take B's slices in either layout,
+told apart by type: a `core.encode.KMajorSlices` ((L, n, kp), as
+`hopper.kernels.encode_slices(..., k_major=True)` writes them) is read in
+place; N-major (L, k, n) slices, which the other GEMMs with a mod take
+only, are first copied by the kernel into a K-major workspace the wrapper
+allocates, each copy counted in `build.B_COPIES`. The magnitude GEMMs
+read both operands K-major in place where
 their layout allows (as `hopper.kernels.mag7` writes them), through tensor
 maps whose extent along k is k (`k_major_map`). The two CRT-fused GEMMs
 also get a scratch of residues sized by the blocks in flight
@@ -64,6 +69,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import tables, trace
+from ..core import encode as enc
 from ..core import slicegemm as sg
 from . import build
 from . import kernels as hk
@@ -105,6 +111,27 @@ def _pad_k(a8: torch.Tensor, kp: int) -> torch.Tensor:
     return a8.clone() if a8.data_ptr() % 16 else a8
 
 
+def _n_major(b8):
+    """B's (L, k, n) slices: b8, or the view of a `KMajorSlices`."""
+    return b8.n_major() if isinstance(b8, enc.KMajorSlices) else b8
+
+
+def _b_tensor(b8) -> torch.Tensor:
+    """The tensor that holds B's slices in either layout."""
+    return b8.bt if isinstance(b8, enc.KMajorSlices) else b8
+
+
+def _k_major_b(b8: enc.KMajorSlices, n: int, kp: int) -> torch.Tensor:
+    """The (L, n, kp) tensor of K-major slices as the GEMM tile reads it in
+    place: contiguous, 16-byte aligned; ValueError otherwise."""
+    t = b8.bt
+    if (t.dtype != torch.int8 or t.dim() != 3 or tuple(t.shape[1:]) != (n, kp)
+            or not t.is_contiguous() or t.data_ptr() % 16):
+        raise ValueError(f"K-major slices must be a contiguous, 16-byte "
+                         f"aligned (L, {n}, {kp}) int8 tensor")
+    return t
+
+
 def _copies(*pairs) -> list:
     """Of (t, source) pairs, the t that a wrapper made as a copy of its
     source (`_pad_k`, `_k_major`), not a view of the source's storage."""
@@ -120,17 +147,19 @@ def matmul_mod_u8(a8: torch.Tensor, b8: torch.Tensor, num_moduli: int,
     """(L', m, k) int8 x (L', k, n) int8 -> (L', m, n) residues, slice l
     mod MODULI[moduli_idx[l]] (any tuple of distinct indices below
     num_moduli; default: all of them in order): canonical uint8, or r - 128
-    as int8 when centered. Uncentered calls take `matmul_mod_u8_pipelined`
-    under GEMMUL8_MM_PIPELINE=1, as the JAX package's `matmul_mod_u8`
-    dispatches (its k and VMEM limits are the TPU's; the port's kernel
-    takes any k <= 2^17)."""
+    as int8 when centered. b8 N-major, or a `KMajorSlices` of the same
+    slices (read without a copy). Uncentered calls take
+    `matmul_mod_u8_pipelined` under GEMMUL8_MM_PIPELINE=1, as the JAX
+    package's `matmul_mod_u8` dispatches (its k and VMEM limits are the
+    TPU's; the port's kernel takes any k <= 2^17)."""
     if (not centered and launch is None
             and os.environ.get("GEMMUL8_MM_PIPELINE") == "1"):
         return matmul_mod_u8_pipelined(a8, b8, num_moduli, moduli_idx)
-    idx = sg._check_matmul_args(a8, b8, num_moduli, moduli_idx)
-    if _plain(a8, b8, launch):
-        return matmul_mod_u8_plain(a8, b8, num_moduli, centered, idx)
-    build.require_cuda(a8, b8)
+    idx = sg._check_matmul_args(a8, _n_major(b8), num_moduli, moduli_idx)
+    if _plain(a8, _b_tensor(b8), launch):
+        return matmul_mod_u8_plain(a8, _n_major(b8), num_moduli, centered,
+                                   idx)
+    build.require_cuda(a8, _b_tensor(b8))
     # the kernel is built with the table's sm_90 entry; any other card raises
     _table_entry("matmul_mod", a8.device)
     return _launch_mod("matmul_mod_u8", "matmul_mod.cu", launch, a8, b8, idx,
@@ -145,11 +174,11 @@ def matmul_mod_u8_pipelined(a8: torch.Tensor, b8: torch.Tensor,
     residues, the bits of `matmul_mod_u8(..., centered=False)`, with each
     tile's mod run while the next tile's product is formed (the kernel's
     two consumer warpgroups take alternate tiles)."""
-    idx = sg._check_matmul_args(a8, b8, num_moduli, moduli_idx)
-    if _plain(a8, b8, launch):
-        return matmul_mod_u8_pipelined_plain(a8, b8, num_moduli,
+    idx = sg._check_matmul_args(a8, _n_major(b8), num_moduli, moduli_idx)
+    if _plain(a8, _b_tensor(b8), launch):
+        return matmul_mod_u8_pipelined_plain(a8, _n_major(b8), num_moduli,
                                              moduli_idx=idx)
-    build.require_cuda(a8, b8)
+    build.require_cuda(a8, _b_tensor(b8))
     _table_entry("matmul_mod_pipelined", a8.device)
     return _launch_mod("matmul_mod_u8_pipelined", "matmul_mod_pipelined.cu",
                        launch, a8, b8, idx, False)
@@ -227,27 +256,37 @@ def _k_workspace(a8: torch.Tensor, n: int):
             torch.empty((L, n, kp), dtype=torch.int8, device=a8.device))
 
 
-def _launch_mod(name: str, src: str, entry, a8: torch.Tensor,
-                b8: torch.Tensor, idx: tuple, centered: bool,
-                *flags) -> torch.Tensor:
+def _launch_mod(name: str, src: str, entry, a8: torch.Tensor, b8,
+                idx: tuple, centered: bool, *flags) -> torch.Tensor:
     """Launch gm8_<name> of source src (built under launch entry `entry`,
     None for the table's), a batched GEMM with the mod in its epilogue, on
-    CUDA slices of the moduli idx: B is copied into a K-major workspace by
-    the kernel; flags go between kp and the stream."""
-    build.require_cuda(a8, b8)
+    CUDA slices of the moduli idx: a `KMajorSlices` B is read in place,
+    N-major B is copied into a K-major workspace by the kernel; flags go
+    between kp and the stream."""
+    build.require_cuda(a8, _b_tensor(b8))
     L, m, k = a8.shape
-    n = b8.shape[2]
-    ap, kp, bt = _k_workspace(a8, n)
+    kp = -(-k // 16) * 16
+    ap = _pad_k(a8, kp)
+    if isinstance(b8, enc.KMajorSlices):
+        n = b8.bt.shape[1]
+        b_ptr, bt, made = _k_major_b(b8, n, kp).data_ptr(), None, ()
+    else:
+        n = b8.shape[2]
+        bt = torch.empty((L, n, kp), dtype=torch.int8, device=a8.device)
+        b_ptr, made = b8.data_ptr(), (bt,)
     out = torch.empty((L, m, n), dtype=torch.int8 if centered else torch.uint8,
                       device=a8.device)
     idx_host = hk.host_idx(idx)
     with torch.cuda.device(a8.device):
         code = getattr(build.lib_for(src, entry), f"gm8_{name}")(
-            ap.data_ptr(), b8.data_ptr(), bt.data_ptr(), out.data_ptr(),
+            ap.data_ptr(), b_ptr, None if bt is None else bt.data_ptr(),
+            out.data_ptr(),
             idx_host.ctypes.data, L, m, n, k, kp, *flags,
             build.stream_ptr(a8.device))
     build.check(code, name)
-    build.launched(name, bt, out, *_copies((ap, a8)))
+    build.launched(name, *made, out, *_copies((ap, a8)))
+    if made:
+        build.copied_b(name)
     return out
 
 
@@ -293,6 +332,7 @@ def matmul_crt(a8: torch.Tensor, b8: torch.Tensor,
             build.stream_ptr(a8.device))
     build.check(code, "matmul_crt")
     build.launched("matmul_crt", bt, scratch, out, *_copies((ap, a8)))
+    build.copied_b("matmul_crt")
     return out
 
 
@@ -348,8 +388,9 @@ def matmul_reconstruct(a8: torch.Tensor, b8: torch.Tensor,
             table.ctypes.data, L, m, n, k, kp, nblocks, int(f32),
             build.stream_ptr(a8.device))
     build.check(code, "matmul_reconstruct")
-    build.launched(build.form("matmul_reconstruct", f32), bt, scratch, out,
-                   *_copies((ap, a8)))
+    key = build.form("matmul_reconstruct", f32)
+    build.launched(key, bt, scratch, out, *_copies((ap, a8)))
+    build.copied_b(key)
     return out
 
 
@@ -361,25 +402,40 @@ def matmul_complex_mod(a8r: torch.Tensor, a8i: torch.Tensor,
     (L, m, k) and (L, k, n) int8 parts -> two (L, m, n), canonical uint8 or
     r - 128 int8 when centered. kara = (s_a, s_b), the recentered sum
     slices, selects the 3-product Karatsuba form; both forms give the same
-    bits. k <= 2^16."""
-    sg.check_complex_args(a8r, a8i, b8r, b8i, num_moduli, kara)
+    bits. B's parts (and s_b) all N-major, or all `KMajorSlices` (read
+    without a copy). k <= 2^16."""
+    b_in = [b8r, b8i] + ([kara[1]] if kara is not None else [])
+    kmajor = [isinstance(x, enc.KMajorSlices) for x in b_in]
+    if any(kmajor) and not all(kmajor):
+        raise TypeError("B's parts must all be K-major slices or all "
+                        "N-major")
+    b_views = [_n_major(x) for x in b_in]
+    sg.check_complex_args(a8r, a8i, *b_views[:2], num_moduli,
+                          None if kara is None else (kara[0], b_views[2]))
     a_ops = [a8r, a8i] + ([kara[0]] if kara is not None else [])
-    b_ops = [b8r, b8i] + ([kara[1]] if kara is not None else [])
+    b_ops = [_b_tensor(x) for x in b_in]
     if (all(x.device.type == "cpu" for x in a_ops + b_ops)
             and hk._on_cpu(a8r)):
-        return matmul_complex_mod_plain(a8r, a8i, b8r, b8i, num_moduli,
-                                        centered, kara)
+        return matmul_complex_mod_plain(
+            a8r, a8i, *b_views[:2], num_moduli, centered,
+            None if kara is None else (kara[0], b_views[2]))
     build.require_cuda(*a_ops, *b_ops)
     launch.get("matmul_complex",
                      torch.cuda.get_device_capability(a8r.device))
     L, m, k = a8r.shape
-    n = b8r.shape[2]
+    n = b_views[0].shape[2]
     kp = -(-k // 16) * 16
-    # each operand padded by its own shape: A's parts along k, B's parts
-    # into their own K-major workspaces (L, n, kp) by the kernel
+    # each operand padded by its own shape: A's parts along k; B's parts
+    # read in place when K-major, else copied into their own K-major
+    # workspaces (L, n, kp) by the kernel
     a_padded = [_pad_k(x, kp) for x in a_ops]
-    bt = torch.empty((len(b_ops), L, n, kp), dtype=torch.int8,
-                     device=a8r.device)
+    if kmajor[0]:
+        b_ops = [_k_major_b(x, n, kp) for x in b_in]
+        bt, made = None, ()
+    else:
+        bt = torch.empty((len(b_ops), L, n, kp), dtype=torch.int8,
+                         device=a8r.device)
+        made = (bt,)
     odt = torch.int8 if centered else torch.uint8
     out_re = torch.empty((L, m, n), dtype=odt, device=a8r.device)
     out_im = torch.empty((L, m, n), dtype=odt, device=a8r.device)
@@ -388,13 +444,15 @@ def matmul_complex_mod(a8r: torch.Tensor, a8i: torch.Tensor,
     with torch.cuda.device(a8r.device):
         code = build.lib().gm8_matmul_complex_mod(
             a_padded[0].data_ptr(), a_padded[1].data_ptr(), sa,
-            b_ops[0].data_ptr(), b_ops[1].data_ptr(), sb, bt.data_ptr(),
-            out_re.data_ptr(),
+            b_ops[0].data_ptr(), b_ops[1].data_ptr(), sb,
+            None if bt is None else bt.data_ptr(), out_re.data_ptr(),
             out_im.data_ptr(), L, m, n, k, kp, int(centered),
             int(kara is not None), build.stream_ptr(a8r.device))
     build.check(code, "matmul_complex_mod")
-    build.launched("matmul_complex_mod", bt, out_re, out_im,
+    build.launched("matmul_complex_mod", *made, out_re, out_im,
                    *_copies(*zip(a_padded, a_ops)))
+    if made:
+        build.copied_b("matmul_complex_mod", len(b_ops))
     return out_re, out_im
 
 

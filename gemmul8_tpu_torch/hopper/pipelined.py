@@ -199,7 +199,10 @@ def matmul_rider_step(a8, bt, panel: int, r_prev, prev_panel: int, sft_a,
             _q_max(L, a_src), int(a_f32), int(out_f32),
             build.stream_ptr(a8.device))
     build.check(code, "matmul_rider_step")
-    build.launched(build.form("matmul_rider_step", a_f32, out_f32), *made)
+    key = build.form("matmul_rider_step", a_f32, out_f32)
+    build.launched(key, *made)
+    if b8 is not None:
+        build.copied_b(key)
     return res, rec_rows, a8_next
 
 
@@ -260,8 +263,9 @@ def matmul_bsplit_pair(a8_p0, b8_left, b_src, sft_a, sft_b, num_moduli: int,
             build.stream_ptr(a8_p0.device))
     build.check(code, "matmul_bsplit_pair")
     made = (res, bt) if a8_next is None else (res, bt, a8_next)
-    build.launched(build.form("matmul_bsplit_pair", a_f32, b_f32), *made,
-                   count=2)
+    key = build.form("matmul_bsplit_pair", a_f32, b_f32)
+    build.launched(key, *made, count=2)
+    build.copied_b(key)   # B's left half
     return res, bt, a8_next
 
 

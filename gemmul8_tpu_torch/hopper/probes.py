@@ -159,4 +159,5 @@ def deaddep(a8: torch.Tensor, b8: torch.Tensor, num_moduli: int, nops: int,
             ptr(rout if variant in pdd.REC else None), crt.ctypes.data,
             mma.ctypes.data, L, n, pdd.VARIANTS.index(variant), nops // 2,
             ptr(stamps))
+    build.copied_b(f"probe_deaddep[{variant}]")
     return out, aux, rout

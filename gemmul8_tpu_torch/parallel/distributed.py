@@ -359,7 +359,7 @@ def gemm_sharded(a: torch.Tensor, b: torch.Tensor, mesh: Mesh,
     if not fastmode:
         sft_a, sft_b = _accurate_sfts(a, b_full, L, mesh)
         a8 = hk.encode_slices(a, sft_a, L, axis=1)
-        b8 = hk.encode_slices(b_full, sft_b, L, axis=0)
+        b8 = hk.encode_slices(b_full, sft_b, L, axis=0, k_major=True)
         r = hm.matmul_mod_u8(a8, b8, L)
         del a8, b8
         return _scatter_reconstruct(r, sft_a, sft_b, L, kind, mesh)
@@ -371,7 +371,8 @@ def gemm_sharded(a: torch.Tensor, b: torch.Tensor, mesh: Mesh,
         """The tile's columns of B's (k/ny, ny w) panel bp."""
         sft_b = _fast_sft(hk.fast_stats(bp, axis=0), mesh, k, L,
                           enc.mant_bits_of(bp))
-        r = hm.matmul_mod_u8(a8, hk.encode_slices(bp, sft_b, L, axis=0), L)
+        r = hm.matmul_mod_u8(
+            a8, hk.encode_slices(bp, sft_b, L, axis=0, k_major=True), L)
         return _scatter_reconstruct(r, sft_a, sft_b, L, kind, mesh)
 
     if n_panel is None:
@@ -428,11 +429,14 @@ def gemm_sharded_complex(a, b, mesh: Mesh, num_moduli: int = 14,
 
     sft_a = joint_sft(a_re, a_im, 1)
     sft_b = joint_sft(br, bi, 0)
+    big = compute_type == ComputeType.COMPLEX_BIG_MATRIX_ENCODE
     a8r = hk.encode_slices(a_re, sft_a, L, axis=1)
     a8i = hk.encode_slices(a_im, sft_a, L, axis=1)
-    b8r = hk.encode_slices(br, sft_b, L, axis=0)
-    b8i = hk.encode_slices(bi, sft_b, L, axis=0)
-    if compute_type == ComputeType.COMPLEX_BIG_MATRIX_ENCODE:
+    # B's parts K-major for matmul_complex_mod; N-major where they are
+    # stacked along k into the big matrix's B
+    b8r = hk.encode_slices(br, sft_b, L, axis=0, k_major=not big)
+    b8i = hk.encode_slices(bi, sft_b, L, axis=0, k_major=not big)
+    if big:
         neg_a8i = (-a8i.to(torch.int32)).to(torch.int8)
         a_blk = torch.cat([torch.cat([a8r, neg_a8i], dim=2),
                            torch.cat([a8i, a8r], dim=2)], dim=1)

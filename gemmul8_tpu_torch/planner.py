@@ -15,31 +15,37 @@ each at the most PyTorch's CUDA caching allocator may count for it in
 tensor above 1 MiB another 1 MiB, since the allocator hands out a cached
 block whole when splitting it would leave 1 MiB or less. The figure is
 thus an upper bound; where every large tensor fills its block exactly
-(8192^3) the peak is the figure less 1 MiB a large tensor.
+(8192^3) the peak is the figure less 1 MiB a large tensor. That over-count
+is a larger share of a small call: 1000 x 4100 x 1500 at 14 moduli in
+chunks of 3 holds five large tensors (the limbs, A's slices and their
+padded copy, B's K-major slices, the residues) of about 91 MiB in all, and
+its peak on an H100 was 95,687,168 bytes, 5.2% under the figure of
+100,894,208; in chunks of 5 the same 5 MiB is a smaller share.
 
 A real call's peak is the larger of two moments. During the residue GEMM:
 for the moduli held at one time (all of them, or a chunk's) the int8
-slices of A (m x k) and B (k x n), A's copy padded to kp where k is not a
-multiple of 16 (the GEMM wrapper pads k to kp beside the unpadded slices),
-the K-major copy of B the GEMM makes (n x kp) and the one-byte residues
-(m x n). During the reconstruct: the residues and the f64 output (8 bytes
-an element), the slices being freed by then. A chunked call holds the
+slices of A (m x k) and of B, which its encode writes K-major (n x kp, kp
+= k rounded up to 16) for the GEMM to read in place, A's copy padded to kp
+where k is not a multiple of 16 (the GEMM wrapper pads k to kp beside the
+unpadded slices) and the one-byte residues (m x n). During the
+reconstruct: the residues and the f64 output (8 bytes an element), the
+slices being freed by then. A chunked call holds the
 int32 CRT limbs (num_limbs x m x n x 4) across both moments, and at its
 reconstruct the limbs and the output only. The int32 shifts are live
 throughout. The operands themselves are the caller's and are not counted.
 Not counted either: the transient the chunk fold makes (one int32 plane,
-4mn, below a chunk's slices and copy of B beside the limbs), and accurate
+4mn, below a chunk's slices beside the limbs), and accurate
 mode's two int8 magnitude buffers, freed before the first slice is made.
 
 A complex call is counted the same way (an upper bound of the complex128
 peak). The call holds the contiguous Re and Im parts of both
 operands (`complexgemm.canon_complex`), which it makes itself, throughout.
 Its peak is the largest of these moments: the residue GEMM (every slice
-set; where k is not a multiple of 16, each A set's copy padded to kp
-beside it; the K-major copy of the B sets; the Re and Im residues); for
-the Karatsuba strategy the sum of A's and of B's slices (the four slice
-sets, A's sum once B's is made, three int16 temporaries of the summed
-operand's size and two (L, 1, 1) int16 constants); the reconstruct (the
+set, B's K-major; where k is not a multiple of 16, each A set's copy
+padded to kp beside it; the Re and Im residues); for the Karatsuba
+strategy the sum of A's and of B's slices (the four slice sets, A's sum
+once B's is made, three int16 temporaries of the summed operand's size
+and two (L, 1, 1) int16 constants); the reconstruct (the
 residues and the two output parts); and the complex output made from the
 two parts. The alpha/beta epilogue's temporaries are not counted.
 """
@@ -74,8 +80,7 @@ def _real_bytes(m: int, n: int, k: int, L: int, chunk: int | None) -> int:
     kp = _ceil_to(k, 16)
     c = L if chunk is None else chunk
     pad = _blk(c * m * kp) if kp != k else 0
-    gemm = (_blk(c * m * k) + pad + _blk(c * k * n) + _blk(c * n * kp)
-            + _blk(c * m * n))
+    gemm = _blk(c * m * k) + pad + _blk(c * n * kp) + _blk(c * m * n)
     out = _blk(8 * m * n)
     shifts = _blk(4 * m) + _blk(4 * n)
     if chunk is None:
@@ -86,7 +91,7 @@ def _real_bytes(m: int, n: int, k: int, L: int, chunk: int | None) -> int:
 def _complex_bytes(m: int, n: int, k: int, L: int, kara: bool) -> int:
     """The complex peak of `workspace_bytes`, 8 bytes a part's word."""
     kp = _ceil_to(k, 16)
-    a, b = L * m * k, L * k * n          # one slice set of A, of B
+    a, b = L * m * k, L * n * kp         # one slice set of A, of B
     sets = 3 if kara else 2
     parts = 2 * _blk(8 * m * k) + 2 * _blk(8 * k * n)
     live = parts + _blk(4 * m) + _blk(4 * n)   # and the shifts
@@ -94,8 +99,7 @@ def _complex_bytes(m: int, n: int, k: int, L: int, kara: bool) -> int:
     out = 2 * _blk(8 * m * n)
     pad = _blk(L * m * kp) if kp != k else 0
     moments = [
-        live + sets * (_blk(a) + pad + _blk(b)) + _blk(sets * L * n * kp)
-        + residues,
+        live + sets * (_blk(a) + pad + _blk(b)) + residues,
         live + residues + out,
         parts + out + _blk(16 * m * n)]
     if kara:  # slicegemm.recenter_add_int8: t, t + h, its remainder
@@ -118,14 +122,14 @@ def workspace_bytes(m: int, n: int, k: int, num_moduli: int,
 
     Real: the larger of the residue GEMM's buffers for num_moduli (or,
     chunked, moduli_chunk) moduli (A's slices and, at a ragged k, its
-    padded copy, B's slices and K-major copy, the residues) and the
+    padded copy, B's K-major slices, the residues) and the
     residues plus the output; chunked, the limbs beside either (the
     chunk's residues are folded into them before the output is made);
     plus the shifts; each tensor at the most the caching allocator counts
     for it. Complex: the largest of the moments in the module docstring,
     each tensor counted the same way: the operands' Re and Im parts and
     the shifts beside the residue GEMM's buffers (two slice sets a side, three with the
-    Karatsuba sums, A's copies padded to kp, B's K-major copy, two residue
+    Karatsuba sums, A's copies padded to kp, B's K-major, two residue
     sets), the Karatsuba sums of A's and of B's slices (their int16
     temporaries), the reconstruct's residues and two outputs, or the
     complex output beside its parts. The big-matrix strategy runs the

@@ -5,11 +5,11 @@ Counterpart of `scripts/profile_phases.py`:
     python -m gemmul8_tpu_torch.scripts.profile_phases [n] [num_moduli]
 
 (default 8192 14). A = phi_matrix(n, n, 0.5, seed=0) (the JAX script's
-default_rng(0) draw) and B = A.T on the card. Each kernel of the fast
-path runs through its `hopper/` wrapper, as `core.gemm.gemm_core` calls
-it, timed with CUDA events over 10 launches after a warm-up: fast_sft on
-A's rows and B's columns, encode_slices of both, matmul_mod_u8 (centered
-residues), reconstruct; then their sum and its effective TFLOP/s
+default_rng(0) draw) and B = A.T on the card. Each kernel of the fast path
+runs through its `hopper/` wrapper, as `core.gemm.gemm_core` calls it,
+timed with CUDA events over 10 launches after a warm-up: fast_sft on A's
+rows and B's columns, encode_slices of both (B's K-major), matmul_mod_u8
+(centered residues), reconstruct; then their sum and its effective TFLOP/s
 (2 n^3 / sum); then the counterparts of the JAX script's two XLA probes:
 `torch._int_mm` over the L slice products (B column-major, no mod), and
 over one. Each time is printed beside the SM clock and power draw
@@ -76,7 +76,8 @@ def main(argv=None):
     record("fast_sft B columns", dt, clock)
     dt, a8, clock = timeit(hk.encode_slices, A, sft_a, L, 1)
     record("encode_slices A", dt, clock)
-    dt, b8, clock = timeit(hk.encode_slices, B, sft_b, L, 0)
+    dt, b8, clock = timeit(lambda: hk.encode_slices(B, sft_b, L, 0,
+                                                    k_major=True))
     record("encode_slices B", dt, clock)
     dt, r8, clock = timeit(lambda x, y: hm.matmul_mod_u8(x, y, L,
                                                          centered=True),
@@ -91,7 +92,8 @@ def main(argv=None):
           "effective", flush=True)
 
     del r8
-    b8t = b8.transpose(1, 2).contiguous()    # B's slices column-major
+    # B's slices column-major
+    b8t = b8.n_major().transpose(1, 2).contiguous()
     dt, _, clock = timeit(lambda: [torch._int_mm(x, y.t())
                                    for x, y in zip(a8, b8t)])
     record(f"torch._int_mm x {L}", dt, clock,

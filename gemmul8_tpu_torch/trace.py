@@ -14,8 +14,11 @@ and the call id of the root span it lies under: every span under one
 public `api` call shares that call's id. A `hopper` wrapper's launches,
 and the device bytes of the outputs and workspaces it made, go on its
 span (`count`, from `hopper.build.launched`, which also keeps
-`hopper.build.LAUNCHES`). Closed spans are kept in memory as tuples;
-nothing is written on the way.
+`hopper.build.LAUNCHES`). Beside `LAUNCHES`, and not on the spans,
+`hopper.build.B_COPIES` counts the copies of B into a K-major workspace
+by the wrapper that made them (`hopper.build.copied_b`): 0 on the default
+real and complex paths, whose encode writes B K-major. Closed spans are
+kept in memory as tuples; nothing is written on the way.
 
 While a `torch.profiler` records, each span also enters
 `torch.profiler.record_function(name)`, so that it lands in the

@@ -315,24 +315,34 @@ def test_plan_schedule_keeps_its_budget_and_is_monotone(mnk):
 
 def test_workspace_bytes_counts_what_the_port_holds():
     """The model at the headline size: the peak is in the residue GEMM,
-    where per modulus the A and B slices, B's K-major copy and the residues
+    where per modulus the A slices, B's K-major slices and the residues
     are live, one byte an element each, and not in the reconstruct (the
     residues and the f64 output); chunked, the int32 limbs beside either;
     the shifts throughout. Each tensor counts at the most the caching
     allocator counts for it: 512-byte rounding and 1 MiB more above 1 MiB.
-    The figures are the peaks measured on the card at 8192^3, 14 moduli
-    (one-shot, chunk 5, chunk 4: PERF.md) plus 1 MiB a large tensor."""
+    The one-shot, chunk 3 and chunk 2 figures are the peaks measured on the
+    card at 8192^3, 14 moduli (chip_smoke.py phase 4s, PERF.md) plus 1 MiB
+    a large tensor; with B's slices K-major (no copy) a chunk of 4 or more
+    holds more than the one-shot call."""
     n, L = 8192, 14
     plane = n * n
     shifts = 4 * 2 * n
     limbs = tables.num_limbs(L) * 4 * plane
     MiB = 2 ** 20
-    assert gt.workspace_bytes(n, n, n, L) == L * 4 * plane + shifts + 4 * MiB \
-        == 3_758_161_920 + 4 * MiB
+    assert gt.workspace_bytes(n, n, n, L) == L * 3 * plane + shifts + 3 * MiB \
+        == 2_818_637_824 + 3 * MiB
     assert gt.workspace_bytes(n, n, n, L, moduli_chunk=5) == (
-        5 * 4 * plane + limbs + shifts + 5 * MiB) == 3_489_726_464 + 5 * MiB
+        5 * 3 * plane + limbs + shifts + 4 * MiB) == 3_154_182_144 + 4 * MiB
     assert gt.workspace_bytes(n, n, n, L, moduli_chunk=4) == \
-        3_221_291_008 + 5 * MiB
+        2_952_855_552 + 4 * MiB
+    assert gt.workspace_bytes(n, n, n, L, moduli_chunk=3) == (
+        3 * 3 * plane + limbs + shifts + 4 * MiB) == 2_751_528_960 + 4 * MiB
+    # chunk 2: the limbs and the f64 output outweigh the chunk's buffers
+    assert gt.workspace_bytes(n, n, n, L, moduli_chunk=2) == (
+        limbs + 8 * plane + shifts + 2 * MiB) == 2_684_420_096 + 2 * MiB
+    assert gt.workspace_bytes(n, n, n, L, moduli_chunk=3) < \
+        gt.workspace_bytes(n, n, n, L) < \
+        gt.workspace_bytes(n, n, n, L, moduli_chunk=4)
     assert gt.workspace_bytes(n, n, n, L, moduli_chunk=L) == \
         gt.workspace_bytes(n, n, n, L)
     # where the output outweighs the GEMM's buffers: residues + output
@@ -341,10 +351,10 @@ def test_workspace_bytes_counts_what_the_port_holds():
     assert gt.workspace_bytes(n, n, 16, 14, moduli_chunk=1) == (
         limbs + 8 * plane + shifts + 2 * MiB)
     # k is padded to a multiple of 16 where the GEMM reads it K-major: A's
-    # slices (8 x 5), their padded copy (8 x 16), B's slices (5 x 8), B's
-    # K-major copy (8 x 16) and the residues (8 x 8) of 2 moduli, each
-    # rounded to 512 bytes, beside the two shifts (each 32 bytes -> 512)
-    assert planner.workspace_bytes(8, 8, 5, 2) == 5 * 512 + 2 * 512
+    # slices (8 x 5), their padded copy (8 x 16), B's K-major slices
+    # (8 x 16) and the residues (8 x 8) of 2 moduli, each rounded to 512
+    # bytes, beside the two shifts (each 32 bytes -> 512)
+    assert planner.workspace_bytes(8, 8, 5, 2) == 4 * 512 + 2 * 512
     CT = gt.ComputeType
     classic = gt.workspace_bytes(n, n, n, L, CT.COMPLEX_CLASSIC_MULT)
     assert classic == gt.workspace_bytes(n, n, n, L,
@@ -353,13 +363,13 @@ def test_workspace_bytes_counts_what_the_port_holds():
     # buffers (Karatsuba: a third slice set a side), 1 MiB more for each
     # large tensor (an allocator block it may leave unsplit): the
     # complex128 peaks measured on the card at 8192^3, 14 moduli
-    # (9,663,741,952 and 12,482,315,264 bytes, PERF.md), plus 11 and 13 MiB
+    # (7,784,693,760 and 12,482,315,264 bytes, PERF.md), plus 10 and 12 MiB
     parts = 4 * 8 * plane
-    assert classic == parts + L * (2 * 3 + 2) * plane + 8 * n + 11 * 2**20 \
-        == 9_663_741_952 + 11 * 2**20
+    assert classic == parts + L * (2 * 2 + 2) * plane + 8 * n + 10 * 2**20 \
+        == 7_784_693_760 + 10 * 2**20
     assert gt.workspace_bytes(n, n, n, L, CT.COMPLEX_KARATSUBA_MULT) == \
-        classic + L * 3 * plane + 2 * 2**20 \
-        == 12_482_315_264 - 1024 + 13 * 2**20
+        classic + L * 5 * plane + 1024 + 2 * 2**20 \
+        == 12_482_315_264 + 12 * 2**20
     with pytest.raises(ValueError, match="complex"):
         gt.workspace_bytes(n, n, n, L, CT.COMPLEX_CLASSIC_MULT, 5)
     assert planner.plan_workspace([(64, 64, 64, 8), (n, n, n, L),
@@ -384,7 +394,7 @@ def test_workspace_bytes_at_a_ragged_k(mnkl, chunk):
     m, n, k, L = mnkl
     kp = -(-k // 16) * 16
     c = L if chunk is None or chunk >= L else chunk
-    held = [c * m * k, c * k * n, c * n * kp, c * m * n]
+    held = [c * m * k, c * n * kp, c * m * n]
     if kp != k:
         held.append(c * m * kp)
     gemm = sum(_alloc(b) for b in held)

@@ -272,14 +272,13 @@ def test_bytes_are_the_wrappers_outputs_and_workspaces(fake_card):
     with trace.recording() as rec:
         gt.gemm(a, b, num_moduli=L)
     got = {s.name: s.nbytes for s in rec.spans if s.layer == "hopper"}
-    # shifts (int32), slices (int8), B's K-major copy and the residues
-    # (int8), the f64 output
+    # shifts (int32), slices (int8; B's K-major, K % 16 == 0), the
+    # residues (int8), the f64 output
     assert got == {"gm8.hopper.fast_sft": 4 * N,
-                   "gm8.hopper.encode_slices": L * K * N,
-                   "gm8.hopper.matmul_mod_u8": L * N * K + L * M * N,
+                   "gm8.hopper.encode_slices": L * N * K,
+                   "gm8.hopper.matmul_mod_u8": L * M * N,
                    "gm8.hopper.reconstruct": 8 * M * N}
-    per_call = (4 * (M + N) + L * (M * K + K * N) + L * N * K + L * M * N
-                + 8 * M * N)
+    per_call = 4 * (M + N) + L * (M * K + N * K) + L * M * N + 8 * M * N
     assert rec.by_layer()["hopper"].nbytes == per_call
 
 
