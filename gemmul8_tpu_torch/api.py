@@ -26,7 +26,11 @@ output alpha and beta are rounded to f32, c is narrowed to f32, then out *
 alpha and out + beta * c in f32. The complex epilogues are those of the
 JAX package's `gemm_complex` (`_complex_epilogue`). A real power-of-two
 alpha with beta == 0 folds into the reconstruct's exponent instead (one
-rounding of the exact product).
+rounding of the exact product). An epilogue with work to do (alpha != 1
+or beta != 0) runs as the span `gm8.api.epilogue`, which carries the
+device bytes of the tensors it made (`trace.span(..., made=True)`); with
+alpha 1 and beta 0 there is none. Outside `trace.recording()` that costs
+one test of the trace module's flag.
 """
 
 from __future__ import annotations
@@ -45,6 +49,8 @@ from .hopper import build as _build
 from .types import ComputeType
 
 ArrayLike = Union[torch.Tensor, np.ndarray]
+# the span of an epilogue with work to do (alpha != 1 or beta != 0)
+EPILOGUE = "gm8.api.epilogue"
 
 
 def _device(device) -> Optional[torch.device]:
@@ -174,12 +180,15 @@ def _epilogue(out: torch.Tensor, alpha: float, beta: float,
     (ROADMAP C2). For f32 output alpha and beta are rounded to f32 first
     and c is narrowed to f32; for f64 output c is widened to f64
     (exactly)."""
+    if alpha == 1.0 and beta == 0.0:
+        return out
     dt = out.dtype
-    if alpha != 1.0:
-        out = out * torch.tensor(alpha, dtype=dt)
-    if beta != 0.0:
-        cb = c.to(dt) * torch.tensor(beta, dtype=dt)
-        out = out + cb
+    with trace.span(EPILOGUE, made=True):
+        if alpha != 1.0:
+            out = out * torch.tensor(alpha, dtype=dt)
+        if beta != 0.0:
+            cb = c.to(dt) * torch.tensor(beta, dtype=dt)
+            out = out + cb
     return out
 
 
@@ -413,7 +422,8 @@ def _gemm_complex(a, b, alpha, beta, c, num_moduli, fastmode, compute_type,
                                    "f64" if kind == "c128" else "f32",
                                    e_extra=e_extra)
     if alpha != 1.0 or beta != 0.0:
-        re, im = _complex_epilogue(re, im, alpha, beta, tc)
+        with trace.span(EPILOGUE, made=True):
+            re, im = _complex_epilogue(re, im, alpha, beta, tc)
     return torch.complex(re, im)
 
 

@@ -50,10 +50,16 @@ layout the residue GEMM reads without a copy, in the default one-shot
 schedule, the chunked one, the column panels and `gemm_phases`. The
 fused-reconstruct branch, the fused encode, the panel/rider pipeline and
 `matmul_crt` take N-major slices, which their kernels copy K-major.
+
+The real schedules make each operand contiguous before its shifts are
+taken; `OPERAND_COPIES` counts, by operand "a" or "b", the times that made
+a copy (an operand given as a strided view: a block of a larger matrix, a
+transpose), while `trace.recording()` is on.
 """
 
 from __future__ import annotations
 
+import collections
 import os
 
 import torch
@@ -65,6 +71,21 @@ from ..hopper import matmul as hm
 from ..planner import ModuliSchedule
 from . import encode as enc
 from . import reconstruct as rec
+
+
+# copies of a strided operand by the real schedules' `.contiguous()`, by
+# operand "a" or "b", counted while trace.recording() is on; reset by
+# their reader
+OPERAND_COPIES: collections.Counter = collections.Counter()
+
+
+def contiguous_operands(a: torch.Tensor, b: torch.Tensor):
+    """(a, b) made contiguous; while recording, each one copied counts in
+    `OPERAND_COPIES`."""
+    if trace.active():
+        OPERAND_COPIES.update(name for name, x in (("a", a), ("b", b))
+                              if not x.is_contiguous())
+    return a.contiguous(), b.contiguous()
 
 
 def check_shapes(a: torch.Tensor, b: torch.Tensor):
@@ -120,7 +141,7 @@ def gemm_core(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
     _check_call(a, b, out_dtype)
     if moduli_chunk is not None and moduli_chunk < 1:
         raise ValueError(f"moduli_chunk={moduli_chunk}: expected >= 1")
-    a, b = a.contiguous(), b.contiguous()
+    a, b = contiguous_operands(a, b)
     one_shot = moduli_chunk is None or moduli_chunk >= num_moduli
     # read where the JAX package reads it: an invalid value raises even
     # where the pipeline cannot run (FUSED_ENCODE)
@@ -217,7 +238,7 @@ def gemm_core_panels(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
     _check_call(a, b, out_dtype)
     if n_panel is None or n_panel < 1:
         raise ValueError(f"n_panel={n_panel}: expected >= 1")
-    a, b = a.contiguous(), b.contiguous()
+    a, b = contiguous_operands(a, b)
     out = torch.empty((m, n), dtype=torch.float32 if out_dtype == "f32"
                       else torch.float64, device=a.device)
     sft_a = hk.fast_sft(a, num_moduli, axis=1) if fastmode else None
@@ -266,7 +287,7 @@ def gemm_phases(a: torch.Tensor, b: torch.Tensor, num_moduli: int,
     _check_call(a, b, out_dtype)
 
     def encode(a, b):
-        a, b = a.contiguous(), b.contiguous()
+        a, b = contiguous_operands(a, b)
         if fastmode:
             sft_a = hk.fast_sft(a, num_moduli, axis=1)
             sft_b = hk.fast_sft(b, num_moduli, axis=0)

@@ -20,6 +20,16 @@ by the wrapper that made them (`hopper.build.copied_b`): 0 on the default
 real and complex paths, whose encode writes B K-major. Closed spans are
 kept in memory as tuples; nothing is written on the way.
 
+A span opened with `made=True` (`gm8.api.epilogue`, around torch
+operations rather than a wrapper) puts on itself the device bytes of every
+tensor a torch operation inside it makes (`count(0, made)`): a result that
+shares no storage with the operation's tensor arguments, 0-dim scalars
+left out. It adds nothing to `LAUNCHES`. `core.gemm.OPERAND_COPIES`
+counts the copies the real schedules' `.contiguous()` made of an operand
+that came strided (a view), while recording is on (`active()`). Outside
+recording each of them costs one test of the module flag, as every span
+and count here does.
+
 While a `torch.profiler` records, each span also enters
 `torch.profiler.record_function(name)`, so that it lands in the
 profiler's Chrome trace as a `user_annotation` event on the clock of the
@@ -27,7 +37,8 @@ device events, around the `cuda_runtime` calls that launched them. While
 none records, `record_function` is never entered.
 
 Span names follow the layers, `gm8.<layer>.<function>`: `gm8.api.*` the
-public front end (argument handling, the complex parts, the epilogue),
+public front end (argument handling, the complex parts; the epilogue, where
+alpha != 1 or beta != 0, as `gm8.api.epilogue`),
 `gm8.core.*` the schedules, `gm8.hopper.*` the wrappers that reach a C
 entry point (`hopper/kernels.py`, `matmul.py`, `pipelined.py`,
 `probes.py`).
@@ -43,6 +54,7 @@ import time
 from typing import NamedTuple
 
 import torch
+from torch.overrides import TorchFunctionMode
 
 # the Recorder of the open recording(), None while recording is off
 _recorder = None
@@ -108,13 +120,31 @@ class Recorder:
         return {k: Layer(ns / 1e6, n, b) for k, (ns, n, b) in out.items()}
 
 
+class _Made(TorchFunctionMode):
+    """While entered, counts on the innermost open span the bytes of each
+    tensor a torch operation makes: a result that shares no storage with
+    the operation's tensor arguments; 0-dim scalars left out."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        given = {x.untyped_storage().data_ptr()
+                 for x in (*args, *kwargs.values())
+                 if isinstance(x, torch.Tensor)}
+        count(0, [t for t in (out if isinstance(out, tuple) else (out,))
+                  if isinstance(t, torch.Tensor) and t.dim()
+                  and t.untyped_storage().data_ptr() not in given])
+        return out
+
+
 class _Span:
     __slots__ = ("rec", "name", "id", "parent", "call", "start", "launches",
-                 "nbytes", "annotation")
+                 "nbytes", "annotation", "made")
 
-    def __init__(self, rec: Recorder, name: str):
+    def __init__(self, rec: Recorder, name: str, made: bool = False):
         self.rec = rec
         self.name = name
+        self.made = _Made() if made else None
 
     def __enter__(self):
         stack = self.rec._stack()
@@ -129,9 +159,13 @@ class _Span:
         if torch.autograd._profiler_enabled():
             self.annotation = torch.profiler.record_function(self.name)
             self.annotation.__enter__()
+        if self.made is not None:
+            self.made.__enter__()
         return self
 
     def __exit__(self, *exc):
+        if self.made is not None:
+            self.made.__exit__(*exc)
         if self.annotation is not None:
             self.annotation.__exit__(*exc)
         end = time.perf_counter_ns()
@@ -156,13 +190,19 @@ def recording():
         _recorder = None
 
 
-def span(name: str):
+def active() -> bool:
+    """Whether recording is on."""
+    return _recorder is not None
+
+
+def span(name: str, made: bool = False):
     """A context that records span `name` while recording is on; the
-    shared no-op otherwise."""
+    shared no-op otherwise. With `made`, the span also carries the device
+    bytes of the tensors the torch operations inside it make."""
     rec = _recorder
     if rec is None:
         return _OFF
-    return _Span(rec, name)
+    return _Span(rec, name, made)
 
 
 def traced(name: str):

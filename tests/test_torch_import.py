@@ -46,6 +46,7 @@ import gemmul8_tpu_torch.examples.one_accuracy
 import gemmul8_tpu_torch.examples.one_accuracy_complex
 import gemmul8_tpu_torch.examples.profile_one_call
 import gemmul8_tpu_torch.examples.distributed_gemm
+import gemmul8_tpu_torch.examples.blocked_lu
 import torch.distributed
 from gemmul8_tpu_torch.hopper import build
 assert not torch.distributed.is_initialized(), "process group at import"

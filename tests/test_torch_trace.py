@@ -3,11 +3,13 @@
 On CPU tensors every wrapper runs its plain version: the span tree of a
 real and a complex call, their call ids and self times, and that nothing
 is recorded, and `torch.profiler.record_function` never entered, outside
-`recording()`. With the card faked (`fake_card`: the wrappers take their
-launch branch on CPU tensors and a C library whose entry points return
-0), the launch counts in `hopper.build.LAUNCHES` are those the card
-counts, and the same launches and the bytes each wrapper made land on its
-span.
+`recording()`; the epilogue's span (`gm8.api.epilogue`, only where alpha
+!= 1 or beta != 0) with the bytes of the tensors it made, and the operand
+copies of strided views (`core.gemm.OPERAND_COPIES`). With the card faked
+(`fake_card`: the wrappers take their launch branch on CPU tensors and a C
+library whose entry points return 0), the launch counts in
+`hopper.build.LAUNCHES` are those the card counts, and the same launches
+and the bytes each wrapper made land on its span.
 """
 
 import contextlib
@@ -20,6 +22,8 @@ import torch
 
 import gemmul8_tpu_torch as gt
 from gemmul8_tpu_torch import trace
+from gemmul8_tpu_torch.api import EPILOGUE
+from gemmul8_tpu_torch.core import gemm as cg
 from gemmul8_tpu_torch.hopper import build
 from gemmul8_tpu_torch.hopper import kernels as hk
 
@@ -293,3 +297,87 @@ def test_reconstruct_into_a_given_output_counts_no_bytes(fake_card):
     assert [(s.launches, s.nbytes) for s in rec.spans] == [
         (1, 0), (1, 8 * M * N)]
     assert dict(build.LAUNCHES) == {"reconstruct": 2}
+
+
+# the epilogue's span: (alpha, beta, c's dtype or None, output dtype) and
+# the (M, N) tensors it makes: out * alpha; c widened where it is f32, c *
+# beta, the sum; complex128: c's parts, both parts scaled twice, summed
+EPILOGUES = {
+    "alpha -1, beta 1": (-1.0, 1.0, torch.float64, torch.float64, 3 * 8),
+    "alpha 2.5": (2.5, 0.0, None, torch.float64, 8),
+    "beta 0.5, f32 c": (1.0, 0.5, torch.float32, torch.float64, 3 * 8),
+    "f32 output": (-1.0, 1.0, torch.float32, torch.float32, 3 * 4),
+    "complex128": (-1.0, 1.0, torch.complex128, torch.complex128, 8 * 8),
+}
+
+
+@pytest.mark.parametrize("case", list(EPILOGUES))
+def test_the_epilogue_is_a_span_of_its_call_with_the_bytes_it_made(case):
+    alpha, beta, c_dtype, dtype, per_element = EPILOGUES[case]
+    a, b = operands(dtype)
+    c = None if c_dtype is None else torch.ones(M, N, dtype=c_dtype)
+    with trace.recording() as rec:
+        out = gt.gemm(a, b, alpha=alpha, beta=beta, c=c, num_moduli=8)
+    assert out.dtype == dtype
+    names = [s.name for s in rec.spans]
+    assert names.count(EPILOGUE) == 1
+    epi = next(s for s in rec.spans if s.name == EPILOGUE)
+    root = rec.spans[-1]
+    assert names[-2:] == [EPILOGUE, "gm8.api.gemm"]
+    assert epi.parent == root.id and epi.call == root.call
+    assert root.start_ns <= epi.start_ns <= epi.end_ns <= root.end_ns
+    assert epi.launches == 0 and epi.nbytes == per_element * M * N
+    assert rec.by_layer()["api"].nbytes == epi.nbytes
+
+
+@pytest.mark.parametrize("alpha", [1.0, 4.0])
+def test_no_epilogue_span_without_its_work(alpha):
+    """alpha 1 and beta 0, and a power-of-two alpha (folded into the
+    reconstruct): the call's spans are those of a plain call."""
+    a, b = operands()
+    with trace.recording() as rec:
+        gt.gemm(a, b, alpha=alpha, num_moduli=8)
+    check_tree(rec.spans, REAL)
+
+
+def test_the_epilogue_adds_no_launch(fake_card):
+    a, b = operands()
+    c = torch.ones(M, N, dtype=torch.float64)
+    with trace.recording() as rec:
+        gt.gemm(a, b, alpha=-1.0, beta=1.0, c=c, num_moduli=14)
+    assert dict(build.LAUNCHES) == CASES["f64 fast"][3]
+    assert sum(s.launches for s in rec.spans) == sum(CASES["f64 fast"][3]
+                                                      .values())
+
+
+def test_operand_copies_count_strided_views_while_recording():
+    big = torch.randn(M + K, K + N, dtype=torch.float64)
+    a, b = big[:M, :K], big[M:, K:]
+    assert not a.is_contiguous() and not b.is_contiguous()
+    cg.OPERAND_COPIES.clear()
+    with trace.recording():
+        gt.gemm(a.contiguous(), b.contiguous(), num_moduli=6)
+    assert cg.OPERAND_COPIES == {}
+    with trace.recording():
+        gt.gemm(a, b.contiguous(), num_moduli=6)
+        gt.gemm(a, b, num_moduli=6, n_panel=4)
+        gt.gemm_timed(a.contiguous(), b, num_moduli=6)
+    # gemm_timed encodes twice (its warm-up, then the timed run): two
+    # copies of B
+    assert cg.OPERAND_COPIES == {"a": 2, "b": 3}
+    cg.OPERAND_COPIES.clear()
+
+
+def test_the_epilogue_and_copies_record_nothing_outside_recording():
+    assert trace.span(EPILOGUE, made=True) is trace._OFF
+    assert not trace.active()
+    big = torch.randn(M + K, K + N, dtype=torch.float64)
+    a, b = big[:M, :K], big[M:, K:]
+    with trace.recording() as rec:
+        assert trace.active()
+    cg.OPERAND_COPIES.clear()
+    gt.gemm(a, b, alpha=-1.0, beta=1.0, c=torch.ones(M, N,
+                                                     dtype=torch.float64),
+            num_moduli=6)
+    assert rec.spans == [] and cg.OPERAND_COPIES == {}
+    assert trace._recorder is None
